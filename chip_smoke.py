@@ -11,7 +11,10 @@ trains the full-width waveform cVAE (z=10, ResNet18 encoder and decoder,
 8,056,639 parameters) for one epoch on the cellexplorer-celltype pretraining
 pool from datasets/ with the fused VAE-loss kernel, checks that the epoch went
 through the kernels, checks one step against the same step on the plain
-version, embeds the target dataset, and times the slice and the kernels.
+version, holds the encoder block kernels against their plain versions at the
+full-width encoder's block shapes, runs that trained encoder's training pass
+through them (backend="pallas") against the plain blocks and the float32
+encoder, embeds the target dataset, and times the slice and the kernels.
 
 Every phase prints one line. The second-to-last line is the ``kernels`` JSON
 record, the last the device record. Exits non-zero, printing neither, when no
@@ -36,9 +39,14 @@ B, L, Z = 512, 50, 10  # the train step's batch, waveform length, latent width
 LR, WD = 1e-3, 0.01  # stage-1 AdamW (the JAX pipeline's defaults)
 FULL_PARAMS = 8_056_639
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores.
+# the tensor cores, bf16 dense tensor-core FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# The full-width encoder's 8 BasicBlocks: (stride, L_in, C_in, C_out).
+ENC_BLOCKS = ((1, 25, 64, 64), (1, 25, 64, 64), (2, 25, 64, 128), (1, 13, 128, 128),
+              (2, 13, 128, 256), (1, 7, 256, 256), (2, 7, 256, 512), (1, 4, 512, 512))
+ENC_SOURCE = "hippie_tpu_torch/csrc/enc_block.cu"
 
 
 class PhaseError(RuntimeError):
@@ -89,6 +97,83 @@ def vae_sums_bounds(b: int, l: int, z: int):
         t_ops = ops / PEAK_F32_FLOPS * 1e3
         out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
     return out
+
+
+def enc_block_inputs(stride, L, ci, co, n_real: int = B, pad=None, seed: int = 0, device="cuda"):
+    """The fused block's operands at the encoder's shapes, in the kernels'
+    layout: (x, w1, g1, b1, w2, g2, b2, ws, gs, bs, mask) and the output
+    cotangent g. Rows past ``n_real`` are padding, driven to +-``pad`` in x
+    when it is given. ws, gs, bs are None for a stride-1 block."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    lo = L if stride == 1 else (L - 1) // 2 + 1
+    f = lambda *s: r.normal(size=s).astype(np.float32)  # noqa: E731
+    x = f(L, B, ci)
+    if pad is not None:
+        x[:, n_real:] = pad * np.where(r.random((L, B - n_real, ci)) < 0.5, 1.0, -1.0)
+
+    def dev(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
+
+    bf = torch.bfloat16
+    ts = [dev(x, bf), dev(f(3, ci, co) / np.sqrt(3 * ci), bf), dev(r.uniform(0.5, 1.5, co)),
+          dev(0.1 * f(co)), dev(f(3, co, co) / np.sqrt(3 * co), bf), dev(r.uniform(0.5, 1.5, co)),
+          dev(0.1 * f(co))]
+    if stride != 1:
+        ts += [dev(f(1, ci, co) / np.sqrt(ci), bf), dev(r.uniform(0.5, 1.5, co)), dev(0.1 * f(co))]
+    else:
+        ts += [None, None, None]
+    ts.append(dev((np.arange(B) < n_real).reshape(B, 1)))
+    return ts, dev(f(lo, B, co), bf)
+
+
+def enc_block_bounds(stride, L, ci, co, b: int = B):
+    """Least time (ms) on the card for one block's forward and backward: bf16
+    tensor-core operations (the backward recomputes the forward, then the
+    input and weight gradients: 3x the forward's products) against each
+    input read once and each output written once."""
+    lo = L if stride == 1 else (L - 1) // 2 + 1
+    short = stride != 1
+    wts = 3 * ci * co + 3 * co * co + (ci * co if short else 0)
+    nvec = 4 + (2 if short else 0)  # gammas and betas
+    fwd_ops = 2 * lo * b * wts
+    x_b, y_b = 2 * L * b * ci, 2 * lo * b * co
+    common = x_b + 2 * wts + 4 * nvec * co + 4 * b
+    fwd_bytes = common + y_b + 4 * 9 * co
+    bwd_bytes = common + 4 * 9 * co + y_b + x_b + 4 * wts + 4 * nvec * co
+    out = {}
+    for name, nbytes, ops in (("enc_block_fwd", fwd_bytes, fwd_ops),
+                              ("enc_block_bwd", bwd_bytes, 3 * fwd_ops)):
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_BF16_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def device_profile(fn, n: int = 10):
+    """(device us, device kernels and copies) per call of ``fn``, from
+    torch.profiler over ``n`` calls; (0.0, 0.0) if it records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+    return sum(r[0] for r in rows) / n, sum(r[1] for r in rows) / n
+
+
+def rel_err(a, b) -> float:
+    """Relative Frobenius norm of a - b, in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
 def time_ms(fn, n: int = 500, warmup: int = 50) -> float:
@@ -301,6 +386,259 @@ def phase_step_parity(model, pool, idx, mask, device="cuda"):
           f"more than 1e-6 (all within 2 * lr)")
 
 
+BLOCK_GRADS = ("dx", "dw1", "dg1", "db1", "dw2", "dg2", "db2", "dws", "dgs", "dbs")
+
+
+def stats_err(a, b) -> float:
+    """Largest error of (mean, var, inv) rows against their scale: |mean| + std, var, inv."""
+    import torch
+
+    scale = torch.stack([b[0].abs() + b[1].clamp_min(0).sqrt(), b[1].abs(), b[2].abs()])
+    err = (a - b).abs()
+    return float(torch.where(scale > 0, err / scale.clamp_min(1e-30), err * 1e30).max())
+
+
+def phase_enc_blocks():
+    """The encoder block kernels against their plain versions at the 7
+    full-width block shapes, B=512: a full batch, and a 415-row tail whose
+    padded rows of x hold +-1e4. The cotangent is nonzero on every row, so
+    BatchNorm's backward sums over all entries are held too; both backwards
+    get the kernel forward's statistics.
+
+    Limits. Kernel and plain multiply the same bf16 operands exactly into
+    float32 and round to bf16 at the same points; they differ only in the
+    order of the float32 sums (tensor-core tiles and fixed split-K against
+    cuBLAS). That moves a value by about 1e-7 of its size, and flips its
+    bf16 rounding (2^-8 relative) only where it lies that close to a rounding
+    boundary. The gradients amplify that: a BatchNorm bias gradient sums
+    terms of both signs over up to 12,800 rows, and one value turning at
+    LeakyReLU's kink moves it by about 1e-2 of its size. So the bf16 outputs
+    (out and dx, over all rows and over the real rows) and the float32
+    weight and affine gradients are held at relative Frobenius norm 1e-2
+    (measured worst 4.9e-3), and the statistics (mean, var, inv) at 1e-4 of
+    their scale (|mean| + std, var, inv); the first BatchNorm's see no bf16
+    rounding at all, the others only through r1. Both are tighter than the
+    JAX package's 3e-2 for its fused block against float32
+    (tests/test_pallas_blocks.py:37). Repeat runs of both kernels are bit-equal.
+    Returns the largest |kernel - plain| of out (forward) and dx (backward)
+    in the full-batch cases.
+    """
+    import torch
+
+    from hippie_tpu_torch.nn.functional import full_fp32
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    err = {"enc_block_fwd": 0.0, "enc_block_bwd": 0.0}
+    worst = {}
+    for stride, L, ci, co in sorted(set(ENC_BLOCKS), key=ENC_BLOCKS.index):
+        short = stride != 1
+        for case, (n_real, pad) in (("full", (B, None)), ("tail_415", (415, 1e4))):
+            tag = f"s{stride} L{L} {ci}->{co} {case}"
+            args, g = enc_block_inputs(stride, L, ci, co, n_real, pad, seed=L + co)
+            got = cb.enc_block_fwd_cuda(stride, *args)
+            dgot = cb.enc_block_bwd_cuda(stride, *args, *got[1:], g)
+            with full_fp32():
+                ref = cb.enc_block_fwd_plain(stride, short, *args)
+                dref = cb.enc_block_bwd_plain(stride, short, *args, *got[1:], g)
+            torch.cuda.synchronize()
+            real = slice(0, n_real)
+            rels = {"out": max(rel_err(got[0], ref[0]), rel_err(got[0][:, real], ref[0][:, real]))}
+            for name, a, b in zip(BLOCK_GRADS, dgot, dref):
+                if a is None:  # no shortcut: the plain version's zeros
+                    check(not b.any(), f"{tag}: plain {name} is not zero")
+                    continue
+                check(bool(torch.isfinite(a).all()), f"{tag}: kernel {name} not finite")
+                rels[name] = rel_err(a, b)
+            rels["dx"] = max(rels["dx"], rel_err(dgot[0][:, real], dref[0][:, real]))
+            check(bool(torch.isfinite(got[0]).all()), f"{tag}: kernel output not finite")
+            for name, v in rels.items():
+                check(v <= 1e-2, f"{tag}: {name} relative error {v:.3g} > 1e-2")
+                worst[name] = max(worst.get(name, 0.0), v)
+            st = max(stats_err(a, b) for a, b in zip(got[1:], ref[1:]))
+            check(st <= 1e-4, f"{tag}: statistics differ by {st:.3g} of their scale")
+            worst["stats"] = max(worst.get("stats", 0.0), st)
+            for _ in range(2):
+                again = cb.enc_block_fwd_cuda(stride, *args)
+                dagain = cb.enc_block_bwd_cuda(stride, *args, *got[1:], g)
+                check(all(torch.equal(a, b) for a, b in zip(again, got)), f"{tag}: forward repeat differs")
+                check(all(a is None or torch.equal(a, b) for a, b in zip(dagain, dgot)),
+                      f"{tag}: backward repeat differs")
+            if pad is None:  # padded rows at +-1e4 make values whose one ulp is several units
+                err["enc_block_fwd"] = max(err["enc_block_fwd"], float(
+                    (got[0].float() - ref[0].float()).abs().max()))
+                err["enc_block_bwd"] = max(err["enc_block_bwd"], float(
+                    (dgot[0].float() - dref[0].float()).abs().max()))
+            print(f"  {tag}: " + " ".join(f"{k} {v:.2e}" for k, v in rels.items()) + f" stats {st:.2e}")
+    print(f"[5b enc blocks] enc_block_fwd and enc_block_bwd agree with the plain version at "
+          f"{len(set(ENC_BLOCKS))} shapes x 2 cases, B={B}; worst relative errors "
+          + " ".join(f"{k} {v:.2e}" for k, v in worst.items()) + "; repeat runs bit-equal")
+    return err
+
+
+def encoder_through_plain_blocks(enc, x, mask):
+    """ResNet18Enc's backend="pallas" training path with every block on the
+    plain versions under autograd: the card's reference for the kernels."""
+    import torch
+
+    from hippie_tpu_torch.nn.functional import leaky_relu
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    out = leaky_relu(enc.bn1(enc.conv1(x), mask)).permute(2, 0, 1).to(torch.bfloat16).contiguous()
+    mask_col = cb.mask_column(mask, out.shape[1], out.device)
+    for layer in (enc.layer1, enc.layer2, enc.layer3, enc.layer4):
+        for block in layer:
+            out = cb.enc_block_apply(cb.PlainEncBlockFn, block, out, mask_col)
+    return enc.linear(out.float().mean(dim=0))
+
+
+def phase_encoder(model, pool, idx, mask, card: str, errs: dict):
+    """The trained model's full-width encoder in training, forward and
+    backward, through backend="pallas" on the epoch's last pool batch (415
+    real rows of 512), with a fixed cotangent that is zero on the padded rows
+    (as the masked loss gives). Held against the same encoder through the
+    plain block versions on the card, and against the float32
+    backend="xla" encoder (cuDNN without TF32, eager masked BatchNorm).
+
+    Limits. Output and BN buffers: 1e-2 against the plain blocks, 3e-2
+    against float32 (tests/test_pallas_blocks.py:37). Gradients: chained
+    blocks pass a one-ulp bf16 flip on as a small move of the next block's
+    statistics, and a value at LeakyReLU's kink turns its gradient from 1 to
+    0.01; a BatchNorm bias gradient is a sum of terms of both signs, so a few
+    such turns move it by a tenth. The plain path itself, given its input
+    scaled by 1 + 1e-6, moves its whole gradient by about 4e-2 and single
+    parameters' by up to about 0.13 (measured on the card). So the kernel
+    path is held to the plain path as closely as the plain path holds to
+    itself: the whole gradient within twice that spread (and 1e-2 at
+    least), its cosine's distance from 1 within twice the spread's, each
+    parameter within twice the worst parameter's spread, all measured in
+    this run. Against float32 the whole gradient's cosine is above 0.97 (the
+    JAX package's limit for its fused path, tests/test_pallas_blocks.py:245).
+    The pass makes 8 forward and 8 backward block launches.
+
+    Then times the encoder's forward and backward with both backends, and
+    each block kernel against its plain version at the 8 blocks' shapes;
+    returns the two kernels' records.
+    """
+    import torch
+
+    from hippie_tpu_torch.nn.functional import full_fp32
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    i = idx.shape[0] - 1
+    bi = torch.as_tensor(idx[i], device="cuda").long()
+    x = pool.wave[bi][:, None, :]
+    bmask = torch.as_tensor(mask[i], device="cuda")
+    z2 = model.encoder.linear.out_features
+    cot = torch.from_numpy(np.random.default_rng(5).normal(size=(B, z2)).astype(np.float32)).cuda()
+    cot = cot * bmask[:, None]
+
+    def run(enc, how):
+        enc.train()
+        enc.zero_grad(set_to_none=True)
+        if how == "plain":
+            out = encoder_through_plain_blocks(enc, x, bmask)
+        else:
+            out = enc(x, bmask, backend=how)
+        (out * cot).sum().backward()
+        return out.detach()
+
+    encs = {how: copy.deepcopy(model.encoder) for how in ("pallas", "plain", "plain_eps", "xla")}
+    cb.reset_launches()
+    outs = {"pallas": run(encs["pallas"], "pallas")}
+    torch.cuda.synchronize()
+    launches = dict(cb.launches)
+    check(launches == {"enc_block_fwd": 8, "enc_block_bwd": 8},
+          f"encoder pass made block launches {launches}, expected 8 forward and 8 backward")
+    with full_fp32():
+        outs["plain"] = run(encs["plain"], "plain")
+        outs["xla"] = run(encs["xla"], "xla")
+        x0, x = x, x * (1 + 1e-6)  # the plain path's own spread under a rounding-level change
+        outs["plain_eps"] = run(encs["plain_eps"], "plain")
+        x = x0
+    real = bmask > 0
+    check(bool(torch.isfinite(outs["pallas"]).all()), "encoder output not finite")
+
+    def compare(a, b):
+        grads = {n: rel_err(pa.grad, pb.grad) for (n, pa), pb in
+                 zip(encs[a].named_parameters(), encs[b].parameters())}
+        ga = torch.cat([p.grad.double().ravel() for p in encs[a].parameters()])
+        gb = torch.cat([p.grad.double().ravel() for p in encs[b].parameters()])
+        return {"out": rel_err(outs[a][real], outs[b][real]), "grads": grads,
+                "grad": rel_err(ga, gb), "cos": float(ga @ gb / (ga.norm() * gb.norm())),
+                "buffers": max(rel_err(ba, bb) for (n, ba), bb in zip(encs[a].named_buffers(),
+                                                                      encs[b].buffers()) if "running" in n)}
+
+    cmp = {"plain": compare("pallas", "plain"), "xla": compare("pallas", "xla"),
+           "self": compare("plain_eps", "plain")}
+    report = []
+    for name, c in cmp.items():
+        worst = sorted(c["grads"].items(), key=lambda kv: -kv[1])[:3]
+        report.append(f"{name}: output {c['out']:.2e}, BN buffers {c['buffers']:.2e}, gradient "
+                      f"{c['grad']:.2e} (cosine {c['cos']:.6f}), worst parameters "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in worst))
+    print(f"[5c encoder] backend=pallas, one training pass at B={B} (tail {int(real.sum())} real rows): "
+          f"launches {launches}\n  pallas vs " + "\n  pallas vs ".join(report[:2])
+          + f"\n  plain(x * (1 + 1e-6)) vs plain: " + report[2].split(": ", 1)[1])
+    for ref, lim in (("plain", 1e-2), ("xla", 3e-2)):
+        check(cmp[ref]["out"] <= lim, f"encoder output vs {ref}: {cmp[ref]['out']:.3g} > {lim}")
+        check(cmp[ref]["buffers"] <= lim, f"encoder BN buffers vs {ref}: {cmp[ref]['buffers']:.3g} > {lim}")
+    own, got = cmp["self"], cmp["plain"]
+    check(got["grad"] <= max(1e-2, 2 * own["grad"]),
+          f"encoder gradient vs plain {got['grad']:.3g}, over twice the plain path's own {own['grad']:.3g}")
+    check(1 - got["cos"] <= max(1e-4, 2 * (1 - own["cos"])),
+          f"encoder gradient cosine vs plain {got['cos']:.6f}, own {own['cos']:.6f}")
+    lim = max(1e-2, 2 * max(own["grads"].values()))
+    for name, e in got["grads"].items():
+        check(e <= lim, f"encoder {name} gradient vs plain {e:.3g} > {lim:.3g}")
+    check(cmp["xla"]["cos"] > 0.97, f"encoder gradient cosine vs float32 {cmp['xla']['cos']:.6f}")
+
+    # timings: the encoder's forward + backward, alternating the backends
+    enc_ms = {"pallas": [], "xla": []}
+    for how in ("pallas", "xla", "xla", "pallas"):
+        enc_ms[how].append(time_ms(lambda: run(encs[how], how), n=20, warmup=3))
+    print(f"  encoder fwd+bwd: pallas {enc_ms['pallas']} ms, xla (cuDNN defaults) {enc_ms['xla']} ms "
+          f"on {card}")
+    for how in ("pallas", "xla"):
+        dev_us, n_dev = device_profile(lambda: run(encs[how], how), n=5)
+        ms = min(enc_ms[how])
+        print(f"  profile encoder {how}: device busy {dev_us / 1e3:.3f} ms of {ms:.3f} ms "
+              f"(idle share {1 - dev_us / 1e3 / ms:.3f}), {n_dev:.0f} device kernels and copies per pass")
+    per_shape = {}
+    for stride, L, ci, co in sorted(set(ENC_BLOCKS), key=ENC_BLOCKS.index):
+        args, g = enc_block_inputs(stride, L, ci, co, 415, seed=L + co)
+        st = cb.enc_block_fwd_cuda(stride, *args)[1:]
+        short = stride != 1
+        fns = {"enc_block_fwd": (lambda: cb.enc_block_fwd_cuda(stride, *args),
+                                 lambda: cb.enc_block_fwd_plain(stride, short, *args)),
+               "enc_block_bwd": (lambda: cb.enc_block_bwd_cuda(stride, *args, *st, g),
+                                 lambda: cb.enc_block_bwd_plain(stride, short, *args, *st, g))}
+        bounds = enc_block_bounds(stride, L, ci, co)
+        for name, (kernel, plain) in fns.items():
+            ms, plain_ms = time_ms(kernel, n=50, warmup=5), time_ms(plain, n=20, warmup=3)
+            dev_us, n_dev = device_profile(kernel)
+            per_shape[(stride, L, ci, co, name)] = (ms, plain_ms, bounds[name][0], dev_us / 1e3,
+                                                    bounds[name][1])
+            print(f"  {name} s{stride} L{L} {ci}->{co}: kernel {ms * 1e3:.1f} us/call "
+                  f"({dev_us:.1f} us device in {n_dev:.0f} kernels), plain {plain_ms * 1e3:.1f} us/call, "
+                  f"bound {bounds[name][0] * 1e3:.2f} us ({bounds[name][1]})")
+    kernels = []
+    for name, line in (("enc_block_fwd", "568"), ("enc_block_bwd", "600")):
+        rows = [per_shape[blk + (name,)] for blk in ENC_BLOCKS]
+        tot = [sum(r[k] for r in rows) for k in range(4)]
+        by_ops = sum(r[2] for r in rows if r[4] == "operations")
+        bound_by = "operations" if by_ops >= tot[2] / 2 else "bytes"
+        print(f"  {name} over the encoder's 8 blocks: kernel {tot[0]:.4f} ms ({tot[3]:.4f} ms device), "
+              f"plain {tot[1]:.4f} ms, bound {tot[2]:.4f} ms ({by_ops:.4f} ms of it by operations) "
+              f"on {card}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": ENC_SOURCE,
+            "replaces": f"hippie_tpu/ops/pallas_blocks.py:{line}", "launches": launches[name],
+            "max_abs_err": errs[name], "ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[2],
+            "bound_by": bound_by, "library_ms": None,
+        })
+    return kernels
+
+
 def phase_embed(model, device="cuda"):
     """Eval-mode embeddings of the target: [392, z], finite, each row z-scored;
     agree with the same model in float64 on the host to atol 1e-4 (the embed
@@ -434,8 +772,10 @@ def main() -> int:
         errs = phase_kernel_vs_plain()
         ts, pool, idx, mask, launches = phase_slice(full_config())
         phase_step_parity(ts.model, pool, idx, mask)
+        enc_errs = phase_enc_blocks()
+        enc_kernels = phase_encoder(ts.model, pool, idx, mask, card, enc_errs)
         phase_embed(ts.model)
-        kernels = phase_timings(ts, pool, idx, mask, card, errs, launches)
+        kernels = phase_timings(ts, pool, idx, mask, card, errs, launches) + enc_kernels
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback

@@ -22,6 +22,7 @@ from torch import nn
 
 from hippie_tpu_torch.nn.functional import adaptive_avg_pool_to_1, leaky_relu, upsample_nearest
 from hippie_tpu_torch.nn.modules import MaskedBatchNorm1d, MaskedSequential
+from hippie_tpu_torch.ops import cuda_blocks
 
 
 class ResizeConv1d(nn.Module):
@@ -124,9 +125,24 @@ class ResNet18Enc(nn.Module):
             self.add_module(f"layer{li}", MaskedSequential(*blocks))
         self.linear = nn.Linear(512, 2 * z_dim)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                backend: str = "xla") -> torch.Tensor:
+        """``backend="pallas"`` in training runs every BasicBlock through the
+        fused block kernels (ops/cuda_blocks.py) on bf16 ``[L, B, C]``
+        activations, as hippie_tpu's ``resnet18_enc_apply(backend="pallas")``;
+        the stem stays float32. In eval mode, and with ``"xla"``, the blocks
+        are the modules' own convolutions and masked BatchNorm."""
+        if backend not in ("xla", "pallas"):
+            raise ValueError(f"unknown backend {backend!r}: 'xla' or 'pallas'")
         out = leaky_relu(self.bn1(self.conv1(x), mask))
-        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+        layers = (self.layer1, self.layer2, self.layer3, self.layer4)
+        if backend == "pallas" and self.training:
+            out = out.permute(2, 0, 1).to(torch.bfloat16).contiguous()  # [L, B, C]
+            mask_col = cuda_blocks.mask_column(mask, out.shape[1], out.device)
+            for block in (b for layer in layers for b in layer):
+                out = cuda_blocks.basic_block_enc_fused(block, out, mask_col)
+            return self.linear(out.float().mean(dim=0))  # adaptive pool, L leading
+        for layer in layers:
             out = layer(out, mask)
         return self.linear(adaptive_avg_pool_to_1(out))
 

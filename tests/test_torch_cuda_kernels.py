@@ -1,4 +1,6 @@
-"""The fused VAE-loss kernel (hippie_tpu_torch/csrc/vae_sums.cu) on the card.
+"""The port's CUDA kernels on the card: the fused VAE-loss kernel
+(hippie_tpu_torch/csrc/vae_sums.cu) and the encoder block kernels
+(hippie_tpu_torch/csrc/enc_block.cu).
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
 imports neither jax nor hippie_tpu, so it also runs where only the port is
@@ -6,7 +8,7 @@ installed; on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_kernels.py
 
-Tolerances: values rtol 4e-6 (two summation orders of up to 25,600
+Tolerances of the VAE-loss kernel: values rtol 4e-6 (two summation orders of up to 25,600
 nonnegative float32 terms, each within about 9.5e-7 of the exact sum);
 gradients rtol 1e-5 / atol 1e-7 (elementwise, as tests/test_pallas.py).
 """
@@ -88,3 +90,107 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         cuda_ops.fused_vae_sums(data, dec.double(), mu, logvar, mask)
     with pytest.raises(ValueError):
         cuda_ops.fused_vae_sums(data, dec, mu.cpu(), logvar, mask)
+
+
+# ---------------------------------------------------------------------------
+# The encoder block kernels (hippie_tpu_torch/csrc/enc_block.cu).
+# Limits as chip_smoke.py's phase 5b, with their reasons there: bf16 outputs
+# and float32 gradients relative Frobenius 1e-2, statistics 1e-4 of their
+# scale; the two versions differ only in the order of float32 sums.
+# ---------------------------------------------------------------------------
+
+ENC_SHAPES = [(1, 25, 64, 64), (2, 25, 64, 128), (1, 13, 128, 128), (2, 13, 128, 256),
+              (1, 7, 256, 256), (2, 7, 256, 512), (1, 4, 512, 512)]  # (stride, L, C_in, C_out)
+
+
+def _block_inputs(device, stride, L, ci, co, n_real=B, seed=0):
+    r = np.random.default_rng(seed)
+    lo = L if stride == 1 else (L - 1) // 2 + 1
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
+
+    x = r.normal(size=(L, B, ci))
+    x[:, n_real:] = 1e4
+    bf = torch.bfloat16
+    args = [t(x, bf), t(r.normal(size=(3, ci, co)) / np.sqrt(3 * ci), bf), t(r.uniform(0.5, 1.5, co)),
+            t(0.1 * r.normal(size=co)), t(r.normal(size=(3, co, co)) / np.sqrt(3 * co), bf),
+            t(r.uniform(0.5, 1.5, co)), t(0.1 * r.normal(size=co))]
+    if stride != 1:
+        args += [t(r.normal(size=(1, ci, co)) / np.sqrt(ci), bf), t(r.uniform(0.5, 1.5, co)),
+                 t(0.1 * r.normal(size=co))]
+    else:
+        args += [None, None, None]
+    args.append(t((np.arange(B) < n_real).reshape(B, 1)))
+    return args, t(r.normal(size=(lo, B, co)), bf)
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ENC_SHAPES, ids=lambda s: "s{}-L{}-{}-{}".format(*s))
+def test_enc_block_kernels_match_plain(cuda_device, shape):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    stride = shape[0]
+    args, g = _block_inputs(cuda_device, *shape, n_real=415)
+    got = cb.enc_block_fwd_cuda(stride, *args)
+    ref = cb.enc_block_fwd_plain(stride, stride != 1, *args)
+    assert torch.isfinite(got[0]).all()
+    assert _rel(got[0][:, :415], ref[0][:, :415]) < 1e-2
+    for a, b in zip(got[1:], ref[1:]):
+        scale = torch.stack([b[0].abs() + b[1].sqrt(), b[1].abs(), b[2].abs()])
+        assert ((a - b).abs() <= 1e-4 * scale).all()
+    dgot = cb.enc_block_bwd_cuda(stride, *args, *got[1:], g)
+    dref = cb.enc_block_bwd_plain(stride, stride != 1, *args, *got[1:], g)
+    for a, b in zip(dgot, dref):
+        if a is not None:
+            assert torch.isfinite(a).all()
+            assert _rel(a, b) < 1e-2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_enc_block_kernels_repeat_bit_for_bit(cuda_device):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, g = _block_inputs(cuda_device, 2, 13, 128, 256, n_real=300, seed=1)
+    fwd = [cb.enc_block_fwd_cuda(2, *args) for _ in range(3)]
+    bwd = [cb.enc_block_bwd_cuda(2, *args, *fwd[0][1:], g) for _ in range(3)]
+    for runs in (fwd, bwd):
+        assert all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+
+
+@pytest.mark.cuda
+def test_enc_block_autograd_launches_both_kernels(cuda_device):
+    from hippie_tpu_torch.models.backbones import BasicBlockEnc
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    torch.manual_seed(0)
+    block = BasicBlockEnc(64, 2).to(cuda_device).train()
+    x = torch.randn(25, B, 64, device=cuda_device).to(torch.bfloat16).requires_grad_(True)
+    cb.reset_launches()
+    out = cb.basic_block_enc_fused(block, x)
+    out.float().sum().backward()
+    assert cb.launches == {"enc_block_fwd": 1, "enc_block_bwd": 1}
+    assert out.shape == (13, B, 128) and x.grad.dtype == torch.bfloat16
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in block.parameters())
+    assert int(block.bn1.num_batches_tracked) == 1
+
+
+@pytest.mark.cuda
+def test_enc_block_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, g = _block_inputs(cuda_device, 2, 13, 128, 256)
+    with pytest.raises(TypeError):  # float32 activations
+        cb.enc_block_fwd_cuda(2, args[0].float(), *args[1:])
+    with pytest.raises(ValueError):  # weights of the wrong shape
+        cb.enc_block_fwd_cuda(2, args[0], args[1][:, :64], *args[2:])
+    with pytest.raises(ValueError):  # [B, L, C] handed over as a strided view
+        cb.enc_block_fwd_cuda(2, args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
+    with pytest.raises(ValueError):  # a stride-1 block with a shortcut
+        cb.enc_block_fwd_cuda(1, *args)
