@@ -6,15 +6,19 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from hippie_tpu_torch/csrc/, holds
-each kernel against its plain PyTorch version at the train step's shapes,
-trains the full-width waveform cVAE (z=10, ResNet18 encoder and decoder,
-8,056,639 parameters) for one epoch on the cellexplorer-celltype pretraining
-pool from datasets/ with the fused VAE-loss kernel, checks that the epoch went
-through the kernels, checks one step against the same step on the plain
-version, holds the encoder block kernels against their plain versions at the
-full-width encoder's block shapes, runs that trained encoder's training pass
-through them (backend="pallas") against the plain blocks and the float32
-encoder, embeds the target dataset, and times the slice and the kernels.
+the fused VAE-loss kernel against its plain PyTorch version at the train
+step's shapes, and trains the full-width waveform cVAE (z=10, ResNet18
+encoder and decoder, 8,056,639 parameters) for one epoch on the
+cellexplorer-celltype pretraining pool from datasets/ twice from the same
+weights: with the loss kernel and cuDNN blocks (block_backend="xla"), then
+with the loss kernel and every BasicBlock of both backbones on the fused
+block kernels (block_backend="pallas"), checking that each epoch went
+through exactly the kernels it should. It checks one step of each against
+the same step on the plain versions, holds the encoder and the decoder block
+kernels against their plain versions at the full-width blocks' shapes, runs
+the trained encoder's and decoder's training passes through them
+(backend="pallas") against the plain blocks and float32, embeds the target
+dataset, and times the train step with both block backends and each kernel.
 
 Every phase prints one line. The second-to-last line is the ``kernels`` JSON
 record, the last the device record. Exits non-zero, printing neither, when no
@@ -23,12 +27,15 @@ CUDA device is present, outside the repository, or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -46,7 +53,28 @@ PEAK_BF16_FLOPS = 989e12
 # The full-width encoder's 8 BasicBlocks: (stride, L_in, C_in, C_out).
 ENC_BLOCKS = ((1, 25, 64, 64), (1, 25, 64, 64), (2, 25, 64, 128), (1, 13, 128, 128),
               (2, 13, 128, 256), (1, 7, 256, 256), (2, 7, 256, 512), (1, 4, 512, 512))
-ENC_SOURCE = "hippie_tpu_torch/csrc/enc_block.cu"
+# The full-width decoder's 8 BasicBlocks: (stride, L_in, C_in, C_out).
+DEC_BLOCKS = ((1, 4, 512, 512), (2, 4, 512, 256), (1, 8, 256, 256), (2, 8, 256, 128),
+              (1, 16, 128, 128), (2, 16, 128, 64), (1, 32, 64, 64), (1, 32, 64, 64))
+
+
+class Backbone(NamedTuple):
+    """One backbone's fused block kernels, as chip_smoke.py drives them."""
+
+    kind: str        # "enc" or "dec": the kernels are <kind>_block_fwd / _bwd
+    blocks: tuple    # the full-width backbone's blocks, in order
+    source: str
+    lines: tuple     # pallas_blocks.py lines of the forward's and backward's pallas_call
+    grads: tuple     # the backward's outputs
+    bias_grads: dict  # conv-bias gradient -> positions of (gamma in the operands,
+    #                   its statistics in the forward's outputs, dgamma in the grads)
+
+
+ENC = Backbone("enc", ENC_BLOCKS, "hippie_tpu_torch/csrc/enc_block.cu", ("568", "600"),
+               ("dx", "dw1", "dg1", "db1", "dw2", "dg2", "db2", "dws", "dgs", "dbs"), {})
+DEC = Backbone("dec", DEC_BLOCKS, "hippie_tpu_torch/csrc/dec_block.cu", ("638", "669"),
+               ("dx", "dw2", "dg2", "db2", "dw1", "dc1b", "dg1", "db1", "dws", "dcsb", "dgs", "dbs"),
+               {"dc1b": (6, 2, 6), "dcsb": (10, 3, 10)})
 
 
 class PhaseError(RuntimeError):
@@ -149,6 +177,104 @@ def enc_block_bounds(stride, L, ci, co, b: int = B):
         t_ops = ops / PEAK_BF16_FLOPS * 1e3
         out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
     return out
+
+
+def dec_block_inputs(stride, L, ci, co, n_real: int = B, pad=None, seed: int = 0, device="cuda"):
+    """The decoder block's operands in the kernels' layout: (x, w2, g2, b2, w1,
+    c1b, g1, b1, ws, csb, gs, bs, mask) and the output cotangent g. Rows past
+    ``n_real`` are padding, driven to +-``pad`` in x when it is given. c1b and
+    the shortcut's four are None for a stride-1 block."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    f = lambda *s: r.normal(size=s).astype(np.float32)  # noqa: E731
+    x = f(L, B, ci)
+    if pad is not None:
+        x[:, n_real:] = pad * np.where(r.random((L, B - n_real, ci)) < 0.5, 1.0, -1.0)
+
+    def dev(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
+
+    bf = torch.bfloat16
+    vec = lambda c: [dev(r.uniform(0.5, 1.5, c)), dev(0.1 * f(c))]  # noqa: E731
+    ts = [dev(x, bf), dev(f(3, ci, ci) / np.sqrt(3 * ci), bf), *vec(ci),
+          dev(f(3, ci, co) / np.sqrt(3 * ci), bf), dev(0.1 * f(co)) if stride != 1 else None, *vec(co)]
+    if stride != 1:
+        ts += [dev(f(3, ci, co) / np.sqrt(3 * ci), bf), dev(0.1 * f(co)), *vec(co)]
+    else:
+        ts += [None] * 4
+    ts.append(dev((np.arange(B) < n_real).reshape(B, 1)))
+    return ts, dev(f(L * stride, B, co), bf)
+
+
+def dec_block_bounds(stride, L, ci, co, b: int = B):
+    """As enc_block_bounds for a decoder block, each conv counted at its own
+    length: conv2 at L_in, conv1 and the shortcut's conv at L_out = stride *
+    L_in (on the upsampled input)."""
+    lo = L * stride
+    short = stride != 1
+    fwd_ops = 2 * b * (L * 3 * ci * ci + lo * 3 * ci * co * (2 if short else 1))
+    wts = 3 * ci * ci + 3 * ci * co * (2 if short else 1)
+    vecs = 2 * ci + (6 if short else 2) * co  # gammas, betas and conv biases
+    x_b, y_b = 2 * L * b * ci, 2 * lo * b * co
+    stats = 4 * 3 * (ci + 2 * co)
+    common = x_b + 2 * wts + 4 * vecs + 4 * b
+    fwd_bytes = common + y_b + stats
+    bwd_bytes = common + stats + y_b + x_b + 4 * wts + 4 * vecs
+    out = {}
+    for name, nbytes, ops in (("dec_block_fwd", fwd_bytes, fwd_ops),
+                              ("dec_block_bwd", bwd_bytes, 3 * fwd_ops)):
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_BF16_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def block_inputs(bb: Backbone, *args, **kw):
+    return (enc_block_inputs if bb.kind == "enc" else dec_block_inputs)(*args, **kw)
+
+
+def block_bounds(bb: Backbone, *args):
+    return (enc_block_bounds if bb.kind == "enc" else dec_block_bounds)(*args)
+
+
+def bias_grad_tol(g, gamma, st, dgamma) -> float:
+    """Limit of |kernel - plain| for a conv bias's gradient before BatchNorm
+    (the decoder's dc1b, dcsb). In exact arithmetic it is -gamma * inv *
+    dgamma * sum(m * xh) / n: the bf16 xh's mean over the real rows, zero but
+    for rounding, times gamma * inv * dgamma, which padded rows far out
+    (with a nonzero cotangent) make large. So 1e-2 * |g| (the JAX package's
+    limit, tests/test_pallas_blocks.py:172-181) plus 1e-3 of that factor
+    (at most 3.9e-5 of it measured on the CPU, tests/test_torch_dec_blocks.py)."""
+    return float(1e-2 * g.double().norm() + 1e-3 * (gamma * st[2] * dgamma).double().norm())
+
+
+@contextlib.contextmanager
+def plain_blocks():
+    """Within it, the backbones' backend="pallas" path runs every block on the
+    plain versions under autograd (PlainEncBlockFn, PlainDecBlockFn): the
+    card's reference for the block kernels along the same path."""
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    saved = cb.EncBlockFn, cb.DecBlockFn
+    cb.EncBlockFn, cb.DecBlockFn = cb.PlainEncBlockFn, cb.PlainDecBlockFn
+    try:
+        yield
+    finally:
+        cb.EncBlockFn, cb.DecBlockFn = saved
+
+
+def all_launches() -> dict:
+    from hippie_tpu_torch.ops import cuda_blocks, cuda_ops
+
+    return {**cuda_ops.launches, **cuda_blocks.launches}
+
+
+def reset_all_launches():
+    from hippie_tpu_torch.ops import cuda_blocks, cuda_ops
+
+    cuda_ops.reset_launches()
+    cuda_blocks.reset_launches()
 
 
 def device_profile(fn, n: int = 10):
@@ -264,20 +390,21 @@ def full_config():
                            num_sources=registry.NUM_SOURCES, num_classes=5)
 
 
-def phase_slice(cfg, batch_size: int = B, device="cuda"):
+def phase_slice(cfg, block_backend: str = "xla", pool=None, batch_size: int = B, device="cuda"):
     """Stage-1 pretraining of the waveform model for one epoch over the
-    leave-target-out pool, with the fused VAE-loss kernel; returns what the
-    later phases need and the kernels' launch counts of this epoch."""
+    leave-target-out pool with the fused VAE-loss kernel and the given block
+    backend, from the seeded initial weights (the same in every call); returns
+    what the later phases need, the kernels' launch counts of this epoch and
+    its losses."""
     import torch
 
     from hippie_tpu_torch.data import device_data
     from hippie_tpu_torch.models import cvae
-    from hippie_tpu_torch.ops import cuda_ops
     from hippie_tpu_torch.train import optim, pipeline, step
 
     pcfg = pipeline.PipelineConfig(dataset=TARGET, data_root=DATA_ROOT, verbose=False, device=device)
     t0 = time.perf_counter()
-    pool = pipeline.load_pretrain_pool(pcfg)
+    pool = pipeline.load_pretrain_pool(pcfg) if pool is None else pool
     load_s = time.perf_counter() - t0
     check(len(pool) == 2975 and tuple(pool.wave.shape) == (2975, L),
           f"pool has {tuple(pool.wave.shape)} rows, expected (2975, {L})")
@@ -290,27 +417,41 @@ def phase_slice(cfg, batch_size: int = B, device="cuda"):
     ts = step.TrainState(model, optim.make_optimizer(model.parameters(), LR, WD))
     idx, mask = device_data.batch_plan(np.arange(len(pool)), batch_size, shuffle=True,
                                        generator=torch.Generator().manual_seed(1))
-    train_epoch, _ = step.make_unimodal_epoch_fns(beta=1.0, loss_backend="pallas")
+    train_epoch, _ = step.make_unimodal_epoch_fns(beta=1.0, loss_backend="pallas",
+                                                  block_backend=block_backend)
     gen = torch.Generator(device=device).manual_seed(2)
 
-    cuda_ops.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     ts, metrics = train_epoch(ts, pool.wave, pool.source, None, idx, mask, generator=gen)
     losses = metrics.loss.tolist()
     epoch_s = time.perf_counter() - t0
-    launches = dict(cuda_ops.launches)
+    launches = all_launches()
 
     nb = idx.shape[0]
     check(all(np.isfinite(losses)), f"non-finite loss in the epoch: {losses}")
     check(int(mask[-1].sum()) == len(pool) - (nb - 1) * batch_size, "tail mask is wrong")
     if device != "cpu":
-        check(launches == {"vae_sums_fwd": nb, "vae_sums_bwd": nb},
-              f"kernel launches {launches}, expected {nb} forward and {nb} backward")
-    print(f"[4 slice] pool {len(pool)} rows loaded and preprocessed in {load_s:.2f} s; "
+        per_step = sum(cfg.num_blocks) if block_backend == "pallas" else 0  # blocks per backbone
+        want = {k: (nb if k.startswith("vae_sums") else per_step * nb) for k in launches}
+        check(launches == want, f"kernel launches {launches}, expected {want}")
+    tag = "[4 slice]" if block_backend == "xla" else f"[4b slice, block_backend={block_backend}]"
+    print(f"{tag} pool {len(pool)} rows loaded and preprocessed in {load_s:.2f} s; "
           f"{n_params:,} params; {nb} steps at B={batch_size} (tail {int(mask[-1].sum())} real rows) "
           f"in {epoch_s:.2f} s with the first call's set-up; losses {[round(x, 5) for x in losses]}; "
           f"launches {launches}")
-    return ts, pool, idx, mask, launches
+    return ts, pool, idx, mask, launches, losses
+
+
+def last_batch(model, pool, idx, mask, device="cuda"):
+    """The epoch's last pool batch (the masked tail) and fixed noise for it."""
+    import torch
+
+    i = idx.shape[0] - 1
+    bi = torch.as_tensor(idx[i], device=device).long()
+    eps = torch.from_numpy(np.random.default_rng(3).normal(size=(len(bi), model.z_mean.out_features))
+                           .astype(np.float32)).to(device)
+    return pool.wave[bi], pool.source[bi], torch.as_tensor(mask[i], device=device), eps
 
 
 def phase_step_parity(model, pool, idx, mask, device="cuda"):
@@ -320,19 +461,25 @@ def phase_step_parity(model, pool, idx, mask, device="cuda"):
     float32 and cuDNN deterministic. Loss rtol 1e-5. Parameters: AdamW's first
     update is about lr * sign(g), so an element whose gradient is at rounding
     level may move either way; where |g| > 1e-4 in both steps the new values
-    agree to 1e-6 (lr / 1000), everywhere to 2 * lr."""
+    agree to 1e-6 (lr / 1000), everywhere to 2 * lr.
+
+    Then one step with block_backend="pallas" as well, against the same step
+    with every block on the plain versions (plain_blocks). Both backbones
+    chain bf16 blocks, whose gradients are chaotic (a one-ulp flip moves the
+    next block's statistics; a value at LeakyReLU's kink turns its gradient
+    from 1 to 0.01), so, as phase 5c, the kernel step is held to the plain
+    step as closely as the plain step holds to itself with its input scaled
+    by 1 + 1e-6, measured here: the whole gradient within twice that spread
+    (and 1e-2 at least), its cosine's distance from 1 within twice the
+    spread's (and 1e-4 at least). Loss rtol 1e-2 and BN buffers 1e-2 (the
+    CPU test's limits against the JAX fused step), parameters within 2 * lr."""
     import torch
 
     from hippie_tpu_torch.nn.functional import full_fp32
     from hippie_tpu_torch.ops import cuda_ops
     from hippie_tpu_torch.train import optim, step
 
-    i = idx.shape[0] - 1
-    bi = torch.as_tensor(idx[i], device=device).long()
-    bd, bs = pool.wave[bi], pool.source[bi]
-    bmask = torch.as_tensor(mask[i], device=device)
-    eps = torch.from_numpy(np.random.default_rng(3).normal(size=(len(bi), model.z_mean.out_features))
-                           .astype(np.float32)).to(device)
+    bd, bs, bmask, eps = last_batch(model, pool, idx, mask, device)
 
     def plain_step(ts):
         m, opt = ts
@@ -347,25 +494,32 @@ def phase_step_parity(model, pool, idx, mask, device="cuda"):
         opt.step()
         return float(total.detach())
 
+    def blocks_step(ts, plain, scale=1.0):
+        batch_step, _ = step.make_unimodal_steps(beta=1.0, loss_backend="pallas", block_backend="pallas")
+        with plain_blocks() if plain else contextlib.nullcontext():
+            _, metrics = batch_step(ts, bd * scale, bs, None, bmask, eps=eps)
+        return float(metrics.loss)
+
     batch_step, _ = step.make_unimodal_steps(beta=1.0, loss_backend="pallas")
+    runs = {"kernel": lambda ts: float(batch_step(ts, bd, bs, None, bmask, eps=eps)[1].loss),
+            "plain": plain_step,
+            "blocks_kernel": lambda ts: blocks_step(ts, False),
+            "blocks_plain": lambda ts: blocks_step(ts, True),
+            "blocks_plain_eps": lambda ts: blocks_step(ts, True, 1 + 1e-6)}
     out = {}
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         with full_fp32():
-            for name in ("kernel", "plain"):
+            for name, run in runs.items():
                 m = copy.deepcopy(model)
-                ts = step.TrainState(m, optim.make_optimizer(m.parameters(), LR, WD))
-                if name == "kernel":
-                    _, metrics = batch_step(ts, bd, bs, None, bmask, eps=eps)
-                    loss = float(metrics.loss)
-                else:
-                    loss = plain_step(ts)
-                out[name] = (loss, m)
+                reset_all_launches()
+                loss = run(step.TrainState(m, optim.make_optimizer(m.parameters(), LR, WD)))
+                out[name] = (loss, m, all_launches())
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
-    (lk, mk), (lp, mp) = out["kernel"], out["plain"]
+    (lk, mk, _), (lp, mp, _) = out["kernel"], out["plain"]
     check(np.isfinite([lk, lp]).all(), f"non-finite loss: {lk} {lp}")
     check(abs(lk - lp) <= 1e-5 * abs(lp), f"loss {lk} vs plain {lp}")
     worst, n_loose, n_total = 0.0, 0, 0
@@ -385,8 +539,37 @@ def phase_step_parity(model, pool, idx, mask, device="cuda"):
           f"decisive params max |diff| {worst:.3g}; {n_loose} of {n_total} elements differ by "
           f"more than 1e-6 (all within 2 * lr)")
 
+    # block_backend="pallas": the block kernels against the plain blocks
+    check(out["blocks_kernel"][2] == {"vae_sums_fwd": 1, "vae_sums_bwd": 1, "enc_block_fwd": 8,
+                                      "enc_block_bwd": 8, "dec_block_fwd": 8, "dec_block_bwd": 8},
+          f"the block_backend=pallas step launched {out['blocks_kernel'][2]}")
+    check(all(v == 0 for k, v in out["blocks_plain"][2].items() if "block" in k),
+          "the plain-blocks step launched a block kernel")
 
-BLOCK_GRADS = ("dx", "dw1", "dg1", "db1", "dw2", "dg2", "db2", "dws", "dgs", "dbs")
+    def grads(m):
+        return torch.cat([p.grad.double().ravel() for p in m.parameters() if p.grad is not None])
+
+    def compare(a, b):
+        (la, ma, _), (lb, mb, _) = out[a], out[b]
+        ga, gb = grads(ma), grads(mb)
+        bufs = max(rel_err(x, y) for (n, x), y in zip(ma.named_buffers(), mb.buffers()) if "running" in n)
+        moved = max(float((x - y).detach().abs().max()) for x, y in zip(ma.parameters(), mb.parameters()))
+        return {"loss": abs(la - lb) / abs(lb), "grad": rel_err(ga, gb),
+                "cos": float(ga @ gb / (ga.norm() * gb.norm())), "buffers": bufs, "moved": moved}
+
+    got, own = compare("blocks_kernel", "blocks_plain"), compare("blocks_plain_eps", "blocks_plain")
+    print(f"  block_backend=pallas (8 + 8 block launches each way): loss kernel "
+          f"{out['blocks_kernel'][0]:.8f} plain {out['blocks_plain'][0]:.8f}; kernel vs plain: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in got.items()) + "; plain(x * (1 + 1e-6)) vs plain: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in own.items()))
+    check(np.isfinite([out["blocks_kernel"][0], out["blocks_plain"][0]]).all(), "non-finite block loss")
+    check(got["loss"] <= 1e-2, f"block step loss vs plain {got['loss']:.3g}")
+    check(got["buffers"] <= 1e-2, f"block step BN buffers vs plain {got['buffers']:.3g}")
+    check(got["moved"] <= 2 * LR * (1 + 1e-3), f"block step parameters {got['moved']:.3g} apart")
+    check(got["grad"] <= max(1e-2, 2 * own["grad"]),
+          f"block step gradient vs plain {got['grad']:.3g}, own spread {own['grad']:.3g}")
+    check(1 - got["cos"] <= max(1e-4, 2 * (1 - own["cos"])),
+          f"block step gradient cosine vs plain {got['cos']:.6f}, own {own['cos']:.6f}")
 
 
 def stats_err(a, b) -> float:
@@ -398,12 +581,14 @@ def stats_err(a, b) -> float:
     return float(torch.where(scale > 0, err / scale.clamp_min(1e-30), err * 1e30).max())
 
 
-def phase_enc_blocks():
-    """The encoder block kernels against their plain versions at the 7
+def phase_blocks(bb: Backbone, card: str):
+    """A backbone's block kernels against their plain versions at the 7
     full-width block shapes, B=512: a full batch, and a 415-row tail whose
     padded rows of x hold +-1e4. The cotangent is nonzero on every row, so
     BatchNorm's backward sums over all entries are held too; both backwards
-    get the kernel forward's statistics.
+    get the kernel forward's statistics. Then each kernel's time per call
+    (CUDA events, and the profiler's device time) beside its plain version's
+    and its bound, per shape.
 
     Limits. Kernel and plain multiply the same bf16 operands exactly into
     float32 and round to bf16 at the same points; they differ only in the
@@ -411,43 +596,52 @@ def phase_enc_blocks():
     cuBLAS). That moves a value by about 1e-7 of its size, and flips its
     bf16 rounding (2^-8 relative) only where it lies that close to a rounding
     boundary. The gradients amplify that: a BatchNorm bias gradient sums
-    terms of both signs over up to 12,800 rows, and one value turning at
+    terms of both signs over up to 16,384 rows, and one value turning at
     LeakyReLU's kink moves it by about 1e-2 of its size. So the bf16 outputs
     (out and dx, over all rows and over the real rows) and the float32
     weight and affine gradients are held at relative Frobenius norm 1e-2
-    (measured worst 4.9e-3), and the statistics (mean, var, inv) at 1e-4 of
-    their scale (|mean| + std, var, inv); the first BatchNorm's see no bf16
-    rounding at all, the others only through r1. Both are tighter than the
-    JAX package's 3e-2 for its fused block against float32
-    (tests/test_pallas_blocks.py:37). Repeat runs of both kernels are bit-equal.
-    Returns the largest |kernel - plain| of out (forward) and dx (backward)
-    in the full-batch cases.
+    (encoder measured worst 4.9e-3 in PR 3), the conv biases' gradients (the
+    decoder's dc1b, dcsb; rounding noise in exact arithmetic) by
+    bias_grad_tol, and the statistics (mean, var, inv) at 1e-4 of their
+    scale (|mean| + std, var, inv). Both are tighter than the JAX package's
+    3e-2 for its fused block against float32 (tests/test_pallas_blocks.py:37).
+    Repeat runs of both kernels are bit-equal. Returns the largest
+    |kernel - plain| of out (forward) and dx (backward) in the full-batch
+    cases, and the per-shape timings.
     """
     import torch
 
     from hippie_tpu_torch.nn.functional import full_fp32
     from hippie_tpu_torch.ops import cuda_blocks as cb
 
-    err = {"enc_block_fwd": 0.0, "enc_block_bwd": 0.0}
+    ops = cb.ENC_OPS if bb.kind == "enc" else cb.DEC_OPS
+    fwd, bwd = f"{bb.kind}_block_fwd", f"{bb.kind}_block_bwd"
+    shapes = sorted(set(bb.blocks), key=bb.blocks.index)
+    err = {fwd: 0.0, bwd: 0.0}
     worst = {}
-    for stride, L, ci, co in sorted(set(ENC_BLOCKS), key=ENC_BLOCKS.index):
-        short = stride != 1
+    for stride, L, ci, co in shapes:
         for case, (n_real, pad) in (("full", (B, None)), ("tail_415", (415, 1e4))):
             tag = f"s{stride} L{L} {ci}->{co} {case}"
-            args, g = enc_block_inputs(stride, L, ci, co, n_real, pad, seed=L + co)
-            got = cb.enc_block_fwd_cuda(stride, *args)
-            dgot = cb.enc_block_bwd_cuda(stride, *args, *got[1:], g)
+            args, g = block_inputs(bb, stride, L, ci, co, n_real, pad, seed=L + co)
+            got = ops.fwd_cuda(stride, *args)
+            dgot = ops.bwd_cuda(stride, *args, *got[1:], g)
             with full_fp32():
-                ref = cb.enc_block_fwd_plain(stride, short, *args)
-                dref = cb.enc_block_bwd_plain(stride, short, *args, *got[1:], g)
+                ref = ops.fwd_plain(stride, *args)
+                dref = ops.bwd_plain(stride, *args, *got[1:], g)
             torch.cuda.synchronize()
             real = slice(0, n_real)
             rels = {"out": max(rel_err(got[0], ref[0]), rel_err(got[0][:, real], ref[0][:, real]))}
-            for name, a, b in zip(BLOCK_GRADS, dgot, dref):
+            for name, a, b in zip(bb.grads, dgot, dref):
                 if a is None:  # no shortcut: the plain version's zeros
                     check(not b.any(), f"{tag}: plain {name} is not zero")
                     continue
                 check(bool(torch.isfinite(a).all()), f"{tag}: kernel {name} not finite")
+                if name in bb.bias_grads:
+                    gi, si, di = bb.bias_grads[name]
+                    d, tol = float((a - b).double().norm()), bias_grad_tol(g, args[gi], got[si], dref[di])
+                    check(d <= tol, f"{tag}: {name} |kernel - plain| {d:.3g} > {tol:.3g}")
+                    worst[f"{name}/limit"] = max(worst.get(f"{name}/limit", 0.0), d / tol)
+                    continue
                 rels[name] = rel_err(a, b)
             rels["dx"] = max(rels["dx"], rel_err(dgot[0][:, real], dref[0][:, real]))
             check(bool(torch.isfinite(got[0]).all()), f"{tag}: kernel output not finite")
@@ -458,115 +652,152 @@ def phase_enc_blocks():
             check(st <= 1e-4, f"{tag}: statistics differ by {st:.3g} of their scale")
             worst["stats"] = max(worst.get("stats", 0.0), st)
             for _ in range(2):
-                again = cb.enc_block_fwd_cuda(stride, *args)
-                dagain = cb.enc_block_bwd_cuda(stride, *args, *got[1:], g)
+                again = ops.fwd_cuda(stride, *args)
+                dagain = ops.bwd_cuda(stride, *args, *got[1:], g)
                 check(all(torch.equal(a, b) for a, b in zip(again, got)), f"{tag}: forward repeat differs")
                 check(all(a is None or torch.equal(a, b) for a, b in zip(dagain, dgot)),
                       f"{tag}: backward repeat differs")
             if pad is None:  # padded rows at +-1e4 make values whose one ulp is several units
-                err["enc_block_fwd"] = max(err["enc_block_fwd"], float(
-                    (got[0].float() - ref[0].float()).abs().max()))
-                err["enc_block_bwd"] = max(err["enc_block_bwd"], float(
-                    (dgot[0].float() - dref[0].float()).abs().max()))
+                err[fwd] = max(err[fwd], float((got[0].float() - ref[0].float()).abs().max()))
+                err[bwd] = max(err[bwd], float((dgot[0].float() - dref[0].float()).abs().max()))
             print(f"  {tag}: " + " ".join(f"{k} {v:.2e}" for k, v in rels.items()) + f" stats {st:.2e}")
-    print(f"[5b enc blocks] enc_block_fwd and enc_block_bwd agree with the plain version at "
-          f"{len(set(ENC_BLOCKS))} shapes x 2 cases, B={B}; worst relative errors "
-          + " ".join(f"{k} {v:.2e}" for k, v in worst.items()) + "; repeat runs bit-equal")
-    return err
+    label = "5b enc blocks" if bb.kind == "enc" else "5d dec blocks"
+    print(f"[{label}] {fwd} and {bwd} agree with the plain version at {len(shapes)} shapes x 2 cases, "
+          f"B={B}; worst " + " ".join(f"{k} {v:.2e}" for k, v in worst.items()) + "; repeat runs bit-equal")
+
+    per_shape = {}
+    for stride, L, ci, co in shapes:
+        args, g = block_inputs(bb, stride, L, ci, co, 415, seed=L + co)
+        st = ops.fwd_cuda(stride, *args)[1:]
+        fns = {fwd: (lambda: ops.fwd_cuda(stride, *args), lambda: ops.fwd_plain(stride, *args)),
+               bwd: (lambda: ops.bwd_cuda(stride, *args, *st, g),
+                     lambda: ops.bwd_plain(stride, *args, *st, g))}
+        bounds = block_bounds(bb, stride, L, ci, co)
+        for name, (kernel, plain) in fns.items():
+            ms, plain_ms = time_ms(kernel, n=50, warmup=5), time_ms(plain, n=20, warmup=3)
+            dev_us, n_dev = device_profile(kernel)
+            per_shape[(stride, L, ci, co, name)] = (ms, plain_ms, bounds[name][0], dev_us / 1e3,
+                                                    bounds[name][1])
+            print(f"  {name} s{stride} L{L} {ci}->{co}: kernel {ms * 1e3:.1f} us/call "
+                  f"({dev_us:.1f} us device in {n_dev:.0f} kernels), plain {plain_ms * 1e3:.1f} us/call, "
+                  f"bound {bounds[name][0] * 1e3:.2f} us ({bounds[name][1]}) on {card}")
+    return err, per_shape
 
 
-def encoder_through_plain_blocks(enc, x, mask):
-    """ResNet18Enc's backend="pallas" training path with every block on the
-    plain versions under autograd: the card's reference for the kernels."""
+def block_records(bb: Backbone, per_shape: dict, errs: dict, launches: dict, card: str):
+    """The kernels-line records of a backbone's two block kernels: times and
+    bounds summed over the full-width backbone's 8 blocks."""
+    kernels = []
+    for d, line in zip(("fwd", "bwd"), bb.lines):
+        name = f"{bb.kind}_block_{d}"
+        rows = [per_shape[blk + (name,)] for blk in bb.blocks]
+        tot = [sum(r[k] for r in rows) for k in range(4)]
+        by_ops = sum(r[2] for r in rows if r[4] == "operations")
+        bound_by = "operations" if by_ops >= tot[2] / 2 else "bytes"
+        print(f"  {name} over the 8 blocks: kernel {tot[0]:.4f} ms ({tot[3]:.4f} ms device), "
+              f"plain {tot[1]:.4f} ms, bound {tot[2]:.4f} ms ({by_ops:.4f} ms of it by operations) "
+              f"on {card}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": bb.source,
+            "replaces": f"hippie_tpu/ops/pallas_blocks.py:{line}", "launches": launches[name],
+            "max_abs_err": errs[name], "ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[2],
+            "bound_by": bound_by, "library_ms": None,
+        })
+    return kernels
+
+
+def decoder_input(model, bd, bs, bmask, eps):
+    """What the trained model's decoder sees in a training forward of this batch."""
     import torch
 
-    from hippie_tpu_torch.nn.functional import leaky_relu
-    from hippie_tpu_torch.ops import cuda_blocks as cb
-
-    out = leaky_relu(enc.bn1(enc.conv1(x), mask)).permute(2, 0, 1).to(torch.bfloat16).contiguous()
-    mask_col = cb.mask_column(mask, out.shape[1], out.device)
-    for layer in (enc.layer1, enc.layer2, enc.layer3, enc.layer4):
-        for block in layer:
-            out = cb.enc_block_apply(cb.PlainEncBlockFn, block, out, mask_col)
-    return enc.linear(out.float().mean(dim=0))
+    seen = {}
+    m = copy.deepcopy(model).train()
+    hook = m.decoder.register_forward_hook(lambda mod, args, out: seen.setdefault("d", args[0]))
+    with torch.no_grad():
+        m(bd, bs, None, eps=eps, mask=bmask)
+    hook.remove()
+    return seen["d"].detach()
 
 
-def phase_encoder(model, pool, idx, mask, card: str, errs: dict):
-    """The trained model's full-width encoder in training, forward and
-    backward, through backend="pallas" on the epoch's last pool batch (415
-    real rows of 512), with a fixed cotangent that is zero on the padded rows
-    (as the masked loss gives). Held against the same encoder through the
-    plain block versions on the card, and against the float32
-    backend="xla" encoder (cuDNN without TF32, eager masked BatchNorm).
+def phase_pass(bb: Backbone, model, pool, idx, mask, card: str):
+    """The trained model's full-width encoder or decoder in training, forward
+    and backward, through backend="pallas" on the epoch's last pool batch
+    (415 real rows of 512), with a fixed cotangent that is zero on the padded
+    rows (as the masked loss gives). The decoder's input is what it sees in
+    the model's training forward of that batch. Held against the same
+    backbone through the plain block versions on the card (plain_blocks), and
+    against the float32 backend="xla" one (cuDNN without TF32, eager masked
+    BatchNorm).
 
     Limits. Output and BN buffers: 1e-2 against the plain blocks, 3e-2
-    against float32 (tests/test_pallas_blocks.py:37). Gradients: chained
+    against float32 (tests/test_pallas_blocks.py:37); against the plain
+    blocks the output may also take twice the plain path's own spread
+    (measured as the gradients' below; the decoder's output moved by 8.1e-3
+    under the 1e-6 input change on the card). Gradients: chained
     blocks pass a one-ulp bf16 flip on as a small move of the next block's
     statistics, and a value at LeakyReLU's kink turns its gradient from 1 to
     0.01; a BatchNorm bias gradient is a sum of terms of both signs, so a few
     such turns move it by a tenth. The plain path itself, given its input
     scaled by 1 + 1e-6, moves its whole gradient by about 4e-2 and single
-    parameters' by up to about 0.13 (measured on the card). So the kernel
-    path is held to the plain path as closely as the plain path holds to
-    itself: the whole gradient within twice that spread (and 1e-2 at
-    least), its cosine's distance from 1 within twice the spread's, each
-    parameter within twice the worst parameter's spread, all measured in
-    this run. Against float32 the whole gradient's cosine is above 0.97 (the
+    parameters' by up to about 0.13 (the encoder, measured on the card in
+    PR 3). So the kernel path is held to the plain path as closely as the
+    plain path holds to itself: the whole gradient within twice that spread
+    (and 1e-2 at least), its cosine's distance from 1 within twice the
+    spread's, each parameter within twice the worst parameter's spread, all
+    measured in this run; the decoder's conv biases before a BatchNorm,
+    whose gradients are rounding noise, are left out of the per-parameter
+    check. Against float32 the whole gradient's cosine is above 0.97 (the
     JAX package's limit for its fused path, tests/test_pallas_blocks.py:245).
-    The pass makes 8 forward and 8 backward block launches.
-
-    Then times the encoder's forward and backward with both backends, and
-    each block kernel against its plain version at the 8 blocks' shapes;
-    returns the two kernels' records.
+    The pass makes 8 forward and 8 backward block launches of its kind.
+    Then times the pass with both backends and profiles it.
     """
     import torch
 
     from hippie_tpu_torch.nn.functional import full_fp32
-    from hippie_tpu_torch.ops import cuda_blocks as cb
 
-    i = idx.shape[0] - 1
-    bi = torch.as_tensor(idx[i], device="cuda").long()
-    x = pool.wave[bi][:, None, :]
-    bmask = torch.as_tensor(mask[i], device="cuda")
-    z2 = model.encoder.linear.out_features
-    cot = torch.from_numpy(np.random.default_rng(5).normal(size=(B, z2)).astype(np.float32)).cuda()
+    bd, bs, bmask, eps = last_batch(model, pool, idx, mask)
+    if bb.kind == "enc":
+        module, x = model.encoder, bd[:, None, :]
+        width = model.encoder.linear.out_features
+    else:
+        module, x = model.decoder, decoder_input(model, bd, bs, bmask, eps)
+        width = model.decoder.linear_out.out_features
+    cot = torch.from_numpy(np.random.default_rng(5).normal(size=(B, width)).astype(np.float32)).cuda()
     cot = cot * bmask[:, None]
 
-    def run(enc, how):
-        enc.train()
-        enc.zero_grad(set_to_none=True)
-        if how == "plain":
-            out = encoder_through_plain_blocks(enc, x, bmask)
-        else:
-            out = enc(x, bmask, backend=how)
+    def run(mod, how, scale=1.0):
+        mod.train()
+        mod.zero_grad(set_to_none=True)
+        with plain_blocks() if how == "plain" else contextlib.nullcontext():
+            out = mod(x * scale, bmask, backend="xla" if how == "xla" else "pallas")
         (out * cot).sum().backward()
         return out.detach()
 
-    encs = {how: copy.deepcopy(model.encoder) for how in ("pallas", "plain", "plain_eps", "xla")}
-    cb.reset_launches()
-    outs = {"pallas": run(encs["pallas"], "pallas")}
+    mods = {how: copy.deepcopy(module) for how in ("pallas", "plain", "plain_eps", "xla")}
+    reset_all_launches()
+    outs = {"pallas": run(mods["pallas"], "pallas")}
     torch.cuda.synchronize()
-    launches = dict(cb.launches)
-    check(launches == {"enc_block_fwd": 8, "enc_block_bwd": 8},
-          f"encoder pass made block launches {launches}, expected 8 forward and 8 backward")
+    launches = all_launches()
+    want = {k: (8 if k.startswith(bb.kind) else 0) for k in launches}
+    check(launches == want, f"{bb.kind} pass made launches {launches}, expected {want}")
     with full_fp32():
-        outs["plain"] = run(encs["plain"], "plain")
-        outs["xla"] = run(encs["xla"], "xla")
-        x0, x = x, x * (1 + 1e-6)  # the plain path's own spread under a rounding-level change
-        outs["plain_eps"] = run(encs["plain_eps"], "plain")
-        x = x0
+        outs["plain"] = run(mods["plain"], "plain")
+        outs["xla"] = run(mods["xla"], "xla")
+        outs["plain_eps"] = run(mods["plain_eps"], "plain", 1 + 1e-6)
     real = bmask > 0
-    check(bool(torch.isfinite(outs["pallas"]).all()), "encoder output not finite")
+    check(bool(torch.isfinite(outs["pallas"]).all()), f"{bb.kind} output not finite")
+    noise = re.compile(r"layer\d\.\d\.(conv1\.conv|shortcut\.0\.conv)\.bias$")
 
     def compare(a, b):
         grads = {n: rel_err(pa.grad, pb.grad) for (n, pa), pb in
-                 zip(encs[a].named_parameters(), encs[b].parameters())}
-        ga = torch.cat([p.grad.double().ravel() for p in encs[a].parameters()])
-        gb = torch.cat([p.grad.double().ravel() for p in encs[b].parameters()])
-        return {"out": rel_err(outs[a][real], outs[b][real]), "grads": grads,
+                 zip(mods[a].named_parameters(), mods[b].parameters())}
+        ga = torch.cat([p.grad.double().ravel() for p in mods[a].parameters()])
+        gb = torch.cat([p.grad.double().ravel() for p in mods[b].parameters()])
+        return {"out": rel_err(outs[a][real], outs[b][real]),
+                "grads": {n: e for n, e in grads.items() if not noise.search(n)},
                 "grad": rel_err(ga, gb), "cos": float(ga @ gb / (ga.norm() * gb.norm())),
-                "buffers": max(rel_err(ba, bb) for (n, ba), bb in zip(encs[a].named_buffers(),
-                                                                      encs[b].buffers()) if "running" in n)}
+                "buffers": max(rel_err(ba, bb_) for (n, ba), bb_ in zip(mods[a].named_buffers(),
+                                                                        mods[b].buffers()) if "running" in n)}
 
     cmp = {"plain": compare("pallas", "plain"), "xla": compare("pallas", "xla"),
            "self": compare("plain_eps", "plain")}
@@ -576,67 +807,35 @@ def phase_encoder(model, pool, idx, mask, card: str, errs: dict):
         report.append(f"{name}: output {c['out']:.2e}, BN buffers {c['buffers']:.2e}, gradient "
                       f"{c['grad']:.2e} (cosine {c['cos']:.6f}), worst parameters "
                       + ", ".join(f"{k} {v:.2e}" for k, v in worst))
-    print(f"[5c encoder] backend=pallas, one training pass at B={B} (tail {int(real.sum())} real rows): "
+    label = "5c encoder" if bb.kind == "enc" else "5e decoder"
+    print(f"[{label}] backend=pallas, one training pass at B={B} (tail {int(real.sum())} real rows): "
           f"launches {launches}\n  pallas vs " + "\n  pallas vs ".join(report[:2])
           + f"\n  plain(x * (1 + 1e-6)) vs plain: " + report[2].split(": ", 1)[1])
-    for ref, lim in (("plain", 1e-2), ("xla", 3e-2)):
-        check(cmp[ref]["out"] <= lim, f"encoder output vs {ref}: {cmp[ref]['out']:.3g} > {lim}")
-        check(cmp[ref]["buffers"] <= lim, f"encoder BN buffers vs {ref}: {cmp[ref]['buffers']:.3g} > {lim}")
     own, got = cmp["self"], cmp["plain"]
+    for ref, lim in (("plain", 1e-2), ("xla", 3e-2)):
+        lim_out = max(lim, 2 * own["out"]) if ref == "plain" else lim
+        check(cmp[ref]["out"] <= lim_out, f"{bb.kind} output vs {ref}: {cmp[ref]['out']:.3g} > {lim_out:.3g}")
+        check(cmp[ref]["buffers"] <= lim, f"{bb.kind} BN buffers vs {ref}: {cmp[ref]['buffers']:.3g} > {lim}")
     check(got["grad"] <= max(1e-2, 2 * own["grad"]),
-          f"encoder gradient vs plain {got['grad']:.3g}, over twice the plain path's own {own['grad']:.3g}")
+          f"{bb.kind} gradient vs plain {got['grad']:.3g}, over twice the plain path's own {own['grad']:.3g}")
     check(1 - got["cos"] <= max(1e-4, 2 * (1 - own["cos"])),
-          f"encoder gradient cosine vs plain {got['cos']:.6f}, own {own['cos']:.6f}")
+          f"{bb.kind} gradient cosine vs plain {got['cos']:.6f}, own {own['cos']:.6f}")
     lim = max(1e-2, 2 * max(own["grads"].values()))
     for name, e in got["grads"].items():
-        check(e <= lim, f"encoder {name} gradient vs plain {e:.3g} > {lim:.3g}")
-    check(cmp["xla"]["cos"] > 0.97, f"encoder gradient cosine vs float32 {cmp['xla']['cos']:.6f}")
+        check(e <= lim, f"{bb.kind} {name} gradient vs plain {e:.3g} > {lim:.3g}")
+    check(cmp["xla"]["cos"] > 0.97, f"{bb.kind} gradient cosine vs float32 {cmp['xla']['cos']:.6f}")
 
-    # timings: the encoder's forward + backward, alternating the backends
-    enc_ms = {"pallas": [], "xla": []}
+    # timings: the pass's forward + backward, alternating the backends
+    pass_ms = {"pallas": [], "xla": []}
     for how in ("pallas", "xla", "xla", "pallas"):
-        enc_ms[how].append(time_ms(lambda: run(encs[how], how), n=20, warmup=3))
-    print(f"  encoder fwd+bwd: pallas {enc_ms['pallas']} ms, xla (cuDNN defaults) {enc_ms['xla']} ms "
+        pass_ms[how].append(time_ms(lambda: run(mods[how], how), n=20, warmup=3))
+    print(f"  {bb.kind} fwd+bwd: pallas {pass_ms['pallas']} ms, xla (cuDNN defaults) {pass_ms['xla']} ms "
           f"on {card}")
     for how in ("pallas", "xla"):
-        dev_us, n_dev = device_profile(lambda: run(encs[how], how), n=5)
-        ms = min(enc_ms[how])
-        print(f"  profile encoder {how}: device busy {dev_us / 1e3:.3f} ms of {ms:.3f} ms "
+        dev_us, n_dev = device_profile(lambda: run(mods[how], how), n=5)
+        ms = min(pass_ms[how])
+        print(f"  profile {bb.kind} {how}: device busy {dev_us / 1e3:.3f} ms of {ms:.3f} ms "
               f"(idle share {1 - dev_us / 1e3 / ms:.3f}), {n_dev:.0f} device kernels and copies per pass")
-    per_shape = {}
-    for stride, L, ci, co in sorted(set(ENC_BLOCKS), key=ENC_BLOCKS.index):
-        args, g = enc_block_inputs(stride, L, ci, co, 415, seed=L + co)
-        st = cb.enc_block_fwd_cuda(stride, *args)[1:]
-        short = stride != 1
-        fns = {"enc_block_fwd": (lambda: cb.enc_block_fwd_cuda(stride, *args),
-                                 lambda: cb.enc_block_fwd_plain(stride, short, *args)),
-               "enc_block_bwd": (lambda: cb.enc_block_bwd_cuda(stride, *args, *st, g),
-                                 lambda: cb.enc_block_bwd_plain(stride, short, *args, *st, g))}
-        bounds = enc_block_bounds(stride, L, ci, co)
-        for name, (kernel, plain) in fns.items():
-            ms, plain_ms = time_ms(kernel, n=50, warmup=5), time_ms(plain, n=20, warmup=3)
-            dev_us, n_dev = device_profile(kernel)
-            per_shape[(stride, L, ci, co, name)] = (ms, plain_ms, bounds[name][0], dev_us / 1e3,
-                                                    bounds[name][1])
-            print(f"  {name} s{stride} L{L} {ci}->{co}: kernel {ms * 1e3:.1f} us/call "
-                  f"({dev_us:.1f} us device in {n_dev:.0f} kernels), plain {plain_ms * 1e3:.1f} us/call, "
-                  f"bound {bounds[name][0] * 1e3:.2f} us ({bounds[name][1]})")
-    kernels = []
-    for name, line in (("enc_block_fwd", "568"), ("enc_block_bwd", "600")):
-        rows = [per_shape[blk + (name,)] for blk in ENC_BLOCKS]
-        tot = [sum(r[k] for r in rows) for k in range(4)]
-        by_ops = sum(r[2] for r in rows if r[4] == "operations")
-        bound_by = "operations" if by_ops >= tot[2] / 2 else "bytes"
-        print(f"  {name} over the encoder's 8 blocks: kernel {tot[0]:.4f} ms ({tot[3]:.4f} ms device), "
-              f"plain {tot[1]:.4f} ms, bound {tot[2]:.4f} ms ({by_ops:.4f} ms of it by operations) "
-              f"on {card}")
-        kernels.append({
-            "name": name, "route": "cuda", "source": ENC_SOURCE,
-            "replaces": f"hippie_tpu/ops/pallas_blocks.py:{line}", "launches": launches[name],
-            "max_abs_err": errs[name], "ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[2],
-            "bound_by": bound_by, "library_ms": None,
-        })
-    return kernels
 
 
 def phase_embed(model, device="cuda"):
@@ -670,7 +869,7 @@ def phase_embed(model, device="cuda"):
           f"max |card - float64 host| {diff:.3g}")
 
 
-def profile_epoch(run_epoch, steps: int, ms_step: float):
+def profile_epoch(run_epoch, steps: int, ms_step: float, label: str):
     """Device time of one epoch by kernel (torch.profiler): the busy time per
     step, the idle share of the unprofiled step time, and the largest kernels."""
     import torch
@@ -686,10 +885,10 @@ def profile_epoch(run_epoch, steps: int, ms_step: float):
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0]
     if not rows:
-        print("  profile: the profiler recorded no device time (device busy share not measured)")
+        print(f"  profile {label}: the profiler recorded no device time (device busy share not measured)")
         return
     busy_ms = sum(r[0] for r in rows) / 1e3 / steps
-    print(f"  profile: device busy {busy_ms:.3f} ms/step of {ms_step:.3f} ms/step "
+    print(f"  profile {label}: device busy {busy_ms:.3f} ms/step of {ms_step:.3f} ms/step "
           f"(idle share {1 - busy_ms / ms_step:.3f}); {sum(r[1] for r in rows) / steps:.0f} "
           f"device kernels and copies/step")
     for us, count, key in sorted(rows, reverse=True)[:8]:
@@ -700,25 +899,34 @@ def profile_epoch(run_epoch, steps: int, ms_step: float):
 
 
 def phase_timings(ts, pool, idx, mask, card: str, errs: dict, launches: dict):
+    """ms/step of the train step with each block backend, in turns (xla,
+    pallas, pallas, xla; 3 epochs each, host clock around synchronised
+    epochs), then one profiled epoch of each; then the loss kernel against
+    its plain version."""
     import torch
 
     from hippie_tpu_torch.ops import cuda_ops
     from hippie_tpu_torch.train import step
 
-    train_epoch, _ = step.make_unimodal_epoch_fns(beta=1.0, loss_backend="pallas")
+    epoch_fns = {bb: step.make_unimodal_epoch_fns(beta=1.0, loss_backend="pallas", block_backend=bb)[0]
+                 for bb in ("xla", "pallas")}
     gen = torch.Generator(device="cuda").manual_seed(4)
-    epochs = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(epochs):
-        ts, metrics = train_epoch(ts, pool.wave, pool.source, None, idx, mask, generator=gen)
-    torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) * 1e3 / (epochs * idx.shape[0])
-    check(bool(torch.isfinite(metrics.loss).all()), "non-finite loss while timing")
-    print(f"[7 timings] slice: {ms_step:.3f} ms/step over {epochs} epochs of {idx.shape[0]} steps "
-          f"(B={B}, cuDNN defaults) on {card}")
-    profile_epoch(lambda: train_epoch(ts, pool.wave, pool.source, None, idx, mask, generator=gen),
-                  idx.shape[0], ms_step)
+    epochs, nb = 3, idx.shape[0]
+    ms_step = {"xla": [], "pallas": []}
+    for bb in ("xla", "pallas", "pallas", "xla"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(epochs):
+            ts, metrics = epoch_fns[bb](ts, pool.wave, pool.source, None, idx, mask, generator=gen)
+        torch.cuda.synchronize()
+        ms_step[bb].append((time.perf_counter() - t0) * 1e3 / (epochs * nb))
+        check(bool(torch.isfinite(metrics.loss).all()), f"non-finite loss while timing block_backend={bb}")
+    print(f"[7 timings] train step (B={B}, loss_backend=pallas, cuDNN defaults), ms/step over "
+          f"{epochs} epochs of {nb} steps each, in turns: block_backend=xla {ms_step['xla']}, "
+          f"block_backend=pallas {ms_step['pallas']} on {card}")
+    for bb in ("xla", "pallas"):
+        profile_epoch(lambda: epoch_fns[bb](ts, pool.wave, pool.source, None, idx, mask, generator=gen),
+                      nb, min(ms_step[bb]), f"block_backend={bb}")
 
     x = loss_inputs(415, device="cuda")
     g = torch.tensor([1.0 / (415 * L), 1.0 / 415], device="cuda")
@@ -770,12 +978,22 @@ def main() -> int:
         print(card)
         phase_build()
         errs = phase_kernel_vs_plain()
-        ts, pool, idx, mask, launches = phase_slice(full_config())
+        ts, pool, idx, mask, launches, losses = phase_slice(full_config())
+        # the main path: both backbones' blocks on the fused block kernels
+        _, _, _, _, main_launches, main_losses = phase_slice(full_config(), "pallas", pool=pool)
+        rel = abs(main_losses[0] - losses[0]) / abs(losses[0])
+        print(f"  first step from the same weights and batch: loss {main_losses[0]:.6f} with "
+              f"block_backend=pallas, {losses[0]:.6f} with xla (rel {rel:.3g}; limit 5e-2, "
+              f"tests/test_pallas_blocks.py:231)")
+        check(rel <= 5e-2, f"block_backend=pallas first loss {main_losses[0]} vs xla {losses[0]}")
         phase_step_parity(ts.model, pool, idx, mask)
-        enc_errs = phase_enc_blocks()
-        enc_kernels = phase_encoder(ts.model, pool, idx, mask, card, enc_errs)
+        block_kernels = []
+        for bb in (ENC, DEC):
+            bb_errs, per_shape = phase_blocks(bb, card)
+            phase_pass(bb, ts.model, pool, idx, mask, card)
+            block_kernels += block_records(bb, per_shape, bb_errs, main_launches, card)
         phase_embed(ts.model)
-        kernels = phase_timings(ts, pool, idx, mask, card, errs, launches) + enc_kernels
+        kernels = phase_timings(ts, pool, idx, mask, card, errs, launches) + block_kernels
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback

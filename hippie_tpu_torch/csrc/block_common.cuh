@@ -1,6 +1,6 @@
 // Primitives of the fused BasicBlock kernels, for sm_90a.
 //
-// Shared by the encoder block (enc_block.cu) and, later, the decoder block.
+// Shared by the encoder block (enc_block.cu) and the decoder block (dec_block.cu).
 // Activations are bf16 [L, B, C] (length leading, as hippie_tpu's
 // pallas_blocks.py keeps them), so a conv's GEMM view is [L*B, C] row-major
 // and a conv tap is a shift of B rows. Weights are bf16 [taps, C_in, C_out].
@@ -11,15 +11,22 @@
 //                transposed conv (input gradient) gathers row (l + pad - t) /
 //                stride where that divides, and reads w[t] transposed. Zero
 //                padding comes from the loader's bounds; rows past M are
-//                masked in the epilogue.
+//                masked in the epilogue. With UP (the decoder's ResizeConv1d)
+//                the forward reads its source through a nearest x2 upsample,
+//                row (l + t - pad) >> 1, and adds a per-channel bias.
 //   wgrad_gemm   weight gradient dW[t] = X_t^T dC: the reduction runs over
 //                the M = L_out*B rows, cut into fixed split-K ranges; each
 //                range writes its own partial and wgrad_final sums the
-//                partials in a fixed order.
+//                partials in a fixed order. UP gathers X as conv_gemm does.
 //   col_*        per-channel sums over the M rows (masked mean, centred
 //                variance, and BatchNorm's backward sums): fixed row chunks
 //                write partials, a final pass sums them in a fixed order.
 //   bn_dx        BatchNorm's backward elementwise pass.
+//   col_sum      unmasked per-channel sums of a bf16 [M, C] (a conv bias's
+//                gradient), partials then a fixed-order final pass.
+//   pair_*       the backward of the x2 upsample: rows 2l and 2l + 1 of a
+//                float32 [2L*B, C] summed in float32 inside the pass that
+//                consumes them.
 //
 // No float atomics anywhere: every sum has a fixed shape, so repeated runs
 // give the same bits. Every launch is on the caller's stream; the launchers
@@ -80,9 +87,14 @@ struct ConvGeom {
   int taps, stride, pad;
 };
 
-// Source position that output position l reads through tap t, or -1.
-template <bool TRANS>
+// Source position that output position l reads through tap t, or -1. UP: the
+// source of length Lsrc is read as its nearest x2 upsample, of length 2*Lsrc.
+template <bool TRANS, bool UP = false>
 __device__ __forceinline__ int src_pos(int l, int t, const ConvGeom& g) {
+  if (UP) {
+    const int p = l * g.stride + t - g.pad;
+    return (p >= 0 && p < 2 * g.Lsrc) ? p >> 1 : -1;
+  }
   if (!TRANS) {
     const int p = l * g.stride + t - g.pad;
     return (p >= 0 && p < g.Lsrc) ? p : -1;
@@ -95,11 +107,13 @@ __device__ __forceinline__ int src_pos(int l, int t, const ConvGeom& g) {
 
 // out[m, n] = sum_{t, c} src[pos(m, t), b(m), c] * W(t, c, n), fp32 [Lout*B, N].
 // W(t, c, n) = w[t][c][n] (forward, w [taps, Csrc, N]) or w[t][n][c]
-// (TRANS, w [taps, N, Csrc]). Needs Csrc % 32 == 0 and N % 64 == 0.
-template <bool TRANS>
+// (TRANS, w [taps, N, Csrc]). Needs Csrc % 32 == 0 and N % 64 == 0. UP (not
+// with TRANS): upsampled source, and out[m, n] += bias[n] after the sum.
+template <bool TRANS, bool UP = false>
 __global__ void __launch_bounds__(kGemmThreads)
 conv_gemm_kernel(const bf16* __restrict__ src, const bf16* __restrict__ w,
-                 float* __restrict__ out, ConvGeom g) {
+                 float* __restrict__ out, ConvGeom g, const float* __restrict__ bias) {
+  static_assert(!(TRANS && UP), "the upsampled conv has no transposed form here");
   constexpr int kLdA = kBK + kPadH;                    // As[m][k]
   constexpr int kLdB = TRANS ? kBK + kPadH : kBN + kPadH;  // Bs[n][k] or Bs[k][n]
   constexpr int kBRows = TRANS ? kBN : kBK;
@@ -130,7 +144,7 @@ conv_gemm_kernel(const bf16* __restrict__ src, const bf16* __restrict__ w,
       ra[j] = make_uint4(0, 0, 0, 0);
       if (m < M) {
         const int l = m / g.B, b = m - l * g.B;
-        const int p = src_pos<TRANS>(l, t, g);
+        const int p = src_pos<TRANS, UP>(l, t, g);
         if (p >= 0)
           ra[j] = *reinterpret_cast<const uint4*>(src + ((size_t)p * g.B + b) * g.Csrc + c0 + part * 8);
       }
@@ -200,14 +214,21 @@ conv_gemm_kernel(const bf16* __restrict__ src, const bf16* __restrict__ w,
   for (int idx = tid; idx < kBM * (kBN / 4); idx += kGemmThreads) {
     const int row = idx / (kBN / 4), part = idx % (kBN / 4);
     const int m = m0 + row;
-    if (m < M)
-      *reinterpret_cast<float4*>(out + (size_t)m * g.N + n0 + part * 4) =
-          *reinterpret_cast<const float4*>(Cs + row * kLdC + part * 4);
+    if (m < M) {
+      float4 v = *reinterpret_cast<const float4*>(Cs + row * kLdC + part * 4);
+      if (UP) {
+        const float* bn = bias + n0 + part * 4;
+        v = make_float4(__fadd_rn(v.x, bn[0]), __fadd_rn(v.y, bn[1]), __fadd_rn(v.z, bn[2]),
+                        __fadd_rn(v.w, bn[3]));
+      }
+      *reinterpret_cast<float4*>(out + (size_t)m * g.N + n0 + part * 4) = v;
+    }
   }
 }
 
 // Partial weight gradients: part[s][t][ci][co] = sum over rows m of split s of
 // x[pos(m, t), b(m), ci] * dc[m, co]. grid (Ci/64, Co/64, taps * splits).
+template <bool UP = false>
 __global__ void __launch_bounds__(kGemmThreads)
 wgrad_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dc,
                   float* __restrict__ part, ConvGeom g, int rows_per_split) {
@@ -239,7 +260,7 @@ wgrad_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dc,
       rb[j] = make_uint4(0, 0, 0, 0);
       if (m < r1) {
         const int l = m / g.B, b = m - l * g.B;
-        const int p = src_pos<false>(l, t, g);
+        const int p = src_pos<false, UP>(l, t, g);
         if (p >= 0)
           ra[j] = *reinterpret_cast<const uint4*>(x + ((size_t)p * g.B + b) * g.Csrc + i0 + pc * 8);
         rb[j] = *reinterpret_cast<const uint4*>(dc + (size_t)m * g.N + n0 + pc * 8);
@@ -415,6 +436,25 @@ col_dsum_final_kernel(const float2* __restrict__ part, int chunks, int C,
   dbeta[c] = sb;
 }
 
+// Unmasked column sums of a bf16 [M, C]: part[r][c] = sum of v over chunk r.
+__global__ void __launch_bounds__(kColX * kColY)
+col_sum_partial_kernel(const bf16* __restrict__ v, int M, int C, int rows_per_chunk,
+                       float* __restrict__ part) {
+  __shared__ float red[kColY][kColX + 1];
+  const int c = blockIdx.x * kColX + threadIdx.x;
+  const int r0 = blockIdx.y * rows_per_chunk;
+  const int r1 = min(M, r0 + rows_per_chunk);
+  float acc = 0.f;
+  for (int m = r0 + threadIdx.y; m < r1; m += kColY) acc = __fadd_rn(acc, bf(v[(size_t)m * C + c]));
+  red[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0) {
+    float s = red[0][threadIdx.x];
+    for (int y = 1; y < kColY; ++y) s += red[y][threadIdx.x];
+    part[(size_t)blockIdx.y * C + c] = s;
+  }
+}
+
 // dc = bf16((gamma * inv) * (dy - (m / n) * (dbeta + xh * dgamma))); st is [3, C].
 __global__ void __launch_bounds__(kEwThreads)
 bn_dx_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ xh,
@@ -518,6 +558,31 @@ act_grad_kernel(const float* __restrict__ t, const bf16* __restrict__ xh,
   out[i] = to_bf(__fmul_rn(t[i], dlrelu(a)));
 }
 
+// The gradient through the x2 upsample and a recomputed activation: t is
+// float32 [2L*B, C], xh bf16 [L*B, C];
+// out = bf16((t[2l] + t[2l+1]) * dlrelu(bf16(g * xh + b))).
+__global__ void __launch_bounds__(kEwThreads)
+pair_act_grad_kernel(const float* __restrict__ t, const bf16* __restrict__ xh,
+                     const float* __restrict__ g, const float* __restrict__ b, int BC, int C,
+                     int total, bf16* __restrict__ out) {
+  const int i = blockIdx.x * kEwThreads + threadIdx.x;
+  if (i >= total) return;
+  const int k = i % C;
+  const size_t j = (size_t)(i / BC) * 2 * BC + i % BC;  // row 2l of t
+  const float a = bf(to_bf(__fadd_rn(__fmul_rn(g[k], bf(xh[i])), b[k])));
+  out[i] = to_bf(__fmul_rn(__fadd_rn(t[j], t[j + BC]), dlrelu(a)));
+}
+
+// out = bf16(a + (t[2l] + t[2l+1])): a float32 [L*B, C], t float32 [2L*B, C].
+__global__ void __launch_bounds__(kEwThreads)
+add_pair_round_kernel(const float* __restrict__ a, const float* __restrict__ t, int BC, int total,
+                      bf16* __restrict__ out) {
+  const int i = blockIdx.x * kEwThreads + threadIdx.x;
+  if (i >= total) return;
+  const size_t j = (size_t)(i / BC) * 2 * BC + i % BC;
+  out[i] = to_bf(__fadd_rn(a[i], __fadd_rn(t[j], t[j + BC])));
+}
+
 // out = bf16(a + (b ? b : c)), a and b fp32, c bf16.
 __global__ void __launch_bounds__(kEwThreads)
 add_round_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -567,22 +632,26 @@ inline size_t wgrad_partial_floats(int M, int Ci, int Co, int taps) {
     if (e_ != cudaSuccess) return static_cast<int>(e_);  \
   } while (0)
 
-template <bool TRANS>
-int launch_conv(const bf16* src, const bf16* w, float* out, const ConvGeom& g, cudaStream_t s) {
+// UP: the source read through the x2 upsample, and bias [N] added.
+template <bool TRANS, bool UP = false>
+int launch_conv(const bf16* src, const bf16* w, float* out, const ConvGeom& g, cudaStream_t s,
+                const float* bias = nullptr) {
   dim3 grid(cdiv(g.Lout * g.B, kBM), g.N / kBN);
-  conv_gemm_kernel<TRANS><<<grid, kGemmThreads, 0, s>>>(src, w, out, g);
+  conv_gemm_kernel<TRANS, UP><<<grid, kGemmThreads, 0, s>>>(src, w, out, g, bias);
   BLOCKS_CHECK();
   return 0;
 }
 
-// dw [taps, Ci, Co] from x [Lsrc, B, Ci] and dc [Lout, B, Co]; part from the arena.
+// dw [taps, Ci, Co] from x [Lsrc, B, Ci] (UP: read as its x2 upsample) and
+// dc [Lout, B, Co]; part from the arena.
+template <bool UP = false>
 inline int launch_wgrad(const bf16* x, const bf16* dc, float* part, float* dw, const ConvGeom& g,
                         cudaStream_t s) {
   const int M = g.Lout * g.B;
   const int rows = wgrad_rows_per_split(M, g.Csrc, g.N, g.taps);
   const int splits = cdiv(M, rows);
   dim3 grid(g.Csrc / kBM, g.N / kBN, g.taps * splits);
-  wgrad_gemm_kernel<<<grid, kGemmThreads, 0, s>>>(x, dc, part, g, rows);
+  wgrad_gemm_kernel<UP><<<grid, kGemmThreads, 0, s>>>(x, dc, part, g, rows);
   BLOCKS_CHECK();
   const int n = g.taps * g.Csrc * g.N;
   wgrad_final_kernel<<<cdiv(n, kEwThreads), kEwThreads, 0, s>>>(part, splits, n, dw);
@@ -622,6 +691,18 @@ inline int launch_col_dsum(const bf16* dy, const bf16* xh, const float* mask, in
   BLOCKS_CHECK();
   col_dsum_final_kernel<<<cdiv(C, kEwThreads), kEwThreads, 0, s>>>(part, chunks, C, mask, B, Lo,
                                                                    dgamma, dbeta, n_out);
+  BLOCKS_CHECK();
+  return 0;
+}
+
+// out [C] = the column sums of v bf16 [M, C], unmasked; part holds
+// col_chunks(M, C) * C floats.
+inline int launch_col_sum(const bf16* v, int M, int C, float* part, float* out, cudaStream_t s) {
+  const int chunks = col_chunks(M, C);
+  dim3 grid(C / kColX, chunks), block(kColX, kColY);
+  col_sum_partial_kernel<<<grid, block, 0, s>>>(v, M, C, cdiv(M, chunks), part);
+  BLOCKS_CHECK();
+  wgrad_final_kernel<<<cdiv(C, kEwThreads), kEwThreads, 0, s>>>(part, chunks, C, out);
   BLOCKS_CHECK();
   return 0;
 }

@@ -25,6 +25,16 @@ from hippie_tpu_torch.nn.modules import MaskedBatchNorm1d, MaskedSequential
 from hippie_tpu_torch.ops import cuda_blocks
 
 
+BACKENDS = ("xla", "pallas")
+
+
+def check_backend(backend: str):
+    """Raise on a block backend the port has not: hippie_tpu's "fused" and
+    "bf16" have no port yet."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: one of {BACKENDS}")
+
+
 class ResizeConv1d(nn.Module):
     """Reference ResizeConv1d (backbones.py:6-16): nearest upsample, conv k3 p1."""
 
@@ -132,8 +142,7 @@ class ResNet18Enc(nn.Module):
         activations, as hippie_tpu's ``resnet18_enc_apply(backend="pallas")``;
         the stem stays float32. In eval mode, and with ``"xla"``, the blocks
         are the modules' own convolutions and masked BatchNorm."""
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"unknown backend {backend!r}: 'xla' or 'pallas'")
+        check_backend(backend)
         out = leaky_relu(self.bn1(self.conv1(x), mask))
         layers = (self.layer1, self.layer2, self.layer3, self.layer4)
         if backend == "pallas" and self.training:
@@ -171,10 +180,25 @@ class ResNet18Dec(nn.Module):
         self.conv1 = ResizeConv1d(64, nc, scale_factor=2)
         self.linear_out = nn.Linear(64, output_size)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                backend: str = "xla") -> torch.Tensor:
+        """``backend="pallas"`` in training runs every BasicBlock through the
+        fused block kernels (ops/cuda_blocks.py) on bf16 ``[L, B, C]``
+        activations, as hippie_tpu's ``resnet18_dec_apply(backend="pallas")``;
+        the linear layers and the final ResizeConv1d stay float32. In eval
+        mode, and with ``"xla"``, the blocks are the modules' own."""
+        check_backend(backend)
         out = self.linear(x)  # [B, 512]
         out = upsample_nearest(out[:, :, None], 4)  # [B, 512, 4]: F.interpolate(scale_factor=4)
-        for layer in (self.layer4, self.layer3, self.layer2, self.layer1):
-            out = layer(out, mask)
+        layers = (self.layer4, self.layer3, self.layer2, self.layer1)
+        if backend == "pallas" and self.training:
+            out = out.permute(2, 0, 1).to(torch.bfloat16).contiguous()  # [L, B, C]
+            mask_col = cuda_blocks.mask_column(mask, out.shape[1], out.device)
+            for block in (b for layer in layers for b in layer):
+                out = cuda_blocks.basic_block_dec_fused(block, out, mask_col)
+            out = out.permute(1, 2, 0).float()  # [B, C, L]
+        else:
+            for layer in layers:
+                out = layer(out, mask)
         out = self.conv1(out)  # [B, nc, 64]
         return self.linear_out(out.reshape(out.shape[0], -1))

@@ -79,20 +79,23 @@ class UnimodalCVAE(nn.Module):
         eps: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         mask: Optional[torch.Tensor] = None,
+        backend: str = "xla",
     ):
         """data: [B, L]; returns (encoded, mu, logvar, decoded).
 
         With neither ``eps`` nor ``generator`` the reparameterization is
         skipped and the decoder sees ``mu`` (the deterministic eval path,
         SURVEY.md quirk Q8). Train or eval mode is the module's own
-        (``model.train()`` / ``model.eval()``).
+        (``model.train()`` / ``model.eval()``). ``backend`` goes to both
+        backbones, as in hippie_tpu's ``unimodal_cvae_apply``: ``"pallas"``
+        runs their BasicBlocks through the fused block kernels in training.
         """
         source_emb = self.source_embedding(source)
         if class_ is not None:
             class_emb = self.class_embedding(class_)
         else:
             class_emb = torch.zeros_like(source_emb)
-        h = self.encoder(data[:, None, :], mask)
+        h = self.encoder(data[:, None, :], mask, backend=backend)
         encoded = self.encoder_fc(torch.cat([h, source_emb, class_emb], dim=1), mask)
         mu = self.z_mean(encoded)
         logvar = self.z_log_var(encoded)
@@ -101,7 +104,7 @@ class UnimodalCVAE(nn.Module):
         else:
             z = mu
         d = self.decoder_fc(torch.cat([z, source_emb, class_emb], dim=1), mask)
-        return encoded, mu, logvar, self.decoder(d, mask)
+        return encoded, mu, logvar, self.decoder(d, mask, backend=backend)
 
 
 def unimodal_cvae_init(

@@ -1,32 +1,36 @@
-"""Hand-written CUDA kernels for the encoder's BasicBlock, forward and backward.
+"""Hand-written CUDA kernels for the backbones' BasicBlocks, encoder and
+decoder, forward and backward.
 
 Counterpart of hippie_tpu/ops/pallas_blocks.py (``_enc_block_prim``,
-``basic_block_enc_fused``); the kernels are csrc/enc_block.cu on the shared
+``_dec_block_prim``, ``basic_block_enc_fused``, ``basic_block_dec_fused``);
+the kernels are csrc/enc_block.cu and csrc/dec_block.cu on the shared
 primitives of csrc/block_common.cuh, whose header notes say what bounds them
 and how they are laid out.
 
 Layout at every function here is the JAX package's: activations ``[L, B, C]``
 (length leading) in bfloat16, conv weights ``[K, C_in, C_out]``, BatchNorm
-vectors float32 ``[C]``, the mask a float32 column ``[B, 1]``.
+vectors and conv biases float32 ``[C]``, the mask a float32 column ``[B, 1]``.
 
-``enc_block_fwd_plain`` and ``enc_block_bwd_plain`` repeat
-``_enc_fwd_math`` / ``_enc_bwd_math`` step for step in eager torch ops, with
+``enc_block_fwd_plain`` / ``enc_block_bwd_plain`` and ``dec_block_fwd_plain``
+/ ``dec_block_bwd_plain`` repeat ``_enc_fwd_math`` / ``_enc_bwd_math`` and
+``_dec_fwd_math`` / ``_dec_bwd_math`` step for step in eager torch ops, with
 the bf16 roundings at the same places. A product of two bf16 operands is
 exact in float32, so the plain versions multiply the operands upcast to
 float32 (torch's ``bf16 @ bf16`` would round the result to bf16). The CPU
 tests hold them against the JAX package; chip_smoke.py holds the kernels
 against them on the card.
 
-``EncBlockFn`` launches the kernels for CUDA tensors and raises on anything
-they do not take; for CPU tensors it runs the plain versions. A CUDA tensor
-never takes the plain path. ``launches`` counts one per call of each entry
-point (each entry point issues a fixed sequence of CUDA launches).
+``EncBlockFn`` and ``DecBlockFn`` launch the kernels for CUDA tensors and
+raise on anything they do not take; for CPU tensors they run the plain
+versions. A CUDA tensor never takes the plain path. ``launches`` counts one
+per call of each entry point (each entry point issues a fixed sequence of
+CUDA launches).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +40,7 @@ from hippie_tpu_torch.ops import _build
 EPS = 1e-5
 SLOPE = 0.01  # the backbones' LeakyReLU slope
 
-launches = {"enc_block_fwd": 0, "enc_block_bwd": 0}
+launches = {"enc_block_fwd": 0, "enc_block_bwd": 0, "dec_block_fwd": 0, "dec_block_bwd": 0}
 
 
 def reset_launches():
@@ -253,27 +257,151 @@ def enc_block_bwd_plain(stride, has_short, x, w1, g1, b1, w2, g2, b2, ws, gs, bs
 
 
 # ---------------------------------------------------------------------------
+# Plain versions: the decoder block (pallas_blocks.py:244-252, 341-440)
+# ---------------------------------------------------------------------------
+
+
+def _upsample2(x):
+    """Nearest x2 along L of [L, B, C] (``_upsample2``)."""
+    return x.repeat_interleave(2, dim=0)
+
+
+def _dupsample2(g):
+    """Backward of _upsample2: the sum of adjacent pairs (``_dupsample2``)."""
+    L2, B, C = g.shape
+    return g.reshape(L2 // 2, 2, B, C).sum(1)
+
+
+def _dec_dummies(x, w1, c1b, ws, csb, gs, bs):
+    """The zero conv biases and shortcut operands of a stride-1 block
+    (pallas_blocks.py:755-762); ws is [3, C_in, C_out] in the decoder."""
+    if ws is not None:
+        return c1b, ws, csb, gs, bs
+    co = w1.shape[2]
+    z = torch.zeros(co, dtype=torch.float32, device=x.device)
+    return z, torch.zeros((3, x.shape[2], co), dtype=torch.float32, device=x.device), z, z, z
+
+
+def dec_block_fwd_plain(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m):
+    """Training forward of BasicBlockDec -> (out bf16 [Lo,B,Co], st2 [3,Ci],
+    st1, sts [3,Co]), Lo = stride * Lin. BN2 normalises at the input length
+    (n2 = sum(m) * Lin), BN1 and the shortcut's at the output length."""
+    c1b, ws, csb, gs, bs = _dec_dummies(x, w1, c1b, ws, csb, gs, bs)
+    w2, w1, ws = _bf16(w2), _bf16(w1), _bf16(ws)
+    mb = m[None]
+    lin = x.shape[0]
+    n2, n1 = m.sum() * lin, m.sum() * lin * stride
+
+    c2 = _conv3(x, w2, 1)
+    mu2, var2, inv2 = _bn_stats(c2, mb, n2)
+    r = _bf16(_lrelu(g2 * ((c2 - mu2) * inv2) + b2))
+    st2 = torch.stack([mu2, var2, inv2])
+
+    c1 = _conv3(_upsample2(r), w1, 1) + c1b if stride != 1 else _conv3(r, w1, 1)
+    mu1, var1, inv1 = _bn_stats(c1, mb, n1)
+    a1 = g1 * ((c1 - mu1) * inv1) + b1
+    st1 = torch.stack([mu1, var1, inv1])
+
+    if stride != 1:
+        cs = _conv3(_upsample2(x), ws, 1) + csb
+        mus, vars_, invs = _bn_stats(cs, mb, n1)
+        ash = gs * ((cs - mus) * invs) + bs
+        sts = torch.stack([mus, vars_, invs])
+    else:
+        ash = x.float()
+        sts = torch.zeros((3, w1.shape[2]), dtype=torch.float32, device=x.device)
+    return _bf16(_lrelu(a1 + ash)), st2, st1, sts
+
+
+def dec_block_bwd_plain(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m,
+                        st2, st1, sts, g):
+    """Backward of dec_block_fwd_plain given the output cotangent ``g`` ->
+    (dx bf16, dw2, dg2, db2, dw1, dc1b, dg1, db1, dws, dcsb, dgs, dbs), float32
+    but dx. Recomputes the forward from x and the saved statistics."""
+    short = stride != 1
+    c1b, ws, csb, gs, bs = _dec_dummies(x, w1, c1b, ws, csb, gs, bs)
+    w2, w1, ws, g = _bf16(w2), _bf16(w1), _bf16(ws), _bf16(g)
+    mb = m[None]
+    lin = x.shape[0]
+    n2, n1 = m.sum() * lin, m.sum() * g.shape[0]
+    zeros = lambda t: torch.zeros(t.shape, dtype=torch.float32, device=x.device)  # noqa: E731
+
+    mu2, inv2 = st2[0], st2[2]
+    xh2 = _bf16((_conv3(x, w2, 1) - mu2) * inv2)
+    a2 = _bf16(g2 * xh2.float() + b2)
+    r = _bf16(_lrelu(a2.float()))
+    mu1, inv1 = st1[0], st1[2]
+    if short:
+        up_r = _upsample2(r)
+        c1 = _conv3(up_r, w1, 1) + c1b
+    else:
+        c1 = _conv3(r, w1, 1)
+    xh1 = _bf16((c1 - mu1) * inv1)
+    a1 = g1 * xh1.float() + b1
+    if short:
+        mus, invs = sts[0], sts[2]
+        up_x = _upsample2(x)
+        xhs = _bf16((_conv3(up_x, ws, 1) + csb - mus) * invs)
+        ash = gs * xhs.float() + bs
+    else:
+        ash = x.float()
+
+    g0 = _bf16(g.float() * _dlrelu(a1 + ash))
+
+    dc1, dg1, db1 = _bn_bwd(g0, xh1, g1, inv1, mb, n1)
+    dc1 = _bf16(dc1)
+    if short:
+        dw1 = _dw3(up_r, dc1, 1)
+        dc1b = dc1.float().sum((0, 1))
+        dr = _dupsample2(_convT3(dc1, w1, 1, up_r.shape[0]))
+    else:
+        dw1 = _dw3(r, dc1, 1)
+        dc1b = zeros(c1b)
+        dr = _convT3(dc1, w1, 1, lin)
+
+    da2 = _bf16(dr * _dlrelu(a2.float()))
+    dc2, dg2, db2 = _bn_bwd(da2, xh2, g2, inv2, mb, n2)
+    dc2 = _bf16(dc2)
+    dw2 = _dw3(x, dc2, 1)
+    dx = _convT3(dc2, w2, 1, lin)
+
+    if short:
+        dcs, dgs, dbs = _bn_bwd(g0, xhs, gs, invs, mb, n1)
+        dcs = _bf16(dcs)
+        dws = _dw3(up_x, dcs, 1)
+        dcsb = dcs.float().sum((0, 1))
+        dx = dx + _dupsample2(_convT3(dcs, ws, 1, up_x.shape[0]))
+    else:
+        dws, dcsb, dgs, dbs = zeros(ws), zeros(csb), zeros(gs), zeros(bs)
+        dx = dx + g0.float()
+    return _bf16(dx), dw2, dg2, db2, dw1, dc1b, dg1, db1, dws, dcsb, dgs, dbs
+
+
+# ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_lib: Optional[ctypes.CDLL] = None
+_libs: dict = {}
+# per block kind: the entry points' ints (shape, stride), and the forward's
+# and the backward's (operand, output + scratch + stream) pointer counts
+_SIGNATURES = {"enc": (6, (11, 6), (15, 12)), "dec": (5, (13, 6), (17, 14))}
 
 
-def _kernels() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("enc_block")
-        for name in ("enc_block_fwd_scratch", "enc_block_bwd_scratch"):
-            getattr(lib, name).argtypes = [_I] * 6
-            getattr(lib, name).restype = ctypes.c_longlong
-        lib.enc_block_fwd.argtypes = [_P] * 11 + [_I] * 6 + [_P] * 6
-        lib.enc_block_fwd.restype = _I
-        lib.enc_block_bwd.argtypes = [_P] * 15 + [_I] * 6 + [_P] * 12
-        lib.enc_block_bwd.restype = _I
-        _lib = lib
-    return _lib
+def _kernels(kind: str) -> ctypes.CDLL:
+    """csrc/<kind>_block.cu, built and loaded once, its entry points typed."""
+    lib = _libs.get(kind)
+    if lib is None:
+        lib = _build.load(f"{kind}_block")
+        ints, *directions = _SIGNATURES[kind]
+        for d, (n_in, n_out) in zip(("fwd", "bwd"), directions):
+            scratch = getattr(lib, f"{kind}_block_{d}_scratch")
+            scratch.argtypes, scratch.restype = [_I] * ints, ctypes.c_longlong
+            fn = getattr(lib, f"{kind}_block_{d}")
+            fn.argtypes, fn.restype = [_P] * n_in + [_I] * ints + [_P] * n_out, _I
+        _libs[kind] = lib
+    return lib
 
 
 def _check_launch(err: int, what: str):
@@ -302,6 +430,14 @@ def check_block_inputs(stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m, g=None)
         raise ValueError("a stride-1 block has no shortcut and C_in == C_out")
     if g is not None:
         want["g"] = (g, torch.bfloat16, (lo, B, co))
+    _check_operands(want, x, ci, co, L)
+
+
+def _check_operands(want, x, ci, co, rows):
+    """Each operand of ``want`` (name -> (tensor, dtype, shape)) as given, on
+    x's device and contiguous; channels and sizes as the kernels take them.
+    ``rows`` is the longest length of an intermediate [rows, B, max(ci, co)]."""
+    L, B = x.shape[:2]
     for name, (t, dtype, shape) in want.items():
         if t is None:
             raise ValueError(f"{name} is missing")
@@ -317,8 +453,8 @@ def check_block_inputs(stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m, g=None)
         raise ValueError(f"channels {ci} -> {co}: the kernels take multiples of 64")
     if B == 0 or L == 0:
         raise ValueError("empty input")
-    if L * B * max(ci, co) >= 2**31:
-        raise ValueError(f"{L} x {B} x {max(ci, co)} elements: the kernels index with 32-bit ints")
+    if rows * B * max(ci, co) >= 2**31:
+        raise ValueError(f"{rows} x {B} x {max(ci, co)} elements: the kernels index with 32-bit ints")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x.device}")
 
@@ -335,7 +471,7 @@ def enc_block_fwd_cuda(stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m):
     """Launch the forward: (out bf16 [Lo,B,Co], st1, st2, sts). Weights bf16;
     ws/gs/bs None for a block without shortcut (sts then zeros)."""
     check_block_inputs(stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m)
-    lib = _kernels()
+    lib = _kernels("enc")
     L, B, ci = x.shape
     co = w2.shape[-1]
     lo = _out_len(L, stride)
@@ -365,7 +501,7 @@ def enc_block_bwd_cuda(stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m, st1, st
         if t.dtype != torch.float32 or tuple(t.shape) != (3, co) or not t.is_contiguous() \
                 or t.device != x.device:
             raise ValueError(f"{name} must be contiguous float32 [3, {co}] on {x.device}")
-    lib = _kernels()
+    lib = _kernels("enc")
     L, B, ci = x.shape
     short = stride != 1
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -392,6 +528,88 @@ def enc_block_bwd_cuda(stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m, st1, st
     return dx, dw1, dvec[0], dvec[1], dw2, dvec[2], dvec[3], dws, dgs, dbs
 
 
+def check_dec_block_inputs(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m, g=None):
+    """Raise on what the decoder kernels do not take. Weights must already be
+    bf16; a stride-1 block has no conv bias and no shortcut (c1b, ws, csb, gs,
+    bs None) and C_in == C_out."""
+    if stride not in (1, 2):
+        raise ValueError(f"stride {stride}: the kernels take 1 or 2")
+    if x.ndim != 3:
+        raise ValueError(f"x must be [L, B, C], got {tuple(x.shape)}")
+    L, B, ci = x.shape
+    co = w1.shape[-1]
+    want = {"x": (x, torch.bfloat16, (L, B, ci)), "w2": (w2, torch.bfloat16, (3, ci, ci)),
+            "g2": (g2, torch.float32, (ci,)), "b2": (b2, torch.float32, (ci,)),
+            "w1": (w1, torch.bfloat16, (3, ci, co)), "g1": (g1, torch.float32, (co,)),
+            "b1": (b1, torch.float32, (co,)), "mask": (m, torch.float32, (B, 1))}
+    if stride != 1:
+        want.update({"c1b": (c1b, torch.float32, (co,)), "ws": (ws, torch.bfloat16, (3, ci, co)),
+                     "csb": (csb, torch.float32, (co,)), "gs": (gs, torch.float32, (co,)),
+                     "bs": (bs, torch.float32, (co,))})
+    elif any(t is not None for t in (c1b, ws, csb, gs, bs)) or ci != co:
+        raise ValueError("a stride-1 block has no conv bias, no shortcut and C_in == C_out")
+    if g is not None:
+        want["g"] = (g, torch.bfloat16, (L * stride, B, co))
+    _check_operands(want, x, ci, co, L * stride)
+
+
+def dec_block_fwd_cuda(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m):
+    """Launch the decoder forward: (out bf16 [Lo,B,Co], st2 [3,Ci], st1, sts
+    [3,Co]). Weights bf16; c1b, ws, csb, gs, bs None at stride 1 (sts zeros)."""
+    check_dec_block_inputs(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m)
+    lib = _kernels("dec")
+    L, B, ci = x.shape
+    co = w1.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        out = torch.empty((L * stride, B, co), dtype=torch.bfloat16, device=x.device)
+        st2, st1, sts = torch.empty((3, ci), **f32), torch.empty((3, co), **f32), torch.empty((3, co), **f32)
+        scratch = _scratch(lib.dec_block_fwd_scratch(L, B, ci, co, stride), x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dec_block_fwd(
+            *(_ptr(t) for t in (x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m)),
+            L, B, ci, co, stride,
+            out.data_ptr(), st2.data_ptr(), st1.data_ptr(), sts.data_ptr(), scratch.data_ptr(), stream,
+        )
+    _check_launch(err, "dec_block_fwd")
+    launches["dec_block_fwd"] += 1
+    return out, st2, st1, sts
+
+
+def dec_block_bwd_cuda(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m, st2, st1, sts, g):
+    """Launch the decoder backward: (dx bf16, dw2, dg2, db2, dw1, dc1b, dg1,
+    db1, dws, dcsb, dgs, dbs); dc1b and the shortcut's four None at stride 1."""
+    check_dec_block_inputs(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m, g)
+    L, B, ci = x.shape
+    co = w1.shape[-1]
+    for name, t, c in (("st2", st2, ci), ("st1", st1, co), ("sts", sts, co)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (3, c) or not t.is_contiguous() \
+                or t.device != x.device:
+            raise ValueError(f"{name} must be contiguous float32 [3, {c}] on {x.device}")
+    lib = _kernels("dec")
+    short = stride != 1
+    f32 = dict(dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        dx = torch.empty_like(x)
+        dw2, dw1 = torch.empty(w2.shape, **f32), torch.empty(w1.shape, **f32)
+        dv2 = torch.empty((2, ci), **f32)                # dg2 db2
+        dv1 = torch.empty((6 if short else 2, co), **f32)  # dg1 db1 (dc1b dcsb dgs dbs)
+        dws = torch.empty(ws.shape, **f32) if short else None
+        d1 = [dv1[i] if short else None for i in range(2, 6)]
+        scratch = _scratch(lib.dec_block_bwd_scratch(L, B, ci, co, stride), x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dec_block_bwd(
+            *(_ptr(t) for t in (x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m, st2, st1, sts, g)),
+            L, B, ci, co, stride,
+            *(_ptr(t) for t in (dx, dw2, dv2[0], dv2[1], dw1, d1[0], dv1[0], dv1[1], dws, d1[1],
+                                d1[2], d1[3], scratch)),
+            stream,
+        )
+    _check_launch(err, "dec_block_bwd")
+    launches["dec_block_bwd"] += 1
+    return dx, dw2, dv2[0], dv2[1], dw1, d1[0], dv1[0], dv1[1], dws, d1[1], d1[2], d1[3]
+
+
 # ---------------------------------------------------------------------------
 # Autograd and the block
 # ---------------------------------------------------------------------------
@@ -403,29 +621,50 @@ def _weights_bf16(*ws):
             w.detach().to(torch.bfloat16, memory_format=torch.contiguous_format) for w in ws]
 
 
-def _block_forward(ctx, plain, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m, stride):
-    w1b, w2b, wsb = _weights_bf16(w1, w2, ws)
-    args = (x, w1b, g1, b1, w2b, g2, b2, wsb, gs, bs, m)
+class BlockOps(NamedTuple):
+    """One block kind's operands and versions, each taking (stride, *operands)."""
+
+    weights: tuple   # positions of the conv weights among the operands
+    absent: tuple    # positions of the operands a stride-1 block has none of
+    check: Callable
+    fwd_plain: Callable
+    fwd_cuda: Callable
+    bwd_plain: Callable
+    bwd_cuda: Callable
+
+
+ENC_OPS = BlockOps((1, 4, 7), (7, 8, 9), check_block_inputs,
+                   lambda s, *a: enc_block_fwd_plain(s, s != 1, *a), enc_block_fwd_cuda,
+                   lambda s, *a: enc_block_bwd_plain(s, s != 1, *a), enc_block_bwd_cuda)
+DEC_OPS = BlockOps((1, 4, 8), (5, 8, 9, 10, 11), check_dec_block_inputs,
+                   dec_block_fwd_plain, dec_block_fwd_cuda, dec_block_bwd_plain, dec_block_bwd_cuda)
+
+
+def _block_forward(ctx, plain, kind, args, stride):
+    """args: the kind's operands, conv weights float32; stats are not differentiable."""
+    args = list(args)
+    for i in kind.weights:
+        args[i], = _weights_bf16(args[i])
     if plain:
-        check_block_inputs(stride, *args)
-        out, st1, st2, sts = enc_block_fwd_plain(stride, stride != 1, *args)
+        kind.check(stride, *args)
+        outs = kind.fwd_plain(stride, *args)
     else:
-        out, st1, st2, sts = enc_block_fwd_cuda(stride, *args)
-    ctx.stride = stride
-    ctx.save_for_backward(*args, st1, st2, sts)
-    ctx.mark_non_differentiable(st1, st2, sts)
-    return out, st1, st2, sts
+        outs = kind.fwd_cuda(stride, *args)
+    ctx.stride, ctx.kind = stride, kind
+    ctx.save_for_backward(*args, *outs[1:])
+    ctx.mark_non_differentiable(*outs[1:])
+    return outs
 
 
 def _block_backward(ctx, plain, g):
-    saved = ctx.saved_tensors
+    kind, saved = ctx.kind, ctx.saved_tensors
     g = g.to(torch.bfloat16).contiguous()
     if plain:
-        grads = enc_block_bwd_plain(ctx.stride, ctx.stride != 1, *saved, g)
-        if ctx.stride == 1:  # no shortcut operands came in
-            grads = grads[:7] + (None, None, None)
+        grads = kind.bwd_plain(ctx.stride, *saved, g)
+        if ctx.stride == 1:  # those operands did not come in
+            grads = tuple(None if i in kind.absent else d for i, d in enumerate(grads))
     else:
-        grads = enc_block_bwd_cuda(ctx.stride, *saved, g)
+        grads = kind.bwd_cuda(ctx.stride, *saved, g)
     return (*grads, None, None)
 
 
@@ -439,7 +678,7 @@ class EncBlockFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, *args):
-        return _block_forward(ctx, x.device.type == "cpu", x, *args)
+        return _block_forward(ctx, x.device.type == "cpu", ENC_OPS, (x, *args[:-1]), args[-1])
 
     @staticmethod
     def backward(ctx, g, *_):
@@ -453,7 +692,38 @@ class PlainEncBlockFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, *args):
-        return _block_forward(ctx, True, *args)
+        return _block_forward(ctx, True, ENC_OPS, args[:-1], args[-1])
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        return _block_backward(ctx, True, g)
+
+
+class DecBlockFn(torch.autograd.Function):
+    """Fused BasicBlockDec in training: (x, w2, g2, b2, w1, c1b, g1, b1, ws,
+    csb, gs, bs, mask, stride) -> (out, st2, st1, sts) with the fused
+    backward; weights as EncBlockFn's, ws ``[3, C_in, C_out]``.
+
+    CUDA tensors launch csrc/dec_block.cu; CPU tensors take the plain versions.
+    """
+
+    @staticmethod
+    def forward(ctx, x, *args):
+        return _block_forward(ctx, x.device.type == "cpu", DEC_OPS, (x, *args[:-1]), args[-1])
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        return _block_backward(ctx, g.device.type == "cpu", g)
+
+
+class PlainDecBlockFn(torch.autograd.Function):
+    """DecBlockFn's signature on the plain versions, on any device: the
+    reference chip_smoke.py holds the kernel path against on the card. The
+    port's own path never takes it."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        return _block_forward(ctx, True, DEC_OPS, args[:-1], args[-1])
 
     @staticmethod
     def backward(ctx, g, *_):
@@ -502,3 +772,37 @@ def basic_block_enc_fused(block, x, mask=None):
     """Training-mode fused BasicBlockEnc (pallas_blocks.basic_block_enc_fused):
     x bf16 [L,B,C] -> bf16 [Lo,B,Co]; the BN buffers update in place."""
     return enc_block_apply(EncBlockFn, block, x, mask_column(mask, x.shape[1], x.device))
+
+
+def dec_block_apply(fn, block, x, mask_col):
+    """Run ``fn`` (an autograd Function with DecBlockFn's signature) as the
+    training forward of the port's ``BasicBlockDec`` on x bf16 [Lin,B,C], and
+    update the block's BatchNorm buffers in place: bn2 with the count at the
+    input length, bn1 and the shortcut's at the output length
+    (pallas_blocks.py:768-777). Returns the block output."""
+    stride = block.stride
+    perm = lambda w: w.permute(2, 1, 0)  # noqa: E731  [Co,Ci,K] -> [K,Ci,Co]
+    if stride != 1:
+        conv1, short, bns = block.conv1.conv, block.shortcut[0].conv, block.shortcut[1]
+        w1, c1b, ws, csb = perm(conv1.weight), conv1.bias, perm(short.weight), short.bias
+        gs, bs = bns.weight, bns.bias
+    else:
+        w1, c1b, ws, csb, gs, bs = perm(block.conv1.weight), None, None, None, None, None
+    out, st2, st1, sts = fn.apply(
+        x, perm(block.conv2.weight), block.bn2.weight, block.bn2.bias, w1, c1b,
+        block.bn1.weight, block.bn1.bias, ws, csb, gs, bs, mask_col, stride,
+    )
+    count = mask_col.sum()
+    n1 = count * out.shape[0]
+    _ema(block.bn2, st2, count * x.shape[0])
+    _ema(block.bn1, st1, n1)
+    if stride != 1:
+        _ema(bns, sts, n1)
+    return out
+
+
+def basic_block_dec_fused(block, x, mask=None):
+    """Training-mode fused BasicBlockDec (pallas_blocks.basic_block_dec_fused):
+    x bf16 [Lin,B,C] -> bf16 [stride*Lin,B,C/stride]; the BN buffers update in
+    place."""
+    return dec_block_apply(DecBlockFn, block, x, mask_column(mask, x.shape[1], x.device))

@@ -6,10 +6,14 @@ in place during the forward. The JAX package traces the epoch into one
 program; here it is a Python loop of eager steps. The dataset is
 device-resident and each epoch gathers all its batches at once.
 
-``loss_backend`` keeps the JAX package's names, so ``--loss-backend
-{xla,pallas}`` carries over: ``"xla"`` is ops/losses.py:vae_loss in eager torch
-ops, ``"pallas"`` is the hand-written CUDA kernel of ops/cuda_ops.py (its
-plain version on CPU tensors). Reparameterization noise comes from a
+``loss_backend`` and ``block_backend`` keep the JAX package's names, so
+``--loss-backend {xla,pallas}`` and ``--block-backend {xla,pallas}`` carry
+over. Loss: ``"xla"`` is ops/losses.py:vae_loss in eager torch ops,
+``"pallas"`` the hand-written CUDA kernel of ops/cuda_ops.py. Blocks: ``"xla"``
+runs the backbones' BasicBlocks as torch convolutions and masked BatchNorm,
+``"pallas"`` through the fused block kernels of ops/cuda_blocks.py in training
+steps (eval steps stay on ``"xla"``, as the JAX package's do). Either kernel
+takes its plain version on CPU tensors. Reparameterization noise comes from a
 ``torch.Generator`` on the data's device, or is injected as ``eps``.
 Nothing in a step waits for the host.
 """
@@ -20,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from hippie_tpu_torch.models.backbones import check_backend
 from hippie_tpu_torch.models.cvae import UnimodalCVAE
 from hippie_tpu_torch.ops import cuda_ops, losses
 
@@ -46,7 +51,8 @@ def _select_vae_loss(loss_backend: str):
     raise ValueError(f"loss_backend must be 'xla' or 'pallas', got {loss_backend!r}")
 
 
-def make_unimodal_steps(*, beta: float = 1.0, loss_backend: str = "xla"):
+def make_unimodal_steps(*, beta: float = 1.0, loss_backend: str = "xla",
+                        block_backend: str = "xla"):
     """Build the per-batch (batch_step, eval_step) pair for the unimodal cVAE.
 
     batch_step(ts, bd, bs, bc, bmask, *, eps=None, generator=None) -> (ts, Metrics)
@@ -57,12 +63,14 @@ def make_unimodal_steps(*, beta: float = 1.0, loss_backend: str = "xla"):
     validation_step, still samples the reparameterization.
     """
     vae_loss = _select_vae_loss(loss_backend)
+    check_backend(block_backend)
 
     def batch_step(ts: TrainState, bd, bs, bc, bmask, *, eps=None, generator=None):
         model, opt = ts
         model.train()
         opt.zero_grad(set_to_none=True)
-        enc, mu, logvar, dec = model(bd, bs, bc, eps=eps, generator=generator, mask=bmask)
+        enc, mu, logvar, dec = model(bd, bs, bc, eps=eps, generator=generator, mask=bmask,
+                                     backend=block_backend)
         total, (mse, kl) = vae_loss(bd, dec, mu, logvar, beta=beta, mask=bmask)
         total.backward()
         opt.step()
@@ -83,7 +91,7 @@ def _stack(ms) -> Metrics:
 
 
 def make_unimodal_epoch_fns(*, beta: float = 1.0, use_class_labels: bool = False,
-                            loss_backend: str = "xla"):
+                            loss_backend: str = "xla", block_backend: str = "xla"):
     """Build (train_epoch, eval_epoch) for the unimodal cVAE.
 
     train_epoch(ts, data, source, class_, idx, mask, *, generator=None, eps=None)
@@ -97,7 +105,8 @@ def make_unimodal_epoch_fns(*, beta: float = 1.0, use_class_labels: bool = False
     ``generator``. Loss follows model.py:95-116: mse over elements + beta *
     mean KL.
     """
-    batch_step, eval_step = make_unimodal_steps(beta=beta, loss_backend=loss_backend)
+    batch_step, eval_step = make_unimodal_steps(beta=beta, loss_backend=loss_backend,
+                                                block_backend=block_backend)
 
     def _batches(data, source, class_, idx, mask):
         idx = torch.as_tensor(idx, device=data.device).long()

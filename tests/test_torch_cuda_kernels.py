@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: the fused VAE-loss kernel
-(hippie_tpu_torch/csrc/vae_sums.cu) and the encoder block kernels
-(hippie_tpu_torch/csrc/enc_block.cu).
+(hippie_tpu_torch/csrc/vae_sums.cu) and the encoder and decoder block kernels
+(hippie_tpu_torch/csrc/enc_block.cu, dec_block.cu).
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
 imports neither jax nor hippie_tpu, so it also runs where only the port is
@@ -175,7 +175,7 @@ def test_enc_block_autograd_launches_both_kernels(cuda_device):
     cb.reset_launches()
     out = cb.basic_block_enc_fused(block, x)
     out.float().sum().backward()
-    assert cb.launches == {"enc_block_fwd": 1, "enc_block_bwd": 1}
+    assert cb.launches == {"enc_block_fwd": 1, "enc_block_bwd": 1, "dec_block_fwd": 0, "dec_block_bwd": 0}
     assert out.shape == (13, B, 128) and x.grad.dtype == torch.bfloat16
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in block.parameters())
     assert int(block.bn1.num_batches_tracked) == 1
@@ -194,3 +194,116 @@ def test_enc_block_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         cb.enc_block_fwd_cuda(2, args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
     with pytest.raises(ValueError):  # a stride-1 block with a shortcut
         cb.enc_block_fwd_cuda(1, *args)
+
+
+# ---------------------------------------------------------------------------
+# The decoder block kernels (hippie_tpu_torch/csrc/dec_block.cu). Limits as
+# chip_smoke.py's phase 5d: bf16 outputs and float32 gradients relative
+# Frobenius 1e-2, statistics 1e-4 of their scale, and the conv biases'
+# gradients (rounding noise in exact arithmetic) by dec_bias_grad_tol.
+# ---------------------------------------------------------------------------
+
+DEC_SHAPES = [(1, 4, 512, 512), (2, 4, 512, 256), (1, 8, 256, 256), (2, 8, 256, 128),
+              (1, 16, 128, 128), (2, 16, 128, 64), (1, 32, 64, 64)]  # (stride, L_in, C_in, C_out)
+DEC_GRADS = ("dx", "dw2", "dg2", "db2", "dw1", "dc1b", "dg1", "db1", "dws", "dcsb", "dgs", "dbs")
+
+
+def _dec_inputs(device, stride, L, ci, co, n_real=B, seed=0):
+    r = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
+
+    x = r.normal(size=(L, B, ci))
+    x[:, n_real:] = 1e4
+    bf = torch.bfloat16
+    vec = lambda c: [t(r.uniform(0.5, 1.5, c)), t(0.1 * r.normal(size=c))]  # noqa: E731
+    args = [t(x, bf), t(r.normal(size=(3, ci, ci)) / np.sqrt(3 * ci), bf), *vec(ci),
+            t(r.normal(size=(3, ci, co)) / np.sqrt(3 * ci), bf)]
+    args += [t(0.1 * r.normal(size=co)) if stride != 1 else None, *vec(co)]
+    if stride != 1:
+        args += [t(r.normal(size=(3, ci, co)) / np.sqrt(3 * ci), bf), t(0.1 * r.normal(size=co)), *vec(co)]
+    else:
+        args += [None] * 4
+    args.append(t((np.arange(B) < n_real).reshape(B, 1)))
+    return args, t(r.normal(size=(L * stride, B, co)), bf)
+
+
+def dec_bias_grad_tol(g, gamma, st, dgamma):
+    """A conv bias's gradient before BatchNorm is -gamma * inv * dgamma *
+    sum(m * xh) / n in exact arithmetic (rounding noise of the bf16 xh's
+    mean): 1e-2 * |g| plus 1e-3 of |gamma * inv * dgamma|."""
+    return float(1e-2 * g.double().norm() + 1e-3 * (gamma * st[2] * dgamma).double().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DEC_SHAPES, ids=lambda s: "s{}-L{}-{}-{}".format(*s))
+def test_dec_block_kernels_match_plain(cuda_device, shape):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    stride = shape[0]
+    args, g = _dec_inputs(cuda_device, *shape, n_real=415)
+    got = cb.dec_block_fwd_cuda(stride, *args)
+    ref = cb.dec_block_fwd_plain(stride, *args)
+    assert torch.isfinite(got[0]).all()
+    assert _rel(got[0][:, :415], ref[0][:, :415]) < 1e-2
+    for a, b in zip(got[1:], ref[1:]):
+        scale = torch.stack([b[0].abs() + b[1].sqrt(), b[1].abs(), b[2].abs()])
+        assert ((a - b).abs() <= 1e-4 * scale).all()
+    dgot = cb.dec_block_bwd_cuda(stride, *args, *got[1:], g)
+    dref = cb.dec_block_bwd_plain(stride, *args, *got[1:], g)
+    tol = {"dc1b": (args[6], got[2], dref[6]), "dcsb": (args[10], got[3], dref[10])}
+    for name, a, b in zip(DEC_GRADS, dgot, dref):
+        if a is None:
+            assert stride == 1 and not b.any(), name
+        elif name in tol:
+            assert float((a - b).double().norm()) <= dec_bias_grad_tol(g, *tol[name]), name
+        else:
+            assert torch.isfinite(a).all() and _rel(a, b) < 1e-2, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dec_block_kernels_repeat_bit_for_bit(cuda_device, stride):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, g = _dec_inputs(cuda_device, stride, 8, 256, 256 // stride, n_real=300, seed=1)
+    fwd = [cb.dec_block_fwd_cuda(stride, *args) for _ in range(3)]
+    bwd = [cb.dec_block_bwd_cuda(stride, *args, *fwd[0][1:], g) for _ in range(3)]
+    for runs in (fwd, bwd):
+        assert all(a is None or torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+
+
+@pytest.mark.cuda
+def test_dec_block_autograd_launches_both_kernels(cuda_device):
+    from hippie_tpu_torch.models.backbones import BasicBlockDec
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    torch.manual_seed(0)
+    block = BasicBlockDec(128, 2).to(cuda_device).train()
+    x = torch.randn(8, B, 128, device=cuda_device).to(torch.bfloat16).requires_grad_(True)
+    cb.reset_launches()
+    out = cb.basic_block_dec_fused(block, x)
+    out.float().sum().backward()
+    assert cb.launches == {"enc_block_fwd": 0, "enc_block_bwd": 0, "dec_block_fwd": 1, "dec_block_bwd": 1}
+    assert out.shape == (16, B, 64) and x.grad.dtype == torch.bfloat16
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in block.parameters())
+    assert int(block.bn2.num_batches_tracked) == 1 == int(block.shortcut[1].num_batches_tracked)
+
+
+@pytest.mark.cuda
+def test_dec_block_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, g = _dec_inputs(cuda_device, 2, 8, 256, 128)
+    with pytest.raises(TypeError):  # float32 activations
+        cb.dec_block_fwd_cuda(2, args[0].float(), *args[1:])
+    with pytest.raises(ValueError):  # a conv weight of the wrong shape
+        cb.dec_block_fwd_cuda(2, args[0], args[1], args[2], args[3], args[4][:, :64], *args[5:])
+    with pytest.raises(ValueError):  # an operand on the host
+        cb.dec_block_fwd_cuda(2, *args[:12], args[12].cpu())
+    with pytest.raises(ValueError):  # channels the tiles do not take
+        cb.dec_block_fwd_cuda(2, *_dec_inputs(cuda_device, 2, 8, 96, 48)[0])
+    with pytest.raises(ValueError):  # a stride-1 block with a shortcut
+        cb.dec_block_fwd_cuda(1, *args)
