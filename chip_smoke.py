@@ -6,19 +6,23 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from hippie_tpu_torch/csrc/, holds
-the fused VAE-loss kernel against its plain PyTorch version at the train
-step's shapes, and trains the full-width waveform cVAE (z=10, ResNet18
-encoder and decoder, 8,056,639 parameters) for one epoch on the
-cellexplorer-celltype pretraining pool from datasets/ twice from the same
+the fused VAE-loss and masked-SSE kernels against their plain PyTorch
+versions at the train steps' shapes, and trains the full-width waveform cVAE
+(z=10, ResNet18 encoder and decoder, 8,056,639 parameters) for one epoch on
+the cellexplorer-celltype pretraining pool from datasets/ twice from the same
 weights: with the loss kernel and cuDNN blocks (block_backend="xla"), then
 with the loss kernel and every BasicBlock of both backbones on the fused
 block kernels (block_backend="pallas"), checking that each epoch went
 through exactly the kernels it should. It checks one step of each against
 the same step on the plain versions, holds the encoder and the decoder block
-kernels against their plain versions at the full-width blocks' shapes, runs
-the trained encoder's and decoder's training passes through them
-(backend="pallas") against the plain blocks and float32, embeds the target
-dataset, and times the train step with both block backends and each kernel.
+kernels against their plain versions at the full-width blocks' shapes (and
+the encoder's at the ISI encoder's), runs the trained encoder's and
+decoder's training passes through them (backend="pallas") against the plain
+blocks and float32, and embeds the target dataset. Then the same for the
+joint wave + ISI cVAE (16,115,748 parameters, four backbones, both loss
+kernels): a stage-1 epoch with each block backend, one step against the
+plain versions, the joint embeddings. Last it times the train steps with
+both block backends and each kernel.
 
 Every phase prints one line. The second-to-last line is the ``kernels`` JSON
 record, the last the device record. Exits non-zero, printing neither, when no
@@ -43,8 +47,11 @@ REPO = pathlib.Path(__file__).resolve().parent
 DATA_ROOT = str(REPO / "datasets")
 TARGET = "cellexplorer-celltype"
 B, L, Z = 512, 50, 10  # the train step's batch, waveform length, latent width
+L_ISI = 100  # the ISI histogram's length
 LR, WD = 1e-3, 0.01  # stage-1 AdamW (the JAX pipeline's defaults)
+CLIP = 1.0  # the joint pipeline always clips the gradients' global norm (quirk Q7)
 FULL_PARAMS = 8_056_639
+FULL_MM_PARAMS = 16_115_748
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores, bf16 dense tensor-core FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
@@ -68,13 +75,45 @@ class Backbone(NamedTuple):
     grads: tuple     # the backward's outputs
     bias_grads: dict  # conv-bias gradient -> positions of (gamma in the operands,
     #                   its statistics in the forward's outputs, dgamma in the grads)
+    label: str       # phase_blocks' line tag
 
 
 ENC = Backbone("enc", ENC_BLOCKS, "hippie_tpu_torch/csrc/enc_block.cu", ("568", "600"),
-               ("dx", "dw1", "dg1", "db1", "dw2", "dg2", "db2", "dws", "dgs", "dbs"), {})
+               ("dx", "dw1", "dg1", "db1", "dw2", "dg2", "db2", "dws", "dgs", "dbs"), {},
+               "5b enc blocks")
 DEC = Backbone("dec", DEC_BLOCKS, "hippie_tpu_torch/csrc/dec_block.cu", ("638", "669"),
                ("dx", "dw2", "dg2", "db2", "dw1", "dc1b", "dg1", "db1", "dws", "dcsb", "dgs", "dbs"),
-               {"dc1b": (6, 2, 6), "dcsb": (10, 3, 10)})
+               {"dc1b": (6, 2, 6), "dcsb": (10, 3, 10)}, "5d dec blocks")
+
+
+def encoder_blocks(encoder, length: int) -> tuple:
+    """(stride, L_in, C_in, C_out) of each BasicBlock of a ResNet18Enc on an
+    input of ``length``, read from its modules (the stem halves the length)."""
+    out, n = [], (length - 1) // 2 + 1
+    for block in (b for layer in (encoder.layer1, encoder.layer2, encoder.layer3, encoder.layer4)
+                  for b in layer):
+        co, ci = block.conv1.weight.shape[:2]
+        out.append((block.stride, n, ci, co))
+        n = n if block.stride == 1 else (n - 1) // 2 + 1
+    return tuple(out)
+
+
+ISI_LABEL = "5f ISI enc blocks"
+
+
+def isi_backbone() -> Backbone:
+    """The encoder's block kernels at the joint model's ISI encoder's blocks
+    (input length 100), read from the model; its waveform encoder's blocks
+    are ENC_BLOCKS."""
+    import torch
+
+    from hippie_tpu_torch.models import cvae
+
+    with torch.device("meta"):
+        model = cvae.MultiModalCVAE(joint_config())
+    wave = encoder_blocks(model.encoder_mod1, L)
+    check(wave == ENC_BLOCKS, f"the waveform encoder's blocks {wave}, expected {ENC_BLOCKS}")
+    return ENC._replace(blocks=encoder_blocks(model.encoder_mod2, L_ISI), label=ISI_LABEL)
 
 
 class PhaseError(RuntimeError):
@@ -108,6 +147,31 @@ def loss_inputs(n_real: int, pad=None, seed: int = 0, device="cuda"):
         mu[n_real:] = pad * sign
         logvar[n_real:] = pad * sign
     return tuple(torch.from_numpy(x).to(device) for x in (data, dec, mu, logvar, mask))
+
+
+def sse_inputs(n_real: int, pad=None, seed: int = 0, device="cuda"):
+    """(data, dec, mask_col) at the joint step's second modality, [B, 100];
+    the rows past ``n_real`` are padding, with dec at +-``pad`` there (+-inf
+    when ``pad`` is inf)."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    data = r.normal(size=(B, L_ISI)).astype(np.float32)
+    dec = r.normal(size=(B, L_ISI)).astype(np.float32)
+    if pad is not None:
+        sign = np.where(np.arange(B - n_real) % 2 == 0, 1.0, -1.0).astype(np.float32)[:, None]
+        dec[n_real:] = pad * sign
+    mask = (np.arange(B) < n_real).astype(np.float32).reshape(B, 1)
+    return tuple(torch.from_numpy(x).to(device) for x in (data, dec, mask))
+
+
+def masked_sse_bound(b: int, l: int):
+    """Least time (ms) of the masked-SSE forward: data and dec [b, l] and the
+    mask read once, one float written, against its 4 float32 operations per
+    element (sub, square, mask, add)."""
+    t_bytes = 4 * (2 * b * l + b + 1) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 4 * b * l / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def vae_sums_bounds(b: int, l: int, z: int):
@@ -337,15 +401,16 @@ def phase_build():
 
 
 def phase_kernel_vs_plain(device="cuda"):
-    """The kernel against its plain version: values rtol 4e-6, gradients
-    rtol 1e-5 / atol 1e-7; repeat runs equal bit for bit.
+    """The loss kernels against their plain versions: values rtol 4e-6,
+    gradients rtol 1e-5 / atol 1e-7; repeat runs equal bit for bit.
 
     The values are sums of B*L = 25,600 and B*z = 5,120 nonnegative float32
     terms, summed in a different order by the kernel (per-thread strides, then
     warp and block trees) and by torch. Each order's error is bounded by about
     (log2(25,600) + 1) * 2^-24 = 9.5e-7 of the sum, so the two differ by at
-    most 1.9e-6; rtol 4e-6 leaves a factor 2. The gradients are elementwise
-    (test_pallas.py's rtol 1e-5).
+    most 1.9e-6; rtol 4e-6 leaves a factor 2 (the masked SSE's 51,200 terms:
+    1.0e-6 and 2.0e-6). The gradients are elementwise (test_pallas.py's rtol
+    1e-5).
     """
     import torch
 
@@ -379,7 +444,44 @@ def phase_kernel_vs_plain(device="cuda"):
               f"(kernel vs float64 rel {rel64:.3g}), grads |kernel - plain| {bwd_err:.3g}")
     print(f"[3 kernel vs plain] vae_sums_fwd and vae_sums_bwd agree with the plain version on "
           f"{len(cases)} cases at B={B} L={L} z={Z}")
+    err["masked_sse_fwd"] = masked_sse_vs_plain(device)
     return err
+
+
+def masked_sse_vs_plain(device="cuda") -> float:
+    """masked_sse_fwd against masked_sse_plain at [B, 100] (phase 3's limits),
+    on the full batch and on a 415-row tail whose padded rows hold +-1e4 or
+    inf; repeats bit-equal; the autograd backward (fused_masked_sse) against
+    autograd through the plain version. Returns the largest |kernel - plain|."""
+    import torch
+
+    from hippie_tpu_torch.ops import cuda_ops
+
+    worst = 0.0
+    cases = {"full": (B, None), "tail_415_pad_1e4": (415, 1e4), "tail_415_pad_inf": (415, np.inf)}
+    for case, (n_real, pad) in cases.items():
+        data, dec, m = sse_inputs(n_real, pad, device=device)
+        got = cuda_ops.masked_sse_fwd_cuda(data, dec, m)
+        ref = cuda_ops.masked_sse_plain(data, dec, m)
+        check(bool(torch.isfinite(got)), f"masked_sse {case}: kernel sum not finite: {got}")
+        torch.testing.assert_close(got, ref, rtol=4e-6, atol=0)
+        runs = [cuda_ops.masked_sse_fwd_cuda(data, dec, m) for _ in range(3)]
+        check(all(torch.equal(r, got) for r in runs), f"masked_sse {case}: repeat runs differ")
+        g = 1.0 / (n_real * L_ISI)
+        leaves = [t.clone().requires_grad_(True) for t in (data, dec)]
+        (g * cuda_ops.fused_masked_sse(*leaves, m)).backward()
+        ref_leaves = [t.clone().requires_grad_(True) for t in (data, dec)]
+        (g * cuda_ops.masked_sse_plain(*ref_leaves, m)).backward()
+        for name, a, b in zip(("ddata", "ddec"), leaves, ref_leaves):
+            check(bool(torch.isfinite(a.grad).all()), f"masked_sse {case}: {name} not finite")
+            torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-7,
+                                       msg=lambda msg: f"masked_sse {case} {name}: {msg}")
+        diff = float((got - ref).abs())
+        worst = max(worst, diff)
+        print(f"  masked_sse {case}: sum {float(got):.6f} |kernel - plain| {diff:.3g}")
+    print(f"[3 kernel vs plain] masked_sse_fwd agrees with the plain version on {len(cases)} cases "
+          f"at B={B} L={L_ISI}, repeats bit-equal, autograd gradients as the plain version's")
+    return worst
 
 
 def full_config():
@@ -433,7 +535,8 @@ def phase_slice(cfg, block_backend: str = "xla", pool=None, batch_size: int = B,
     check(int(mask[-1].sum()) == len(pool) - (nb - 1) * batch_size, "tail mask is wrong")
     if device != "cpu":
         per_step = sum(cfg.num_blocks) if block_backend == "pallas" else 0  # blocks per backbone
-        want = {k: (nb if k.startswith("vae_sums") else per_step * nb) for k in launches}
+        want = {k: (nb if k.startswith("vae_sums") else 0 if k == "masked_sse_fwd" else per_step * nb)
+                for k in launches}
         check(launches == want, f"kernel launches {launches}, expected {want}")
     tag = "[4 slice]" if block_backend == "xla" else f"[4b slice, block_backend={block_backend}]"
     print(f"{tag} pool {len(pool)} rows loaded and preprocessed in {load_s:.2f} s; "
@@ -454,17 +557,50 @@ def last_batch(model, pool, idx, mask, device="cuda"):
     return pool.wave[bi], pool.source[bi], torch.as_tensor(mask[i], device=device), eps
 
 
+@contextlib.contextmanager
+def plain_losses():
+    """Within it, loss_backend="pallas" computes its sums with the loss
+    kernels' plain versions under autograd: the card's reference for the loss
+    kernels along the same path."""
+    from hippie_tpu_torch.ops import cuda_ops as co
+
+    saved = co.fused_vae_sums, co.fused_masked_sse
+    co.fused_vae_sums = lambda *a: tuple(co.vae_sums_plain(*a).unbind(0))
+    co.fused_masked_sse = co.masked_sse_plain
+    try:
+        yield
+    finally:
+        co.fused_vae_sums, co.fused_masked_sse = saved
+
+
 def phase_step_parity(model, pool, idx, mask, device="cuda"):
+    """One unimodal step against the same step on the plain versions
+    (step_parity), on the epoch's last pool batch (the masked tail)."""
+    from hippie_tpu_torch.train import step
+
+    bd, bs, bmask, eps = last_batch(model, pool, idx, mask, device)
+
+    def run(block_backend, ts, scale):
+        batch_step, _ = step.make_unimodal_steps(beta=1.0, loss_backend="pallas",
+                                                 block_backend=block_backend)
+        return batch_step(ts, bd * scale, bs, None, bmask, eps=eps)[1].loss
+
+    step_parity(model, run, "5 step parity", {"vae_sums_fwd": 1, "vae_sums_bwd": 1, "masked_sse_fwd": 0,
+                                              "enc_block_fwd": 8, "enc_block_bwd": 8,
+                                              "dec_block_fwd": 8, "dec_block_bwd": 8})
+
+
+def step_parity(model, run, label: str, block_launches: dict, clip_val=None):
     """One step with loss_backend="pallas" against the same step through the
-    kernel's plain version (autograd through vae_sums_plain), from the same
-    weights, batch (the masked tail) and injected noise, convolutions in full
-    float32 and cuDNN deterministic. Loss rtol 1e-5. Parameters: AdamW's first
-    update is about lr * sign(g), so an element whose gradient is at rounding
-    level may move either way; where |g| > 1e-4 in both steps the new values
-    agree to 1e-6 (lr / 1000), everywhere to 2 * lr.
+    loss kernels' plain versions (plain_losses), from the same weights, batch
+    and injected noise, convolutions in full float32 and cuDNN deterministic.
+    Loss rtol 1e-5. Parameters: AdamW's first update is about lr * sign(g),
+    so an element whose gradient is at rounding level may move either way;
+    where |g| > 1e-4 in both steps the new values agree to 1e-6 (lr / 1000),
+    everywhere to 2 * lr.
 
     Then one step with block_backend="pallas" as well, against the same step
-    with every block on the plain versions (plain_blocks). Both backbones
+    with every block on the plain versions (plain_blocks). The backbones
     chain bf16 blocks, whose gradients are chaotic (a one-ulp flip moves the
     next block's statistics; a value at LeakyReLU's kink turns its gradient
     from 1 to 0.01), so, as phase 5c, the kernel step is held to the plain
@@ -472,82 +608,64 @@ def phase_step_parity(model, pool, idx, mask, device="cuda"):
     by 1 + 1e-6, measured here: the whole gradient within twice that spread
     (and 1e-2 at least), its cosine's distance from 1 within twice the
     spread's (and 1e-4 at least). Loss rtol 1e-2 and BN buffers 1e-2 (the
-    CPU test's limits against the JAX fused step), parameters within 2 * lr."""
+    CPU test's limits against the JAX fused step), parameters within 2 * lr.
+
+    ``run(block_backend, ts, scale)`` makes one train step of ``ts`` with its
+    data scaled by ``scale`` and returns the loss."""
     import torch
 
     from hippie_tpu_torch.nn.functional import full_fp32
-    from hippie_tpu_torch.ops import cuda_ops
     from hippie_tpu_torch.train import optim, step
 
-    bd, bs, bmask, eps = last_batch(model, pool, idx, mask, device)
-
-    def plain_step(ts):
-        m, opt = ts
-        m.train()
-        opt.zero_grad(set_to_none=True)
-        _, mu, logvar, dec = m(bd, bs, None, eps=eps, mask=bmask)
-        mask_col = bmask.reshape(-1, 1)
-        n = mask_col.sum()
-        sse, kl = cuda_ops.vae_sums_plain(bd, dec, mu, logvar, mask_col).unbind(0)
-        total = sse / (n * bd.shape[1]) + kl / n
-        total.backward()
-        opt.step()
-        return float(total.detach())
-
-    def blocks_step(ts, plain, scale=1.0):
-        batch_step, _ = step.make_unimodal_steps(beta=1.0, loss_backend="pallas", block_backend="pallas")
-        with plain_blocks() if plain else contextlib.nullcontext():
-            _, metrics = batch_step(ts, bd * scale, bs, None, bmask, eps=eps)
-        return float(metrics.loss)
-
-    batch_step, _ = step.make_unimodal_steps(beta=1.0, loss_backend="pallas")
-    runs = {"kernel": lambda ts: float(batch_step(ts, bd, bs, None, bmask, eps=eps)[1].loss),
-            "plain": plain_step,
-            "blocks_kernel": lambda ts: blocks_step(ts, False),
-            "blocks_plain": lambda ts: blocks_step(ts, True),
-            "blocks_plain_eps": lambda ts: blocks_step(ts, True, 1 + 1e-6)}
+    nullctx = contextlib.nullcontext
+    runs = {"kernel": ("xla", nullctx, nullctx, 1.0),
+            "plain": ("xla", plain_losses, nullctx, 1.0),
+            "blocks_kernel": ("pallas", nullctx, nullctx, 1.0),
+            "blocks_plain": ("pallas", nullctx, plain_blocks, 1.0),
+            "blocks_plain_eps": ("pallas", nullctx, plain_blocks, 1 + 1e-6)}
     out = {}
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         with full_fp32():
-            for name, run in runs.items():
+            for name, (block_backend, losses_ctx, blocks_ctx, scale) in runs.items():
                 m = copy.deepcopy(model)
+                ts = step.TrainState(m, optim.make_optimizer(m.parameters(), LR, WD, clip_val=clip_val))
                 reset_all_launches()
-                loss = run(step.TrainState(m, optim.make_optimizer(m.parameters(), LR, WD)))
+                with losses_ctx(), blocks_ctx():
+                    loss = float(run(block_backend, ts, scale))
                 out[name] = (loss, m, all_launches())
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
-    (lk, mk, _), (lp, mp, _) = out["kernel"], out["plain"]
+    (lk, mk, _), (lp, mp, launched) = out["kernel"], out["plain"]
+    check(all(v == 0 for v in launched.values()), f"the plain step launched {launched}")
     check(np.isfinite([lk, lp]).all(), f"non-finite loss: {lk} {lp}")
     check(abs(lk - lp) <= 1e-5 * abs(lp), f"loss {lk} vs plain {lp}")
     worst, n_loose, n_total = 0.0, 0, 0
     for (name, pk), pp in zip(mk.named_parameters(), mp.parameters()):
         d = (pk - pp).detach().abs()
         check(float(d.max()) <= 2 * LR * (1 + 1e-3), f"{name}: moved {float(d.max())} apart")
-        if pk.grad is not None:
-            decisive = (pk.grad.abs() > 1e-4) & (pp.grad.abs() > 1e-4)
-            if bool(decisive.any()):
-                worst = max(worst, float(d[decisive].max()))
-            n_loose += int((d > 1e-6).sum())
+        decisive = (pk.grad.abs() > 1e-4) & (pp.grad.abs() > 1e-4)
+        if bool(decisive.any()):
+            worst = max(worst, float(d[decisive].max()))
+        n_loose += int((d > 1e-6).sum())
         n_total += d.numel()
     check(worst <= 1e-6, f"parameters with decisive gradients differ by {worst}")
     for (name, bk), bp in zip(mk.named_buffers(), mp.buffers()):
         check(torch.allclose(bk.double(), bp.double(), rtol=1e-5, atol=1e-6), f"{name} differs")
-    print(f"[5 step parity] loss kernel {lk:.8f} plain {lp:.8f} (rel {abs(lk - lp) / abs(lp):.3g}); "
+    print(f"[{label}] loss kernel {lk:.8f} plain {lp:.8f} (rel {abs(lk - lp) / abs(lp):.3g}); "
           f"decisive params max |diff| {worst:.3g}; {n_loose} of {n_total} elements differ by "
           f"more than 1e-6 (all within 2 * lr)")
 
     # block_backend="pallas": the block kernels against the plain blocks
-    check(out["blocks_kernel"][2] == {"vae_sums_fwd": 1, "vae_sums_bwd": 1, "enc_block_fwd": 8,
-                                      "enc_block_bwd": 8, "dec_block_fwd": 8, "dec_block_bwd": 8},
-          f"the block_backend=pallas step launched {out['blocks_kernel'][2]}")
+    check(out["blocks_kernel"][2] == block_launches,
+          f"the block_backend=pallas step launched {out['blocks_kernel'][2]}, expected {block_launches}")
     check(all(v == 0 for k, v in out["blocks_plain"][2].items() if "block" in k),
           "the plain-blocks step launched a block kernel")
 
     def grads(m):
-        return torch.cat([p.grad.double().ravel() for p in m.parameters() if p.grad is not None])
+        return torch.cat([p.grad.double().ravel() for p in m.parameters()])
 
     def compare(a, b):
         (la, ma, _), (lb, mb, _) = out[a], out[b]
@@ -558,7 +676,8 @@ def phase_step_parity(model, pool, idx, mask, device="cuda"):
                 "cos": float(ga @ gb / (ga.norm() * gb.norm())), "buffers": bufs, "moved": moved}
 
     got, own = compare("blocks_kernel", "blocks_plain"), compare("blocks_plain_eps", "blocks_plain")
-    print(f"  block_backend=pallas (8 + 8 block launches each way): loss kernel "
+    n_fwd = sum(v for k, v in block_launches.items() if k.endswith("block_fwd"))
+    print(f"  block_backend=pallas ({n_fwd} block launches each way): loss kernel "
           f"{out['blocks_kernel'][0]:.8f} plain {out['blocks_plain'][0]:.8f}; kernel vs plain: "
           + ", ".join(f"{k} {v:.3g}" for k, v in got.items()) + "; plain(x * (1 + 1e-6)) vs plain: "
           + ", ".join(f"{k} {v:.3g}" for k, v in own.items()))
@@ -582,8 +701,8 @@ def stats_err(a, b) -> float:
 
 
 def phase_blocks(bb: Backbone, card: str):
-    """A backbone's block kernels against their plain versions at the 7
-    full-width block shapes, B=512: a full batch, and a 415-row tail whose
+    """A backbone's block kernels against their plain versions at the
+    full-width backbone's distinct block shapes, B=512: a full batch, and a 415-row tail whose
     padded rows of x hold +-1e4. The cotangent is nonzero on every row, so
     BatchNorm's backward sums over all entries are held too; both backwards
     get the kernel forward's statistics. Then each kernel's time per call
@@ -661,8 +780,7 @@ def phase_blocks(bb: Backbone, card: str):
                 err[fwd] = max(err[fwd], float((got[0].float() - ref[0].float()).abs().max()))
                 err[bwd] = max(err[bwd], float((dgot[0].float() - dref[0].float()).abs().max()))
             print(f"  {tag}: " + " ".join(f"{k} {v:.2e}" for k, v in rels.items()) + f" stats {st:.2e}")
-    label = "5b enc blocks" if bb.kind == "enc" else "5d dec blocks"
-    print(f"[{label}] {fwd} and {bwd} agree with the plain version at {len(shapes)} shapes x 2 cases, "
+    print(f"[{bb.label}] {fwd} and {bwd} agree with the plain version at {len(shapes)} shapes x 2 cases, "
           f"B={B}; worst " + " ".join(f"{k} {v:.2e}" for k, v in worst.items()) + "; repeat runs bit-equal")
 
     per_shape = {}
@@ -686,7 +804,7 @@ def phase_blocks(bb: Backbone, card: str):
 
 def block_records(bb: Backbone, per_shape: dict, errs: dict, launches: dict, card: str):
     """The kernels-line records of a backbone's two block kernels: times and
-    bounds summed over the full-width backbone's 8 blocks."""
+    bounds summed over the full-width backbone's blocks."""
     kernels = []
     for d, line in zip(("fwd", "bwd"), bb.lines):
         name = f"{bb.kind}_block_{d}"
@@ -694,7 +812,7 @@ def block_records(bb: Backbone, per_shape: dict, errs: dict, launches: dict, car
         tot = [sum(r[k] for r in rows) for k in range(4)]
         by_ops = sum(r[2] for r in rows if r[4] == "operations")
         bound_by = "operations" if by_ops >= tot[2] / 2 else "bytes"
-        print(f"  {name} over the 8 blocks: kernel {tot[0]:.4f} ms ({tot[3]:.4f} ms device), "
+        print(f"  {name} over the {len(bb.blocks)} blocks ({bb.label}): kernel {tot[0]:.4f} ms ({tot[3]:.4f} ms device), "
               f"plain {tot[1]:.4f} ms, bound {tot[2]:.4f} ms ({by_ops:.4f} ms of it by operations) "
               f"on {card}")
         kernels.append({
@@ -838,19 +956,22 @@ def phase_pass(bb: Backbone, model, pool, idx, mask, card: str):
               f"(idle share {1 - dev_us / 1e3 / ms:.3f}), {n_dev:.0f} device kernels and copies per pass")
 
 
-def phase_embed(model, device="cuda"):
+def phase_embed(model, joint: bool = False, device="cuda"):
     """Eval-mode embeddings of the target: [392, z], finite, each row z-scored;
     agree with the same model in float64 on the host to atol 1e-4 (the embed
-    path runs without TF32), on the first 64 rows."""
+    path runs without TF32), on the first 64 rows. ``joint``: the joint
+    model's embed_multimodal of (wave, isi), else embed_unimodal of wave."""
     import torch
 
-    from hippie_tpu_torch.evaluate.embeddings import embed_unimodal
+    from hippie_tpu_torch.evaluate.embeddings import embed_multimodal, embed_unimodal
     from hippie_tpu_torch.train import pipeline
 
     pcfg = pipeline.PipelineConfig(dataset=TARGET, data_root=DATA_ROOT, verbose=False, device=device)
     target = pipeline.load_dataset(pcfg, TARGET)
+    embed = embed_multimodal if joint else embed_unimodal
+    data = (target.wave, target.isi) if joint else (target.wave,)
     t0 = time.perf_counter()
-    emb = embed_unimodal(model, target.wave, target.source)
+    emb = embed(model, *data, target.source)
     emb_host = emb.cpu()
     embed_s = time.perf_counter() - t0
     z = model.z_mean.out_features
@@ -861,12 +982,88 @@ def phase_embed(model, device="cuda"):
     check(row_mean < 1e-5 and row_std < 1e-4, f"rows not z-scored: mean {row_mean}, std-1 {row_std}")
     # eval mode: rows are independent, so 64 of them make the host reference
     ref_model = copy.deepcopy(model).to("cpu", torch.float64)
-    ref = embed_unimodal(ref_model, target.wave[:64].cpu().double(), target.source[:64].cpu())
+    ref = embed(ref_model, *(x[:64].cpu().double() for x in data), target.source[:64].cpu())
     diff = float((emb_host[:64].double() - ref).abs().max())
     check(diff <= 1e-4, f"embeddings differ from the float64 host model by {diff}")
-    print(f"[6 embed] {TARGET}: {tuple(emb.shape)} in {embed_s * 1e3:.1f} ms, "
-          f"max |row mean| {row_mean:.2g}, max |row std - 1| {row_std:.2g}, "
+    print(f"[{'8c joint embed' if joint else '6 embed'}] {TARGET}: {tuple(emb.shape)} in "
+          f"{embed_s * 1e3:.1f} ms, max |row mean| {row_mean:.2g}, max |row std - 1| {row_std:.2g}, "
           f"max |card - float64 host| {diff:.3g}")
+
+
+def joint_config():
+    from hippie_tpu_torch.data import registry
+    from hippie_tpu_torch.models import cvae
+
+    return cvae.MultiModalConfig(z_dim=Z, output_size_wave=L, output_size_isi=L_ISI, class_hidden_dim=5,
+                                 num_sources=registry.NUM_SOURCES, num_classes=5, num_blocks=(2, 2, 2, 2))
+
+
+def phase_joint(pool, block_backend: str, device="cuda"):
+    """Stage 1 of the joint pipeline for one epoch: the full-width joint cVAE
+    (16,115,748 parameters) over the pool's waveforms and ISI histograms,
+    B=512, AdamW with the global-norm clip at 1.0, loss_backend="pallas" (the
+    loss kernel for the waveforms and the KL, the masked-SSE kernel for the
+    ISI), no class labels, from the seeded initial weights, plan and noise
+    (the same in every call). With block_backend="pallas" all 32 BasicBlocks
+    of the four backbones run on the block kernels. Returns the state, the
+    plan, this epoch's launch counts and its losses."""
+    import torch
+
+    from hippie_tpu_torch.data import device_data
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import optim, step
+
+    cfg = joint_config()
+    check(tuple(pool.isi.shape) == (2975, L_ISI), f"pool ISI {tuple(pool.isi.shape)}, expected (2975, {L_ISI})")
+    model = cvae.multimodal_cvae_init(cfg, torch.Generator().manual_seed(0), device=device)
+    n_params = cvae.param_count(model)
+    check(n_params == FULL_MM_PARAMS, f"{n_params} parameters, expected {FULL_MM_PARAMS}")
+    ts = step.TrainState(model, optim.make_optimizer(model.parameters(), LR, WD, clip_val=CLIP))
+    idx, mask = device_data.batch_plan(np.arange(len(pool)), B, shuffle=True,
+                                       generator=torch.Generator().manual_seed(1))
+    train_epoch, _ = step.make_multimodal_epoch_fns(beta=1.0, loss_backend="pallas",
+                                                    block_backend=block_backend)
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    ts, metrics = train_epoch(ts, pool.wave, pool.isi, pool.source, None, idx, mask, generator=gen)
+    losses = metrics.loss.tolist()
+    epoch_s = time.perf_counter() - t0
+    launches = all_launches()
+
+    nb = idx.shape[0]
+    check(all(np.isfinite(losses)) and bool(torch.isfinite(metrics.mse).all()),
+          f"non-finite loss in the joint epoch: {losses}")
+    if device != "cpu":
+        per_step = 2 * sum(cfg.num_blocks) if block_backend == "pallas" else 0  # blocks per kind
+        want = {k: (per_step * nb if k.endswith(("block_fwd", "block_bwd")) else nb) for k in launches}
+        check(launches == want, f"joint kernel launches {launches}, expected {want}")
+    print(f"[8 joint, block_backend={block_backend}] {n_params:,} params; {nb} steps at B={B} "
+          f"(tail {int(mask[-1].sum())} real rows), clip {CLIP}, in {epoch_s:.2f} s with the first call's "
+          f"set-up; losses {[round(x, 5) for x in losses]}; launches {launches}")
+    return ts, idx, mask, launches, losses
+
+
+def phase_joint_step_parity(model, pool, idx, mask, device="cuda"):
+    """One joint step against the same step on the plain versions
+    (step_parity, clip 1.0), on the epoch's last pool batch (the masked tail)."""
+    import torch
+
+    from hippie_tpu_torch.train import step
+
+    bi = torch.as_tensor(idx[-1], device=device).long()
+    _, bs, bmask, eps = last_batch(model, pool, idx, mask, device)
+    b1, b2 = pool.wave[bi], pool.isi[bi]
+
+    def run(block_backend, ts, scale):
+        batch_step, _ = step.make_multimodal_steps(beta=1.0, loss_backend="pallas",
+                                                   block_backend=block_backend)
+        return batch_step(ts, b1 * scale, b2 * scale, bs, None, bmask, eps=eps)[1].loss
+
+    step_parity(model, run, "8b joint step parity",
+                {"vae_sums_fwd": 1, "vae_sums_bwd": 1, "masked_sse_fwd": 1, "enc_block_fwd": 16,
+                 "enc_block_bwd": 16, "dec_block_fwd": 16, "dec_block_bwd": 16}, clip_val=CLIP)
 
 
 def profile_epoch(run_epoch, steps: int, ms_step: float, label: str):
@@ -894,62 +1091,86 @@ def profile_epoch(run_epoch, steps: int, ms_step: float, label: str):
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {us / 1e3 / steps:8.3f} ms/step {count / steps:6.1f}/step  {key[:90]}")
     for us, count, key in rows:
-        if "vae_sums" in key:
+        if "vae_sums" in key or "masked_sse" in key:
             print(f"    kernel {key}: {us / count:.2f} us device time per launch")
 
 
-def phase_timings(ts, pool, idx, mask, card: str, errs: dict, launches: dict):
-    """ms/step of the train step with each block backend, in turns (xla,
-    pallas, pallas, xla; 3 epochs each, host clock around synchronised
-    epochs), then one profiled epoch of each; then the loss kernel against
-    its plain version."""
+def time_epochs(run_epoch, nb: int, label: str, card: str):
+    """ms/step of ``run_epoch(block_backend)`` with each block backend, in
+    turns (xla, pallas, pallas, xla; 3 epochs each, host clock around
+    synchronised epochs), then one profiled epoch of each."""
     import torch
 
-    from hippie_tpu_torch.ops import cuda_ops
-    from hippie_tpu_torch.train import step
-
-    epoch_fns = {bb: step.make_unimodal_epoch_fns(beta=1.0, loss_backend="pallas", block_backend=bb)[0]
-                 for bb in ("xla", "pallas")}
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    epochs, nb = 3, idx.shape[0]
+    epochs = 3
     ms_step = {"xla": [], "pallas": []}
     for bb in ("xla", "pallas", "pallas", "xla"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(epochs):
-            ts, metrics = epoch_fns[bb](ts, pool.wave, pool.source, None, idx, mask, generator=gen)
+            metrics = run_epoch(bb)
         torch.cuda.synchronize()
         ms_step[bb].append((time.perf_counter() - t0) * 1e3 / (epochs * nb))
-        check(bool(torch.isfinite(metrics.loss).all()), f"non-finite loss while timing block_backend={bb}")
-    print(f"[7 timings] train step (B={B}, loss_backend=pallas, cuDNN defaults), ms/step over "
+        check(bool(torch.isfinite(metrics.loss).all()), f"non-finite loss while timing {label} {bb}")
+    print(f"[7 timings] {label} (B={B}, loss_backend=pallas, cuDNN defaults), ms/step over "
           f"{epochs} epochs of {nb} steps each, in turns: block_backend=xla {ms_step['xla']}, "
           f"block_backend=pallas {ms_step['pallas']} on {card}")
     for bb in ("xla", "pallas"):
-        profile_epoch(lambda: epoch_fns[bb](ts, pool.wave, pool.source, None, idx, mask, generator=gen),
-                      nb, min(ms_step[bb]), f"block_backend={bb}")
+        profile_epoch(lambda: run_epoch(bb), nb, min(ms_step[bb]), f"{label} block_backend={bb}")
+
+
+def phase_timings(ts, pool, idx, mask, joint_ts, joint_plan, card: str, errs: dict, launches: dict):
+    """ms/step of the unimodal and the joint train step with each block
+    backend (time_epochs), then each loss kernel against its plain version,
+    its bound and, for the masked SSE, one library call: F.mse_loss(dec,
+    data, reduction="sum") on an all-real batch, the same function when every
+    row is real."""
+    import torch
+    import torch.nn.functional as F
+
+    from hippie_tpu_torch.ops import cuda_ops
+    from hippie_tpu_torch.train import step
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    uni = {bb: step.make_unimodal_epoch_fns(beta=1.0, loss_backend="pallas", block_backend=bb)[0]
+           for bb in ("xla", "pallas")}
+    time_epochs(lambda bb: uni[bb](ts, pool.wave, pool.source, None, idx, mask, generator=gen)[1],
+                idx.shape[0], "train step", card)
+    joint = {bb: step.make_multimodal_epoch_fns(beta=1.0, loss_backend="pallas", block_backend=bb)[0]
+             for bb in ("xla", "pallas")}
+    jidx, jmask = joint_plan
+    time_epochs(lambda bb: joint[bb](joint_ts, pool.wave, pool.isi, pool.source, None, jidx, jmask,
+                                     generator=gen)[1],
+                jidx.shape[0], "joint train step", card)
 
     x = loss_inputs(415, device="cuda")
     g = torch.tensor([1.0 / (415 * L), 1.0 / 415], device="cuda")
+    sse = sse_inputs(415, device="cuda")
+    data_all, dec_all, _ = sse_inputs(B, device="cuda")
     fns = {
-        "vae_sums_fwd": (lambda: cuda_ops.vae_sums_fwd_cuda(*x), lambda: cuda_ops.vae_sums_plain(*x)),
+        "vae_sums_fwd": (lambda: cuda_ops.vae_sums_fwd_cuda(*x), lambda: cuda_ops.vae_sums_plain(*x), None),
         "vae_sums_bwd": (lambda: cuda_ops.vae_sums_bwd_cuda(*x, g),
-                         lambda: cuda_ops.vae_sums_bwd_plain(*x, g)),
+                         lambda: cuda_ops.vae_sums_bwd_plain(*x, g), None),
+        "masked_sse_fwd": (lambda: cuda_ops.masked_sse_fwd_cuda(*sse), lambda: cuda_ops.masked_sse_plain(*sse),
+                           lambda: F.mse_loss(dec_all, data_all, reduction="sum")),
     }
-    bounds = vae_sums_bounds(*x[0].shape, x[2].shape[1])
+    bounds = {**vae_sums_bounds(*x[0].shape, x[2].shape[1]), "masked_sse_fwd": masked_sse_bound(B, L_ISI)}
     sources = {"vae_sums_fwd": "hippie_tpu/ops/pallas_ops.py:87",
-               "vae_sums_bwd": "hippie_tpu/ops/pallas_ops.py:109"}
+               "vae_sums_bwd": "hippie_tpu/ops/pallas_ops.py:109",
+               "masked_sse_fwd": "hippie_tpu/ops/pallas_ops.py:141"}
     kernels = []
-    for name, (kernel, plain) in fns.items():
+    for name, (kernel, plain, library) in fns.items():
         ms = time_ms(kernel)
         plain_ms = time_ms(plain)
+        library_ms = None if library is None else time_ms(library)
         bound_ms, bound_by = bounds[name]
         print(f"  {name}: kernel {ms * 1e3:.2f} us/call, plain {plain_ms * 1e3:.2f} us/call, "
-              f"bound {bound_ms * 1e3:.4f} us ({bound_by}) on {card}")
+              + ("" if library is None else f"F.mse_loss(sum) {library_ms * 1e3:.2f} us/call, ")
+              + f"bound {bound_ms * 1e3:.4f} us ({bound_by}) on {card}")
         kernels.append({
             "name": name, "route": "cuda", "source": "hippie_tpu_torch/csrc/vae_sums.cu",
             "replaces": sources[name], "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": library_ms,
         })
     return kernels
 
@@ -978,22 +1199,39 @@ def main() -> int:
         print(card)
         phase_build()
         errs = phase_kernel_vs_plain()
-        ts, pool, idx, mask, launches, losses = phase_slice(full_config())
-        # the main path: both backbones' blocks on the fused block kernels
-        _, _, _, _, main_launches, main_losses = phase_slice(full_config(), "pallas", pool=pool)
+        ts, pool, idx, mask, _, losses = phase_slice(full_config())
+        # the unimodal main path: both backbones' blocks on the fused block kernels
+        _, _, _, _, _, main_losses = phase_slice(full_config(), "pallas", pool=pool)
         rel = abs(main_losses[0] - losses[0]) / abs(losses[0])
         print(f"  first step from the same weights and batch: loss {main_losses[0]:.6f} with "
               f"block_backend=pallas, {losses[0]:.6f} with xla (rel {rel:.3g}; limit 5e-2, "
               f"tests/test_pallas_blocks.py:231)")
         check(rel <= 5e-2, f"block_backend=pallas first loss {main_losses[0]} vs xla {losses[0]}")
         phase_step_parity(ts.model, pool, idx, mask)
-        block_kernels = []
-        for bb in (ENC, DEC):
+        # the joint model's stage 1 from the same weights with each block
+        # backend; the "pallas" epoch runs every kernel of the port
+        _, jidx, jmask, _, jlosses_xla = phase_joint(pool, "xla")
+        jts, _, _, joint_launches, jlosses = phase_joint(pool, "pallas")
+        rel = abs(jlosses[0] - jlosses_xla[0]) / abs(jlosses_xla[0])
+        print(f"  joint first step from the same weights and batch: loss {jlosses[0]:.6f} with "
+              f"block_backend=pallas, {jlosses_xla[0]:.6f} with xla (rel {rel:.3g}; limit 5e-2)")
+        check(rel <= 5e-2, f"joint block_backend=pallas first loss {jlosses[0]} vs xla {jlosses_xla[0]}")
+        phase_joint_step_parity(jts.model, pool, jidx, jmask)
+        block_kernels, block_errs = [], {}
+        for bb in (ENC, DEC, isi_backbone()):
             bb_errs, per_shape = phase_blocks(bb, card)
-            phase_pass(bb, ts.model, pool, idx, mask, card)
-            block_kernels += block_records(bb, per_shape, bb_errs, main_launches, card)
+            records = block_records(bb, per_shape, bb_errs, joint_launches, card)
+            if bb.label != ISI_LABEL:  # the records: times of the waveform model's backbones
+                phase_pass(bb, ts.model, pool, idx, mask, card)
+                block_kernels += records
+            for k, v in bb_errs.items():
+                block_errs[k] = max(block_errs.get(k, 0.0), v)
+        for record in block_kernels:  # errors over every shape held, the ISI encoder's too
+            record["max_abs_err"] = block_errs[record["name"]]
         phase_embed(ts.model)
-        kernels = phase_timings(ts, pool, idx, mask, card, errs, launches) + block_kernels
+        phase_embed(jts.model, joint=True)
+        kernels = phase_timings(ts, pool, idx, mask, jts, (jidx, jmask), card, errs, joint_launches)
+        kernels += block_kernels
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback

@@ -1,7 +1,9 @@
 // Fused masked sums of the cVAE loss, and their gradients, for sm_90a.
 //
 // Replaces hippie_tpu/ops/pallas_ops.py:fused_vae_sums (the Pallas TPU
-// kernels _fwd_kernel and _bwd_kernel). Forward, in one pass over the batch:
+// kernels _fwd_kernel and _bwd_kernel) and fused_masked_sse (_sse_kernel, the
+// joint model's second modality). fused_vae_sums' forward, in one pass over
+// the batch:
 //   sse = sum_r m_r * sum_l d_rl^2,        d  = where(m > 0, dec - data, 0)
 //   kl  = sum_r m_r * sum_j k_rj,          k  = -0.5 (1 + lv - mu^2 - exp(lv)),
 //                                          mu, lv = where(m > 0, ., 0)
@@ -11,11 +13,17 @@
 //   ddec = 2 g_mse d m,  ddata = -ddec,  dmu = g_kl mu m,
 //   dlogvar = -0.5 g_kl (1 - exp(lv)) m
 //
+// masked_sse is the forward's first sum alone, sse = sum_r m_r * sum_l d_rl^2,
+// on the second modality (L=100); its backward (-2 g d m, 2 g d m) is
+// elementwise torch ops, as _sse_bwd is plain JAX.
+//
 // What bounds it on an H100 at the main path's shapes (B=512, L=50, z=10):
 // the forward reads (2*B*L + 2*B*z + B) * 4 = 247,808 B, about 0.07 us at
 // 3.35 TB/s; the backward reads that and writes 245,760 B. Both are far
 // below a launch's latency (a few us), so the kernel is bound by launches:
 // 3 per train step (forward partials, forward final sum, backward).
+// masked_sse at B=512, L=100 reads (2*B*L + B) * 4 = 411,648 B, 0.12 us: two
+// more launches per joint step, bound the same way.
 //
 // Design: the TPU kernel ran as one program over the whole batch in VMEM and
 // summed in one go. Here blocks run in parallel and in no fixed order, so the
@@ -60,6 +68,20 @@ __device__ float2 block_sum2(float a, float b, float2* smem) {
     }
   }
   return make_float2(a, b);
+}
+
+// Sum of a over the block, in a fixed order: block_sum2 with one value.
+__device__ float block_sum1(float a, float* smem) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(0xffffffffu, a, off);
+  if (lane == 0) smem[warp] = a;
+  __syncthreads();
+  if (warp == 0) {
+    a = lane < (blockDim.x >> 5) ? smem[lane] : 0.f;
+    for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(0xffffffffu, a, off);
+  }
+  return a;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -139,6 +161,34 @@ vae_sums_bwd_kernel(const float* __restrict__ data, const float* __restrict__ de
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+masked_sse_partial_kernel(const float* __restrict__ data, const float* __restrict__ dec,
+                          const float* __restrict__ mask, int B, int L,
+                          float* __restrict__ partial) {
+  __shared__ float smem[kThreads / 32];
+  const int r0 = blockIdx.x * kRowsPerBlock;
+  const int nl = min(kRowsPerBlock, B - r0) * L;
+  const float* data_b = data + (size_t)r0 * L;
+  const float* dec_b = dec + (size_t)r0 * L;
+  float sse = 0.f;
+  for (int i = threadIdx.x; i < nl; i += kThreads) {
+    const float m = mask[r0 + i / L];
+    const float d = m > 0.f ? dec_b[i] - data_b[i] : 0.f;
+    sse += d * d * m;
+  }
+  const float s = block_sum1(sse, smem);
+  if (threadIdx.x == 0) partial[blockIdx.x] = s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+masked_sse_final_kernel(const float* __restrict__ partial, int n, float* __restrict__ out) {
+  __shared__ float smem[kThreads / 32];
+  float sse = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) sse += partial[i];
+  const float s = block_sum1(sse, smem);
+  if (threadIdx.x == 0) out[0] = s;
+}
+
 }  // namespace
 
 extern "C" {
@@ -170,6 +220,19 @@ int vae_sums_bwd(const float* data, const float* dec, const float* mu, const flo
   const int nblocks = (n + kThreads - 1) / kThreads;
   vae_sums_bwd_kernel<<<nblocks, kThreads, 0, s>>>(data, dec, mu, logvar, mask, g, B, L, Z,
                                                    ddata, ddec, dmu, dlogvar);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[0] = sum(mask * where(mask > 0, dec - data, 0)^2). `partial` holds
+// vae_sums_fwd_partials(B) floats. data/dec [B, L], mask [B], float32, contiguous.
+int masked_sse_fwd(const float* data, const float* dec, const float* mask, int B, int L,
+                   float* partial, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nblocks = vae_sums_fwd_partials(B);
+  masked_sse_partial_kernel<<<nblocks, kThreads, 0, s>>>(data, dec, mask, B, L, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  masked_sse_final_kernel<<<1, kThreads, 0, s>>>(partial, nblocks, out);
   return static_cast<int>(cudaGetLastError());
 }
 

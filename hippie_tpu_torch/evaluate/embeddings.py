@@ -1,6 +1,6 @@
 """Embedding extraction (reference scripts/utils.py:74-98 get_embeddings).
 
-Counterpart of zscore_rows and embed_unimodal in
+Counterpart of zscore_rows, embed_unimodal and embed_multimodal in
 hippie_tpu/evaluate/embeddings.py. The embedding is ``encoded``, the
 deterministic z-dim encoder_fc output, z-scored per row with the unbiased std.
 Extraction runs in eval mode (running BN statistics) in one whole-dataset
@@ -35,4 +35,16 @@ def embed_unimodal(model, data: torch.Tensor, source: torch.Tensor,
     model.eval()
     with full_fp32():
         enc, _, _, _ = model(data, source, class_)
+        return zscore_rows(enc)
+
+
+@torch.no_grad()
+def embed_multimodal(model, wave: torch.Tensor, isi: torch.Tensor, source: torch.Tensor,
+                     class_: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """([N, 50], [N, 100]) -> z-scored [N, z] joint embeddings on the model's
+    device, as embed_unimodal (eval mode, full float32, leaves the model in
+    eval mode)."""
+    model.eval()
+    with full_fp32():
+        enc, *_ = model(wave, isi, source, class_)
         return zscore_rows(enc)

@@ -18,16 +18,17 @@ import contextlib
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
-    """torch leaky_relu: slope 0.01 in the backbones, 0.2 in the fc heads.
+    """LeakyReLU as hippie_tpu's ``where(x >= 0, x, x * slope)``: slope 0.01 in
+    the backbones, 0.2 in the fc heads.
 
-    Same values as hippie_tpu's ``where(x >= 0, x, x * slope)``; the gradient
-    differs only at exactly 0 (1 there, ``slope`` here).
+    The values are torch's; the gradient at exactly 0 is 1, as in the JAX
+    package and the block kernels (torch's ``F.leaky_relu`` gives the slope
+    there). It shows where a BatchNorm over one real row outputs its bias, 0.
     """
-    return F.leaky_relu(x, negative_slope)
+    return torch.where(x >= 0, x, x * negative_slope)
 
 
 def _stat_dims(x: torch.Tensor):

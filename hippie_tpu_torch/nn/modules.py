@@ -49,6 +49,18 @@ class MaskedBatchNorm1d(nn.Module):
         )
 
 
+class LeakyReLU(nn.Module):
+    """nn.LeakyReLU's module on functional.leaky_relu (gradient 1 at 0, as the
+    JAX package's); no parameters, so ``state_dict`` keys do not change."""
+
+    def __init__(self, negative_slope: float = 0.01):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(x, self.negative_slope)
+
+
 class MaskedSequential(nn.Sequential):
     """nn.Sequential whose ``forward(x, mask)`` passes the mask to the
     children that take one: those whose class sets ``takes_mask``."""

@@ -1,20 +1,23 @@
-"""Hand-written CUDA kernel for the cVAE loss: fused masked sums and gradients.
+"""Hand-written CUDA kernels for the cVAE losses: fused masked sums and gradients.
 
 Counterpart of hippie_tpu/ops/pallas_ops.py (``fused_vae_sums``,
-``vae_loss_pallas``); the kernel is csrc/vae_sums.cu, whose header note says
-what bounds it and how it is laid out. The step factories keep the JAX
-package's name for this path, ``loss_backend="pallas"``.
+``vae_loss_pallas``, ``fused_masked_sse``, ``multimodal_vae_loss_pallas``);
+the kernels are csrc/vae_sums.cu, whose header note says what bounds them and
+how they are laid out. The step factories keep the JAX package's name for
+this path, ``loss_backend="pallas"``.
 
-``FusedVaeSums`` launches the kernel for CUDA tensors and raises on anything
-it does not take. For CPU tensors it runs the plain versions below,
-``vae_sums_plain`` and ``vae_sums_bwd_plain``, which repeat the kernel's
-arithmetic in eager torch ops: the CPU tests use them, and chip_smoke.py holds
-the kernel against them on the card. A CUDA tensor never takes the plain
-path.
+``FusedVaeSums`` and ``FusedMaskedSse`` launch the kernels for CUDA tensors
+and raise on anything they do not take. For CPU tensors they run the plain
+versions below (``vae_sums_plain``, ``vae_sums_bwd_plain``,
+``masked_sse_plain``), which repeat the kernels' arithmetic in eager torch
+ops: the CPU tests use them, and chip_smoke.py holds the kernels against them
+on the card. A CUDA tensor never takes the plain path. The masked SSE's
+backward is elementwise torch ops on either device (``masked_sse_bwd``), as
+``_sse_bwd`` is plain JAX.
 
 ``launches`` counts kernel launches per wrapper: ``vae_sums_fwd`` one per
 forward call (two CUDA launches: partial sums, final sum), ``vae_sums_bwd`` one
-per backward call.
+per backward call, ``masked_sse_fwd`` one per forward call (two CUDA launches).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 
 from hippie_tpu_torch.ops import _build
 
-launches = {"vae_sums_fwd": 0, "vae_sums_bwd": 0}
+launches = {"vae_sums_fwd": 0, "vae_sums_bwd": 0, "masked_sse_fwd": 0}
 
 
 def reset_launches():
@@ -64,6 +67,20 @@ def vae_sums_bwd_plain(data, dec, mu, logvar, mask_col, g):
     return ddata, ddec, dmu, dlogvar
 
 
+def masked_sse_plain(data, dec, mask_col) -> torch.Tensor:
+    """sum(m * d^2) with d = where(m > 0, dec - data, 0) (hippie_tpu
+    pallas_ops._sse_kernel)."""
+    d = torch.where(mask_col > 0, dec - data, 0.0)
+    return (d * d * mask_col).sum()
+
+
+def masked_sse_bwd(data, dec, mask_col, g):
+    """(ddata, ddec) for the cotangent g of masked_sse (pallas_ops._sse_bwd):
+    the where() keeps inf in a padded row from making (inf - data) * 0 = NaN."""
+    d = torch.where(mask_col > 0, dec - data, 0.0) * mask_col
+    return -2.0 * g * d, 2.0 * g * d
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
@@ -83,6 +100,8 @@ def _kernels() -> ctypes.CDLL:
         lib.vae_sums_fwd.restype = _I
         lib.vae_sums_bwd.argtypes = [_P] * 6 + [_I] * 3 + [_P] * 5
         lib.vae_sums_bwd.restype = _I
+        lib.masked_sse_fwd.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 3
+        lib.masked_sse_fwd.restype = _I
         _lib = lib
     return _lib
 
@@ -95,8 +114,22 @@ def _check_launch(err: int, what: str):
 def _check_inputs(data, dec, mu, logvar, mask_col):
     B, L = data.shape
     Z = mu.shape[1]
-    want = {"data": (B, L), "dec": (B, L), "mu": (B, Z), "logvar": (B, Z), "mask_col": (B, 1)}
-    for (name, shape), t in zip(want.items(), (data, dec, mu, logvar, mask_col)):
+    _check_tensors({"data": (data, (B, L)), "dec": (dec, (B, L)), "mu": (mu, (B, Z)),
+                    "logvar": (logvar, (B, Z)), "mask_col": (mask_col, (B, 1))})
+
+
+def _check_sse_inputs(data, dec, mask_col):
+    if data.ndim != 2:
+        raise ValueError(f"data must be [B, L], got {tuple(data.shape)}")
+    B, L = data.shape
+    _check_tensors({"data": (data, (B, L)), "dec": (dec, (B, L)), "mask_col": (mask_col, (B, 1))})
+
+
+def _check_tensors(want):
+    """Each tensor of ``want`` (name -> (tensor, shape)) float32 of that shape,
+    contiguous, on the first one's device; a nonempty batch."""
+    data = next(iter(want.values()))[0]
+    for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
         if t.dtype != torch.float32:
@@ -105,7 +138,7 @@ def _check_inputs(data, dec, mu, logvar, mask_col):
             raise ValueError(f"{name} is on {t.device}, data on {data.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    if B == 0:
+    if data.shape[0] == 0:
         raise ValueError("empty batch")
     if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {data.device}")
@@ -151,6 +184,24 @@ def vae_sums_bwd_cuda(data, dec, mu, logvar, mask_col, g):
     return tuple(grads)
 
 
+def masked_sse_fwd_cuda(data, dec, mask_col) -> torch.Tensor:
+    """Launch the masked-SSE kernel on CUDA tensors: a 0-dim sum on the device."""
+    _check_sse_inputs(data, dec, mask_col)
+    if data.device.type != "cuda":
+        raise ValueError(f"masked_sse_fwd_cuda takes CUDA tensors, got {data.device}")
+    lib = _kernels()
+    B, L = data.shape
+    with torch.cuda.device(data.device):
+        partial = torch.empty(lib.vae_sums_fwd_partials(B), dtype=torch.float32, device=data.device)
+        out = torch.empty((), dtype=torch.float32, device=data.device)
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = lib.masked_sse_fwd(data.data_ptr(), dec.data_ptr(), mask_col.data_ptr(), B, L,
+                                 partial.data_ptr(), out.data_ptr(), stream)
+    _check_launch(err, "masked_sse_fwd")
+    launches["masked_sse_fwd"] += 1
+    return out
+
+
 class FusedVaeSums(torch.autograd.Function):
     """[sum(m * (dec - data)^2), sum(m * kl)] with a fused backward.
 
@@ -181,6 +232,38 @@ def fused_vae_sums(data, dec, mu, logvar, mask_col) -> Tuple[torch.Tensor, torch
     return sse, kl
 
 
+class FusedMaskedSse(torch.autograd.Function):
+    """sum(m * (dec - data)^2), where-guarded. CUDA tensors launch
+    csrc/vae_sums.cu's masked_sse; CPU tensors take masked_sse_plain. The
+    backward is masked_sse_bwd on the device's tensors (g stays there)."""
+
+    @staticmethod
+    def forward(ctx, data, dec, mask_col):
+        ctx.save_for_backward(data, dec, mask_col)
+        if data.device.type == "cpu":
+            _check_sse_inputs(data, dec, mask_col)
+            return masked_sse_plain(data, dec, mask_col)
+        return masked_sse_fwd_cuda(data, dec, mask_col)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, dec, mask_col = ctx.saved_tensors
+        return (*masked_sse_bwd(data, dec, mask_col, g), None)
+
+
+def fused_masked_sse(data, dec, mask_col) -> torch.Tensor:
+    """sum(mask * (dec - data)^2) for the second modality; mask_col: [B, 1]."""
+    return FusedMaskedSse.apply(data, dec, mask_col)
+
+
+def _mask_col_and_count(data, mask):
+    B = data.shape[0]
+    if mask is None:
+        return torch.ones((B, 1), dtype=data.dtype, device=data.device), float(B)
+    mask_col = mask.to(data.dtype).reshape(B, 1).contiguous()
+    return mask_col, mask_col.sum()
+
+
 def vae_loss_pallas(
     data: torch.Tensor,
     dec: torch.Tensor,
@@ -191,15 +274,36 @@ def vae_loss_pallas(
     mask: Optional[torch.Tensor] = None,
 ):
     """Drop-in for losses.vae_loss on the fused kernel: (total, (mse, kl))."""
-    B = data.shape[0]
-    if mask is None:
-        mask_col = torch.ones((B, 1), dtype=data.dtype, device=data.device)
-        n = float(B)
-    else:
-        mask_col = mask.to(data.dtype).reshape(B, 1).contiguous()
-        n = mask_col.sum()
+    mask_col, n = _mask_col_and_count(data, mask)
     sse, kl_sum = fused_vae_sums(data.contiguous(), dec.contiguous(), mu.contiguous(),
                                  logvar.contiguous(), mask_col)
     mse = sse / (n * data.shape[1])
     kl = kl_sum / n
     return mse + beta * kl, (mse, kl)
+
+
+def multimodal_vae_loss_pallas(
+    data1: torch.Tensor,
+    data2: torch.Tensor,
+    dec1: torch.Tensor,
+    dec2: torch.Tensor,
+    mu: torch.Tensor,
+    logvar: torch.Tensor,
+    *,
+    beta: float = 1.0,
+    mod1_weight: float = 1.0,
+    mod2_weight: float = 1.0,
+    mask: Optional[torch.Tensor] = None,
+):
+    """Drop-in for losses.multimodal_vae_loss on the fused kernels: one
+    fused_vae_sums call for modality 1 and the KL, one fused_masked_sse call
+    for modality 2. Returns (total, (mse1, mse2, kl))."""
+    mask_col, n = _mask_col_and_count(data1, mask)
+    mse1_sum, kl_sum = fused_vae_sums(data1.contiguous(), dec1.contiguous(), mu.contiguous(),
+                                      logvar.contiguous(), mask_col)
+    mse2_sum = fused_masked_sse(data2.contiguous(), dec2.contiguous(), mask_col)
+    mse1 = mse1_sum / (n * data1.shape[1])
+    mse2 = mse2_sum / (n * data2.shape[1])
+    kl = kl_sum / n
+    total = mod1_weight * mse1 + mod2_weight * mse2 + beta * kl
+    return total, (mse1, mse2, kl)

@@ -64,3 +64,26 @@ def vae_loss(
     mse = _masked_mean(_guard_rows(data - dec, mask).square(), mask, data.shape[1])
     kl = _masked_mean(kl_divergence(mu, logvar), mask, 1)
     return mse + beta * kl, (mse, kl)
+
+
+def multimodal_vae_loss(
+    data1: torch.Tensor,
+    data2: torch.Tensor,
+    dec1: torch.Tensor,
+    dec2: torch.Tensor,
+    mu: torch.Tensor,
+    logvar: torch.Tensor,
+    *,
+    beta: float = 1.0,
+    mod1_weight: float = 1.0,
+    mod2_weight: float = 1.0,
+    mask: Optional[torch.Tensor] = None,
+):
+    """Joint loss (model.py:465-474). Returns (total, (mse1, mse2, kl_mean))."""
+    mu = _guard_rows(mu, mask)
+    logvar = _guard_rows(logvar, mask)
+    mse1 = _masked_mean(_guard_rows(data1 - dec1, mask).square(), mask, data1.shape[1])
+    mse2 = _masked_mean(_guard_rows(data2 - dec2, mask).square(), mask, data2.shape[1])
+    kl = _masked_mean(kl_divergence(mu, logvar), mask, 1)
+    total = mod1_weight * mse1 + mod2_weight * mse2 + beta * kl
+    return total, (mse1, mse2, kl)

@@ -6,7 +6,8 @@ the JAX primitive ``_enc_block_prim(stride, has_short, "xla")`` (the same
 math as plain XLA ops: the Pallas kernel runs it in VMEM), its ``jax.vjp``,
 ``basic_block_enc_fused(impl="xla")`` and ``resnet18_enc_apply(backend=
 "fused")``. Inputs come from numpy seeds, with a masked tail whose padded
-rows hold +-1e3.
+rows hold +-1e3; the ISI encoder's shapes (input length 100: blocks at
+L = 50 and, past the waveform encoder's, 512 channels at L = 7) at B=16.
 
 Tolerances. Both sides multiply the same bf16 operands exactly into float32
 and round to bf16 at the same points; they differ only in the order of the
@@ -46,6 +47,10 @@ torch.set_num_threads(1)
 
 B, N_REAL = 24, 17
 SHAPES = [(1, 25, 64), (2, 25, 64), (2, 13, 128), (2, 7, 64)]  # test_pallas_blocks.py:22
+# the ISI encoder's (input length 100) shapes that the waveform encoder's lack,
+# at a smaller batch: (stride, L, C_in)
+ISI_SHAPES = [(1, 50, 64), (2, 50, 64), (1, 7, 512)]
+ISI_B, ISI_N_REAL = 16, 11
 REL = 1e-2
 
 
@@ -60,14 +65,14 @@ def _np(t):
     return np.array(jnp.asarray(t, jnp.float32))  # a writable copy
 
 
-def _block_inputs(stride, L, C, seed):
-    """x [L,B,C] float32 (rounded to bf16 by each side), weights, BN vectors,
-    the [B,1] mask with N_REAL real rows, and the output cotangent."""
+def _block_inputs(stride, L, C, seed, b=B, n_real=N_REAL):
+    """x [L,b,C] float32 (rounded to bf16 by each side), weights, BN vectors,
+    the [b,1] mask with n_real real rows, and the output cotangent."""
     r = np.random.default_rng(seed)
     co = C * stride
     lo = L if stride == 1 else (L - 1) // 2 + 1
-    x = r.normal(size=(L, B, C)).astype(np.float32)
-    x[:, N_REAL:] = 1e3 * np.where(r.random((L, B - N_REAL, C)) < 0.5, 1.0, -1.0)
+    x = r.normal(size=(L, b, C)).astype(np.float32)
+    x[:, n_real:] = 1e3 * np.where(r.random((L, b - n_real, C)) < 0.5, 1.0, -1.0)
     f = lambda *s: r.normal(size=s).astype(np.float32)
     w = {"w1": f(3, C, co) / np.sqrt(3 * C), "w2": f(3, co, co) / np.sqrt(3 * co),
          "ws": f(1, C, co) / np.sqrt(C) if stride != 1 else np.zeros((1, C, co), np.float32)}
@@ -75,8 +80,8 @@ def _block_inputs(stride, L, C, seed):
     v.update({k: 0.1 * f(co) for k in ("b1", "b2", "bs")})
     if stride == 1:
         v["gs"], v["bs"] = np.zeros(co, np.float32), np.zeros(co, np.float32)
-    m = (np.arange(B) < N_REAL).astype(np.float32).reshape(B, 1)
-    g = f(lo, B, co)
+    m = (np.arange(b) < n_real).astype(np.float32).reshape(b, 1)
+    g = f(lo, b, co)
     args = [x, w["w1"], v["g1"], v["b1"], w["w2"], v["g2"], v["b2"], w["ws"], v["gs"], v["bs"], m]
     return args, g
 
@@ -101,19 +106,37 @@ def _check_stats(got, ref, what, rtol=1e-5):
 
 @pytest.mark.parametrize("stride,L,C", SHAPES)
 def test_plain_forward_matches_jax(stride, L, C):
-    args, _ = _block_inputs(stride, L, C, seed=L + C)
+    _check_forward(stride, L, C, B, N_REAL)
+
+
+@pytest.mark.parametrize("stride,L,C", ISI_SHAPES)
+def test_plain_forward_matches_jax_at_isi_shapes(stride, L, C):
+    _check_forward(stride, L, C, ISI_B, ISI_N_REAL)
+
+
+def _check_forward(stride, L, C, rows, n_real):
+    args, _ = _block_inputs(stride, L, C, seed=L + C, b=rows, n_real=n_real)
     has_short = stride != 1
     ref = jax.jit(pb._enc_block_prim(stride, has_short, "xla"))(*_jax_args(args))
     got = cuda_blocks.enc_block_fwd_plain(stride, has_short, *_torch_args(args, stride))
     assert got[0].dtype == torch.bfloat16 and tuple(got[0].shape) == ref[0].shape
-    assert _rel(_np(got[0])[:, :N_REAL], _np(ref[0])[:, :N_REAL]) < REL
+    assert _rel(_np(got[0])[:, :n_real], _np(ref[0])[:, :n_real]) < REL
     for name, a, b in zip(("st1", "st2", "sts"), got[1:], ref[1:]):
         _check_stats(_np(a), _np(b), name)
 
 
 @pytest.mark.parametrize("stride,L,C", SHAPES)
 def test_plain_backward_matches_jax_vjp(stride, L, C):
-    args, g = _block_inputs(stride, L, C, seed=7 * L + C)
+    _check_backward(stride, L, C, B, N_REAL)
+
+
+@pytest.mark.parametrize("stride,L,C", ISI_SHAPES)
+def test_plain_backward_matches_jax_vjp_at_isi_shapes(stride, L, C):
+    _check_backward(stride, L, C, ISI_B, ISI_N_REAL)
+
+
+def _check_backward(stride, L, C, rows, n_real):
+    args, g = _block_inputs(stride, L, C, seed=7 * L + C, b=rows, n_real=n_real)
     has_short = stride != 1
     prim = pb._enc_block_prim(stride, has_short, "xla")
 

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on the card: the fused VAE-loss kernel
-(hippie_tpu_torch/csrc/vae_sums.cu) and the encoder and decoder block kernels
-(hippie_tpu_torch/csrc/enc_block.cu, dec_block.cu).
+"""The port's CUDA kernels on the card: the fused VAE-loss and masked-SSE
+kernels (hippie_tpu_torch/csrc/vae_sums.cu) and the encoder and decoder block
+kernels (hippie_tpu_torch/csrc/enc_block.cu, dec_block.cu).
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
 imports neither jax nor hippie_tpu, so it also runs where only the port is
@@ -8,9 +8,10 @@ installed; on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_kernels.py
 
-Tolerances of the VAE-loss kernel: values rtol 4e-6 (two summation orders of up to 25,600
-nonnegative float32 terms, each within about 9.5e-7 of the exact sum);
-gradients rtol 1e-5 / atol 1e-7 (elementwise, as tests/test_pallas.py).
+Tolerances of the VAE-loss and masked-SSE kernels: values rtol 4e-6 (two
+summation orders of up to 51,200 nonnegative float32 terms, each within about
+1e-6 of the exact sum); gradients rtol 1e-5 / atol 1e-7 (elementwise, as
+tests/test_pallas.py).
 """
 
 import numpy as np
@@ -74,7 +75,7 @@ def test_autograd_launches_both_kernels(cuda_device):
     cuda_ops.reset_launches()
     total, _ = cuda_ops.vae_loss_pallas(data, *leaves, beta=0.5, mask=mask[:, 0])
     total.backward()
-    assert cuda_ops.launches == {"vae_sums_fwd": 1, "vae_sums_bwd": 1}
+    assert cuda_ops.launches == {"vae_sums_fwd": 1, "vae_sums_bwd": 1, "masked_sse_fwd": 0}
     ref = [t.clone().requires_grad_(True) for t in (dec, mu, logvar)]
     sse, kl = cuda_ops.vae_sums_plain(data, *ref, mask).unbind(0)
     (sse / (300 * L) + 0.5 * kl / 300).backward()
@@ -93,6 +94,65 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# The masked-SSE kernel (csrc/vae_sums.cu masked_sse), the joint model's
+# second modality: [B, 100].
+# ---------------------------------------------------------------------------
+
+SSE_L = 100
+
+
+def _sse_inputs(device, n_real=B, pad=None, seed=0):
+    r = np.random.default_rng(seed)
+    data = r.normal(size=(B, SSE_L)).astype(np.float32)
+    dec = r.normal(size=(B, SSE_L)).astype(np.float32)
+    if pad is not None:
+        dec[n_real:] = pad
+    mask = (np.arange(B) < n_real).astype(np.float32).reshape(B, 1)
+    return tuple(torch.from_numpy(x).to(device) for x in (data, dec, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full", "tail_inf"])
+def test_masked_sse_kernel_matches_plain(cuda_device, case):
+    x = _sse_inputs(cuda_device, *((B, None) if case == "full" else (415, np.inf)))
+    got = cuda_ops.masked_sse_fwd_cuda(*x)
+    assert got.shape == () and torch.isfinite(got)
+    torch.testing.assert_close(got, cuda_ops.masked_sse_plain(*x), rtol=4e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_masked_sse_kernel_repeats_bit_for_bit(cuda_device):
+    x = _sse_inputs(cuda_device, n_real=415, pad=1e4)
+    runs = [cuda_ops.masked_sse_fwd_cuda(*x) for _ in range(5)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+
+
+@pytest.mark.cuda
+def test_masked_sse_autograd_launches_once(cuda_device):
+    data, dec, mask = _sse_inputs(cuda_device, n_real=300, pad=np.inf)
+    leaf = dec.clone().requires_grad_(True)
+    cuda_ops.reset_launches()
+    total = cuda_ops.fused_masked_sse(data, leaf, mask)
+    (0.37 * total).backward()
+    assert cuda_ops.launches == {"vae_sums_fwd": 0, "vae_sums_bwd": 0, "masked_sse_fwd": 1}
+    ref = dec.clone().requires_grad_(True)
+    (0.37 * cuda_ops.masked_sse_plain(data, ref, mask)).backward()
+    assert torch.isfinite(leaf.grad).all()
+    torch.testing.assert_close(leaf.grad, ref.grad, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_masked_sse_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    data, dec, mask = _sse_inputs(cuda_device)
+    with pytest.raises(TypeError):
+        cuda_ops.fused_masked_sse(data, dec.double(), mask)
+    with pytest.raises(ValueError):
+        cuda_ops.fused_masked_sse(data, dec[:, :50], mask)
+    with pytest.raises(ValueError):
+        cuda_ops.fused_masked_sse(data, dec.t().contiguous().t(), mask)
+
+
+# ---------------------------------------------------------------------------
 # The encoder block kernels (hippie_tpu_torch/csrc/enc_block.cu).
 # Limits as chip_smoke.py's phase 5b, with their reasons there: bf16 outputs
 # and float32 gradients relative Frobenius 1e-2, statistics 1e-4 of their
@@ -101,6 +161,8 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
 
 ENC_SHAPES = [(1, 25, 64, 64), (2, 25, 64, 128), (1, 13, 128, 128), (2, 13, 128, 256),
               (1, 7, 256, 256), (2, 7, 256, 512), (1, 4, 512, 512)]  # (stride, L, C_in, C_out)
+# the ISI encoder's (input length 100) shapes that the waveform encoder's lack
+ISI_ENC_SHAPES = [(1, 50, 64, 64), (2, 50, 64, 128), (1, 7, 512, 512)]
 
 
 def _block_inputs(device, stride, L, ci, co, n_real=B, seed=0):
@@ -131,7 +193,7 @@ def _rel(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ENC_SHAPES, ids=lambda s: "s{}-L{}-{}-{}".format(*s))
+@pytest.mark.parametrize("shape", ENC_SHAPES + ISI_ENC_SHAPES, ids=lambda s: "s{}-L{}-{}-{}".format(*s))
 def test_enc_block_kernels_match_plain(cuda_device, shape):
     from hippie_tpu_torch.ops import cuda_blocks as cb
 

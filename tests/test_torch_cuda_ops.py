@@ -113,7 +113,10 @@ def test_cpu_wrapper_counts_no_kernel_launch():
     data, dec, mu, logvar, mask = _inputs(b=8)
     leaves = [torch.from_numpy(x).requires_grad_(True) for x in (dec, mu, logvar)]
     cuda_ops.vae_loss_pallas(torch.from_numpy(data), *leaves, mask=torch.from_numpy(mask))[0].backward()
-    assert cuda_ops.launches == {"vae_sums_fwd": 0, "vae_sums_bwd": 0}
+    isi = [torch.from_numpy(x) for x in np.random.default_rng(1).normal(size=(2, 8, 100)).astype(np.float32)]
+    cuda_ops.multimodal_vae_loss_pallas(torch.from_numpy(data), isi[0], leaves[0], isi[1].requires_grad_(True),
+                                        *leaves[1:], mask=torch.from_numpy(mask))[0].backward()
+    assert cuda_ops.launches == {"vae_sums_fwd": 0, "vae_sums_bwd": 0, "masked_sse_fwd": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "device_mix"])
@@ -130,3 +133,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         data = data.to("meta")
     with pytest.raises((TypeError, ValueError)):
         cuda_ops.fused_vae_sums(data, dec, mu, logvar, mask_col)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "device_mix"])
+def test_masked_sse_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    r = np.random.default_rng(2)
+    data, dec = (torch.from_numpy(x) for x in r.normal(size=(2, 8, 100)).astype(np.float32))
+    mask_col = torch.ones(8, 1)
+    if bad == "dtype":
+        dec = dec.double()
+    elif bad == "shape":
+        mask_col = mask_col[:5]
+    elif bad == "contiguity":
+        dec = torch.from_numpy(np.asfortranarray(dec.numpy()))
+    else:
+        data = data.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        cuda_ops.fused_masked_sse(data, dec, mask_col)
