@@ -22,7 +22,9 @@ blocks and float32, and embeds the target dataset. Then the same for the
 joint wave + ISI cVAE (16,115,748 parameters, four backbones, both loss
 kernels): a stage-1 epoch with each block backend, one step against the
 plain versions, the joint embeddings. Last it times the train steps with
-both block backends and each kernel.
+both block backends and each kernel. The encoder block's backward is split
+by kernel (device time and launches per call, at most 8), and its SASS is
+checked for wgmma (HGMMA).
 
 Every phase prints one line. The second-to-last line is the ``kernels`` JSON
 record, the last the device record. Exits non-zero, printing neither, when no
@@ -341,23 +343,43 @@ def reset_all_launches():
     cuda_blocks.reset_launches()
 
 
+def kernel_name(key: str) -> str:
+    """A device kernel's profiler key without its return type, namespace and arguments."""
+    name = key.replace("(anonymous namespace)::", "").split("(", 1)[0]
+    return re.sub(r"^blocks::|^sm90::", "", name.removeprefix("void ").replace(", ", ","))
+
+
 def device_profile(fn, n: int = 10):
-    """(device us, device kernels and copies) per call of ``fn``, from
-    torch.profiler over ``n`` calls; (0.0, 0.0) if it records no device time."""
+    """(device us, device kernels and copies, split) per call of ``fn``, from
+    torch.profiler over ``n`` calls; ``split`` maps each kernel's name
+    (kernel_name) to its (device us, launches) per call. (0.0, 0.0, {}) if
+    the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-            and e.self_device_time_total > 0]
-    return sum(r[0] for r in rows) / n, sum(r[1] for r in rows) / n
+    for _ in range(5):  # the tracer sometimes drops whole calls' device events: take a full trace
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                and e.self_device_time_total > 0]
+        if rows and all(r[1] % n == 0 for r in rows):
+            break
+    split = {}
+    for us, count, key in sorted(rows, reverse=True):
+        us0, c0 = split.get(kernel_name(key), (0.0, 0.0))
+        split[kernel_name(key)] = (us0 + us / n, c0 + count / n)
+    return sum(r[0] for r in rows) / n, sum(r[1] for r in rows) / n, split
+
+
+def split_line(split: dict) -> str:
+    """One line of device_profile's split: name us x launches, largest first."""
+    return ", ".join(f"{k} {us:.1f} us x{c:g}" for k, (us, c) in split.items())
 
 
 def rel_err(a, b) -> float:
@@ -395,9 +417,17 @@ def phase_build():
     wall = time.perf_counter() - t0
     for name in secs:
         for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line.lower() for w in ("registers", "spill", "warning")):
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"[2 build] {len(secs)} source(s) {sorted(secs)} built with nvcc in {wall:.2f} s")
+    # the encoder block's backward runs its GEMMs as wgmma: HGMMA in its SASS
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.so_path("enc_block"))], capture_output=True,
+                          text=True, timeout=300).stdout
+    fns = sass.split("Function : ")[1:]  # each kernel's SASS, its name first
+    with_hgmma = {f.split()[0]: f.count("HGMMA") for f in fns if "HGMMA" in f}
+    print(f"  enc_block SASS: HGMMA instructions in {len(with_hgmma)} of {len(fns)} kernels: {with_hgmma}")
+    check(len(with_hgmma) > 0, "no HGMMA instruction in the enc_block library")
 
 
 def phase_kernel_vs_plain(device="cuda"):
@@ -793,12 +823,14 @@ def phase_blocks(bb: Backbone, card: str):
         bounds = block_bounds(bb, stride, L, ci, co)
         for name, (kernel, plain) in fns.items():
             ms, plain_ms = time_ms(kernel, n=50, warmup=5), time_ms(plain, n=20, warmup=3)
-            dev_us, n_dev = device_profile(kernel)
+            dev_us, n_dev, split = device_profile(kernel)
             per_shape[(stride, L, ci, co, name)] = (ms, plain_ms, bounds[name][0], dev_us / 1e3,
-                                                    bounds[name][1])
+                                                    bounds[name][1], n_dev)
             print(f"  {name} s{stride} L{L} {ci}->{co}: kernel {ms * 1e3:.1f} us/call "
                   f"({dev_us:.1f} us device in {n_dev:.0f} kernels), plain {plain_ms * 1e3:.1f} us/call, "
                   f"bound {bounds[name][0] * 1e3:.2f} us ({bounds[name][1]}) on {card}")
+            if name == "enc_block_bwd":  # the backward's kernels by device time, per call
+                print(f"    {name} s{stride} L{L} {ci}->{co} split: {split_line(split)}")
     return err, per_shape
 
 
@@ -812,7 +844,9 @@ def block_records(bb: Backbone, per_shape: dict, errs: dict, launches: dict, car
         tot = [sum(r[k] for r in rows) for k in range(4)]
         by_ops = sum(r[2] for r in rows if r[4] == "operations")
         bound_by = "operations" if by_ops >= tot[2] / 2 else "bytes"
-        print(f"  {name} over the {len(bb.blocks)} blocks ({bb.label}): kernel {tot[0]:.4f} ms ({tot[3]:.4f} ms device), "
+        per_call = sorted({round(r[5]) for r in rows})
+        print(f"  {name} over the {len(bb.blocks)} blocks ({bb.label}): kernel {tot[0]:.4f} ms ({tot[3]:.4f} ms device "
+              f"in {'/'.join(map(str, per_call))} CUDA launches per call), "
               f"plain {tot[1]:.4f} ms, bound {tot[2]:.4f} ms ({by_ops:.4f} ms of it by operations) "
               f"on {card}")
         kernels.append({
@@ -950,7 +984,7 @@ def phase_pass(bb: Backbone, model, pool, idx, mask, card: str):
     print(f"  {bb.kind} fwd+bwd: pallas {pass_ms['pallas']} ms, xla (cuDNN defaults) {pass_ms['xla']} ms "
           f"on {card}")
     for how in ("pallas", "xla"):
-        dev_us, n_dev = device_profile(lambda: run(mods[how], how), n=5)
+        dev_us, n_dev, _ = device_profile(lambda: run(mods[how], how), n=5)
         ms = min(pass_ms[how])
         print(f"  profile {bb.kind} {how}: device busy {dev_us / 1e3:.3f} ms of {ms:.3f} ms "
               f"(idle share {1 - dev_us / 1e3 / ms:.3f}), {n_dev:.0f} device kernels and copies per pass")
@@ -1166,6 +1200,11 @@ def phase_timings(ts, pool, idx, mask, joint_ts, joint_plan, card: str, errs: di
         print(f"  {name}: kernel {ms * 1e3:.2f} us/call, plain {plain_ms * 1e3:.2f} us/call, "
               + ("" if library is None else f"F.mse_loss(sum) {library_ms * 1e3:.2f} us/call, ")
               + f"bound {bound_ms * 1e3:.4f} us ({bound_by}) on {card}")
+        if library is not None:  # host or device: each call's device time beside the library's
+            for what, fn in (("kernel", kernel), ("F.mse_loss(sum)", library)):
+                dev_us, n_dev, split = device_profile(fn, n=50)
+                print(f"    {name} {what}: {dev_us:.2f} us device in {n_dev:g} launches per call "
+                      f"({split_line(split)})")
         kernels.append({
             "name": name, "route": "cuda", "source": "hippie_tpu_torch/csrc/vae_sums.cu",
             "replaces": sources[name], "launches": launches[name], "max_abs_err": errs[name],
@@ -1220,6 +1259,8 @@ def main() -> int:
         block_kernels, block_errs = [], {}
         for bb in (ENC, DEC, isi_backbone()):
             bb_errs, per_shape = phase_blocks(bb, card)
+            most = max(v[5] for k, v in per_shape.items() if k[-1] == "enc_block_bwd") if bb.kind == "enc" else 0
+            check(most <= 8, f"{bb.label}: enc_block_bwd makes {most:g} CUDA launches per call, over 8")
             records = block_records(bb, per_shape, bb_errs, joint_launches, card)
             if bb.label != ISI_LABEL:  # the records: times of the waveform model's backbones
                 phase_pass(bb, ts.model, pool, idx, mask, card)

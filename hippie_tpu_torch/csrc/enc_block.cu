@@ -16,24 +16,44 @@
 // do 20.6 GFLOP forward and about 62 GFLOP backward (recompute, input and
 // weight gradients), 21 us and 63 us at 989 TFLOP/s bf16 dense; no
 // activation is over 1.6 MB, so bytes bound nothing. At these sizes the
-// kernels are short, and the sequence of launches is what the time is made
-// of: 17 launches per forward and 25 per backward with a shortcut, 12 and 18
-// without.
+// kernels are short, and the number of launches and passes over device
+// memory is what the time is made of.
 //
-// Design: the TPU kernel held the whole block in VMEM as one program (and
-// its backward did not fit at B=512). A Hopper block cannot hold the batch,
-// so each step is its own launch from block_common.cuh: implicit-GEMM convs
-// with tensor-core tiles, BatchNorm statistics as fixed-order per-channel
-// partial sums and a final pass (no float atomics: repeated runs give the
-// same bits), elementwise passes that normalise, activate and round, and
-// split-K weight gradients summed in a fixed order. Intermediates round-trip
-// through device memory (all of them fit in L2). Each entry point is one
-// ctypes call that issues its whole sequence on the caller's stream; scratch
-// comes from the caller.
+// Forward design (block_common.cuh): each step is its own launch,
+// implicit-GEMM convs on wmma tiles, BatchNorm statistics as fixed-order
+// per-channel partial sums and a final pass, elementwise passes that
+// normalise, activate and round; 17 launches with a shortcut, 12 without.
+//
+// Backward design (sm90_gemm.cuh): 7 launches with a shortcut or without,
+// each GEMM a wgmma tile fed by a 4-stage cp.async ring, and each
+// elementwise step done in the epilogue of the GEMM that produces its input:
+//   1 conv1 recompute; epilogue xh1, r1 (bf16 from the accumulator)
+//   2 conv2 recompute and the shortcut's conv into a second accumulator of
+//     the same tile; epilogue xh2, xhs, g0 and per-(m-tile, channel) sums of
+//     g0*xh2, g0, g0*xhs taken from the rounded values; the blocks that
+//     finish last sum those in a fixed order into dg2, db2, dgs, dbs
+//   3 dc2, dcs (BatchNorm's backward, elementwise)
+//   4 the transposed conv2 (epilogue da1 and the sums of da1*xh1, da1 into
+//     dg1, db1 as in 2), with the split-K tiles of dw2 and dws in the same grid
+//   5 dc1
+//   6 dx = the transposed conv1 (+ the shortcut's) into one accumulator,
+//     plus g0 without a shortcut, rounded once; with dw1's split-K tiles
+//   7 the fixed-order sums of the weight gradients' split-K partials
+// The cross-block sums take integer tickets (the last block of a group sums
+// the group's partials in index order); there are no float atomics, so
+// repeated runs give the same bits. Each entry point is one ctypes call that
+// issues its whole sequence on the caller's stream; scratch comes from the
+// caller.
 
 #include "block_common.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace blocks;
+using sm90::ConvLoader;
+using sm90::ConvSeg;
+using sm90::kLdS;
+using sm90::make_seg;
+using sm90::WgradLoader;
 
 namespace {
 
@@ -59,28 +79,63 @@ FwdScratch plan_fwd(Arena& a, int L, int B, int Co, int stride, int has_short) {
   return s;
 }
 
-struct BwdScratch {
-  float *c1, *c2, *cs, *t, *dxm, *dxs, *wpart, *n;
-  bf16 *xh1, *r1, *xh2, *xhs, *g0, *dc2, *dcs, *da1, *dc1;
-  float2* part;
+inline int ew_grid(size_t total) { return (int)((total + kEwThreads - 1) / kEwThreads); }
+
+// --- backward ------------------------------------------------------------------
+
+// Split-K of a weight gradient over M rows: about 264 jobs, each at least 8
+// whole k-steps.
+struct Split {
+  int rows, splits, jobs;
+};
+Split wgrad_split(int M, int Ci, int Co, int taps) {
+  const int tiles = taps * (Ci / sm90::kBM) * (Co / sm90::kBN);
+  const int ktiles = cdiv(M, sm90::kBK);
+  const int want = std::max(1, std::min(cdiv(ktiles, 8), cdiv(264, tiles)));
+  const int rows = cdiv(ktiles, want) * sm90::kBK;
+  const int splits = cdiv(M, rows);
+  return Split{rows, splits, splits * tiles};
+}
+
+struct BwdPlan {
+  int L, B, Ci, Co, Lo, M;
+  int mtiles, ntiles, groups;  // tiles of the [M, Co] GEMMs; groups of m-tiles
+  int xtiles;                  // m-tiles of dx [L*B, Ci]
+  Split s1, s2, ss;            // dw1, dw2, dws
+  ConvGeom c1g, c2g, csg, c2t, c1t, cst;
 };
 
-BwdScratch plan_bwd(Arena& a, int L, int B, int Ci, int Co, int stride, int has_short) {
-  const int Lo = out_len(L, stride);
-  const int M = Lo * B;
-  const size_t tot = (size_t)M * Co;
-  const size_t tot_in = (size_t)L * B * Ci;
+BwdPlan plan(int L, int B, int Ci, int Co, int stride) {
+  BwdPlan p;
+  p.L = L, p.B = B, p.Ci = Ci, p.Co = Co;
+  p.Lo = out_len(L, stride);
+  p.M = p.Lo * B;
+  p.mtiles = cdiv(p.M, sm90::kBM);
+  p.ntiles = Co / sm90::kBN;
+  p.groups = cdiv(p.mtiles, sm90::kGroup);
+  p.xtiles = cdiv(L * B, sm90::kBM);
+  p.s1 = wgrad_split(p.M, Ci, Co, 3);
+  p.s2 = wgrad_split(p.M, Co, Co, 3);
+  p.ss = wgrad_split(p.M, Ci, Co, 1);
+  p.c1g = ConvGeom{L, p.Lo, B, Ci, Co, 3, stride, 1};      // conv1: x -> c1
+  p.c2g = ConvGeom{p.Lo, p.Lo, B, Co, Co, 3, 1, 1};        // conv2: r1 -> c2
+  p.csg = ConvGeom{L, p.Lo, B, Ci, Co, 1, 2, 0};           // shortcut: x -> cs
+  p.c2t = ConvGeom{p.Lo, p.Lo, B, Co, Co, 3, 1, 1};        // conv2^T: dc2 -> da1
+  p.c1t = ConvGeom{p.Lo, L, B, Co, Ci, 3, stride, 1};      // conv1^T: dc1 -> dx
+  p.cst = ConvGeom{p.Lo, L, B, Co, Ci, 1, 2, 0};           // shortcut^T: dcs -> dx
+  return p;
+}
+
+struct BwdScratch {
+  bf16 *xh1, *r1, *xh2, *xhs, *g0, *dc2, *dcs, *da1, *dc1;
+  float *part, *gpart, *n, *wp1, *wp2, *wps;
+  unsigned* tk;
+};
+
+BwdScratch plan_bwd(Arena& a, const BwdPlan& p, int has_short) {
+  const size_t tot = (size_t)p.M * p.Co;
+  const size_t w1 = (size_t)3 * p.Ci * p.Co, w2 = (size_t)3 * p.Co * p.Co, ws = (size_t)p.Ci * p.Co;
   BwdScratch s;
-  s.c1 = a.take<float>(tot);
-  s.c2 = a.take<float>(tot);
-  s.cs = has_short ? a.take<float>(tot) : nullptr;
-  s.t = a.take<float>(tot);
-  s.dxm = a.take<float>(tot_in);
-  s.dxs = has_short ? a.take<float>(tot_in) : nullptr;
-  size_t wp = std::max(wgrad_partial_floats(M, Co, Co, 3), wgrad_partial_floats(M, Ci, Co, 3));
-  if (has_short) wp = std::max(wp, wgrad_partial_floats(M, Ci, Co, 1));
-  s.wpart = a.take<float>(wp);
-  s.n = a.take<float>(1);
   s.xh1 = a.take<bf16>(tot);
   s.r1 = a.take<bf16>(tot);
   s.xh2 = a.take<bf16>(tot);
@@ -90,11 +145,324 @@ BwdScratch plan_bwd(Arena& a, int L, int B, int Ci, int Co, int stride, int has_
   s.dcs = has_short ? a.take<bf16>(tot) : nullptr;
   s.da1 = a.take<bf16>(tot);
   s.dc1 = a.take<bf16>(tot);
-  s.part = a.take<float2>((size_t)col_chunks(M, Co) * Co);
+  s.part = a.take<float>((size_t)p.mtiles * 3 * p.Co);
+  s.gpart = a.take<float>((size_t)p.groups * 3 * p.Co);
+  s.n = a.take<float>(1);
+  s.wp1 = a.take<float>(p.s1.splits * w1);
+  s.wp2 = a.take<float>(p.s2.splits * w2);
+  s.wps = has_short ? a.take<float>(p.ss.splits * ws) : nullptr;
+  s.tk = a.take<unsigned>((size_t)(p.groups + 1) * p.ntiles);
   return s;
 }
 
-inline int ew_grid(size_t total) { return (int)((total + kEwThreads - 1) / kEwThreads); }
+struct BwdArgs {
+  const bf16 *x, *w1, *w2, *ws, *g;
+  const float *g1, *b1, *g2, *b2, *gs, *bs, *mask, *st1, *st2, *sts;
+  bf16* dx;
+  float *dw1, *dg1, *db1, *dw2, *dg2, *db2, *dws, *dgs, *dbs;
+  BwdScratch S;
+  BwdPlan P;
+};
+
+// The epilogues run one column per thread pair: column c = tid & 63 of the
+// tile, rows [32 h, 32 h + 32) for h = tid >> 6; row sums combine the halves
+// in order.
+__device__ __forceinline__ int ep_col() { return threadIdx.x & 63; }
+__device__ __forceinline__ int ep_row0() { return (threadIdx.x >> 6) * 32; }
+
+// Writes row mt of part [mtiles][NQ][C] from the thread pairs' sums s.
+template <int NQ>
+__device__ __forceinline__ void write_tile_sums(const float (&s)[NQ], float* part, int mt, int C, int n) {
+  __shared__ float red[NQ][sm90::kBN];
+  const int c = ep_col();
+  if (threadIdx.x >= 64) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) red[q][c] = s[q];
+  }
+  __syncthreads();
+  if (threadIdx.x < 64) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) part[((size_t)mt * NQ + q) * C + n] = s[q] + red[q][c];
+  }
+}
+
+// 1: conv1 recompute -> xh1, r1. Block (0, 0) also writes the count
+// n = sum(mask) * Lo and zeroes the tickets of launches 2 and 4.
+__global__ void __launch_bounds__(sm90::kThreads) bwd_conv1_kernel(BwdArgs A) {
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  const BwdPlan& P = A.P;
+  const int mt = blockIdx.x, nt = blockIdx.y, m0 = mt * sm90::kBM, n0 = nt * sm90::kBN;
+  if (mt == 0 && nt == 0) {
+    const float cnt = block_mask_count(A.mask, P.B);
+    if (threadIdx.x == 0) *A.S.n = cnt * (float)P.Lo;
+    for (int i = threadIdx.x; i < (P.groups + 1) * P.ntiles; i += sm90::kThreads) A.S.tk[i] = 0u;
+  }
+  const uint32_t ring = sm90::ring_base(dyn);
+  const ConvLoader<false> ld(make_seg<false>(A.x, A.w1, P.c1g, m0), ConvSeg{}, m0, n0);
+  float acc[32], unused[32];
+  sm90::mainloop<0, 1, false>(ld, ld.steps(), ld.steps(), ring, acc, unused);
+  float* st = sm90::ring_ptr<float>(dyn, ring);
+  sm90::stage_acc(acc, st);
+  __syncthreads();
+  const int c = ep_col(), n = n0 + c;
+  const float mu = A.st1[n], inv = A.st1[2 * P.Co + n], gm = A.g1[n], bt = A.b1[n];
+  for (int r = ep_row0(); r < ep_row0() + 32 && m0 + r < P.M; ++r) {
+    const size_t i = (size_t)(m0 + r) * P.Co + n;
+    const bf16 h = to_bf(__fmul_rn(__fsub_rn(st[r * kLdS + c], mu), inv));
+    const bf16 a = to_bf(__fadd_rn(__fmul_rn(gm, bf(h)), bt));
+    A.S.xh1[i] = h;
+    A.S.r1[i] = to_bf(lrelu(bf(a)));
+  }
+}
+
+// 2: conv2 recompute (+ the shortcut's conv) -> xh2, xhs, g0, and dg2, db2,
+// dgs, dbs by the finishing blocks.
+template <bool SHORT>
+__global__ void __launch_bounds__(sm90::kThreads) bwd_conv2_kernel(BwdArgs A) {
+  constexpr int NQ = SHORT ? 3 : 2;
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  const BwdPlan& P = A.P;
+  const int mt = blockIdx.x, nt = blockIdx.y, m0 = mt * sm90::kBM, n0 = nt * sm90::kBN;
+  const uint32_t ring = sm90::ring_base(dyn);
+  const ConvSeg s0 = make_seg<false>(A.S.r1, A.w2, P.c2g, m0);
+  const ConvSeg s1 = SHORT ? make_seg<false>(A.x, A.ws, P.csg, m0) : ConvSeg{};
+  const ConvLoader<false> ld(s0, s1, m0, n0);
+  sm90::load_ep_tile(sm90::ep_tile(ring, 0), A.g, m0, n0, P.M, P.Co);
+  if (!SHORT) sm90::load_ep_tile(sm90::ep_tile(ring, 1), A.x, m0, n0, P.M, P.Co);
+  float acc0[32], acc1[32];
+  sm90::mainloop<0, 1, SHORT>(ld, ld.steps(), s0.nsteps, ring, acc0, acc1);
+  const bf16* gt = sm90::ring_ptr<bf16>(dyn, sm90::ep_tile(ring, 0));
+  const bf16* xt = sm90::ring_ptr<bf16>(dyn, sm90::ep_tile(ring, 1));
+  float* st0 = sm90::ring_ptr<float>(dyn, ring);
+  float* st1 = st0 + sm90::kBM * kLdS;
+  sm90::stage_acc(acc0, st0);
+  if (SHORT) sm90::stage_acc(acc1, st1);
+  __syncthreads();
+
+  const int c = ep_col(), n = n0 + c, C = P.Co;
+  const float mu2 = A.st2[n], inv2 = A.st2[2 * C + n], gm2 = A.g2[n], bt2 = A.b2[n];
+  const float mus = SHORT ? A.sts[n] : 0.f, invs = SHORT ? A.sts[2 * C + n] : 0.f;
+  const float gms = SHORT ? A.gs[n] : 0.f, bts = SHORT ? A.bs[n] : 0.f;
+  float s[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) s[q] = 0.f;
+  for (int r = ep_row0(); r < ep_row0() + 32 && m0 + r < P.M; ++r) {
+    const size_t i = (size_t)(m0 + r) * C + n;
+    const bf16 h2 = to_bf(__fmul_rn(__fsub_rn(st0[r * kLdS + c], mu2), inv2));
+    const float a2 = __fadd_rn(__fmul_rn(gm2, bf(h2)), bt2);
+    float sh;
+    bf16 hs = to_bf(0.f);
+    if (SHORT) {
+      hs = to_bf(__fmul_rn(__fsub_rn(st1[r * kLdS + c], mus), invs));
+      sh = __fadd_rn(__fmul_rn(gms, bf(hs)), bts);
+      A.S.xhs[i] = hs;
+    } else {
+      sh = bf(xt[r * sm90::kBN + c]);  // stride 1 and C_in == C_out: x's row m is the output's
+    }
+    const bf16 g0 = to_bf(__fmul_rn(bf(gt[r * sm90::kBN + c]), dlrelu(__fadd_rn(a2, sh))));
+    A.S.xh2[i] = h2;
+    A.S.g0[i] = g0;
+    const float gv = bf(g0);
+    s[0] = __fadd_rn(s[0], __fmul_rn(gv, bf(h2)));
+    s[1] = __fadd_rn(s[1], gv);
+    if (SHORT) s[NQ - 1] = __fadd_rn(s[NQ - 1], __fmul_rn(gv, bf(hs)));
+  }
+  write_tile_sums<NQ>(s, A.S.part, mt, C, n);
+  float tot[NQ];
+  if (sm90::finish_col_sums<NQ>(A.S.part, A.S.gpart, A.S.tk, mt, P.mtiles, nt, P.ntiles, C, n0, tot) &&
+      threadIdx.x < 64) {
+    A.dg2[n] = tot[0];
+    A.db2[n] = tot[1];
+    if (SHORT) {
+      A.dgs[n] = tot[NQ - 1];
+      A.dbs[n] = tot[1];  // the shortcut's dbeta is the same sum of g0
+    }
+  }
+}
+
+// 3 and 5: BatchNorm's backward, dc = bf16((gamma * inv) * (dy - (m / n) *
+// (dbeta + xh * dgamma))), 8 entries per thread; TWO: a second BatchNorm on
+// the same dy (the shortcut's).
+struct BnDx {
+  const bf16* xh;
+  const float *gamma, *st, *dgamma, *dbeta;
+  bf16* dc;
+};
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+template <bool TWO>
+__global__ void __launch_bounds__(kEwThreads)
+bn_dx8_kernel(const bf16* __restrict__ dy, BnDx p, BnDx q, const float* __restrict__ mask,
+              const float* __restrict__ n_ptr, int B, int C, int total) {
+  const int base = (blockIdx.x * kEwThreads + threadIdx.x) * 8;
+  if (base >= total) return;
+  const int m = base / C, c = base - m * C;
+  const float mn = mask[m % B] / n_ptr[0];
+  const uint4 dv = *reinterpret_cast<const uint4*>(dy + base);
+  const bf16* d = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+  for (int k = 0; k < (TWO ? 2 : 1); ++k) {
+    const BnDx& b = k ? q : p;
+    const uint4 hv = *reinterpret_cast<const uint4*>(b.xh + base);
+    const bf16* h = reinterpret_cast<const bf16*>(&hv);
+    float gm[8], inv[8], dbt[8], dgm[8];
+    load8(b.gamma + c, gm);
+    load8(b.st + 2 * C + c, inv);
+    load8(b.dbeta + c, dbt);
+    load8(b.dgamma + c, dgm);
+    uint4 ov;
+    bf16* o = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float gi = __fmul_rn(gm[e], inv[e]);
+      const float inner = __fadd_rn(dbt[e], __fmul_rn(bf(h[e]), dgm[e]));
+      o[e] = to_bf(__fmul_rn(gi, __fsub_rn(bf(d[e]), __fmul_rn(mn, inner))));
+    }
+    *reinterpret_cast<uint4*>(b.dc + base) = ov;
+  }
+}
+
+// A split-K weight-gradient job j of a grid (n-tiles fastest, then input
+// channel tiles, taps, splits): its fp32 partial into part [splits][taps][Ci][Co].
+__device__ __forceinline__ void wgrad_job(unsigned char* dyn, const bf16* x, const bf16* dc,
+                                          const ConvGeom& g, const Split& sp, int j, float* part) {
+  const int tn = g.N / sm90::kBN, ti = g.Csrc / sm90::kBM;
+  const int n0 = (j % tn) * sm90::kBN;
+  j /= tn;
+  const int i0 = (j % ti) * sm90::kBM;
+  j /= ti;
+  const int t = j % g.taps, s = j / g.taps;
+  const int M = g.Lout * g.B;
+  const WgradLoader ld{x, dc, g, t, i0, n0, s * sp.rows, min(M, (s + 1) * sp.rows)};
+  float acc[32], unused[32];
+  sm90::mainloop<1, 1, false>(ld, ld.steps(), ld.steps(), sm90::ring_base(dyn), acc, unused);
+  float* base = part + ((size_t)(s * g.taps + t) * g.Csrc + i0) * g.N + n0;
+  const int r = sm90::acc_row(), c = sm90::acc_col();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    *reinterpret_cast<float2*>(base + (size_t)r * g.N + 8 * k + c) = make_float2(acc[4 * k], acc[4 * k + 1]);
+    *reinterpret_cast<float2*>(base + (size_t)(r + 8) * g.N + 8 * k + c) =
+        make_float2(acc[4 * k + 2], acc[4 * k + 3]);
+  }
+}
+
+// 4: dw2's and dws's split-K tiles, then the transposed conv2 -> da1 and
+// dg1, db1 by the finishing blocks.
+template <bool SHORT>
+__global__ void __launch_bounds__(sm90::kThreads) bwd_mid_kernel(BwdArgs A) {
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  const BwdPlan& P = A.P;
+  int j = blockIdx.x;
+  if (j < P.s2.jobs) return wgrad_job(dyn, A.S.r1, A.S.dc2, P.c2g, P.s2, j, A.S.wp2);
+  j -= P.s2.jobs;
+  if (SHORT) {
+    if (j < P.ss.jobs) return wgrad_job(dyn, A.x, A.S.dcs, P.csg, P.ss, j, A.S.wps);
+    j -= P.ss.jobs;
+  }
+  const int mt = j % P.mtiles, nt = j / P.mtiles, m0 = mt * sm90::kBM, n0 = nt * sm90::kBN;
+  const uint32_t ring = sm90::ring_base(dyn);
+  const ConvLoader<true> ld(make_seg<true>(A.S.dc2, A.w2, P.c2t, m0), ConvSeg{}, m0, n0);
+  sm90::load_ep_tile(sm90::ep_tile(ring, 0), A.S.xh1, m0, n0, P.M, P.Co);
+  float acc[32], unused[32];
+  sm90::mainloop<0, 0, false>(ld, ld.steps(), ld.steps(), ring, acc, unused);
+  const bf16* ht = sm90::ring_ptr<bf16>(dyn, sm90::ep_tile(ring, 0));
+  float* st = sm90::ring_ptr<float>(dyn, ring);
+  sm90::stage_acc(acc, st);
+  __syncthreads();
+  const int c = ep_col(), n = n0 + c, C = P.Co;
+  const float gm = A.g1[n], bt = A.b1[n];
+  float s[2] = {0.f, 0.f};
+  for (int r = ep_row0(); r < ep_row0() + 32 && m0 + r < P.M; ++r) {
+    const size_t i = (size_t)(m0 + r) * C + n;
+    const float h = bf(ht[r * sm90::kBN + c]);
+    const float a = bf(to_bf(__fadd_rn(__fmul_rn(gm, h), bt)));
+    const bf16 da = to_bf(__fmul_rn(st[r * kLdS + c], dlrelu(a)));
+    A.S.da1[i] = da;
+    s[0] = __fadd_rn(s[0], __fmul_rn(bf(da), h));
+    s[1] = __fadd_rn(s[1], bf(da));
+  }
+  write_tile_sums<2>(s, A.S.part, mt, C, n);
+  float tot[2];
+  if (sm90::finish_col_sums<2>(A.S.part, A.S.gpart, A.S.tk, mt, P.mtiles, nt, P.ntiles, C, n0, tot) &&
+      threadIdx.x < 64) {
+    A.dg1[n] = tot[0];
+    A.db1[n] = tot[1];
+  }
+}
+
+// 6: dw1's split-K tiles, then dx = conv1^T(dc1) (+ shortcut^T(dcs)) into one
+// accumulator, plus g0 without a shortcut, rounded to bf16 once.
+template <bool SHORT>
+__global__ void __launch_bounds__(sm90::kThreads) bwd_dx_kernel(BwdArgs A) {
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  const BwdPlan& P = A.P;
+  int j = blockIdx.x;
+  if (j < P.s1.jobs) return wgrad_job(dyn, A.x, A.S.dc1, P.c1g, P.s1, j, A.S.wp1);
+  j -= P.s1.jobs;
+  const int mt = j % P.xtiles, nt = j / P.xtiles, m0 = mt * sm90::kBM, n0 = nt * sm90::kBN;
+  const uint32_t ring = sm90::ring_base(dyn);
+  const ConvSeg s1 = SHORT ? make_seg<true>(A.S.dcs, A.ws, P.cst, m0) : ConvSeg{};
+  const ConvLoader<true> ld(make_seg<true>(A.S.dc1, A.w1, P.c1t, m0), s1, m0, n0);
+  const int Min = P.L * P.B;
+  if (!SHORT) sm90::load_ep_tile(sm90::ep_tile(ring, 0), A.S.g0, m0, n0, Min, P.Ci);
+  float acc[32], unused[32];
+  sm90::mainloop<0, 0, false>(ld, ld.steps(), ld.steps(), ring, acc, unused);
+  const bf16* gt = sm90::ring_ptr<bf16>(dyn, sm90::ep_tile(ring, 0));
+  float* st = sm90::ring_ptr<float>(dyn, ring);
+  sm90::stage_acc(acc, st);
+  __syncthreads();
+  const int c = ep_col(), n = n0 + c;
+  for (int r = ep_row0(); r < ep_row0() + 32 && m0 + r < Min; ++r) {
+    const size_t i = (size_t)(m0 + r) * P.Ci + n;
+    float v = st[r * kLdS + c];
+    if (!SHORT) v = __fadd_rn(v, bf(gt[r * sm90::kBN + c]));  // stride 1: g0 [Lo, B, Co] is [L, B, Ci]
+    A.dx[i] = to_bf(v);
+  }
+}
+
+// 7: dw = sum over splits of the partials, in order, for dw1, dw2 and dws.
+struct WgradSum {
+  const float* part;
+  int splits, n;
+  float* dw;
+};
+
+__global__ void __launch_bounds__(kEwThreads) wgrad_sum3_kernel(WgradSum a, WgradSum b, WgradSum c) {
+  int i = blockIdx.x * kEwThreads + threadIdx.x;
+  WgradSum w = a;
+  if (i >= a.n) {
+    i -= a.n;
+    w = b;
+    if (i >= b.n) {
+      i -= b.n;
+      w = c;
+      if (i >= c.n) return;
+    }
+  }
+  float s = 0.f;
+  int k = 0;
+  for (; k + 4 <= w.splits; k += 4) {  // four loads in flight, added in order
+    const float a0 = w.part[(size_t)k * w.n + i], a1 = w.part[(size_t)(k + 1) * w.n + i];
+    const float a2 = w.part[(size_t)(k + 2) * w.n + i], a3 = w.part[(size_t)(k + 3) * w.n + i];
+    s = (((s + a0) + a1) + a2) + a3;
+  }
+  for (; k < w.splits; ++k) s += w.part[(size_t)k * w.n + i];
+  w.dw[i] = s;
+}
+
+// ep_tiles: the epilogue's input tiles the kernel keeps in shared memory.
+template <class K>
+int gemm_launch(K kernel, dim3 grid, int ep_tiles, const BwdArgs& args, cudaStream_t s) {
+  const int smem = sm90::smem_bytes(ep_tiles);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<grid, sm90::kThreads, smem, s>>>(args);
+  BLOCKS_CHECK();
+  return 0;
+}
 
 }  // namespace
 
@@ -116,7 +484,7 @@ long long enc_block_fwd_scratch(int L, int B, int Ci, int Co, int stride, int ha
 
 long long enc_block_bwd_scratch(int L, int B, int Ci, int Co, int stride, int has_short) {
   Arena a{nullptr};
-  plan_bwd(a, L, B, Ci, Co, stride, has_short);
+  plan_bwd(a, plan(L, B, Ci, Co, stride), has_short);
   return (long long)a.used;
 }
 
@@ -171,59 +539,48 @@ int enc_block_bwd(const void* x_, const void* w1_, const float* g1, const float*
                   float* db1, float* dw2, float* dg2, float* db2, float* dws, float* dgs,
                   float* dbs, void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* w1 = static_cast<const bf16*>(w1_);
-  const bf16* w2 = static_cast<const bf16*>(w2_);
-  const bf16* ws = static_cast<const bf16*>(ws_);
-  const bf16* g = static_cast<const bf16*>(g_);
-  bf16* dx = static_cast<bf16*>(dx_);
-  const int Lo = out_len(L, stride);
-  const int tot = Lo * B * Co;
-  const int tot_in = L * B * Ci;
+  BwdArgs A;
+  A.x = static_cast<const bf16*>(x_);
+  A.w1 = static_cast<const bf16*>(w1_);
+  A.w2 = static_cast<const bf16*>(w2_);
+  A.ws = static_cast<const bf16*>(ws_);
+  A.g = static_cast<const bf16*>(g_);
+  A.g1 = g1, A.b1 = b1, A.g2 = g2, A.b2 = b2, A.gs = gs, A.bs = bs;
+  A.mask = mask, A.st1 = st1, A.st2 = st2, A.sts = sts;
+  A.dx = static_cast<bf16*>(dx_);
+  A.dw1 = dw1, A.dg1 = dg1, A.db1 = db1, A.dw2 = dw2, A.dg2 = dg2, A.db2 = db2;
+  A.dws = dws, A.dgs = dgs, A.dbs = dbs;
+  A.P = plan(L, B, Ci, Co, stride);
   Arena a{static_cast<char*>(scratch)};
-  const BwdScratch S = plan_bwd(a, L, B, Ci, Co, stride, has_short);
-  const ConvGeom c1g{L, Lo, B, Ci, Co, 3, stride, 1};    // conv1: x -> c1
-  const ConvGeom c2g{Lo, Lo, B, Co, Co, 3, 1, 1};        // conv2: r1 -> c2
-  const ConvGeom csg{L, Lo, B, Ci, Co, 1, 2, 0};         // shortcut: x -> cs
-  const ConvGeom c2t{Lo, Lo, B, Co, Co, 3, 1, 1};        // conv2^T: dc2 -> da1
-  const ConvGeom c1t{Lo, L, B, Co, Ci, 3, stride, 1};    // conv1^T: dc1 -> dx
-  const ConvGeom cst{Lo, L, B, Co, Ci, 1, 2, 0};         // shortcut^T: dcs -> dx
+  A.S = plan_bwd(a, A.P, has_short);
+  const BwdPlan& P = A.P;
+  const BwdScratch& S = A.S;
+  const size_t tot = (size_t)P.M * Co;
+  const dim3 tiles(P.mtiles, P.ntiles);
+  const int ew8 = ew_grid(tot / 8);
+  const BnDx bn2{S.xh2, g2, st2, dg2, db2, S.dc2}, bns{S.xhs, gs, sts, dgs, dbs, S.dcs};
+  const BnDx bn1{S.xh1, g1, st1, dg1, db1, S.dc1};
+  const int mid = P.s2.jobs + (has_short ? P.ss.jobs : 0) + P.mtiles * P.ntiles;
+  const int last = P.s1.jobs + P.xtiles * (Ci / sm90::kBN);
 
-  // recompute the forward from x and the saved statistics
-  RET_IF(launch_conv<false>(x, w1, S.c1, c1g, s));
-  bn_recompute_kernel<<<ew_grid(tot), kEwThreads, 0, s>>>(S.c1, st1, g1, b1, Co, tot, S.xh1, S.r1);
-  BLOCKS_CHECK();
-  RET_IF(launch_conv<false>(S.r1, w2, S.c2, c2g, s));
-  if (has_short) RET_IF(launch_conv<false>(x, ws, S.cs, csg, s));
-  out_grad_kernel<<<ew_grid(tot), kEwThreads, 0, s>>>(S.c2, st2, g2, b2, S.cs, sts, gs, bs, x, g,
-                                                      Co, tot, S.xh2, S.xhs, S.g0);
-  BLOCKS_CHECK();
-
-  // bn2 and the shortcut's BatchNorm
-  RET_IF(launch_col_dsum(S.g0, S.xh2, mask, Lo, B, Co, S.part, dg2, db2, S.n, s));
-  RET_IF(launch_bn_dx(S.g0, S.xh2, g2, st2, dg2, db2, mask, S.n, Lo, B, Co, S.dc2, s));
+  RET_IF(gemm_launch(bwd_conv1_kernel, tiles, 0, A, s));
   if (has_short) {
-    RET_IF(launch_col_dsum(S.g0, S.xhs, mask, Lo, B, Co, S.part, dgs, dbs, S.n, s));
-    RET_IF(launch_bn_dx(S.g0, S.xhs, gs, sts, dgs, dbs, mask, S.n, Lo, B, Co, S.dcs, s));
+    RET_IF(gemm_launch(bwd_conv2_kernel<true>, tiles, 1, A, s));
+    bn_dx8_kernel<true><<<ew8, kEwThreads, 0, s>>>(S.g0, bn2, bns, mask, S.n, B, Co, (int)tot);
+    BLOCKS_CHECK();
+    RET_IF(gemm_launch(bwd_mid_kernel<true>, dim3(mid), 1, A, s));
+  } else {
+    RET_IF(gemm_launch(bwd_conv2_kernel<false>, tiles, 2, A, s));
+    bn_dx8_kernel<false><<<ew8, kEwThreads, 0, s>>>(S.g0, bn2, bn2, mask, S.n, B, Co, (int)tot);
+    BLOCKS_CHECK();
+    RET_IF(gemm_launch(bwd_mid_kernel<false>, dim3(mid), 1, A, s));
   }
-
-  // conv2, then bn1 through the recomputed activation
-  RET_IF(launch_wgrad(S.r1, S.dc2, S.wpart, dw2, c2g, s));
-  RET_IF(launch_conv<true>(S.dc2, w2, S.t, c2t, s));
-  act_grad_kernel<<<ew_grid(tot), kEwThreads, 0, s>>>(S.t, S.xh1, g1, b1, Co, tot, S.da1);
+  bn_dx8_kernel<false><<<ew8, kEwThreads, 0, s>>>(S.da1, bn1, bn1, mask, S.n, B, Co, (int)tot);
   BLOCKS_CHECK();
-  RET_IF(launch_col_dsum(S.da1, S.xh1, mask, Lo, B, Co, S.part, dg1, db1, S.n, s));
-  RET_IF(launch_bn_dx(S.da1, S.xh1, g1, st1, dg1, db1, mask, S.n, Lo, B, Co, S.dc1, s));
-
-  // conv1 and the shortcut's conv
-  RET_IF(launch_wgrad(x, S.dc1, S.wpart, dw1, c1g, s));
-  RET_IF(launch_conv<true>(S.dc1, w1, S.dxm, c1t, s));
-  if (has_short) {
-    RET_IF(launch_wgrad(x, S.dcs, S.wpart, dws, csg, s));
-    RET_IF(launch_conv<true>(S.dcs, ws, S.dxs, cst, s));
-  }
-  add_round_kernel<<<ew_grid(tot_in), kEwThreads, 0, s>>>(S.dxm, S.dxs, has_short ? nullptr : S.g0,
-                                                          tot_in, dx);
+  RET_IF(gemm_launch(has_short ? bwd_dx_kernel<true> : bwd_dx_kernel<false>, dim3(last), has_short ? 0 : 1, A, s));
+  const WgradSum w1s{S.wp1, P.s1.splits, 3 * Ci * Co, dw1}, w2s{S.wp2, P.s2.splits, 3 * Co * Co, dw2};
+  const WgradSum wss{S.wps, P.ss.splits, has_short ? Ci * Co : 0, dws};
+  wgrad_sum3_kernel<<<ew_grid((size_t)w1s.n + w2s.n + wss.n), kEwThreads, 0, s>>>(w1s, w2s, wss);
   BLOCKS_CHECK();
   return 0;
 }

@@ -1,0 +1,402 @@
+// A Hopper GEMM core for sm_90a: wgmma on an asynchronous shared-memory ring.
+//
+// Used by the encoder block's backward (enc_block.cu). One block is one
+// warpgroup (128 threads) and owns a 64 x 64 output tile. Each k-step moves a
+// 64-deep slice of both operands into one slot of a kStages-deep ring in
+// dynamic shared memory with 16-byte cp.async copies (zero-filled where a row
+// falls outside the operand: a conv tap off the edge, a row past M), while
+// the warpgroup runs wgmma.mma_async (m64n64k16, bf16 operands, fp32
+// accumulators) on the slot that has arrived. The copies for step k + 2 are
+// in flight while step k multiplies, and step k's products run on while the
+// block waits for step k + 1's operands (one wgmma group in flight).
+//
+// Shared layout: every operand tile is 64 rows of 128 bytes (64 bf16), with
+// the 16-byte chunk j of row r stored at chunk j ^ (r % 8): the 128-byte
+// swizzle the wgmma descriptors name (layout type 1), on 1024-byte aligned
+// tiles. A row is either an M (or N) index holding 64 k-values ("K-major",
+// the gathered activations, and a transposed conv's weights) or a k index
+// holding 64 M (or N) values ("MN-major", a forward conv's weights and both
+// operands of a weight gradient, read with wgmma's transpose bit). Rows come
+// from device memory as whole 128-byte runs, so the copies are coalesced and
+// the swizzle keeps the shared stores free of bank conflicts.
+//
+// Descriptors: K-major, k16 step s starts 32 * s bytes into the tile, with
+// the 8-row stride (1024 bytes) as the stride offset; MN-major, step s starts
+// 16 rows (2048 bytes) in, and an instruction's 64-wide M or N extent is one
+// swizzle atom, so only the 8-row stride (1024 bytes) is ever read; it goes
+// in both offset fields.
+
+#pragma once
+
+#include <cstdint>
+
+#include "block_common.cuh"
+
+namespace sm90 {
+
+using blocks::bf16;
+using blocks::ConvGeom;
+using blocks::src_pos;
+
+constexpr int kThreads = 128;          // one warpgroup
+constexpr int kBM = 64, kBN = 64, kBK = 64;
+constexpr int kStages = 4;
+constexpr int kTileBytes = 64 * 128;   // one operand tile: 64 rows of 128 bytes
+constexpr int kSlotBytes = 2 * kTileBytes;
+constexpr int kRingBytes = kStages * kSlotBytes;
+constexpr int kSmemBytes = kRingBytes + 1024;  // + the slack to align the ring to 1024
+// A kernel whose epilogue reads `tiles` 64 x 64 bf16 tiles of its inputs
+// keeps them after the ring (ep_tile).
+constexpr int smem_bytes(int tiles) { return kSmemBytes + tiles * kTileBytes; }
+constexpr int kLdS = kBN + 8;          // row stride (floats) of an fp32 staging tile
+static_assert(2 * kBM * kLdS * 4 <= kRingBytes, "two staging tiles fit in the ring");
+
+// --- PTX wrappers ------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid (src unread).
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's completed shared writes visible to wgmma (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Orders the accumulators' uses after the wgmma that writes them.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+template <int MN>
+__device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int s) {
+  return MN ? make_desc(tile + 2048 * s, 1024, 1024) : make_desc(tile + 32 * s, 16, 1024);
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64]; TA / TB: the operand is MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// --- the ring ------------------------------------------------------------------
+
+// The ring's 1024-aligned shared address in the block's dynamic shared memory.
+__device__ __forceinline__ uint32_t ring_base(unsigned char* dyn) {
+  return (smem_u32(dyn) + 1023u) & ~1023u;
+}
+// A generic pointer to shared address `addr` of `dyn`'s window.
+template <class T>
+__device__ __forceinline__ T* ring_ptr(unsigned char* dyn, uint32_t addr) {
+  return reinterpret_cast<T*>(dyn + (addr - smem_u32(dyn)));
+}
+// Shared address of 16-byte chunk j of row r of a tile.
+__device__ __forceinline__ uint32_t swz(uint32_t tile, int r, int j) {
+  return tile + r * 128 + ((j ^ (r & 7)) << 4);
+}
+
+// Shared address of the epilogue's input tile i.
+__device__ __forceinline__ uint32_t ep_tile(uint32_t ring, int i) { return ring + kRingBytes + i * kTileBytes; }
+
+// Copies the bf16 tile src[m0 + r][n0 + c] (r, c < 64; rows of C elements;
+// rows at or past M zero) into shared tile `tile`, row r at byte 128 r,
+// asynchronously: issued before mainloop(), it has landed when that returns.
+__device__ __forceinline__ void load_ep_tile(uint32_t tile, const bf16* src, int m0, int n0, int M, int C) {
+  const int j = threadIdx.x & 7;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = (threadIdx.x >> 3) + 16 * i;
+    const bool ok = m0 + r < M;
+    cp16(tile + r * 128 + j * 16, ok ? src + (size_t)(m0 + r) * C + n0 + 8 * j : src, ok);
+  }
+}
+
+// Runs the k-steps of `ld` (ld.load(ks, a_tile, b_tile) issues step ks's
+// copies, each thread 4 chunks of each tile: row (tid >> 3) + 16 i, chunk
+// tid & 7). With DUAL, steps [0, nfirst) go into acc0 and the rest into acc1;
+// otherwise all into acc0. Ends with the ring drained and the block synced, so
+// the caller may reuse it.
+template <int TA, int TB, bool DUAL, class Ld>
+__device__ __forceinline__ void mainloop(const Ld& ld, int nk, int nfirst, uint32_t ring,
+                                         float (&acc0)[32], float (&acc1)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    acc0[i] = 0.f;
+    if (DUAL) acc1[i] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < kStages - 2; ++s) {
+    if (s < nk) ld.load(s, ring + s * kSlotBytes, ring + s * kSlotBytes + kTileBytes);
+    cp_commit();
+  }
+  for (int ks = 0; ks < nk; ++ks) {
+    cp_wait<kStages - 3>();  // step ks has landed (this thread's copies)
+    fence_async_smem();
+    __syncthreads();         // ... everyone's; and step ks - 2's wgmma is done, its slot free
+    const int nx = ks + kStages - 2;
+    if (nx < nk) {
+      const uint32_t slot = ring + (nx % kStages) * kSlotBytes;
+      ld.load(nx, slot, slot + kTileBytes);
+    }
+    cp_commit();
+    const uint32_t a = ring + (ks % kStages) * kSlotBytes, b = a + kTileBytes;
+    fence_acc(acc0);
+    if (DUAL) fence_acc(acc1);
+    wg_fence();
+    if (!DUAL || ks < nfirst) {
+#pragma unroll
+      for (int s = 0; s < kBK / 16; ++s)
+        wgmma_m64n64k16<TA, TB>(acc0, tile_desc<TA>(a, s), tile_desc<TB>(b, s));
+    } else {
+#pragma unroll
+      for (int s = 0; s < kBK / 16; ++s)
+        wgmma_m64n64k16<TA, TB>(acc1, tile_desc<TA>(a, s), tile_desc<TB>(b, s));
+    }
+    wg_commit();
+    wg_wait<1>();  // step ks - 1's products are done; step ks's may run on
+    fence_acc(acc0);
+    if (DUAL) fence_acc(acc1);
+  }
+  wg_wait<0>();
+  fence_acc(acc0);
+  if (DUAL) fence_acc(acc1);
+  cp_wait<0>();
+  __syncthreads();
+}
+
+// Row and column of accumulator element d[4 j + 2 i + c]: row 16 w + lane / 4
+// + 8 i, column 8 j + 2 (lane % 4) + c (w the warp, lane its lane).
+__device__ __forceinline__ int acc_row() { return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2); }
+__device__ __forceinline__ int acc_col() { return 2 * (threadIdx.x & 3); }
+
+// The accumulator into an fp32 staging tile st[64][kLdS].
+__device__ __forceinline__ void stage_acc(const float (&d)[32], float* st) {
+  const int r = acc_row(), c = acc_col();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<float2*>(st + r * kLdS + 8 * j + c) = make_float2(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<float2*>(st + (r + 8) * kLdS + 8 * j + c) =
+        make_float2(d[4 * j + 2], d[4 * j + 3]);
+  }
+}
+
+// --- loaders -----------------------------------------------------------------
+
+// One convolution's k-steps into a 64-row tile: 64 channels of one tap per
+// step, over the taps that reach some row of the tile (a tap off the edge for
+// every row, or a stride-2 transposed conv's tap that does not divide, is
+// skipped). taps: up to three tap indices, 2 bits each.
+struct ConvSeg {
+  const bf16* src;
+  const bf16* w;
+  ConvGeom g;
+  int taps;
+  int nsteps;
+};
+
+template <bool TRANS>
+__device__ __forceinline__ ConvSeg make_seg(const bf16* src, const bf16* w, const ConvGeom& g, int m0) {
+  const int M = g.Lout * g.B;
+  const int lo = m0 / g.B, hi = min(m0 + kBM - 1, M - 1) / g.B;
+  int taps = 0, n = 0;
+  for (int t = 0; t < g.taps; ++t) {
+    bool any = false;
+    for (int l = lo; l <= hi && !any; ++l) any = src_pos<TRANS>(l, t, g) >= 0;
+    if (any) taps |= t << (2 * n++);
+  }
+  return ConvSeg{src, w, g, taps, n * (g.Csrc / kBK)};
+}
+
+// Implicit-GEMM convolution, one or two of them (the second, s1, has
+// s1.nsteps == 0 when absent), into output rows [m0, m0 + 64) and columns
+// [n0, n0 + 64). A (K-major): the gathered source rows. B: w[t][c][n]
+// (MN-major) or, TRANS, w[t][n][c] (K-major). Both convolutions have the
+// same Lout, B and N.
+template <bool TRANS>
+struct ConvLoader {
+  ConvSeg s0, s1;
+  int n0;
+  int row_l[4], row_b[4];  // this thread's A rows: position and batch index; l = -1 past M
+
+  __device__ __forceinline__ ConvLoader(const ConvSeg& a, const ConvSeg& b, int m0, int n0_) : s0(a), s1(b), n0(n0_) {
+    const int M = a.g.Lout * a.g.B;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + (threadIdx.x >> 3) + 16 * i;
+      row_l[i] = m < M ? m / a.g.B : -1;
+      row_b[i] = m < M ? m - row_l[i] * a.g.B : 0;
+    }
+  }
+  __device__ __forceinline__ int steps() const { return s0.nsteps + s1.nsteps; }
+
+  __device__ __forceinline__ void load(int ks, uint32_t a, uint32_t b) const {
+    const bool second = ks >= s0.nsteps;
+    const ConvSeg s = second ? s1 : s0;
+    const int k = second ? ks - s0.nsteps : ks;
+    const int kpt = s.g.Csrc / kBK;
+    const int ti = k / kpt;
+    const int t = (s.taps >> (2 * ti)) & 3;
+    const int c0 = (k - ti * kpt) * kBK;
+    const int j = threadIdx.x & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (threadIdx.x >> 3) + 16 * i;
+      const int p = row_l[i] >= 0 ? src_pos<TRANS>(row_l[i], t, s.g) : -1;
+      const bf16* pa = p >= 0 ? s.src + ((size_t)(p * s.g.B + row_b[i]) * s.g.Csrc + c0 + 8 * j) : s.src;
+      cp16(swz(a, r, j), pa, p >= 0);
+      const bf16* pb = TRANS ? s.w + ((size_t)(t * s.g.N + n0 + r) * s.g.Csrc + c0 + 8 * j)
+                             : s.w + ((size_t)(t * s.g.Csrc + c0 + r) * s.g.N + n0 + 8 * j);
+      cp16(swz(b, r, j), pb, true);
+    }
+  }
+};
+
+// Weight gradient tile: dW[t][i0 + i][n0 + n] over rows [r0, r1) of
+// dc [Lout*B, N], against the tap-t gather of x [Lsrc, B, Csrc]. Both
+// operands MN-major: a k-step is 64 rows m, each 64 channels of x and dc.
+struct WgradLoader {
+  const bf16* x;
+  const bf16* dc;
+  ConvGeom g;
+  int t, i0, n0, r0, r1;
+
+  __device__ __forceinline__ int steps() const { return (r1 - r0 + kBK - 1) / kBK; }
+
+  __device__ __forceinline__ void load(int ks, uint32_t a, uint32_t b) const {
+    const int j = threadIdx.x & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (threadIdx.x >> 3) + 16 * i;
+      const int m = r0 + ks * kBK + r;
+      const bool ok = m < r1;
+      const int l = m / g.B, bi = m - l * g.B;
+      const int p = ok ? src_pos<false>(l, t, g) : -1;
+      cp16(swz(a, r, j), p >= 0 ? x + ((size_t)(p * g.B + bi) * g.Csrc + i0 + 8 * j) : x, p >= 0);
+      cp16(swz(b, r, j), ok ? dc + ((size_t)m * g.N + n0 + 8 * j) : dc, ok);
+    }
+  }
+};
+
+// --- fixed-order column sums across a grid --------------------------------------
+
+constexpr int kGroup = 16;  // m-tiles per first-level group
+
+// In-order sum over rows [beg, end) of p[row * stride], NQ quantities q at
+// p + q * C; loads issued 8 rows ahead of the adds.
+template <int NQ>
+__device__ __forceinline__ void sum_rows(const float* p, int beg, int end, int stride, int C,
+                                         float (&acc)[NQ]) {
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) acc[q] = 0.f;
+  for (int i = beg; i < end; i += 8) {
+    float v[8][NQ];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        v[k][q] = i + k < end ? __ldcg(p + (size_t)(i + k) * stride + q * C) : 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        if (i + k < end) acc[q] += v[k][q];
+  }
+}
+
+// Two threads per column (c = tid & 63, half h = tid >> 6) sum rows [beg,
+// end) of a [rows][NQ][C] array at columns n0 + c, halves in order; the sum
+// lands in `out` of threads h == 0.
+template <int NQ>
+__device__ __forceinline__ void sum_rows_block(const float* p, int beg, int end, int C, int n0,
+                                               float (&out)[NQ], float (*red)[kBN]) {
+  const int c = threadIdx.x & 63, h = threadIdx.x >> 6;
+  const int mid = beg + (end - beg + 1) / 2;
+  float acc[NQ];
+  sum_rows<NQ>(p + n0 + c, h ? mid : beg, h ? end : mid, NQ * C, C, acc);
+  if (h) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) red[q][c] = acc[q];
+  }
+  __syncthreads();
+  if (!h) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) out[q] = acc[q] + red[q][c];
+  }
+  __syncthreads();
+}
+
+// Column sums over a grid's m-tiles, in a fixed order, by the blocks that
+// finish last. Each block has written row mt of part [mtiles][NQ][C] (its
+// tile's column sums, columns n0 + [0, 64) of n-tile nt) before the call. The
+// last block of each group of kGroup m-tiles sums the group in order into
+// gpart [groups][NQ][C]; the last group's finisher sums the groups in order
+// and returns true, with out[q] the total of column n0 + tid in threads
+// tid < 64. Tickets tk [(groups + 1) * ntiles] are integers: zero on entry,
+// and the finishers set them back to zero.
+template <int NQ>
+__device__ bool finish_col_sums(float* part, float* gpart, unsigned* tk, int mt, int mtiles,
+                                int nt, int ntiles, int C, int n0, float (&out)[NQ]) {
+  __shared__ float red[NQ][kBN];
+  __shared__ unsigned last;
+  const int groups = (mtiles + kGroup - 1) / kGroup;
+  const int g = mt / kGroup;
+  const int gbeg = g * kGroup, gend = min(mtiles, gbeg + kGroup);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&tk[g * ntiles + nt], 1u) == (unsigned)(gend - gbeg - 1);
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  if (threadIdx.x == 0) tk[g * ntiles + nt] = 0u;
+  float s[NQ];
+  sum_rows_block<NQ>(part, gbeg, gend, C, n0, s, red);
+  if (threadIdx.x < kBN) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) gpart[((size_t)g * NQ + q) * C + n0 + threadIdx.x] = s[q];
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&tk[groups * ntiles + nt], 1u) == (unsigned)(groups - 1);
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  if (threadIdx.x == 0) tk[groups * ntiles + nt] = 0u;
+  sum_rows_block<NQ>(gpart, 0, groups, C, n0, out, red);
+  return true;
+}
+
+}  // namespace sm90

@@ -22,17 +22,21 @@
 // 3.35 TB/s; the backward reads that and writes 245,760 B. Both are far
 // below a launch's latency (a few us), so the kernel is bound by launches:
 // 3 per train step (forward partials, forward final sum, backward).
-// masked_sse at B=512, L=100 reads (2*B*L + B) * 4 = 411,648 B, 0.12 us: two
-// more launches per joint step, bound the same way.
+// masked_sse at B=512, L=100 reads (2*B*L + B) * 4 = 411,648 B, 0.12 us: one
+// more launch per joint step, bound the same way: its time is the chain of
+// a load, a block sum, a ticket and a last sum, so it takes 16 rows per block
+// (32 blocks for B=512) and finishes in one warp.
 //
 // Design: the TPU kernel ran as one program over the whole batch in VMEM and
-// summed in one go. Here blocks run in parallel and in no fixed order, so the
-// forward is two launches: blocks of kThreads threads each reduce kRowsPerBlock
+// summed in one go. Here blocks run in parallel and in no fixed order, so
+// vae_sums' forward is two launches: blocks of kThreads threads each reduce kRowsPerBlock
 // rows into one (sse, kl) partial, and a single block sums the partials. At
 // these sizes a launch's time is the latency of its threads' dependent loads,
 // so the partial pass spreads the batch thin: 4 rows per block gives 128
 // blocks for B=512 and at most one load per thread per array (with 32 rows
 // per block, 16 blocks took 5.8 us on an H100; with 4, 2.9 us).
+// masked_sse is one: its partial pass ends with an integer ticket, and the
+// block that takes the last one sums the partials (masked_sse_kernel).
 // Every reduction has a fixed shape (strided per-thread loops, then warp
 // shuffles, then one warp over the warp sums), and there are no float
 // atomics, so repeated runs give the same bits. The backward reads
@@ -161,32 +165,75 @@ vae_sums_bwd_kernel(const float* __restrict__ data, const float* __restrict__ de
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-masked_sse_partial_kernel(const float* __restrict__ data, const float* __restrict__ dec,
-                          const float* __restrict__ mask, int B, int L,
-                          float* __restrict__ partial) {
-  __shared__ float smem[kThreads / 32];
-  const int r0 = blockIdx.x * kRowsPerBlock;
-  const int nl = min(kRowsPerBlock, B - r0) * L;
-  const float* data_b = data + (size_t)r0 * L;
-  const float* dec_b = dec + (size_t)r0 * L;
-  float sse = 0.f;
-  for (int i = threadIdx.x; i < nl; i += kThreads) {
-    const float m = mask[r0 + i / L];
-    const float d = m > 0.f ? dec_b[i] - data_b[i] : 0.f;
-    sse += d * d * m;
-  }
-  const float s = block_sum1(sse, smem);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s;
+constexpr int kSseRows = 16;  // batch rows per masked-SSE block: B=512 gives 32 blocks
+
+// atomicAdd(p, 1) with acquire-release order at device scope: the caller's
+// earlier writes are visible to whoever reads the value it returns, and the
+// caller sees the writes released before it.
+__device__ __forceinline__ unsigned ticket_add(unsigned* p) {
+  unsigned t;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(t) : "l"(p) : "memory");
+  return t;
 }
 
+// One launch: each block sums kSseRows rows (a warp per row, data and dec as
+// float4 when L % 4 == 0 and both are 16-byte aligned, each row's mask read
+// once) into its partial, then takes an integer ticket; the block that takes
+// the last one sums the partials in index order in one warp, writes the
+// result and resets the ticket for the next call. ws holds the ticket, then
+// the partials.
 __global__ void __launch_bounds__(kThreads)
-masked_sse_final_kernel(const float* __restrict__ partial, int n, float* __restrict__ out) {
-  __shared__ float smem[kThreads / 32];
+masked_sse_kernel(const float* __restrict__ data, const float* __restrict__ dec,
+                  const float* __restrict__ mask, int B, int L, float* __restrict__ ws,
+                  float* __restrict__ out) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float smem[kWarps];
+  __shared__ bool last;
+  unsigned* ticket = reinterpret_cast<unsigned*>(ws);
+  float* part = ws + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool vec = (L & 3) == 0 && ((reinterpret_cast<size_t>(data) | reinterpret_cast<size_t>(dec)) & 15) == 0;
   float sse = 0.f;
-  for (int i = threadIdx.x; i < n; i += kThreads) sse += partial[i];
+#pragma unroll
+  for (int k = 0; k < kSseRows / kWarps; ++k) {
+    const int r = blockIdx.x * kSseRows + k * kWarps + warp;
+    if (r >= B) break;
+    const float m = mask[r];
+    const bool keep = m > 0.f;  // where(m > 0, dec - data, 0) before the square
+    const size_t row = (size_t)r * L;
+    if (vec) {
+      const float4* a = reinterpret_cast<const float4*>(data + row);
+      const float4* b = reinterpret_cast<const float4*>(dec + row);
+      for (int i = lane; i < L / 4; i += 32) {
+        const float4 x = a[i], y = b[i];
+        const float d0 = keep ? y.x - x.x : 0.f, d1 = keep ? y.y - x.y : 0.f;
+        const float d2 = keep ? y.z - x.z : 0.f, d3 = keep ? y.w - x.w : 0.f;
+        sse += d0 * d0 * m;
+        sse += d1 * d1 * m;
+        sse += d2 * d2 * m;
+        sse += d3 * d3 * m;
+      }
+    } else {
+      for (int i = lane; i < L; i += 32) {
+        const float d = keep ? dec[row + i] - data[row + i] : 0.f;
+        sse += d * d * m;
+      }
+    }
+  }
   const float s = block_sum1(sse, smem);
-  if (threadIdx.x == 0) out[0] = s;
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = s;
+    last = ticket_add(ticket) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last || warp != 0) return;
+  float v = 0.f;
+  for (int i = lane; i < (int)gridDim.x; i += 32) v += __ldcg(part + i);
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if (lane == 0) {
+    out[0] = v;
+    *ticket = 0u;
+  }
 }
 
 }  // namespace
@@ -195,6 +242,9 @@ extern "C" {
 
 // Number of float2 partials the forward needs as scratch for a batch of B rows.
 int vae_sums_fwd_partials(int B) { return (B + kRowsPerBlock - 1) / kRowsPerBlock; }
+
+// Number of partials of the masked SSE for a batch of B rows.
+int masked_sse_partials(int B) { return (B + kSseRows - 1) / kSseRows; }
 
 // out[0] = sse, out[1] = kl. `partial` holds vae_sums_fwd_partials(B) float2.
 // All arrays float32, contiguous: data/dec [B, L], mu/logvar [B, Z], mask [B].
@@ -223,16 +273,14 @@ int vae_sums_bwd(const float* data, const float* dec, const float* mu, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[0] = sum(mask * where(mask > 0, dec - data, 0)^2). `partial` holds
-// vae_sums_fwd_partials(B) floats. data/dec [B, L], mask [B], float32, contiguous.
+// out[0] = sum(mask * where(mask > 0, dec - data, 0)^2). ws: the caller's
+// workspace for this stream, an unsigned ticket that is zero before the
+// first call (the kernel leaves it zero), then masked_sse_partials(B) floats.
+// data/dec [B, L], mask [B], float32, contiguous.
 int masked_sse_fwd(const float* data, const float* dec, const float* mask, int B, int L,
-                   float* partial, float* out, void* stream) {
+                   float* ws, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nblocks = vae_sums_fwd_partials(B);
-  masked_sse_partial_kernel<<<nblocks, kThreads, 0, s>>>(data, dec, mask, B, L, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  masked_sse_final_kernel<<<1, kThreads, 0, s>>>(partial, nblocks, out);
+  masked_sse_kernel<<<masked_sse_partials(B), kThreads, 0, s>>>(data, dec, mask, B, L, ws, out);
   return static_cast<int>(cudaGetLastError());
 }
 

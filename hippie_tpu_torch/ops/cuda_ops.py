@@ -17,11 +17,13 @@ backward is elementwise torch ops on either device (``masked_sse_bwd``), as
 
 ``launches`` counts kernel launches per wrapper: ``vae_sums_fwd`` one per
 forward call (two CUDA launches: partial sums, final sum), ``vae_sums_bwd`` one
-per backward call, ``masked_sse_fwd`` one per forward call (two CUDA launches).
+per backward call, ``masked_sse_fwd`` one per forward call (one CUDA launch,
+whose last block sums the partials; its workspace is cached per stream).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -100,6 +102,8 @@ def _kernels() -> ctypes.CDLL:
         lib.vae_sums_fwd.restype = _I
         lib.vae_sums_bwd.argtypes = [_P] * 6 + [_I] * 3 + [_P] * 5
         lib.vae_sums_bwd.restype = _I
+        lib.masked_sse_partials.argtypes = [_I]
+        lib.masked_sse_partials.restype = _I
         lib.masked_sse_fwd.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 3
         lib.masked_sse_fwd.restype = _I
         _lib = lib
@@ -119,10 +123,21 @@ def _check_inputs(data, dec, mu, logvar, mask_col):
 
 
 def _check_sse_inputs(data, dec, mask_col):
-    if data.ndim != 2:
-        raise ValueError(f"data must be [B, L], got {tuple(data.shape)}")
-    B, L = data.shape
-    _check_tensors({"data": (data, (B, L)), "dec": (dec, (B, L)), "mask_col": (mask_col, (B, 1))})
+    """Raise on what the masked-SSE kernel does not take: float32 data and
+    dec [B, L] and mask_col [B, 1], contiguous, on one device, B > 0."""
+    f32 = torch.float32
+    if data.dtype != f32 or dec.dtype != f32 or mask_col.dtype != f32:
+        raise TypeError(f"data, dec, mask_col: dtypes {data.dtype}, {dec.dtype}, {mask_col.dtype}; "
+                        "the kernel takes float32")
+    if data.ndim != 2 or dec.shape != data.shape or mask_col.shape != (data.shape[0], 1):
+        raise ValueError(f"shapes {tuple(data.shape)}, {tuple(dec.shape)}, {tuple(mask_col.shape)}: "
+                         "the kernel takes data and dec [B, L] and mask_col [B, 1]")
+    if dec.device != data.device or mask_col.device != data.device:
+        raise ValueError(f"data on {data.device}, dec on {dec.device}, mask_col on {mask_col.device}")
+    if not (data.is_contiguous() and dec.is_contiguous() and mask_col.is_contiguous()):
+        raise ValueError("data, dec and mask_col must be contiguous")
+    if data.shape[0] == 0:
+        raise ValueError("empty batch")
 
 
 def _check_tensors(want):
@@ -184,19 +199,35 @@ def vae_sums_bwd_cuda(data, dec, mu, logvar, mask_col, g):
     return tuple(grads)
 
 
+_sse_workspaces: dict = {}  # (device index, stream) -> (largest batch, float32 workspace)
+
+
+def _sse_workspace(lib, device: torch.device, stream: int, B: int) -> torch.Tensor:
+    """The masked SSE's workspace on ``stream``: an integer ticket, zero when
+    made, and masked_sse_partials(B) partials. The kernel leaves the ticket
+    zero, so one workspace serves every later call on that stream with a
+    batch no larger (and a CUDA graph)."""
+    held = _sse_workspaces.get((device.index, stream))
+    if held is None or held[0] < B:
+        n = lib.masked_sse_partials(B) + 1
+        held = _sse_workspaces[(device.index, stream)] = (B, torch.zeros(n, dtype=torch.float32, device=device))
+    return held[1]
+
+
 def masked_sse_fwd_cuda(data, dec, mask_col) -> torch.Tensor:
-    """Launch the masked-SSE kernel on CUDA tensors: a 0-dim sum on the device."""
+    """Launch the masked-SSE kernel on CUDA tensors: a 0-dim sum on the device.
+    One CUDA launch; the call allocates only its output."""
     _check_sse_inputs(data, dec, mask_col)
-    if data.device.type != "cuda":
-        raise ValueError(f"masked_sse_fwd_cuda takes CUDA tensors, got {data.device}")
-    lib = _kernels()
+    device = data.device
+    if device.type != "cuda":
+        raise ValueError(f"masked_sse_fwd_cuda takes CUDA tensors, got {device}")
     B, L = data.shape
-    with torch.cuda.device(data.device):
-        partial = torch.empty(lib.vae_sums_fwd_partials(B), dtype=torch.float32, device=data.device)
-        out = torch.empty((), dtype=torch.float32, device=data.device)
-        stream = torch.cuda.current_stream(data.device).cuda_stream
+    lib = _kernels()
+    with contextlib.nullcontext() if device.index == torch.cuda.current_device() else torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        out = torch.empty((), dtype=torch.float32, device=device)
         err = lib.masked_sse_fwd(data.data_ptr(), dec.data_ptr(), mask_col.data_ptr(), B, L,
-                                 partial.data_ptr(), out.data_ptr(), stream)
+                                 _sse_workspace(lib, device, stream, B).data_ptr(), out.data_ptr(), stream)
     _check_launch(err, "masked_sse_fwd")
     launches["masked_sse_fwd"] += 1
     return out

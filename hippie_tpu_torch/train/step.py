@@ -15,8 +15,12 @@ runs the backbones' BasicBlocks as torch convolutions and masked BatchNorm,
 ``"pallas"`` through the fused block kernels of ops/cuda_blocks.py in training
 steps (eval steps stay on ``"xla"``, as the JAX package's do). Either kernel
 takes its plain version on CPU tensors. Reparameterization noise comes from a
-``torch.Generator`` on the data's device, or is injected as ``eps``.
-Nothing in a step waits for the host.
+``torch.Generator`` on the data's device, or is injected as ``eps``; every
+train and eval step and epoch raises ``ValueError`` when given neither, as
+the JAX steps take their key as a required argument (a step without noise
+would decode ``mu`` and train a plain autoencoder). The models' forward keeps
+its deterministic ``mu`` path for the embeddings. Nothing in a step waits for
+the host.
 
 A parameter the loss does not reach (the class embedding, trained without
 class labels) gets a zero gradient before the optimizer step, so torch's
@@ -57,6 +61,11 @@ def _select_loss(loss_backend: str, xla, pallas):
     raise ValueError(f"loss_backend must be 'xla' or 'pallas', got {loss_backend!r}")
 
 
+def _require_noise(eps, generator):
+    if eps is None and generator is None:
+        raise ValueError("the reparameterization needs noise: pass eps or a torch.Generator")
+
+
 def _optimizer_step(opt: torch.optim.Optimizer):
     """opt.step() with a zero gradient for every parameter the backward pass
     left without one (see the module note); no host sync."""
@@ -74,7 +83,8 @@ def make_unimodal_steps(*, beta: float = 1.0, loss_backend: str = "xla",
     batch_step(ts, bd, bs, bc, bmask, *, eps=None, generator=None) -> (ts, Metrics)
     eval_step(model, bd, bs, bc, bmask, *, eps=None, generator=None) -> Metrics
 
-    ``bc`` is the class-label batch, or None for no class conditioning.
+    ``bc`` is the class-label batch, or None for no class conditioning. The
+    noise is ``eps`` [B, z] or drawn from ``generator``; one is required.
     eval_step uses the running BN statistics and, like the reference's
     validation_step, still samples the reparameterization.
     """
@@ -82,6 +92,7 @@ def make_unimodal_steps(*, beta: float = 1.0, loss_backend: str = "xla",
     check_backend(block_backend)
 
     def batch_step(ts: TrainState, bd, bs, bc, bmask, *, eps=None, generator=None):
+        _require_noise(eps, generator)
         model, opt = ts
         model.train()
         opt.zero_grad(set_to_none=True)
@@ -94,6 +105,7 @@ def make_unimodal_steps(*, beta: float = 1.0, loss_backend: str = "xla",
 
     @torch.no_grad()
     def eval_step(model, bd, bs, bc, bmask, *, eps=None, generator=None):
+        _require_noise(eps, generator)
         model.eval()
         enc, mu, logvar, dec = model(bd, bs, bc, eps=eps, generator=generator, mask=bmask)
         total, (mse, kl) = vae_loss(bd, dec, mu, logvar, beta=beta, mask=bmask)
@@ -128,7 +140,7 @@ def make_unimodal_epoch_fns(*, beta: float = 1.0, use_class_labels: bool = False
     ``data`` is the full [N, L] modality array on the device; ``idx``/``mask``
     the [nb, B] plan of data/device_data.py:batch_plan (numpy or tensors).
     ``eps`` ([nb, B, z]) injects each step's noise; otherwise it comes from
-    ``generator``. Loss follows model.py:95-116: mse over elements + beta *
+    ``generator``; one of the two is required. Loss follows model.py:95-116: mse over elements + beta *
     mean KL.
     """
     batch_step, eval_step = make_unimodal_steps(beta=beta, loss_backend=loss_backend,
@@ -142,6 +154,7 @@ def make_unimodal_epoch_fns(*, beta: float = 1.0, use_class_labels: bool = False
 
     def train_epoch(ts: TrainState, data, source, class_, idx, mask, *,
                     generator: Optional[torch.Generator] = None, eps=None):
+        _require_noise(eps, generator)
         bd_all, bs_all, bc_all, mask = _batches(data, source, class_, idx, mask)
         ms = []
         for i in range(bd_all.shape[0]):
@@ -152,6 +165,7 @@ def make_unimodal_epoch_fns(*, beta: float = 1.0, use_class_labels: bool = False
 
     def eval_epoch(model, data, source, class_, idx, mask, *,
                    generator: Optional[torch.Generator] = None, eps=None):
+        _require_noise(eps, generator)
         bd_all, bs_all, bc_all, mask = _batches(data, source, class_, idx, mask)
         return _stack([
             eval_step(model, bd_all[i], bs_all[i], bc_all[i], mask[i],
@@ -186,6 +200,7 @@ def make_multimodal_steps(*, beta: float = 1.0, mod1_weight: float = 1.0,
         return total, mse1 + mse2, kl
 
     def batch_step(ts: TrainState, b1, b2, bs, bc, bmask, *, eps=None, generator=None):
+        _require_noise(eps, generator)
         model, opt = ts
         model.train()
         opt.zero_grad(set_to_none=True)
@@ -198,6 +213,7 @@ def make_multimodal_steps(*, beta: float = 1.0, mod1_weight: float = 1.0,
 
     @torch.no_grad()
     def eval_step(model, b1, b2, bs, bc, bmask, *, eps=None, generator=None):
+        _require_noise(eps, generator)
         model.eval()
         outs = model(b1, b2, bs, bc, eps=eps, generator=generator, mask=bmask)
         return Metrics(*loss(b1, b2, outs, bmask))
@@ -230,6 +246,7 @@ def make_multimodal_epoch_fns(*, beta: float = 1.0, mod1_weight: float = 1.0,
 
     def train_epoch(ts: TrainState, wave, isi, source, class_, idx, mask, *,
                     generator: Optional[torch.Generator] = None, eps=None):
+        _require_noise(eps, generator)
         b1_all, b2_all, bs_all, bc_all, mask = _batches(wave, isi, source, class_, idx, mask)
         ms = []
         for i in range(b1_all.shape[0]):
@@ -240,6 +257,7 @@ def make_multimodal_epoch_fns(*, beta: float = 1.0, mod1_weight: float = 1.0,
 
     def eval_epoch(model, wave, isi, source, class_, idx, mask, *,
                    generator: Optional[torch.Generator] = None, eps=None):
+        _require_noise(eps, generator)
         b1_all, b2_all, bs_all, bc_all, mask = _batches(wave, isi, source, class_, idx, mask)
         return _stack([
             eval_step(model, b1_all[i], b2_all[i], bs_all[i], bc_all[i], mask[i],

@@ -8,7 +8,10 @@ installed; on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_kernels.py
 
-Tolerances of the VAE-loss and masked-SSE kernels: values rtol 4e-6 (two
+The encoder block's backward is also held at batches that are not multiples
+of 64 (B = 100 and B = 1), where a 64-row tile spans several positions, and
+must issue at most 8 CUDA launches per call. Tolerances of the VAE-loss and
+masked-SSE kernels: values rtol 4e-6 (two
 summation orders of up to 51,200 nonnegative float32 terms, each within about
 1e-6 of the exact sum); gradients rtol 1e-5 / atol 1e-7 (elementwise, as
 tests/test_pallas.py).
@@ -128,6 +131,35 @@ def test_masked_sse_kernel_repeats_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
+def test_masked_sse_kernel_repeats_bit_for_bit_across_streams(cuda_device):
+    x = _sse_inputs(cuda_device, n_real=415, pad=np.inf)
+    first = cuda_ops.masked_sse_fwd_cuda(*x)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for s in streams:  # each stream takes its own workspace
+        with torch.cuda.stream(s):
+            outs += [cuda_ops.masked_sse_fwd_cuda(*x) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+    keys = [(cuda_device.index or 0, s.cuda_stream) for s in streams]
+    assert all(k in cuda_ops._sse_workspaces for k in keys)
+    assert cuda_ops._sse_workspaces[keys[0]][1].data_ptr() != cuda_ops._sse_workspaces[keys[1]][1].data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous"])
+def test_masked_sse_kernel_raises_on_what_it_does_not_take(cuda_device, bad):
+    data, dec, mask = _sse_inputs(cuda_device)
+    if bad == "float64":
+        with pytest.raises(TypeError):
+            cuda_ops.masked_sse_fwd_cuda(data, dec.double(), mask)
+    else:
+        with pytest.raises(ValueError):
+            cuda_ops.masked_sse_fwd_cuda(data, dec.t().contiguous().t(), mask)
+
+
+@pytest.mark.cuda
 def test_masked_sse_autograd_launches_once(cuda_device):
     data, dec, mask = _sse_inputs(cuda_device, n_real=300, pad=np.inf)
     leaf = dec.clone().requires_grad_(True)
@@ -165,14 +197,14 @@ ENC_SHAPES = [(1, 25, 64, 64), (2, 25, 64, 128), (1, 13, 128, 128), (2, 13, 128,
 ISI_ENC_SHAPES = [(1, 50, 64, 64), (2, 50, 64, 128), (1, 7, 512, 512)]
 
 
-def _block_inputs(device, stride, L, ci, co, n_real=B, seed=0):
+def _block_inputs(device, stride, L, ci, co, n_real=B, seed=0, batch=B):
     r = np.random.default_rng(seed)
     lo = L if stride == 1 else (L - 1) // 2 + 1
 
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
 
-    x = r.normal(size=(L, B, ci))
+    x = r.normal(size=(L, batch, ci))
     x[:, n_real:] = 1e4
     bf = torch.bfloat16
     args = [t(x, bf), t(r.normal(size=(3, ci, co)) / np.sqrt(3 * ci), bf), t(r.uniform(0.5, 1.5, co)),
@@ -183,8 +215,8 @@ def _block_inputs(device, stride, L, ci, co, n_real=B, seed=0):
                  t(0.1 * r.normal(size=co))]
     else:
         args += [None, None, None]
-    args.append(t((np.arange(B) < n_real).reshape(B, 1)))
-    return args, t(r.normal(size=(lo, B, co)), bf)
+    args.append(t((np.arange(batch) < n_real).reshape(batch, 1)))
+    return args, t(r.normal(size=(lo, batch, co)), bf)
 
 
 def _rel(a, b):
@@ -224,6 +256,60 @@ def test_enc_block_kernels_repeat_bit_for_bit(cuda_device):
     bwd = [cb.enc_block_bwd_cuda(2, *args, *fwd[0][1:], g) for _ in range(3)]
     for runs in (fwd, bwd):
         assert all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+
+
+# batches that are not multiples of 64 (a tile's rows span several positions)
+ODD_BATCHES = [(100, 70), (1, 1)]  # (B, real rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ODD_BATCHES, ids=lambda b: f"B{b[0]}")
+@pytest.mark.parametrize("shape", [(1, 13, 128, 128), (2, 13, 128, 256)], ids=["s1", "s2"])
+def test_enc_block_bwd_matches_plain_at_odd_batches(cuda_device, shape, batch):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    stride = shape[0]
+    args, g = _block_inputs(cuda_device, *shape, n_real=batch[1], seed=2, batch=batch[0])
+    st = cb.enc_block_fwd_cuda(stride, *args)[1:]
+    dgot = cb.enc_block_bwd_cuda(stride, *args, *st, g)
+    dref = cb.enc_block_bwd_plain(stride, stride != 1, *args, *st, g)
+    for a, b in zip(dgot, dref):
+        if a is None:
+            assert stride == 1 and not b.any()
+        else:
+            assert torch.isfinite(a).all() and _rel(a, b) < 1e-2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_enc_block_bwd_repeats_bit_for_bit_at_an_odd_batch(cuda_device, stride):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, g = _block_inputs(cuda_device, stride, 13, 128, 256 if stride == 2 else 128, n_real=70, seed=3,
+                            batch=100)
+    st = cb.enc_block_fwd_cuda(stride, *args)[1:]
+    runs = [cb.enc_block_bwd_cuda(stride, *args, *st, g) for _ in range(3)]
+    assert all(a is None or torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_enc_block_bwd_launches_at_most_8_kernels(cuda_device, stride):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, g = _block_inputs(cuda_device, stride, 7, 256, 256 * stride)
+    st = cb.enc_block_fwd_cuda(stride, *args)[1:]
+    cb.enc_block_bwd_cuda(stride, *args, *st, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cb.enc_block_bwd_cuda(stride, *args, *st, g)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    assert 0 < kernels <= 8
 
 
 @pytest.mark.cuda

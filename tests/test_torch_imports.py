@@ -1,5 +1,6 @@
-"""The port stands alone: no module of hippie_tpu_torch, and not chip_smoke.py,
-imports jax or hippie_tpu (the machine with the card has no JAX)."""
+"""The port stands alone: no module of hippie_tpu_torch, and neither
+chip_smoke.py nor kernel_split.py, imports jax or hippie_tpu (the machine
+with the card has no JAX)."""
 
 import ast
 import pathlib
@@ -10,7 +11,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "hippie_tpu_torch"
-FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernel_split.py"]
 FORBIDDEN = ("jax", "jaxlib", "optax", "hippie_tpu")
 
 
