@@ -22,8 +22,9 @@ blocks and float32, and embeds the target dataset. Then the same for the
 joint wave + ISI cVAE (16,115,748 parameters, four backbones, both loss
 kernels): a stage-1 epoch with each block backend, one step against the
 plain versions, the joint embeddings. Last it times the train steps with
-both block backends and each kernel. The encoder block's backward is split
-by kernel (device time and launches per call, at most 8), and its SASS is
+both block backends and each kernel. Each block kernel is split by kernel
+(device time and launches per call; at most 5 per enc_block_fwd call and 8
+per enc_block_bwd and dec_block_bwd call), and the block libraries' SASS is
 checked for wgmma (HGMMA).
 
 Every phase prints one line. The second-to-last line is the ``kernels`` JSON
@@ -65,6 +66,11 @@ ENC_BLOCKS = ((1, 25, 64, 64), (1, 25, 64, 64), (2, 25, 64, 128), (1, 13, 128, 1
 # The full-width decoder's 8 BasicBlocks: (stride, L_in, C_in, C_out).
 DEC_BLOCKS = ((1, 4, 512, 512), (2, 4, 512, 256), (1, 8, 256, 256), (2, 8, 256, 128),
               (1, 16, 128, 128), (2, 16, 128, 64), (1, 32, 64, 64), (1, 32, 64, 64))
+# CUDA launches per call of the block kernels that run on the wgmma core
+BLOCK_LAUNCH_LIMITS = {"enc_block_fwd": 5, "enc_block_bwd": 8, "dec_block_bwd": 8}
+# kernels of each block library that must run wgmma (HGMMA in their SASS)
+WGMMA_KERNELS = {"enc_block": ("fwd_conv_kernel", "bwd_conv1_kernel", "bwd_mid_kernel", "bwd_dx_kernel"),
+                 "dec_block": ("bwd_conv2_kernel", "bwd_conv1_kernel", "bwd_mid_kernel", "bwd_dx_kernel")}
 
 
 class Backbone(NamedTuple):
@@ -100,13 +106,32 @@ def encoder_blocks(encoder, length: int) -> tuple:
     return tuple(out)
 
 
+def decoder_blocks(decoder) -> tuple:
+    """(stride, L_in, C_in, C_out) of each BasicBlockDec of a ResNet18Dec, read
+    from the blocks' inputs and outputs in an eval forward of two rows on the
+    host (weights left unset: only the shapes are read)."""
+    import torch
+
+    dec = copy.deepcopy(decoder).to_empty(device="cpu").eval()
+    seen = []
+    hooks = [b.register_forward_hook(lambda mod, args, out: seen.append(
+        (mod.stride, args[0].shape[2], args[0].shape[1], out.shape[1])))
+        for layer in (dec.layer4, dec.layer3, dec.layer2, dec.layer1) for b in layer]
+    with torch.no_grad():
+        dec(torch.zeros(2, dec.linear.in_features))
+    for h in hooks:
+        h.remove()
+    return tuple(seen)
+
+
 ISI_LABEL = "5f ISI enc blocks"
 
 
 def isi_backbone() -> Backbone:
     """The encoder's block kernels at the joint model's ISI encoder's blocks
-    (input length 100), read from the model; its waveform encoder's blocks
-    are ENC_BLOCKS."""
+    (input length 100), read from the model. Checks that its waveform encoder
+    has ENC_BLOCKS' shapes and both its decoders DEC_BLOCKS', so that phases
+    5b and 5d time the joint step's other three backbones."""
     import torch
 
     from hippie_tpu_torch.models import cvae
@@ -115,6 +140,10 @@ def isi_backbone() -> Backbone:
         model = cvae.MultiModalCVAE(joint_config())
     wave = encoder_blocks(model.encoder_mod1, L)
     check(wave == ENC_BLOCKS, f"the waveform encoder's blocks {wave}, expected {ENC_BLOCKS}")
+    for name in ("decoder_mod1", "decoder_mod2"):
+        got = decoder_blocks(getattr(model, name))
+        check(got == DEC_BLOCKS, f"the joint model's {name} blocks {got}, expected {DEC_BLOCKS}")
+    print("  joint model: waveform encoder at ENC_BLOCKS' shapes, both decoders at DEC_BLOCKS'")
     return ENC._replace(blocks=encoder_blocks(model.encoder_mod2, L_ISI), label=ISI_LABEL)
 
 
@@ -420,14 +449,16 @@ def phase_build():
             if any(w in line.lower() for w in ("registers", "spill", "warning")):
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"[2 build] {len(secs)} source(s) {sorted(secs)} built with nvcc in {wall:.2f} s")
-    # the encoder block's backward runs its GEMMs as wgmma: HGMMA in its SASS
+    # the block kernels on the wgmma core: HGMMA in each GEMM kernel's SASS
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.so_path("enc_block"))], capture_output=True,
-                          text=True, timeout=300).stdout
-    fns = sass.split("Function : ")[1:]  # each kernel's SASS, its name first
-    with_hgmma = {f.split()[0]: f.count("HGMMA") for f in fns if "HGMMA" in f}
-    print(f"  enc_block SASS: HGMMA instructions in {len(with_hgmma)} of {len(fns)} kernels: {with_hgmma}")
-    check(len(with_hgmma) > 0, "no HGMMA instruction in the enc_block library")
+    for lib, names in WGMMA_KERNELS.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.so_path(lib))], capture_output=True,
+                              text=True, timeout=300).stdout
+        fns = sass.split("Function : ")[1:]  # each kernel's SASS, its name first
+        with_hgmma = {f.split()[0]: f.count("HGMMA") for f in fns if "HGMMA" in f}
+        print(f"  {lib} SASS: HGMMA instructions in {len(with_hgmma)} of {len(fns)} kernels: {with_hgmma}")
+        for name in names:
+            check(any(name in k for k in with_hgmma), f"no HGMMA instruction in {lib}'s {name}")
 
 
 def phase_kernel_vs_plain(device="cuda"):
@@ -737,7 +768,7 @@ def phase_blocks(bb: Backbone, card: str):
     BatchNorm's backward sums over all entries are held too; both backwards
     get the kernel forward's statistics. Then each kernel's time per call
     (CUDA events, and the profiler's device time) beside its plain version's
-    and its bound, per shape.
+    and its bound, per shape, and its device kernels by time and count per call.
 
     Limits. Kernel and plain multiply the same bf16 operands exactly into
     float32 and round to bf16 at the same points; they differ only in the
@@ -829,8 +860,7 @@ def phase_blocks(bb: Backbone, card: str):
             print(f"  {name} s{stride} L{L} {ci}->{co}: kernel {ms * 1e3:.1f} us/call "
                   f"({dev_us:.1f} us device in {n_dev:.0f} kernels), plain {plain_ms * 1e3:.1f} us/call, "
                   f"bound {bounds[name][0] * 1e3:.2f} us ({bounds[name][1]}) on {card}")
-            if name == "enc_block_bwd":  # the backward's kernels by device time, per call
-                print(f"    {name} s{stride} L{L} {ci}->{co} split: {split_line(split)}")
+            print(f"    {name} s{stride} L{L} {ci}->{co} split: {split_line(split)}")
     return err, per_shape
 
 
@@ -1259,8 +1289,10 @@ def main() -> int:
         block_kernels, block_errs = [], {}
         for bb in (ENC, DEC, isi_backbone()):
             bb_errs, per_shape = phase_blocks(bb, card)
-            most = max(v[5] for k, v in per_shape.items() if k[-1] == "enc_block_bwd") if bb.kind == "enc" else 0
-            check(most <= 8, f"{bb.label}: enc_block_bwd makes {most:g} CUDA launches per call, over 8")
+            for name, limit in BLOCK_LAUNCH_LIMITS.items():
+                calls = [v[5] for k, v in per_shape.items() if k[-1] == name]
+                check(not calls or max(calls) <= limit,
+                      f"{bb.label}: {name} makes {max(calls or [0]):g} CUDA launches per call, over {limit}")
             records = block_records(bb, per_shape, bb_errs, joint_launches, card)
             if bb.label != ISI_LABEL:  # the records: times of the waveform model's backbones
                 phase_pass(bb, ts.model, pool, idx, mask, card)

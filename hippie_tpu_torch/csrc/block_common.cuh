@@ -5,39 +5,22 @@
 // pallas_blocks.py keeps them), so a conv's GEMM view is [L*B, C] row-major
 // and a conv tap is a shift of B rows. Weights are bf16 [taps, C_in, C_out].
 //
-//   conv_gemm    implicit-GEMM conv: M = L_out*B rows, K = taps*C_src,
-//                N = C_out, bf16 operands (wmma 16x16x16), fp32 accumulator,
-//                fp32 output. The forward gathers row l*stride + t - pad; the
-//                transposed conv (input gradient) gathers row (l + pad - t) /
-//                stride where that divides, and reads w[t] transposed. Zero
-//                padding comes from the loader's bounds; rows past M are
-//                masked in the epilogue. With UP (the decoder's ResizeConv1d)
-//                the forward reads its source through a nearest x2 upsample,
-//                row (l + t - pad) >> 1, and adds a per-channel bias.
-//   wgrad_gemm   weight gradient dW[t] = X_t^T dC: the reduction runs over
-//                the M = L_out*B rows, cut into fixed split-K ranges; each
-//                range writes its own partial and wgrad_final sums the
-//                partials in a fixed order. UP gathers X as conv_gemm does.
-//   col_*        per-channel sums over the M rows (masked mean, centred
-//                variance, and BatchNorm's backward sums): fixed row chunks
-//                write partials, a final pass sums them in a fixed order.
-//   bn_dx        BatchNorm's backward elementwise pass.
-//   col_sum      unmasked per-channel sums of a bf16 [M, C] (a conv bias's
-//                gradient), partials then a fixed-order final pass.
-//   pair_*       the backward of the x2 upsample: rows 2l and 2l + 1 of a
-//                float32 [2L*B, C] summed in float32 inside the pass that
-//                consumes them.
+//   src_pos      which source row an output row reads through a tap: the
+//                forward conv, the transposed conv (input gradient), and
+//                either through the decoder's nearest x2 upsample (UP)
+//   conv_gemm    the decoder's forward convs on wmma tiles (bf16 16x16x16,
+//                fp32 accumulator and output): M = L_out*B rows, K =
+//                taps*C_src, N = C_out; UP (ResizeConv1d) reads its source
+//                through the upsample and adds a per-channel bias
+//   col_*        the decoder forward's masked per-channel statistics (mean,
+//                then the centred variance): fixed row chunks write
+//                partials, a final pass sums them in a fixed order
+//   bn_*         elementwise passes that normalise, activate and round
 //
-// No float atomics anywhere: every sum has a fixed shape, so repeated runs
-// give the same bits. Every launch is on the caller's stream; the launchers
-// return cudaGetLastError() after each launch.
-//
-// What bounds these at the encoder's shapes (B=512, M from 12,800 down to
-// 2,048 rows, C 64..512): the GEMMs are operations-bound on paper (a block's
-// forward is 0.8-5.6 GFLOP against activations of at most 1.6 MB), but at
-// this size a launch is short and the card is far from full, so the
-// sequence of launches and their latency bound it in practice. The tiles are
-// small (64x64) so that even the narrowest GEMM (N = 64) has 200 blocks.
+// The GEMM core of every other kernel is sm90_gemm.cuh (wgmma). No float
+// atomics anywhere: every sum has a fixed shape, so repeated runs give the
+// same bits. Every launch is on the caller's stream; the launchers return
+// cudaGetLastError() after each launch.
 
 #pragma once
 
@@ -47,7 +30,6 @@
 
 #include <algorithm>
 #include <cstddef>
-#include <type_traits>
 
 namespace blocks {
 
@@ -89,8 +71,15 @@ struct ConvGeom {
 
 // Source position that output position l reads through tap t, or -1. UP: the
 // source of length Lsrc is read as its nearest x2 upsample, of length 2*Lsrc.
+// TRANS and UP: the transposed conv (stride 1) summed over an upsample's
+// pairs, output l at the upsample's rows 2l and 2l + 1: t = 2 * tap + half
+// reads source row 2l + half + pad - tap.
 template <bool TRANS, bool UP = false>
 __device__ __forceinline__ int src_pos(int l, int t, const ConvGeom& g) {
+  if (TRANS && UP) {
+    const int p = 2 * l + (t & 1) + g.pad - (t >> 1);
+    return (p >= 0 && p < g.Lsrc) ? p : -1;
+  }
   if (UP) {
     const int p = l * g.stride + t - g.pad;
     return (p >= 0 && p < 2 * g.Lsrc) ? p >> 1 : -1;
@@ -105,18 +94,16 @@ __device__ __forceinline__ int src_pos(int l, int t, const ConvGeom& g) {
   return p < g.Lsrc ? p : -1;
 }
 
-// out[m, n] = sum_{t, c} src[pos(m, t), b(m), c] * W(t, c, n), fp32 [Lout*B, N].
-// W(t, c, n) = w[t][c][n] (forward, w [taps, Csrc, N]) or w[t][n][c]
-// (TRANS, w [taps, N, Csrc]). Needs Csrc % 32 == 0 and N % 64 == 0. UP (not
-// with TRANS): upsampled source, and out[m, n] += bias[n] after the sum.
-template <bool TRANS, bool UP = false>
+// out[m, n] = sum_{t, c} src[pos(m, t), b(m), c] * w[t][c][n], fp32
+// [Lout*B, N], w [taps, Csrc, N]. Needs Csrc % 32 == 0 and N % 64 == 0. UP:
+// upsampled source, and out[m, n] += bias[n] after the sum.
+template <bool UP = false>
 __global__ void __launch_bounds__(kGemmThreads)
 conv_gemm_kernel(const bf16* __restrict__ src, const bf16* __restrict__ w,
                  float* __restrict__ out, ConvGeom g, const float* __restrict__ bias) {
-  static_assert(!(TRANS && UP), "the upsampled conv has no transposed form here");
-  constexpr int kLdA = kBK + kPadH;                    // As[m][k]
-  constexpr int kLdB = TRANS ? kBK + kPadH : kBN + kPadH;  // Bs[n][k] or Bs[k][n]
-  constexpr int kBRows = TRANS ? kBN : kBK;
+  constexpr int kLdA = kBK + kPadH;  // As[m][k]
+  constexpr int kLdB = kBN + kPadH;  // Bs[k][n]
+  constexpr int kBRows = kBK;
   constexpr int kLdC = kBN + kPadF;
   __shared__ __align__(128) bf16 As[kBM * kLdA];
   __shared__ __align__(128) bf16 Bs[kBRows * kLdB];
@@ -144,19 +131,12 @@ conv_gemm_kernel(const bf16* __restrict__ src, const bf16* __restrict__ w,
       ra[j] = make_uint4(0, 0, 0, 0);
       if (m < M) {
         const int l = m / g.B, b = m - l * g.B;
-        const int p = src_pos<TRANS, UP>(l, t, g);
+        const int p = src_pos<false, UP>(l, t, g);
         if (p >= 0)
           ra[j] = *reinterpret_cast<const uint4*>(src + ((size_t)p * g.B + b) * g.Csrc + c0 + part * 8);
       }
-      if (!TRANS) {  // rows k of w[t][c0 + k][n0 ...]: 32 rows x 8 pieces
-        const int kr = idx >> 3, pc = idx & 7;
-        rb[j] = *reinterpret_cast<const uint4*>(
-            w + ((size_t)t * g.Csrc + c0 + kr) * g.N + n0 + pc * 8);
-      } else {       // rows n of w[t][n0 + n][c0 ...]: 64 rows x 4 pieces
-        const int nr = idx >> 2, pc = idx & 3;
-        rb[j] = *reinterpret_cast<const uint4*>(
-            w + ((size_t)t * g.N + n0 + nr) * g.Csrc + c0 + pc * 8);
-      }
+      const int kr = idx >> 3, pc = idx & 7;  // rows k of w[t][c0 + k][n0 ...]: 32 rows x 8 pieces
+      rb[j] = *reinterpret_cast<const uint4*>(w + ((size_t)t * g.Csrc + c0 + kr) * g.N + n0 + pc * 8);
     }
   };
   auto store = [&]() {
@@ -164,15 +144,10 @@ conv_gemm_kernel(const bf16* __restrict__ src, const bf16* __restrict__ w,
     for (int j = 0; j < 2; ++j) {
       const int idx = tid + j * kGemmThreads;
       *reinterpret_cast<uint4*>(As + (idx >> 2) * kLdA + (idx & 3) * 8) = ra[j];
-      if (!TRANS) {
-        *reinterpret_cast<uint4*>(Bs + (idx >> 3) * kLdB + (idx & 7) * 8) = rb[j];
-      } else {
-        *reinterpret_cast<uint4*>(Bs + (idx >> 2) * kLdB + (idx & 3) * 8) = rb[j];
-      }
+      *reinterpret_cast<uint4*>(Bs + (idx >> 3) * kLdB + (idx & 7) * 8) = rb[j];
     }
   };
 
-  using BLayout = typename std::conditional<TRANS, wmma::col_major, wmma::row_major>::type;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -187,14 +162,14 @@ conv_gemm_kernel(const bf16* __restrict__ src, const bf16* __restrict__ w,
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * kLdA + kk, kLdA);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int n = wn * 32 + j * 16;
-        wmma::load_matrix_sync(fb[j], TRANS ? Bs + n * kLdB + kk : Bs + kk * kLdB + n, kLdB);
+        wmma::load_matrix_sync(fb[j], Bs + kk * kLdB + n, kLdB);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -224,104 +199,6 @@ conv_gemm_kernel(const bf16* __restrict__ src, const bf16* __restrict__ w,
       *reinterpret_cast<float4*>(out + (size_t)m * g.N + n0 + part * 4) = v;
     }
   }
-}
-
-// Partial weight gradients: part[s][t][ci][co] = sum over rows m of split s of
-// x[pos(m, t), b(m), ci] * dc[m, co]. grid (Ci/64, Co/64, taps * splits).
-template <bool UP = false>
-__global__ void __launch_bounds__(kGemmThreads)
-wgrad_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dc,
-                  float* __restrict__ part, ConvGeom g, int rows_per_split) {
-  // g: Lsrc = L of x, Lout = rows of dc / B, Csrc = Ci, N = Co
-  constexpr int kLd = kBM + kPadH;  // As[k][i] (col-major A^T), Bs[k][n]
-  __shared__ __align__(128) bf16 As[kBK * kLd];
-  __shared__ __align__(128) bf16 Bs[kBK * kLd];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int M = g.Lout * g.B;
-  const int i0 = blockIdx.x * kBM;  // input channel tile
-  const int n0 = blockIdx.y * kBN;  // output channel tile
-  const int t = blockIdx.z % g.taps;
-  const int s = blockIdx.z / g.taps;
-  const int r0 = s * rows_per_split;
-  const int r1 = min(M, r0 + rows_per_split);
-  const int nk = (r1 - r0 + kBK - 1) / kBK;
-
-  uint4 ra[2], rb[2];
-  auto load = [&](int kt) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int idx = tid + j * kGemmThreads;
-      const int kr = idx >> 3, pc = idx & 7;  // 32 rows x 8 pieces of 8
-      const int m = r0 + kt * kBK + kr;
-      ra[j] = make_uint4(0, 0, 0, 0);
-      rb[j] = make_uint4(0, 0, 0, 0);
-      if (m < r1) {
-        const int l = m / g.B, b = m - l * g.B;
-        const int p = src_pos<false, UP>(l, t, g);
-        if (p >= 0)
-          ra[j] = *reinterpret_cast<const uint4*>(x + ((size_t)p * g.B + b) * g.Csrc + i0 + pc * 8);
-        rb[j] = *reinterpret_cast<const uint4*>(dc + (size_t)m * g.N + n0 + pc * 8);
-      }
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int idx = tid + j * kGemmThreads;
-      *reinterpret_cast<uint4*>(As + (idx >> 3) * kLd + (idx & 7) * 8) = ra[j];
-      *reinterpret_cast<uint4*>(Bs + (idx >> 3) * kLd + (idx & 7) * 8) = rb[j];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  if (nk > 0) load(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    store();
-    __syncthreads();
-    if (kt + 1 < nk) load(kt + 1);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + kk * kLd + wm * 32 + i * 16, kLd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * kLd + wn * 32 + j * 16, kLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* base = part + ((size_t)(s * g.taps + t) * g.Csrc) * g.N;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(base + (size_t)(i0 + wm * 32 + i * 16) * g.N + n0 + wn * 32 + j * 16,
-                              acc[i][j], g.N, wmma::mem_row_major);
-}
-
-// dw[i] = sum_s part[s][i], s in order.
-__global__ void __launch_bounds__(kEwThreads)
-wgrad_final_kernel(const float* __restrict__ part, int splits, int n, float* __restrict__ dw) {
-  const int i = blockIdx.x * kEwThreads + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * n + i];
-  dw[i] = s;
 }
 
 // --- column sums --------------------------------------------------------------
@@ -392,86 +269,6 @@ col_final_kernel(const float* __restrict__ part, int chunks, int C, const float*
   }
 }
 
-// BatchNorm backward sums over every entry: part[r][c] = (sum dy*xh, sum dy).
-__global__ void __launch_bounds__(kColX * kColY)
-col_dsum_partial_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ xh, int M, int C,
-                        int rows_per_chunk, float2* __restrict__ part) {
-  __shared__ float2 red[kColY][kColX + 1];
-  const int c = blockIdx.x * kColX + threadIdx.x;
-  const int r0 = blockIdx.y * rows_per_chunk;
-  const int r1 = min(M, r0 + rows_per_chunk);
-  float sg = 0.f, sb = 0.f;
-  for (int m = r0 + threadIdx.y; m < r1; m += kColY) {
-    const float d = bf(dy[(size_t)m * C + c]);
-    sg = __fadd_rn(sg, __fmul_rn(d, bf(xh[(size_t)m * C + c])));
-    sb = __fadd_rn(sb, d);
-  }
-  red[threadIdx.y][threadIdx.x] = make_float2(sg, sb);
-  __syncthreads();
-  if (threadIdx.y == 0) {
-    float2 s = red[0][threadIdx.x];
-    for (int y = 1; y < kColY; ++y) {
-      s.x += red[y][threadIdx.x].x;
-      s.y += red[y][threadIdx.x].y;
-    }
-    part[(size_t)blockIdx.y * C + c] = s;
-  }
-}
-
-// dgamma[c], dbeta[c] from the partials; n_out[0] = sum(mask) * Lo.
-__global__ void __launch_bounds__(kEwThreads)
-col_dsum_final_kernel(const float2* __restrict__ part, int chunks, int C,
-                      const float* __restrict__ mask, int B, int Lo, float* __restrict__ dgamma,
-                      float* __restrict__ dbeta, float* __restrict__ n_out) {
-  const float n = block_mask_count(mask, B) * (float)Lo;
-  const int c = blockIdx.x * kEwThreads + threadIdx.x;
-  if (blockIdx.x == 0 && threadIdx.x == 0) n_out[0] = n;
-  if (c >= C) return;
-  float sg = 0.f, sb = 0.f;
-  for (int r = 0; r < chunks; ++r) {
-    sg += part[(size_t)r * C + c].x;
-    sb += part[(size_t)r * C + c].y;
-  }
-  dgamma[c] = sg;
-  dbeta[c] = sb;
-}
-
-// Unmasked column sums of a bf16 [M, C]: part[r][c] = sum of v over chunk r.
-__global__ void __launch_bounds__(kColX * kColY)
-col_sum_partial_kernel(const bf16* __restrict__ v, int M, int C, int rows_per_chunk,
-                       float* __restrict__ part) {
-  __shared__ float red[kColY][kColX + 1];
-  const int c = blockIdx.x * kColX + threadIdx.x;
-  const int r0 = blockIdx.y * rows_per_chunk;
-  const int r1 = min(M, r0 + rows_per_chunk);
-  float acc = 0.f;
-  for (int m = r0 + threadIdx.y; m < r1; m += kColY) acc = __fadd_rn(acc, bf(v[(size_t)m * C + c]));
-  red[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0) {
-    float s = red[0][threadIdx.x];
-    for (int y = 1; y < kColY; ++y) s += red[y][threadIdx.x];
-    part[(size_t)blockIdx.y * C + c] = s;
-  }
-}
-
-// dc = bf16((gamma * inv) * (dy - (m / n) * (dbeta + xh * dgamma))); st is [3, C].
-__global__ void __launch_bounds__(kEwThreads)
-bn_dx_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ xh,
-             const float* __restrict__ gamma, const float* __restrict__ st,
-             const float* __restrict__ dgamma, const float* __restrict__ dbeta,
-             const float* __restrict__ mask, const float* __restrict__ n_ptr, int B, int C,
-             int total, bf16* __restrict__ dc) {
-  const int i = blockIdx.x * kEwThreads + threadIdx.x;
-  if (i >= total) return;
-  const int c = i % C;
-  const int b = (i / C) % B;
-  const float gi = __fmul_rn(gamma[c], st[2 * C + c]);
-  const float mn = mask[b] / n_ptr[0];
-  const float inner = __fadd_rn(dbeta[c], __fmul_rn(bf(xh[i]), dgamma[c]));
-  dc[i] = to_bf(__fmul_rn(gi, __fsub_rn(bf(dy[i]), __fmul_rn(mn, inner))));
-}
-
 
 // --- elementwise passes over [L*B, C] -------------------------------------------
 // st, sts are [3, C] rows (mean, var, inv). Each rounds to bf16 where the plain
@@ -503,95 +300,6 @@ bn_add_lrelu_kernel(const float* __restrict__ c, const float* __restrict__ st,
   out[i] = to_bf(lrelu(__fadd_rn(a, sh)));
 }
 
-// Backward recompute of a normalised, activated conv output:
-// xh = bf16((c - mu) * inv), a = bf16(g * xh + b), r = bf16(lrelu(a)).
-__global__ void __launch_bounds__(kEwThreads)
-bn_recompute_kernel(const float* __restrict__ c, const float* __restrict__ st,
-                    const float* __restrict__ g, const float* __restrict__ b, int C, int total,
-                    bf16* __restrict__ xh, bf16* __restrict__ r) {
-  const int i = blockIdx.x * kEwThreads + threadIdx.x;
-  if (i >= total) return;
-  const int k = i % C;
-  const bf16 h = to_bf(__fmul_rn(__fsub_rn(c[i], st[k]), st[2 * C + k]));
-  xh[i] = h;
-  const bf16 a = to_bf(__fadd_rn(__fmul_rn(g[k], bf(h)), b[k]));
-  r[i] = to_bf(lrelu(bf(a)));
-}
-
-// The output's gradient through the last LeakyReLU:
-// xh = bf16((c - mu) * inv), a = g * xh + b; with a shortcut
-// xhs = bf16((cs - mus) * invs), sh = gs * xhs + bs, else sh = x;
-// g0 = bf16(gout * dlrelu(a + sh)).
-__global__ void __launch_bounds__(kEwThreads)
-out_grad_kernel(const float* __restrict__ c, const float* __restrict__ st,
-                const float* __restrict__ g, const float* __restrict__ b,
-                const float* __restrict__ cs, const float* __restrict__ sts,
-                const float* __restrict__ gs, const float* __restrict__ bs,
-                const bf16* __restrict__ x, const bf16* __restrict__ gout, int C, int total,
-                bf16* __restrict__ xh, bf16* __restrict__ xhs, bf16* __restrict__ g0) {
-  const int i = blockIdx.x * kEwThreads + threadIdx.x;
-  if (i >= total) return;
-  const int k = i % C;
-  const bf16 h = to_bf(__fmul_rn(__fsub_rn(c[i], st[k]), st[2 * C + k]));
-  xh[i] = h;
-  const float a = __fadd_rn(__fmul_rn(g[k], bf(h)), b[k]);
-  float sh;
-  if (cs) {
-    const bf16 hs = to_bf(__fmul_rn(__fsub_rn(cs[i], sts[k]), sts[2 * C + k]));
-    xhs[i] = hs;
-    sh = __fadd_rn(__fmul_rn(gs[k], bf(hs)), bs[k]);
-  } else {
-    sh = bf(x[i]);
-  }
-  g0[i] = to_bf(__fmul_rn(bf(gout[i]), dlrelu(__fadd_rn(a, sh))));
-}
-
-// The gradient through a recomputed activation: out = bf16(t * dlrelu(bf16(g * xh + b))).
-__global__ void __launch_bounds__(kEwThreads)
-act_grad_kernel(const float* __restrict__ t, const bf16* __restrict__ xh,
-                const float* __restrict__ g, const float* __restrict__ b, int C, int total,
-                bf16* __restrict__ out) {
-  const int i = blockIdx.x * kEwThreads + threadIdx.x;
-  if (i >= total) return;
-  const int k = i % C;
-  const float a = bf(to_bf(__fadd_rn(__fmul_rn(g[k], bf(xh[i])), b[k])));
-  out[i] = to_bf(__fmul_rn(t[i], dlrelu(a)));
-}
-
-// The gradient through the x2 upsample and a recomputed activation: t is
-// float32 [2L*B, C], xh bf16 [L*B, C];
-// out = bf16((t[2l] + t[2l+1]) * dlrelu(bf16(g * xh + b))).
-__global__ void __launch_bounds__(kEwThreads)
-pair_act_grad_kernel(const float* __restrict__ t, const bf16* __restrict__ xh,
-                     const float* __restrict__ g, const float* __restrict__ b, int BC, int C,
-                     int total, bf16* __restrict__ out) {
-  const int i = blockIdx.x * kEwThreads + threadIdx.x;
-  if (i >= total) return;
-  const int k = i % C;
-  const size_t j = (size_t)(i / BC) * 2 * BC + i % BC;  // row 2l of t
-  const float a = bf(to_bf(__fadd_rn(__fmul_rn(g[k], bf(xh[i])), b[k])));
-  out[i] = to_bf(__fmul_rn(__fadd_rn(t[j], t[j + BC]), dlrelu(a)));
-}
-
-// out = bf16(a + (t[2l] + t[2l+1])): a float32 [L*B, C], t float32 [2L*B, C].
-__global__ void __launch_bounds__(kEwThreads)
-add_pair_round_kernel(const float* __restrict__ a, const float* __restrict__ t, int BC, int total,
-                      bf16* __restrict__ out) {
-  const int i = blockIdx.x * kEwThreads + threadIdx.x;
-  if (i >= total) return;
-  const size_t j = (size_t)(i / BC) * 2 * BC + i % BC;
-  out[i] = to_bf(__fadd_rn(a[i], __fadd_rn(t[j], t[j + BC])));
-}
-
-// out = bf16(a + (b ? b : c)), a and b fp32, c bf16.
-__global__ void __launch_bounds__(kEwThreads)
-add_round_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 const bf16* __restrict__ c, int total, bf16* __restrict__ out) {
-  const int i = blockIdx.x * kEwThreads + threadIdx.x;
-  if (i >= total) return;
-  out[i] = to_bf(__fadd_rn(a[i], b ? b[i] : bf(c[i])));
-}
-
 // --- host-side launchers -----------------------------------------------------
 
 // Bump allocator over the caller's scratch; with base == nullptr it only counts.
@@ -614,18 +322,6 @@ inline int col_chunks(int M, int C) {
   return std::max(1, std::min(want, cdiv(M, 32)));
 }
 
-// Split-K of the weight gradient: about 264 blocks in all, at least one k-tile each.
-inline int wgrad_rows_per_split(int M, int Ci, int Co, int taps) {
-  const int tiles = (Ci / kBM) * (Co / kBN) * taps;
-  const int ktiles = cdiv(M, kBK);
-  const int splits = std::max(1, std::min(ktiles, cdiv(264, tiles)));
-  return cdiv(ktiles, splits) * kBK;
-}
-
-inline size_t wgrad_partial_floats(int M, int Ci, int Co, int taps) {
-  return (size_t)cdiv(M, wgrad_rows_per_split(M, Ci, Co, taps)) * taps * Ci * Co;
-}
-
 #define BLOCKS_CHECK()                                   \
   do {                                                   \
     cudaError_t e_ = cudaGetLastError();                 \
@@ -633,28 +329,11 @@ inline size_t wgrad_partial_floats(int M, int Ci, int Co, int taps) {
   } while (0)
 
 // UP: the source read through the x2 upsample, and bias [N] added.
-template <bool TRANS, bool UP = false>
+template <bool UP = false>
 int launch_conv(const bf16* src, const bf16* w, float* out, const ConvGeom& g, cudaStream_t s,
                 const float* bias = nullptr) {
   dim3 grid(cdiv(g.Lout * g.B, kBM), g.N / kBN);
-  conv_gemm_kernel<TRANS, UP><<<grid, kGemmThreads, 0, s>>>(src, w, out, g, bias);
-  BLOCKS_CHECK();
-  return 0;
-}
-
-// dw [taps, Ci, Co] from x [Lsrc, B, Ci] (UP: read as its x2 upsample) and
-// dc [Lout, B, Co]; part from the arena.
-template <bool UP = false>
-inline int launch_wgrad(const bf16* x, const bf16* dc, float* part, float* dw, const ConvGeom& g,
-                        cudaStream_t s) {
-  const int M = g.Lout * g.B;
-  const int rows = wgrad_rows_per_split(M, g.Csrc, g.N, g.taps);
-  const int splits = cdiv(M, rows);
-  dim3 grid(g.Csrc / kBM, g.N / kBN, g.taps * splits);
-  wgrad_gemm_kernel<UP><<<grid, kGemmThreads, 0, s>>>(x, dc, part, g, rows);
-  BLOCKS_CHECK();
-  const int n = g.taps * g.Csrc * g.N;
-  wgrad_final_kernel<<<cdiv(n, kEwThreads), kEwThreads, 0, s>>>(part, splits, n, dw);
+  conv_gemm_kernel<UP><<<grid, kGemmThreads, 0, s>>>(src, w, out, g, bias);
   BLOCKS_CHECK();
   return 0;
 }
@@ -675,44 +354,6 @@ inline int launch_col_stats(const float* v, const float* mask, int Lo, int B, in
   col_partial_kernel<1><<<grid, block, 0, s>>>(v, mask, st, M, B, C, rows, part);
   BLOCKS_CHECK();
   col_final_kernel<1><<<fin, kEwThreads, 0, s>>>(part, chunks, C, mask, B, Lo, st);
-  BLOCKS_CHECK();
-  return 0;
-}
-
-// (dgamma, dbeta) of BatchNorm's backward over dy, xh bf16 [Lo*B, C]; n_out
-// gets sum(mask) * Lo; part holds col_chunks(M, C) float2.
-inline int launch_col_dsum(const bf16* dy, const bf16* xh, const float* mask, int Lo, int B, int C,
-                           float2* part, float* dgamma, float* dbeta, float* n_out,
-                           cudaStream_t s) {
-  const int M = Lo * B;
-  const int chunks = col_chunks(M, C);
-  dim3 grid(C / kColX, chunks), block(kColX, kColY);
-  col_dsum_partial_kernel<<<grid, block, 0, s>>>(dy, xh, M, C, cdiv(M, chunks), part);
-  BLOCKS_CHECK();
-  col_dsum_final_kernel<<<cdiv(C, kEwThreads), kEwThreads, 0, s>>>(part, chunks, C, mask, B, Lo,
-                                                                   dgamma, dbeta, n_out);
-  BLOCKS_CHECK();
-  return 0;
-}
-
-// out [C] = the column sums of v bf16 [M, C], unmasked; part holds
-// col_chunks(M, C) * C floats.
-inline int launch_col_sum(const bf16* v, int M, int C, float* part, float* out, cudaStream_t s) {
-  const int chunks = col_chunks(M, C);
-  dim3 grid(C / kColX, chunks), block(kColX, kColY);
-  col_sum_partial_kernel<<<grid, block, 0, s>>>(v, M, C, cdiv(M, chunks), part);
-  BLOCKS_CHECK();
-  wgrad_final_kernel<<<cdiv(C, kEwThreads), kEwThreads, 0, s>>>(part, chunks, C, out);
-  BLOCKS_CHECK();
-  return 0;
-}
-
-inline int launch_bn_dx(const bf16* dy, const bf16* xh, const float* gamma, const float* st,
-                        const float* dgamma, const float* dbeta, const float* mask,
-                        const float* n_ptr, int Lo, int B, int C, bf16* dc, cudaStream_t s) {
-  const int total = Lo * B * C;
-  bn_dx_kernel<<<cdiv(total, kEwThreads), kEwThreads, 0, s>>>(dy, xh, gamma, st, dgamma, dbeta,
-                                                              mask, n_ptr, B, C, total, dc);
   BLOCKS_CHECK();
   return 0;
 }

@@ -19,10 +19,20 @@
 // kernels are short, and the number of launches and passes over device
 // memory is what the time is made of.
 //
-// Forward design (block_common.cuh): each step is its own launch,
-// implicit-GEMM convs on wmma tiles, BatchNorm statistics as fixed-order
-// per-channel partial sums and a final pass, elementwise passes that
-// normalise, activate and round; 17 launches with a shortcut, 12 without.
+// Forward design (sm90_gemm.cuh): 5 launches with a shortcut or without,
+//   0 the tickets of the cross-block sums to zero (a memset)
+//   1 conv1 as a wgmma GEMM; its epilogue writes c1 (fp32) and each tile's
+//     masked moments per channel (count, sum, and the squares about the
+//     tile's own mean); the blocks that finish last merge the tiles' moments
+//     in a fixed order (Chan's formula) into st1 = (mean, var, inv)
+//   2 r1 = bf16(lrelu(bn1(c1))), elementwise (8 entries per thread)
+//   3 conv2 and the shortcut's conv into a second accumulator of the same
+//     tile; the epilogue writes c2, cs and their moments, merged into st2 and
+//     sts as in 1
+//   4 out = bf16(lrelu(bn2(c2) + shortcut)), elementwise
+// A tile whose rows are all padding has count 0 and merges as nothing, so
+// the padded rows reach no statistic. The variance is the merged sum of
+// squares about each tile's mean, the plain version's two passes per tile.
 //
 // Backward design (sm90_gemm.cuh): 7 launches with a shortcut or without,
 // each GEMM a wgmma tile fed by a 4-stage cp.async ring, and each
@@ -39,65 +49,36 @@
 //   6 dx = the transposed conv1 (+ the shortcut's) into one accumulator,
 //     plus g0 without a shortcut, rounded once; with dw1's split-K tiles
 //   7 the fixed-order sums of the weight gradients' split-K partials
-// The cross-block sums take integer tickets (the last block of a group sums
-// the group's partials in index order); there are no float atomics, so
-// repeated runs give the same bits. Each entry point is one ctypes call that
-// issues its whole sequence on the caller's stream; scratch comes from the
-// caller.
+// The cross-block sums and merges take integer tickets (the last block of a
+// group reduces the group's partials in index order); there are no float
+// atomics, so repeated runs give the same bits. Each entry point is one
+// ctypes call that issues its whole sequence on the caller's stream; scratch
+// comes from the caller.
 
 #include "block_common.cuh"
 #include "sm90_gemm.cuh"
 
 using namespace blocks;
+using sm90::BnDx;
+using sm90::bn_dx8_kernel;
 using sm90::ConvLoader;
 using sm90::ConvSeg;
+using sm90::ep_col;
+using sm90::ep_row0;
+using sm90::gemm_launch;
 using sm90::kLdS;
 using sm90::make_seg;
-using sm90::WgradLoader;
+using sm90::Split;
+using sm90::wgrad_job;
+using sm90::wgrad_split;
+using sm90::WgradSum;
 
 namespace {
 
 inline int out_len(int L, int stride) { return stride == 1 ? L : (L - 1) / 2 + 1; }
-
-struct FwdScratch {
-  float* c1;
-  bf16* r1;
-  float* c2;
-  float* cs;
-  float* part;
-};
-
-FwdScratch plan_fwd(Arena& a, int L, int B, int Co, int stride, int has_short) {
-  const int Lo = out_len(L, stride);
-  const size_t tot = (size_t)Lo * B * Co;
-  FwdScratch s;
-  s.c1 = a.take<float>(tot);
-  s.r1 = a.take<bf16>(tot);
-  s.c2 = a.take<float>(tot);
-  s.cs = has_short ? a.take<float>(tot) : nullptr;
-  s.part = a.take<float>((size_t)col_chunks(Lo * B, Co) * Co);
-  return s;
-}
-
 inline int ew_grid(size_t total) { return (int)((total + kEwThreads - 1) / kEwThreads); }
 
-// --- backward ------------------------------------------------------------------
-
-// Split-K of a weight gradient over M rows: about 264 jobs, each at least 8
-// whole k-steps.
-struct Split {
-  int rows, splits, jobs;
-};
-Split wgrad_split(int M, int Ci, int Co, int taps) {
-  const int tiles = taps * (Ci / sm90::kBM) * (Co / sm90::kBN);
-  const int ktiles = cdiv(M, sm90::kBK);
-  const int want = std::max(1, std::min(cdiv(ktiles, 8), cdiv(264, tiles)));
-  const int rows = cdiv(ktiles, want) * sm90::kBK;
-  const int splits = cdiv(M, rows);
-  return Split{rows, splits, splits * tiles};
-}
-
-struct BwdPlan {
+struct Plan {
   int L, B, Ci, Co, Lo, M;
   int mtiles, ntiles, groups;  // tiles of the [M, Co] GEMMs; groups of m-tiles
   int xtiles;                  // m-tiles of dx [L*B, Ci]
@@ -105,8 +86,8 @@ struct BwdPlan {
   ConvGeom c1g, c2g, csg, c2t, c1t, cst;
 };
 
-BwdPlan plan(int L, int B, int Ci, int Co, int stride) {
-  BwdPlan p;
+Plan plan(int L, int B, int Ci, int Co, int stride) {
+  Plan p;
   p.L = L, p.B = B, p.Ci = Ci, p.Co = Co;
   p.Lo = out_len(L, stride);
   p.M = p.Lo * B;
@@ -126,13 +107,140 @@ BwdPlan plan(int L, int B, int Ci, int Co, int stride) {
   return p;
 }
 
+// --- forward ---------------------------------------------------------------------
+
+struct FwdScratch {
+  float *c1, *c2, *cs, *part, *gpart;
+  bf16* r1;
+  unsigned* tk;
+};
+
+FwdScratch plan_fwd(Arena& a, const Plan& p, int has_short) {
+  const size_t tot = (size_t)p.M * p.Co;
+  FwdScratch s;
+  s.c1 = a.take<float>(tot);
+  s.r1 = a.take<bf16>(tot);
+  s.c2 = a.take<float>(tot);
+  s.cs = has_short ? a.take<float>(tot) : nullptr;
+  s.part = a.take<float>((size_t)p.mtiles * 6 * p.Co);
+  s.gpart = a.take<float>((size_t)p.groups * 6 * p.Co);
+  s.tk = a.take<unsigned>((size_t)(p.groups + 1) * p.ntiles);
+  return s;
+}
+
+struct FwdArgs {
+  const bf16 *x, *w1, *w2, *ws;
+  const float* mask;
+  float *st1, *st2, *sts;
+  FwdScratch S;
+  Plan P;
+};
+
+// 1 and 3: conv1, or conv2 (+ the shortcut's conv into acc1); the epilogue
+// writes the fp32 outputs and each tile's moments, and the finishing blocks
+// merge those into st1, or st2 (and sts).
+template <bool SECOND, bool SHORT>
+__global__ void __launch_bounds__(sm90::kThreads) fwd_conv_kernel(FwdArgs A) {
+  constexpr int NS = SHORT ? 2 : 1;
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  const Plan& P = A.P;
+  const int mt = blockIdx.x, nt = blockIdx.y, m0 = mt * sm90::kBM, n0 = nt * sm90::kBN;
+  const uint32_t ring = sm90::ring_base(dyn);
+  const ConvSeg s0 = SECOND ? make_seg<false>(A.S.r1, A.w2, P.c2g, m0) : make_seg<false>(A.x, A.w1, P.c1g, m0);
+  const ConvSeg s1 = SHORT ? make_seg<false>(A.x, A.ws, P.csg, m0) : ConvSeg{};
+  const ConvLoader<false> ld(s0, s1, m0, n0);
+  float acc0[32], acc1[32];
+  sm90::mainloop<0, 1, SHORT>(ld, ld.steps(), s0.nsteps, ring, acc0, acc1);
+  __shared__ float msk[sm90::kBM];
+  float* st0 = sm90::ring_ptr<float>(dyn, ring);
+  float* st1 = st0 + sm90::kBM * kLdS;
+  sm90::stage_acc(acc0, st0);
+  if (SHORT) sm90::stage_acc(acc1, st1);
+  sm90::tile_mask(A.mask, m0, P.M, P.B, msk);
+  __syncthreads();
+  const int c = ep_col(), n = n0 + c, C = P.Co;
+  float* c0 = SECOND ? A.S.c2 : A.S.c1;
+  for (int r = ep_row0(); r < ep_row0() + 32 && m0 + r < P.M; ++r) {
+    const size_t i = (size_t)(m0 + r) * C + n;
+    c0[i] = st0[r * kLdS + c];
+    if (SHORT) A.S.cs[i] = st1[r * kLdS + c];
+  }
+  float mom[6], m3[3];
+  sm90::tile_moments(st0, msk, m0, P.M, m3);
+  mom[0] = m3[0], mom[1] = m3[1], mom[2] = m3[2];
+  if (SHORT) {
+    sm90::tile_moments(st1, msk, m0, P.M, m3);
+    mom[3] = m3[0], mom[4] = m3[1], mom[5] = m3[2];
+  }
+  if (threadIdx.x < 64) {
+#pragma unroll
+    for (int q = 0; q < 3 * NS; ++q) A.S.part[((size_t)mt * 3 * NS + q) * C + n] = mom[q];
+  }
+  float tot[3 * NS];
+  if (sm90::finish_cols<sm90::MomentRows<NS>>(A.S.part, A.S.gpart, A.S.tk, mt, P.mtiles, nt, P.ntiles, C, n0,
+                                                tot) &&
+      threadIdx.x < 64) {
+    sm90::write_stats(tot, SECOND ? A.st2 : A.st1, C, n);
+    if (SECOND) {
+      if (SHORT) {
+        sm90::write_stats(tot + 3, A.sts, C, n);
+      } else {
+        A.sts[n] = A.sts[C + n] = A.sts[2 * C + n] = 0.f;
+      }
+    }
+  }
+}
+
+// 2 and 4, 8 entries per thread: r1 = bf16(lrelu(bn1(c1))), or (OUT) out =
+// bf16(lrelu(bn2(c2) + (cs ? bn_s(cs) : x))). st, sts are [3, C] rows (mean,
+// var, inv).
+template <bool OUT>
+__global__ void __launch_bounds__(kEwThreads)
+fwd_act8_kernel(const float* __restrict__ c, const float* __restrict__ st, const float* __restrict__ g,
+                const float* __restrict__ b, const float* __restrict__ cs, const float* __restrict__ sts,
+                const float* __restrict__ gs, const float* __restrict__ bs, const bf16* __restrict__ x, int C,
+                int total, bf16* __restrict__ out) {
+  const int base = (blockIdx.x * kEwThreads + threadIdx.x) * 8;
+  if (base >= total) return;
+  const int k = base % C;
+  float v[8], mu[8], inv[8], gm[8], bt[8], a[8];
+  sm90::load8(c + base, v);
+  sm90::load8(st + k, mu);
+  sm90::load8(st + 2 * C + k, inv);
+  sm90::load8(g + k, gm);
+  sm90::load8(b + k, bt);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) a[e] = bn_affine(v[e], mu[e], inv[e], gm[e], bt[e]);
+  if (OUT && cs) {
+    sm90::load8(cs + base, v);
+    sm90::load8(sts + k, mu);
+    sm90::load8(sts + 2 * C + k, inv);
+    sm90::load8(gs + k, gm);
+    sm90::load8(bs + k, bt);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a[e] = __fadd_rn(a[e], bn_affine(v[e], mu[e], inv[e], gm[e], bt[e]));
+  } else if (OUT) {  // stride 1 and C_in == C_out: x's entry i is the output's
+    const uint4 xv = *reinterpret_cast<const uint4*>(x + base);
+    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a[e] = __fadd_rn(a[e], bf(xe[e]));
+  }
+  uint4 ov;
+  bf16* o = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) o[e] = to_bf(lrelu(a[e]));
+  *reinterpret_cast<uint4*>(out + base) = ov;
+}
+
+// --- backward --------------------------------------------------------------------
+
 struct BwdScratch {
   bf16 *xh1, *r1, *xh2, *xhs, *g0, *dc2, *dcs, *da1, *dc1;
   float *part, *gpart, *n, *wp1, *wp2, *wps;
   unsigned* tk;
 };
 
-BwdScratch plan_bwd(Arena& a, const BwdPlan& p, int has_short) {
+BwdScratch plan_bwd(Arena& a, const Plan& p, int has_short) {
   const size_t tot = (size_t)p.M * p.Co;
   const size_t w1 = (size_t)3 * p.Ci * p.Co, w2 = (size_t)3 * p.Co * p.Co, ws = (size_t)p.Ci * p.Co;
   BwdScratch s;
@@ -161,36 +269,14 @@ struct BwdArgs {
   bf16* dx;
   float *dw1, *dg1, *db1, *dw2, *dg2, *db2, *dws, *dgs, *dbs;
   BwdScratch S;
-  BwdPlan P;
+  Plan P;
 };
-
-// The epilogues run one column per thread pair: column c = tid & 63 of the
-// tile, rows [32 h, 32 h + 32) for h = tid >> 6; row sums combine the halves
-// in order.
-__device__ __forceinline__ int ep_col() { return threadIdx.x & 63; }
-__device__ __forceinline__ int ep_row0() { return (threadIdx.x >> 6) * 32; }
-
-// Writes row mt of part [mtiles][NQ][C] from the thread pairs' sums s.
-template <int NQ>
-__device__ __forceinline__ void write_tile_sums(const float (&s)[NQ], float* part, int mt, int C, int n) {
-  __shared__ float red[NQ][sm90::kBN];
-  const int c = ep_col();
-  if (threadIdx.x >= 64) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) red[q][c] = s[q];
-  }
-  __syncthreads();
-  if (threadIdx.x < 64) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) part[((size_t)mt * NQ + q) * C + n] = s[q] + red[q][c];
-  }
-}
 
 // 1: conv1 recompute -> xh1, r1. Block (0, 0) also writes the count
 // n = sum(mask) * Lo and zeroes the tickets of launches 2 and 4.
 __global__ void __launch_bounds__(sm90::kThreads) bwd_conv1_kernel(BwdArgs A) {
   extern __shared__ __align__(1024) unsigned char dyn[];
-  const BwdPlan& P = A.P;
+  const Plan& P = A.P;
   const int mt = blockIdx.x, nt = blockIdx.y, m0 = mt * sm90::kBM, n0 = nt * sm90::kBN;
   if (mt == 0 && nt == 0) {
     const float cnt = block_mask_count(A.mask, P.B);
@@ -221,7 +307,7 @@ template <bool SHORT>
 __global__ void __launch_bounds__(sm90::kThreads) bwd_conv2_kernel(BwdArgs A) {
   constexpr int NQ = SHORT ? 3 : 2;
   extern __shared__ __align__(1024) unsigned char dyn[];
-  const BwdPlan& P = A.P;
+  const Plan& P = A.P;
   const int mt = blockIdx.x, nt = blockIdx.y, m0 = mt * sm90::kBM, n0 = nt * sm90::kBN;
   const uint32_t ring = sm90::ring_base(dyn);
   const ConvSeg s0 = make_seg<false>(A.S.r1, A.w2, P.c2g, m0);
@@ -267,7 +353,7 @@ __global__ void __launch_bounds__(sm90::kThreads) bwd_conv2_kernel(BwdArgs A) {
     s[1] = __fadd_rn(s[1], gv);
     if (SHORT) s[NQ - 1] = __fadd_rn(s[NQ - 1], __fmul_rn(gv, bf(hs)));
   }
-  write_tile_sums<NQ>(s, A.S.part, mt, C, n);
+  sm90::write_tile_sums<NQ>(s, A.S.part, mt, C, n);
   float tot[NQ];
   if (sm90::finish_col_sums<NQ>(A.S.part, A.S.gpart, A.S.tk, mt, P.mtiles, nt, P.ntiles, C, n0, tot) &&
       threadIdx.x < 64) {
@@ -280,82 +366,12 @@ __global__ void __launch_bounds__(sm90::kThreads) bwd_conv2_kernel(BwdArgs A) {
   }
 }
 
-// 3 and 5: BatchNorm's backward, dc = bf16((gamma * inv) * (dy - (m / n) *
-// (dbeta + xh * dgamma))), 8 entries per thread; TWO: a second BatchNorm on
-// the same dy (the shortcut's).
-struct BnDx {
-  const bf16* xh;
-  const float *gamma, *st, *dgamma, *dbeta;
-  bf16* dc;
-};
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-template <bool TWO>
-__global__ void __launch_bounds__(kEwThreads)
-bn_dx8_kernel(const bf16* __restrict__ dy, BnDx p, BnDx q, const float* __restrict__ mask,
-              const float* __restrict__ n_ptr, int B, int C, int total) {
-  const int base = (blockIdx.x * kEwThreads + threadIdx.x) * 8;
-  if (base >= total) return;
-  const int m = base / C, c = base - m * C;
-  const float mn = mask[m % B] / n_ptr[0];
-  const uint4 dv = *reinterpret_cast<const uint4*>(dy + base);
-  const bf16* d = reinterpret_cast<const bf16*>(&dv);
-#pragma unroll
-  for (int k = 0; k < (TWO ? 2 : 1); ++k) {
-    const BnDx& b = k ? q : p;
-    const uint4 hv = *reinterpret_cast<const uint4*>(b.xh + base);
-    const bf16* h = reinterpret_cast<const bf16*>(&hv);
-    float gm[8], inv[8], dbt[8], dgm[8];
-    load8(b.gamma + c, gm);
-    load8(b.st + 2 * C + c, inv);
-    load8(b.dbeta + c, dbt);
-    load8(b.dgamma + c, dgm);
-    uint4 ov;
-    bf16* o = reinterpret_cast<bf16*>(&ov);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float gi = __fmul_rn(gm[e], inv[e]);
-      const float inner = __fadd_rn(dbt[e], __fmul_rn(bf(h[e]), dgm[e]));
-      o[e] = to_bf(__fmul_rn(gi, __fsub_rn(bf(d[e]), __fmul_rn(mn, inner))));
-    }
-    *reinterpret_cast<uint4*>(b.dc + base) = ov;
-  }
-}
-
-// A split-K weight-gradient job j of a grid (n-tiles fastest, then input
-// channel tiles, taps, splits): its fp32 partial into part [splits][taps][Ci][Co].
-__device__ __forceinline__ void wgrad_job(unsigned char* dyn, const bf16* x, const bf16* dc,
-                                          const ConvGeom& g, const Split& sp, int j, float* part) {
-  const int tn = g.N / sm90::kBN, ti = g.Csrc / sm90::kBM;
-  const int n0 = (j % tn) * sm90::kBN;
-  j /= tn;
-  const int i0 = (j % ti) * sm90::kBM;
-  j /= ti;
-  const int t = j % g.taps, s = j / g.taps;
-  const int M = g.Lout * g.B;
-  const WgradLoader ld{x, dc, g, t, i0, n0, s * sp.rows, min(M, (s + 1) * sp.rows)};
-  float acc[32], unused[32];
-  sm90::mainloop<1, 1, false>(ld, ld.steps(), ld.steps(), sm90::ring_base(dyn), acc, unused);
-  float* base = part + ((size_t)(s * g.taps + t) * g.Csrc + i0) * g.N + n0;
-  const int r = sm90::acc_row(), c = sm90::acc_col();
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    *reinterpret_cast<float2*>(base + (size_t)r * g.N + 8 * k + c) = make_float2(acc[4 * k], acc[4 * k + 1]);
-    *reinterpret_cast<float2*>(base + (size_t)(r + 8) * g.N + 8 * k + c) =
-        make_float2(acc[4 * k + 2], acc[4 * k + 3]);
-  }
-}
-
 // 4: dw2's and dws's split-K tiles, then the transposed conv2 -> da1 and
 // dg1, db1 by the finishing blocks.
 template <bool SHORT>
 __global__ void __launch_bounds__(sm90::kThreads) bwd_mid_kernel(BwdArgs A) {
   extern __shared__ __align__(1024) unsigned char dyn[];
-  const BwdPlan& P = A.P;
+  const Plan& P = A.P;
   int j = blockIdx.x;
   if (j < P.s2.jobs) return wgrad_job(dyn, A.S.r1, A.S.dc2, P.c2g, P.s2, j, A.S.wp2);
   j -= P.s2.jobs;
@@ -385,7 +401,7 @@ __global__ void __launch_bounds__(sm90::kThreads) bwd_mid_kernel(BwdArgs A) {
     s[0] = __fadd_rn(s[0], __fmul_rn(bf(da), h));
     s[1] = __fadd_rn(s[1], bf(da));
   }
-  write_tile_sums<2>(s, A.S.part, mt, C, n);
+  sm90::write_tile_sums<2>(s, A.S.part, mt, C, n);
   float tot[2];
   if (sm90::finish_col_sums<2>(A.S.part, A.S.gpart, A.S.tk, mt, P.mtiles, nt, P.ntiles, C, n0, tot) &&
       threadIdx.x < 64) {
@@ -399,7 +415,7 @@ __global__ void __launch_bounds__(sm90::kThreads) bwd_mid_kernel(BwdArgs A) {
 template <bool SHORT>
 __global__ void __launch_bounds__(sm90::kThreads) bwd_dx_kernel(BwdArgs A) {
   extern __shared__ __align__(1024) unsigned char dyn[];
-  const BwdPlan& P = A.P;
+  const Plan& P = A.P;
   int j = blockIdx.x;
   if (j < P.s1.jobs) return wgrad_job(dyn, A.x, A.S.dc1, P.c1g, P.s1, j, A.S.wp1);
   j -= P.s1.jobs;
@@ -424,46 +440,6 @@ __global__ void __launch_bounds__(sm90::kThreads) bwd_dx_kernel(BwdArgs A) {
   }
 }
 
-// 7: dw = sum over splits of the partials, in order, for dw1, dw2 and dws.
-struct WgradSum {
-  const float* part;
-  int splits, n;
-  float* dw;
-};
-
-__global__ void __launch_bounds__(kEwThreads) wgrad_sum3_kernel(WgradSum a, WgradSum b, WgradSum c) {
-  int i = blockIdx.x * kEwThreads + threadIdx.x;
-  WgradSum w = a;
-  if (i >= a.n) {
-    i -= a.n;
-    w = b;
-    if (i >= b.n) {
-      i -= b.n;
-      w = c;
-      if (i >= c.n) return;
-    }
-  }
-  float s = 0.f;
-  int k = 0;
-  for (; k + 4 <= w.splits; k += 4) {  // four loads in flight, added in order
-    const float a0 = w.part[(size_t)k * w.n + i], a1 = w.part[(size_t)(k + 1) * w.n + i];
-    const float a2 = w.part[(size_t)(k + 2) * w.n + i], a3 = w.part[(size_t)(k + 3) * w.n + i];
-    s = (((s + a0) + a1) + a2) + a3;
-  }
-  for (; k < w.splits; ++k) s += w.part[(size_t)k * w.n + i];
-  w.dw[i] = s;
-}
-
-// ep_tiles: the epilogue's input tiles the kernel keeps in shared memory.
-template <class K>
-int gemm_launch(K kernel, dim3 grid, int ep_tiles, const BwdArgs& args, cudaStream_t s) {
-  const int smem = sm90::smem_bytes(ep_tiles);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  kernel<<<grid, sm90::kThreads, smem, s>>>(args);
-  BLOCKS_CHECK();
-  return 0;
-}
-
 }  // namespace
 
 #define RET_IF(call)          \
@@ -476,9 +452,8 @@ extern "C" {
 
 // Bytes of scratch the forward / backward need for one block.
 long long enc_block_fwd_scratch(int L, int B, int Ci, int Co, int stride, int has_short) {
-  (void)Ci;
   Arena a{nullptr};
-  plan_fwd(a, L, B, Co, stride, has_short);
+  plan_fwd(a, plan(L, B, Ci, Co, stride), has_short);
   return (long long)a.used;
 }
 
@@ -498,31 +473,28 @@ int enc_block_fwd(const void* x_, const void* w1_, const float* g1, const float*
                   int Co, int stride, int has_short, void* out_, float* st1, float* st2,
                   float* sts, void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* w1 = static_cast<const bf16*>(w1_);
-  const bf16* w2 = static_cast<const bf16*>(w2_);
-  const bf16* ws = static_cast<const bf16*>(ws_);
-  bf16* out = static_cast<bf16*>(out_);
-  const int Lo = out_len(L, stride);
-  const size_t tot = (size_t)Lo * B * Co;
+  FwdArgs A;
+  A.x = static_cast<const bf16*>(x_);
+  A.w1 = static_cast<const bf16*>(w1_);
+  A.w2 = static_cast<const bf16*>(w2_);
+  A.ws = static_cast<const bf16*>(ws_);
+  A.mask = mask, A.st1 = st1, A.st2 = st2, A.sts = sts;
+  A.P = plan(L, B, Ci, Co, stride);
   Arena a{static_cast<char*>(scratch)};
-  const FwdScratch S = plan_fwd(a, L, B, Co, stride, has_short);
+  A.S = plan_fwd(a, A.P, has_short);
+  const Plan& P = A.P;
+  const FwdScratch& S = A.S;
+  const size_t tot = (size_t)P.M * Co;
+  const dim3 tiles(P.mtiles, P.ntiles);
 
-  RET_IF(launch_conv<false>(x, w1, S.c1, ConvGeom{L, Lo, B, Ci, Co, 3, stride, 1}, s));
-  RET_IF(launch_col_stats(S.c1, mask, Lo, B, Co, S.part, st1, s));
-  bn_lrelu_kernel<<<ew_grid(tot), kEwThreads, 0, s>>>(S.c1, st1, g1, b1, Co, (int)tot, S.r1);
+  RET_IF(static_cast<int>(cudaMemsetAsync(S.tk, 0, sizeof(unsigned) * (P.groups + 1) * P.ntiles, s)));
+  RET_IF(gemm_launch(fwd_conv_kernel<false, false>, tiles, 0, A, s));
+  fwd_act8_kernel<false><<<ew_grid(tot / 8), kEwThreads, 0, s>>>(S.c1, st1, g1, b1, nullptr, nullptr, nullptr,
+                                                                 nullptr, nullptr, Co, (int)tot, S.r1);
   BLOCKS_CHECK();
-  RET_IF(launch_conv<false>(S.r1, w2, S.c2, ConvGeom{Lo, Lo, B, Co, Co, 3, 1, 1}, s));
-  RET_IF(launch_col_stats(S.c2, mask, Lo, B, Co, S.part, st2, s));
-  if (has_short) {
-    RET_IF(launch_conv<false>(x, ws, S.cs, ConvGeom{L, Lo, B, Ci, Co, 1, 2, 0}, s));
-    RET_IF(launch_col_stats(S.cs, mask, Lo, B, Co, S.part, sts, s));
-  } else {
-    cudaMemsetAsync(sts, 0, sizeof(float) * 3 * Co, s);
-    BLOCKS_CHECK();
-  }
-  bn_add_lrelu_kernel<<<ew_grid(tot), kEwThreads, 0, s>>>(S.c2, st2, g2, b2, S.cs, sts, gs, bs, x,
-                                                          Co, (int)tot, out);
+  RET_IF(gemm_launch(has_short ? fwd_conv_kernel<true, true> : fwd_conv_kernel<true, false>, tiles, 0, A, s));
+  fwd_act8_kernel<true><<<ew_grid(tot / 8), kEwThreads, 0, s>>>(S.c2, st2, g2, b2, S.cs, sts, gs, bs, A.x, Co,
+                                                                (int)tot, static_cast<bf16*>(out_));
   BLOCKS_CHECK();
   return 0;
 }
@@ -553,7 +525,7 @@ int enc_block_bwd(const void* x_, const void* w1_, const float* g1, const float*
   A.P = plan(L, B, Ci, Co, stride);
   Arena a{static_cast<char*>(scratch)};
   A.S = plan_bwd(a, A.P, has_short);
-  const BwdPlan& P = A.P;
+  const Plan& P = A.P;
   const BwdScratch& S = A.S;
   const size_t tot = (size_t)P.M * Co;
   const dim3 tiles(P.mtiles, P.ntiles);
@@ -580,7 +552,7 @@ int enc_block_bwd(const void* x_, const void* w1_, const float* g1, const float*
   RET_IF(gemm_launch(has_short ? bwd_dx_kernel<true> : bwd_dx_kernel<false>, dim3(last), has_short ? 0 : 1, A, s));
   const WgradSum w1s{S.wp1, P.s1.splits, 3 * Ci * Co, dw1}, w2s{S.wp2, P.s2.splits, 3 * Co * Co, dw2};
   const WgradSum wss{S.wps, P.ss.splits, has_short ? Ci * Co : 0, dws};
-  wgrad_sum3_kernel<<<ew_grid((size_t)w1s.n + w2s.n + wss.n), kEwThreads, 0, s>>>(w1s, w2s, wss);
+  sm90::wgrad_sum3_kernel<<<ew_grid((size_t)w1s.n + w2s.n + wss.n), kEwThreads, 0, s>>>(w1s, w2s, wss);
   BLOCKS_CHECK();
   return 0;
 }

@@ -1,6 +1,6 @@
 // A Hopper GEMM core for sm_90a: wgmma on an asynchronous shared-memory ring.
 //
-// Used by the encoder block's backward (enc_block.cu). One block is one
+// Used by the block kernels (enc_block.cu, dec_block.cu). One block is one
 // warpgroup (128 threads) and owns a 64 x 64 output tile. Each k-step moves a
 // 64-deep slice of both operands into one slot of a kStages-deep ring in
 // dynamic shared memory with 16-byte cp.async copies (zero-filled where a row
@@ -34,9 +34,13 @@
 
 namespace sm90 {
 
+using blocks::bf;
 using blocks::bf16;
+using blocks::cdiv;
 using blocks::ConvGeom;
+using blocks::kEwThreads;
 using blocks::src_pos;
+using blocks::to_bf;
 
 constexpr int kThreads = 128;          // one warpgroup
 constexpr int kBM = 64, kBN = 64, kBK = 64;
@@ -52,6 +56,10 @@ constexpr int kLdS = kBN + 8;          // row stride (floats) of an fp32 staging
 static_assert(2 * kBM * kLdS * 4 <= kRingBytes, "two staging tiles fit in the ring");
 
 // --- PTX wrappers ------------------------------------------------------------
+// (A host build for checking indexing, tests/test_torch_sm90_cpu.py, defines
+// SM90_HOST_EMULATION and brings its own versions of these.)
+
+#ifndef SM90_HOST_EMULATION
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -87,6 +95,8 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+#endif  // SM90_HOST_EMULATION
+
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
@@ -96,6 +106,7 @@ __device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int s) {
   return MN ? make_desc(tile + 2048 * s, 1024, 1024) : make_desc(tile + 32 * s, 16, 1024);
 }
 
+#ifndef SM90_HOST_EMULATION
 // d[64 x 64] += A[64 x 16] B[16 x 64]; TA / TB: the operand is MN-major.
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
@@ -112,6 +123,8 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
+
+#endif  // SM90_HOST_EMULATION
 
 // --- the ring ------------------------------------------------------------------
 
@@ -219,26 +232,37 @@ __device__ __forceinline__ void stage_acc(const float (&d)[32], float* st) {
 // One convolution's k-steps into a 64-row tile: 64 channels of one tap per
 // step, over the taps that reach some row of the tile (a tap off the edge for
 // every row, or a stride-2 transposed conv's tap that does not divide, is
-// skipped). taps: up to three tap indices, 2 bits each.
+// skipped). taps: up to six tap indices, 3 bits each. up: the source is read
+// through the nearest x2 upsample (src_pos<TRANS, true>); a transposed one
+// then has two steps per weight tap, t = 2 * tap + half.
 struct ConvSeg {
   const bf16* src;
   const bf16* w;
   ConvGeom g;
   int taps;
   int nsteps;
+  bool up;
 };
 
 template <bool TRANS>
-__device__ __forceinline__ ConvSeg make_seg(const bf16* src, const bf16* w, const ConvGeom& g, int m0) {
+__device__ __forceinline__ int seg_pos(const ConvSeg& s, int l, int t) {
+  return s.up ? src_pos<TRANS, true>(l, t, s.g) : src_pos<TRANS, false>(l, t, s.g);
+}
+
+template <bool TRANS>
+__device__ __forceinline__ ConvSeg make_seg(const bf16* src, const bf16* w, const ConvGeom& g, int m0,
+                                            bool up = false) {
+  ConvSeg s{src, w, g, 0, 0, up};
   const int M = g.Lout * g.B;
   const int lo = m0 / g.B, hi = min(m0 + kBM - 1, M - 1) / g.B;
-  int taps = 0, n = 0;
-  for (int t = 0; t < g.taps; ++t) {
+  int n = 0;
+  for (int t = 0; t < (TRANS && up ? 2 * g.taps : g.taps); ++t) {
     bool any = false;
-    for (int l = lo; l <= hi && !any; ++l) any = src_pos<TRANS>(l, t, g) >= 0;
-    if (any) taps |= t << (2 * n++);
+    for (int l = lo; l <= hi && !any; ++l) any = seg_pos<TRANS>(s, l, t) >= 0;
+    if (any) s.taps |= t << (3 * n++);
   }
-  return ConvSeg{src, w, g, taps, n * (g.Csrc / kBK)};
+  s.nsteps = n * (g.Csrc / kBK);
+  return s;
 }
 
 // Implicit-GEMM convolution, one or two of them (the second, s1, has
@@ -265,34 +289,37 @@ struct ConvLoader {
 
   __device__ __forceinline__ void load(int ks, uint32_t a, uint32_t b) const {
     const bool second = ks >= s0.nsteps;
-    const ConvSeg s = second ? s1 : s0;
+    const ConvSeg s = second ? s1 : s0;  // a copy: a reference puts the loader in local memory
     const int k = second ? ks - s0.nsteps : ks;
     const int kpt = s.g.Csrc / kBK;
     const int ti = k / kpt;
-    const int t = (s.taps >> (2 * ti)) & 3;
+    const int t = (s.taps >> (3 * ti)) & 7;
+    const int wt = TRANS && s.up ? t >> 1 : t;  // the weight tap
     const int c0 = (k - ti * kpt) * kBK;
     const int j = threadIdx.x & 7;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = (threadIdx.x >> 3) + 16 * i;
-      const int p = row_l[i] >= 0 ? src_pos<TRANS>(row_l[i], t, s.g) : -1;
+      const int p = row_l[i] >= 0 ? seg_pos<TRANS>(s, row_l[i], t) : -1;
       const bf16* pa = p >= 0 ? s.src + ((size_t)(p * s.g.B + row_b[i]) * s.g.Csrc + c0 + 8 * j) : s.src;
       cp16(swz(a, r, j), pa, p >= 0);
-      const bf16* pb = TRANS ? s.w + ((size_t)(t * s.g.N + n0 + r) * s.g.Csrc + c0 + 8 * j)
-                             : s.w + ((size_t)(t * s.g.Csrc + c0 + r) * s.g.N + n0 + 8 * j);
+      const bf16* pb = TRANS ? s.w + ((size_t)(wt * s.g.N + n0 + r) * s.g.Csrc + c0 + 8 * j)
+                             : s.w + ((size_t)(wt * s.g.Csrc + c0 + r) * s.g.N + n0 + 8 * j);
       cp16(swz(b, r, j), pb, true);
     }
   }
 };
 
 // Weight gradient tile: dW[t][i0 + i][n0 + n] over rows [r0, r1) of
-// dc [Lout*B, N], against the tap-t gather of x [Lsrc, B, Csrc]. Both
-// operands MN-major: a k-step is 64 rows m, each 64 channels of x and dc.
+// dc [Lout*B, N], against the tap-t gather of x [Lsrc, B, Csrc] (up: of its
+// x2 upsample). Both operands MN-major: a k-step is 64 rows m, each 64
+// channels of x and dc.
 struct WgradLoader {
   const bf16* x;
   const bf16* dc;
   ConvGeom g;
   int t, i0, n0, r0, r1;
+  bool up;
 
   __device__ __forceinline__ int steps() const { return (r1 - r0 + kBK - 1) / kBK; }
 
@@ -304,7 +331,7 @@ struct WgradLoader {
       const int m = r0 + ks * kBK + r;
       const bool ok = m < r1;
       const int l = m / g.B, bi = m - l * g.B;
-      const int p = ok ? src_pos<false>(l, t, g) : -1;
+      const int p = !ok ? -1 : up ? src_pos<false, true>(l, t, g) : src_pos<false>(l, t, g);
       cp16(swz(a, r, j), p >= 0 ? x + ((size_t)(p * g.B + bi) * g.Csrc + i0 + 8 * j) : x, p >= 0);
       cp16(swz(b, r, j), ok ? dc + ((size_t)m * g.N + n0 + 8 * j) : dc, ok);
     }
@@ -337,39 +364,100 @@ __device__ __forceinline__ void sum_rows(const float* p, int beg, int end, int s
   }
 }
 
-// Two threads per column (c = tid & 63, half h = tid >> 6) sum rows [beg,
-// end) of a [rows][NQ][C] array at columns n0 + c, halves in order; the sum
-// lands in `out` of threads h == 0.
-template <int NQ>
-__device__ __forceinline__ void sum_rows_block(const float* p, int beg, int end, int C, int n0,
-                                               float (&out)[NQ], float (*red)[kBN]) {
-  const int c = threadIdx.x & 63, h = threadIdx.x >> 6;
-  const int mid = beg + (end - beg + 1) / 2;
-  float acc[NQ];
-  sum_rows<NQ>(p + n0 + c, h ? mid : beg, h ? end : mid, NQ * C, C, acc);
-  if (h) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) red[q][c] = acc[q];
+// Masked moments of a set of rows, (count, sum, M2 about its own mean), 3
+// floats per statistic. Chan's merge of b into a; a set with count 0 merges as
+// nothing.
+__device__ __forceinline__ void merge_moments(float* a, const float* b) {
+  if (b[0] == 0.f) return;
+  if (a[0] == 0.f) {
+    a[0] = b[0], a[1] = b[1], a[2] = b[2];
+    return;
   }
-  __syncthreads();
-  if (!h) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) out[q] = acc[q] + red[q][c];
-  }
-  __syncthreads();
+  const float n = a[0] + b[0];
+  const float d = b[1] / b[0] - a[1] / a[0];
+  a[2] = a[2] + b[2] + d * d * (a[0] * b[0] / n);
+  a[1] += b[1];
+  a[0] = n;
 }
 
-// Column sums over a grid's m-tiles, in a fixed order, by the blocks that
-// finish last. Each block has written row mt of part [mtiles][NQ][C] (its
-// tile's column sums, columns n0 + [0, 64) of n-tile nt) before the call. The
-// last block of each group of kGroup m-tiles sums the group in order into
-// gpart [groups][NQ][C]; the last group's finisher sums the groups in order
-// and returns true, with out[q] the total of column n0 + tid in threads
-// tid < 64. Tickets tk [(groups + 1) * ntiles] are integers: zero on entry,
-// and the finishers set them back to zero.
-template <int NQ>
-__device__ bool finish_col_sums(float* part, float* gpart, unsigned* tk, int mt, int mtiles,
-                                int nt, int ntiles, int C, int n0, float (&out)[NQ]) {
+// The reductions finish_cols takes: each reduces rows [beg, end) of a
+// [rows][NQ][C] array at column n0 + (tid & 63), two threads per column
+// (halves in order), into `out` of threads tid < 64.
+// Sum: in-order sums of NQ quantities.
+template <int NQ_>
+struct SumRows {
+  static constexpr int NQ = NQ_;
+  __device__ static void reduce(const float* p, int beg, int end, int C, int n0, float (&out)[NQ],
+                                float (*red)[64]) {
+    const int c = threadIdx.x & 63, h = threadIdx.x >> 6;
+    const int mid = beg + (end - beg + 1) / 2;
+    float acc[NQ];
+    sum_rows<NQ>(p + n0 + c, h ? mid : beg, h ? end : mid, NQ * C, C, acc);
+    if (h) {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) red[q][c] = acc[q];
+    }
+    __syncthreads();
+    if (!h) {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) out[q] = acc[q] + red[q][c];
+    }
+    __syncthreads();
+  }
+};
+// Moments: NS statistics' (count, sum, M2), merged in order.
+template <int NS>
+struct MomentRows {
+  static constexpr int NQ = 3 * NS;
+  __device__ static void reduce(const float* p, int beg, int end, int C, int n0, float (&out)[NQ],
+                                float (*red)[64]) {
+    const int c = threadIdx.x & 63, h = threadIdx.x >> 6;
+    const int mid = beg + (end - beg + 1) / 2;
+    float acc[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) acc[q] = 0.f;
+    const float* col = p + n0 + c;
+    for (int i = h ? mid : beg, e = h ? end : mid; i < e; i += 8) {  // loads 8 rows ahead of the merges
+      float v[8][NQ];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) v[k][q] = i + k < e ? __ldcg(col + (size_t)(i + k) * NQ * C + q * C) : 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int st = 0; st < NS; ++st) merge_moments(acc + 3 * st, v[k] + 3 * st);  // a row past e has count 0
+    }
+    if (h) {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) red[q][c] = acc[q];
+    }
+    __syncthreads();
+    if (!h) {
+      float other[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) other[q] = red[q][c];
+#pragma unroll
+      for (int st = 0; st < NS; ++st) merge_moments(acc + 3 * st, other + 3 * st);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) out[q] = acc[q];
+    }
+    __syncthreads();
+  }
+};
+
+// Column reductions over a grid's m-tiles, in a fixed order, by the blocks
+// that finish last. Each block has written row mt of part [mtiles][NQ][C]
+// (its tile's partials, columns n0 + [0, 64) of n-tile nt) before the call.
+// The last block of each group of kGroup m-tiles reduces the group in order
+// into gpart [groups][NQ][C]; the last group's finisher reduces the groups in
+// order and returns true, with out[q] the result of column n0 + tid in
+// threads tid < 64. Tickets tk [(groups + 1) * ntiles] are integers: zero on
+// entry, and the finishers set them back to zero.
+template <class Red>
+__device__ bool finish_cols(float* part, float* gpart, unsigned* tk, int mt, int mtiles, int nt, int ntiles,
+                            int C, int n0, float (&out)[Red::NQ]) {
+  constexpr int NQ = Red::NQ;
   __shared__ float red[NQ][kBN];
   __shared__ unsigned last;
   const int groups = (mtiles + kGroup - 1) / kGroup;
@@ -383,7 +471,7 @@ __device__ bool finish_col_sums(float* part, float* gpart, unsigned* tk, int mt,
   __threadfence();
   if (threadIdx.x == 0) tk[g * ntiles + nt] = 0u;
   float s[NQ];
-  sum_rows_block<NQ>(part, gbeg, gend, C, n0, s, red);
+  Red::reduce(part, gbeg, gend, C, n0, s, red);
   if (threadIdx.x < kBN) {
 #pragma unroll
     for (int q = 0; q < NQ; ++q) gpart[((size_t)g * NQ + q) * C + n0 + threadIdx.x] = s[q];
@@ -395,8 +483,211 @@ __device__ bool finish_col_sums(float* part, float* gpart, unsigned* tk, int mt,
   if (!last) return false;
   __threadfence();
   if (threadIdx.x == 0) tk[groups * ntiles + nt] = 0u;
-  sum_rows_block<NQ>(gpart, 0, groups, C, n0, out, red);
+  Red::reduce(gpart, 0, groups, C, n0, out, red);
   return true;
+}
+
+template <int NQ>
+__device__ bool finish_col_sums(float* part, float* gpart, unsigned* tk, int mt, int mtiles, int nt,
+                                int ntiles, int C, int n0, float (&out)[NQ]) {
+  return finish_cols<SumRows<NQ>>(part, gpart, tk, mt, mtiles, nt, ntiles, C, n0, out);
+}
+
+// --- epilogues -------------------------------------------------------------------
+
+// The epilogues run one column per thread pair: column c = tid & 63 of the
+// tile, rows [32 h, 32 h + 32) for h = tid >> 6; row sums combine the halves
+// in order.
+__device__ __forceinline__ int ep_col() { return threadIdx.x & 63; }
+__device__ __forceinline__ int ep_row0() { return (threadIdx.x >> 6) * 32; }
+
+// Writes row mt of part [mtiles][NQ][C] from the thread pairs' sums s.
+template <int NQ>
+__device__ __forceinline__ void write_tile_sums(const float (&s)[NQ], float* part, int mt, int C, int n) {
+  __shared__ float red[NQ][kBN];
+  const int c = ep_col();
+  if (threadIdx.x >= 64) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) red[q][c] = s[q];
+  }
+  __syncthreads();
+  if (threadIdx.x < 64) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) part[((size_t)mt * NQ + q) * C + n] = s[q] + red[q][c];
+  }
+}
+
+// The mask of a tile's rows m0 + r (mask[row % B], 0 past M) into msk[64];
+// the caller syncs before reading it.
+__device__ __forceinline__ void tile_mask(const float* mask, int m0, int M, int B, float* msk) {
+  if (threadIdx.x < kBM) msk[threadIdx.x] = m0 + threadIdx.x < M ? mask[(m0 + threadIdx.x) % B] : 0.f;
+}
+
+// The tile's masked moments of fp32 staging tile st's column ep_col(), rows
+// m0 + r < M with mask msk[r] (tile_mask): (count, sum, M2 about the tile's
+// own mean), in every thread's out[0..2]. The mean is taken first, then the
+// squares about it, as the plain version's two passes.
+__device__ __forceinline__ void tile_moments(const float* st, const float* msk, int m0, int M, float (&out)[3]) {
+  __shared__ float red[2][2][kBN];
+  const int c = ep_col(), h = threadIdx.x >> 6, r0 = ep_row0();
+  float n = 0.f, s = 0.f;
+  for (int r = r0; r < r0 + 32 && m0 + r < M; ++r) {
+    n += msk[r];
+    s = __fadd_rn(s, __fmul_rn(st[r * kLdS + c], msk[r]));
+  }
+  red[0][h][c] = n, red[1][h][c] = s;
+  __syncthreads();
+  n = red[0][0][c] + red[0][1][c];
+  s = red[1][0][c] + red[1][1][c];
+  const float mean = n > 0.f ? s / n : 0.f;
+  float m2 = 0.f;
+  for (int r = r0; r < r0 + 32 && m0 + r < M; ++r) {
+    const float d = __fsub_rn(st[r * kLdS + c], mean);
+    m2 = __fadd_rn(m2, __fmul_rn(__fmul_rn(d, d), msk[r]));
+  }
+  __syncthreads();
+  red[0][h][c] = m2;
+  __syncthreads();
+  out[0] = n, out[1] = s, out[2] = red[0][0][c] + red[0][1][c];
+  __syncthreads();
+}
+
+// (mean, var, inv) of the merged moments into st [3, C] at column n.
+__device__ __forceinline__ void write_stats(const float* mom, float* st, int C, int n) {
+  const float var = mom[2] / mom[0];
+  st[n] = mom[1] / mom[0];
+  st[C + n] = var;
+  st[2 * C + n] = 1.f / sqrtf(var + blocks::kEps);
+}
+
+// BatchNorm's backward, dc = bf16((gamma * inv) * (dy - (m / n) * (dbeta + xh * dgamma))).
+__device__ __forceinline__ bf16 bn_dx1(float dy, float xh, float gi, float mn, float dbeta, float dgamma) {
+  return to_bf(__fmul_rn(gi, __fsub_rn(dy, __fmul_rn(mn, __fadd_rn(dbeta, __fmul_rn(xh, dgamma))))));
+}
+
+// BatchNorm's backward over [M, C], 8 entries per thread; TWO: a second
+// BatchNorm on the same dy (the shortcut's).
+struct BnDx {
+  const bf16* xh;
+  const float *gamma, *st, *dgamma, *dbeta;
+  bf16* dc;
+};
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+template <bool TWO>
+__global__ void __launch_bounds__(kEwThreads)
+bn_dx8_kernel(const bf16* __restrict__ dy, BnDx p, BnDx q, const float* __restrict__ mask,
+              const float* __restrict__ n_ptr, int B, int C, int total) {
+  const int base = (blockIdx.x * kEwThreads + threadIdx.x) * 8;
+  if (base >= total) return;
+  const int m = base / C, c = base - m * C;
+  const float mn = mask[m % B] / n_ptr[0];
+  const uint4 dv = *reinterpret_cast<const uint4*>(dy + base);
+  const bf16* d = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+  for (int k = 0; k < (TWO ? 2 : 1); ++k) {
+    const BnDx& b = k ? q : p;
+    const uint4 hv = *reinterpret_cast<const uint4*>(b.xh + base);
+    const bf16* h = reinterpret_cast<const bf16*>(&hv);
+    float gm[8], inv[8], dbt[8], dgm[8];
+    load8(b.gamma + c, gm);
+    load8(b.st + 2 * C + c, inv);
+    load8(b.dbeta + c, dbt);
+    load8(b.dgamma + c, dgm);
+    uint4 ov;
+    bf16* o = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = bn_dx1(bf(d[e]), bf(h[e]), __fmul_rn(gm[e], inv[e]), mn, dbt[e], dgm[e]);
+    *reinterpret_cast<uint4*>(b.dc + base) = ov;
+  }
+}
+
+// --- weight gradients ------------------------------------------------------------
+
+// Split-K of a weight gradient over M rows: about 264 jobs, each at least 8
+// whole k-steps.
+struct Split {
+  int rows, splits, jobs;
+};
+inline Split wgrad_split(int M, int Ci, int Co, int taps) {
+  const int tiles = taps * (Ci / kBM) * (Co / kBN);
+  const int ktiles = cdiv(M, kBK);
+  const int want = std::max(1, std::min(cdiv(ktiles, 8), cdiv(264, tiles)));
+  const int rows = cdiv(ktiles, want) * kBK;
+  const int splits = cdiv(M, rows);
+  return Split{rows, splits, splits * tiles};
+}
+
+// A split-K weight-gradient job j of a grid (n-tiles fastest, then input
+// channel tiles, taps, splits): its fp32 partial into part [splits][taps][Ci][Co].
+// up: x is read through the x2 upsample.
+__device__ __forceinline__ void wgrad_job(unsigned char* dyn, const bf16* x, const bf16* dc,
+                                          const ConvGeom& g, const Split& sp, int j, float* part,
+                                          bool up = false) {
+  const int tn = g.N / kBN, ti = g.Csrc / kBM;
+  const int n0 = (j % tn) * kBN;
+  j /= tn;
+  const int i0 = (j % ti) * kBM;
+  j /= ti;
+  const int t = j % g.taps, s = j / g.taps;
+  const int M = g.Lout * g.B;
+  const WgradLoader ld{x, dc, g, t, i0, n0, s * sp.rows, min(M, (s + 1) * sp.rows), up};
+  float acc[32], unused[32];
+  mainloop<1, 1, false>(ld, ld.steps(), ld.steps(), ring_base(dyn), acc, unused);
+  float* base = part + ((size_t)(s * g.taps + t) * g.Csrc + i0) * g.N + n0;
+  const int r = acc_row(), c = acc_col();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    *reinterpret_cast<float2*>(base + (size_t)r * g.N + 8 * k + c) = make_float2(acc[4 * k], acc[4 * k + 1]);
+    *reinterpret_cast<float2*>(base + (size_t)(r + 8) * g.N + 8 * k + c) =
+        make_float2(acc[4 * k + 2], acc[4 * k + 3]);
+  }
+}
+
+// dw = sum over splits of the partials, in order, for up to three weights.
+struct WgradSum {
+  const float* part;
+  int splits, n;
+  float* dw;
+};
+
+__global__ void __launch_bounds__(kEwThreads) wgrad_sum3_kernel(WgradSum a, WgradSum b, WgradSum c) {
+  int i = blockIdx.x * kEwThreads + threadIdx.x;
+  WgradSum w = a;
+  if (i >= a.n) {
+    i -= a.n;
+    w = b;
+    if (i >= b.n) {
+      i -= b.n;
+      w = c;
+      if (i >= c.n) return;
+    }
+  }
+  float s = 0.f;
+  int k = 0;
+  for (; k + 4 <= w.splits; k += 4) {  // four loads in flight, added in order
+    const float a0 = w.part[(size_t)k * w.n + i], a1 = w.part[(size_t)(k + 1) * w.n + i];
+    const float a2 = w.part[(size_t)(k + 2) * w.n + i], a3 = w.part[(size_t)(k + 3) * w.n + i];
+    s = (((s + a0) + a1) + a2) + a3;
+  }
+  for (; k < w.splits; ++k) s += w.part[(size_t)k * w.n + i];
+  w.dw[i] = s;
+}
+
+// --- launches --------------------------------------------------------------------
+
+// A GEMM kernel of kThreads whose epilogue reads `ep_tiles` input tiles kept
+// in shared memory; its one argument is the entry point's argument struct.
+template <class K, class Args>
+int gemm_launch(K kernel, dim3 grid, int ep_tiles, const Args& args, cudaStream_t s) {
+  const int smem = smem_bytes(ep_tiles);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<grid, kThreads, smem, s>>>(args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sm90

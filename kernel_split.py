@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Per-kernel device split of the encoder block's backward and of the masked
-SSE on one NVIDIA GPU, for the port in a given checkout.
+"""Per-kernel device split of the block kernels and of the masked SSE on one
+NVIDIA GPU, for the port in a given checkout.
 
     python3 kernel_split.py [CHECKOUT]
 
 CHECKOUT (default: this one) is a directory that holds hippie_tpu_torch/, for
 instance the parent commit unpacked with ``git archive``, so that two
 versions of the kernels are measured in one call on one card. With that
-package, it runs chip_smoke.py's phases 5b and 5f (the encoder block kernels
-against their plain versions at the waveform and the ISI encoders' shapes,
-then each shape's µs/call, device µs, and enc_block_bwd's kernels by device
-time and count per call) and times masked_sse_fwd beside
+package, it runs chip_smoke.py's phases 5b, 5d and 5f (the encoder and the
+decoder block kernels against their plain versions at the waveform encoder's,
+the decoder's and the ISI encoder's shapes, then each shape's µs/call, device
+µs, and each block kernel's device kernels by time and count per call, and
+the per-pass sums) and times masked_sse_fwd beside
 F.mse_loss(dec, data, reduction="sum"), twice. The helpers are this
 checkout's chip_smoke.py. Exits non-zero without a CUDA device.
 """
@@ -49,9 +50,9 @@ def main() -> int:
             us, n, split = smoke.device_profile(fn, n=50)
             print(f"{name}: {ms * 1e3:.2f} us/call, {us:.2f} us device in {n:g} launches per call "
                   f"({smoke.split_line(split)}) on {card}")
-    for bb in (smoke.ENC, smoke.isi_backbone()):
+    for bb in (smoke.ENC, smoke.DEC, smoke.isi_backbone()):
         errs, per_shape = smoke.phase_blocks(bb, card)
-        smoke.block_records(bb, per_shape, errs, {"enc_block_fwd": 0, "enc_block_bwd": 0}, card)
+        smoke.block_records(bb, per_shape, errs, dict.fromkeys(smoke.all_launches(), 0), card)
     return 0
 
 

@@ -8,9 +8,11 @@ installed; on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_kernels.py
 
-The encoder block's backward is also held at batches that are not multiples
-of 64 (B = 100 and B = 1), where a 64-row tile spans several positions, and
-must issue at most 8 CUDA launches per call. Tolerances of the VAE-loss and
+The block kernels on the wgmma core (the encoder's forward and backward, the
+decoder's backward) are also held at batches that are not multiples of 64
+(B = 100 and B = 1), where a 64-row tile spans several positions, repeat bit
+for bit on one stream and across two, and issue at most 5 (enc_block_fwd) or
+8 (enc_block_bwd, dec_block_bwd) CUDA launches per call. Tolerances of the VAE-loss and
 masked-SSE kernels: values rtol 4e-6 (two
 summation orders of up to 51,200 nonnegative float32 terms, each within about
 1e-6 of the exact sum); gradients rtol 1e-5 / atol 1e-7 (elementwise, as
@@ -293,23 +295,74 @@ def test_enc_block_bwd_repeats_bit_for_bit_at_an_odd_batch(cuda_device, stride):
     assert all(a is None or torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("stride", [1, 2])
-def test_enc_block_bwd_launches_at_most_8_kernels(cuda_device, stride):
+def _device_launches(fn) -> int:
+    """CUDA kernels and memsets of one call of ``fn`` (after a warm-up call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_enc_block_bwd_launches_at_most_8_kernels(cuda_device, stride):
     from hippie_tpu_torch.ops import cuda_blocks as cb
 
     args, g = _block_inputs(cuda_device, stride, 7, 256, 256 * stride)
     st = cb.enc_block_fwd_cuda(stride, *args)[1:]
-    cb.enc_block_bwd_cuda(stride, *args, *st, g)
+    assert 0 < _device_launches(lambda: cb.enc_block_bwd_cuda(stride, *args, *st, g)) <= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_enc_block_fwd_launches_at_most_5_kernels(cuda_device, stride):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, _ = _block_inputs(cuda_device, stride, 7, 256, 256 * stride)
+    assert 0 < _device_launches(lambda: cb.enc_block_fwd_cuda(stride, *args)) <= 5
+
+
+def _stats_ok(a, b):
+    scale = torch.stack([b[0].abs() + b[1].sqrt(), b[1].abs(), b[2].abs()])
+    return bool(((a - b).abs() <= 1e-4 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ODD_BATCHES, ids=lambda b: f"B{b[0]}")
+@pytest.mark.parametrize("shape", [(1, 13, 128, 128), (2, 13, 128, 256)], ids=["s1", "s2"])
+def test_enc_block_fwd_matches_plain_at_odd_batches(cuda_device, shape, batch):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    stride, n_real = shape[0], batch[1]
+    args, _ = _block_inputs(cuda_device, *shape, n_real=n_real, seed=2, batch=batch[0])
+    got = cb.enc_block_fwd_cuda(stride, *args)
+    ref = cb.enc_block_fwd_plain(stride, stride != 1, *args)
+    assert torch.isfinite(got[0]).all()
+    assert _rel(got[0][:, :n_real], ref[0][:, :n_real]) < 1e-2
+    assert all(_stats_ok(a, b) for a, b in zip(got[1:], ref[1:]))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cb.enc_block_bwd_cuda(stride, *args, *st, g)
-        torch.cuda.synchronize()
-    kernels = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    assert 0 < kernels <= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_enc_block_fwd_repeats_bit_for_bit_across_streams(cuda_device, stride):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, _ = _block_inputs(cuda_device, stride, 13, 128, 128 * stride, n_real=70, seed=3, batch=100)
+    first = cb.enc_block_fwd_cuda(stride, *args)
+    runs = [cb.enc_block_fwd_cuda(stride, *args) for _ in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            runs += [cb.enc_block_fwd_cuda(stride, *args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for r in runs for a, b in zip(r, first))
 
 
 @pytest.mark.cuda
@@ -356,13 +409,13 @@ DEC_SHAPES = [(1, 4, 512, 512), (2, 4, 512, 256), (1, 8, 256, 256), (2, 8, 256, 
 DEC_GRADS = ("dx", "dw2", "dg2", "db2", "dw1", "dc1b", "dg1", "db1", "dws", "dcsb", "dgs", "dbs")
 
 
-def _dec_inputs(device, stride, L, ci, co, n_real=B, seed=0):
+def _dec_inputs(device, stride, L, ci, co, n_real=B, seed=0, batch=B):
     r = np.random.default_rng(seed)
 
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
 
-    x = r.normal(size=(L, B, ci))
+    x = r.normal(size=(L, batch, ci))
     x[:, n_real:] = 1e4
     bf = torch.bfloat16
     vec = lambda c: [t(r.uniform(0.5, 1.5, c)), t(0.1 * r.normal(size=c))]  # noqa: E731
@@ -373,8 +426,8 @@ def _dec_inputs(device, stride, L, ci, co, n_real=B, seed=0):
         args += [t(r.normal(size=(3, ci, co)) / np.sqrt(3 * ci), bf), t(0.1 * r.normal(size=co)), *vec(co)]
     else:
         args += [None] * 4
-    args.append(t((np.arange(B) < n_real).reshape(B, 1)))
-    return args, t(r.normal(size=(L * stride, B, co)), bf)
+    args.append(t((np.arange(batch) < n_real).reshape(batch, 1)))
+    return args, t(r.normal(size=(L * stride, batch, co)), bf)
 
 
 def dec_bias_grad_tol(g, gamma, st, dgamma):
@@ -421,6 +474,61 @@ def test_dec_block_kernels_repeat_bit_for_bit(cuda_device, stride):
     bwd = [cb.dec_block_bwd_cuda(stride, *args, *fwd[0][1:], g) for _ in range(3)]
     for runs in (fwd, bwd):
         assert all(a is None or torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+
+
+def _check_dec_grads(args, g, st, dgot, dref, stride, real=slice(None)):
+    tol = {"dc1b": (args[6], st[1], dref[6]), "dcsb": (args[10], st[2], dref[10])}
+    for name, a, b in zip(DEC_GRADS, dgot, dref):
+        if a is None:
+            assert stride == 1 and not b.any(), name
+        elif name in tol:
+            assert float((a - b).double().norm()) <= dec_bias_grad_tol(g, *tol[name]), name
+        else:
+            assert torch.isfinite(a).all() and _rel(a, b) < 1e-2, name
+    assert _rel(dgot[0][:, real], dref[0][:, real]) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ODD_BATCHES, ids=lambda b: f"B{b[0]}")
+@pytest.mark.parametrize("shape", [(1, 8, 256, 256), (2, 8, 256, 128)], ids=["s1", "s2"])
+def test_dec_block_bwd_matches_plain_at_odd_batches(cuda_device, shape, batch):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    stride = shape[0]
+    args, g = _dec_inputs(cuda_device, *shape, n_real=batch[1], seed=2, batch=batch[0])
+    st = cb.dec_block_fwd_cuda(stride, *args)[1:]
+    dgot = cb.dec_block_bwd_cuda(stride, *args, *st, g)
+    dref = cb.dec_block_bwd_plain(stride, *args, *st, g)
+    _check_dec_grads(args, g, st, dgot, dref, stride, slice(0, batch[1]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dec_block_bwd_repeats_bit_for_bit_across_streams(cuda_device, stride):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, g = _dec_inputs(cuda_device, stride, 8, 256, 256 // stride, n_real=70, seed=3, batch=100)
+    st = cb.dec_block_fwd_cuda(stride, *args)[1:]
+    first = cb.dec_block_bwd_cuda(stride, *args, *st, g)
+    runs = [cb.dec_block_bwd_cuda(stride, *args, *st, g) for _ in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            runs += [cb.dec_block_bwd_cuda(stride, *args, *st, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(a is None or torch.equal(a, b) for r in runs for a, b in zip(r, first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dec_block_bwd_launches_at_most_8_kernels(cuda_device, stride):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, g = _dec_inputs(cuda_device, stride, 8, 256, 256 // stride)
+    st = cb.dec_block_fwd_cuda(stride, *args)[1:]
+    assert 0 < _device_launches(lambda: cb.dec_block_bwd_cuda(stride, *args, *st, g)) <= 8
 
 
 @pytest.mark.cuda
