@@ -88,9 +88,9 @@ __device__ __forceinline__ int src_pos(int l, int t, const ConvGeom& g) {
     const int p = l * g.stride + t - g.pad;
     return (p >= 0 && p < g.Lsrc) ? p : -1;
   }
-  const int num = l + g.pad - t;
-  if (num < 0 || num % g.stride) return -1;
-  const int p = num / g.stride;
+  const int num = l + g.pad - t;  // the blocks' strides are 1 and 2: no division
+  if (num < 0 || (g.stride != 1 && (num & 1))) return -1;
+  const int p = g.stride != 1 ? num >> 1 : num;
   return p < g.Lsrc ? p : -1;
 }
 

@@ -242,6 +242,7 @@ struct ConvSeg {
   int taps;
   int nsteps;
   bool up;
+  int kshift;  // log2 of the k-steps per tap (Csrc / 64), or -1 if not a power of 2
 };
 
 template <bool TRANS>
@@ -252,7 +253,8 @@ __device__ __forceinline__ int seg_pos(const ConvSeg& s, int l, int t) {
 template <bool TRANS>
 __device__ __forceinline__ ConvSeg make_seg(const bf16* src, const bf16* w, const ConvGeom& g, int m0,
                                             bool up = false) {
-  ConvSeg s{src, w, g, 0, 0, up};
+  const int kpt = g.Csrc / kBK;
+  ConvSeg s{src, w, g, 0, 0, up, (kpt & (kpt - 1)) ? -1 : __ffs(kpt) - 1};
   const int M = g.Lout * g.B;
   const int lo = m0 / g.B, hi = min(m0 + kBM - 1, M - 1) / g.B;
   int n = 0;
@@ -292,7 +294,7 @@ struct ConvLoader {
     const ConvSeg s = second ? s1 : s0;  // a copy: a reference puts the loader in local memory
     const int k = second ? ks - s0.nsteps : ks;
     const int kpt = s.g.Csrc / kBK;
-    const int ti = k / kpt;
+    const int ti = s.kshift >= 0 ? k >> s.kshift : k / kpt;  // no division per step
     const int t = (s.taps >> (3 * ti)) & 7;
     const int wt = TRANS && s.up ? t >> 1 : t;  // the weight tap
     const int c0 = (k - ti * kpt) * kBK;
@@ -310,6 +312,19 @@ struct ConvLoader {
   }
 };
 
+// n / d for n < 2^31 by a multiply and a shift (d fixed per launch): the
+// loaders' per-step row arithmetic without a division.
+struct FastDiv {
+  unsigned d, magic, shift;
+  __host__ __device__ explicit FastDiv(unsigned d_ = 1) : d(d_), shift(0) {
+    while ((1u << shift) < d) ++shift;
+    magic = (unsigned)((((1ull << 32) * ((1ull << shift) - d)) / d) + 1);
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((unsigned)n, magic) + (unsigned)n) >> shift);
+  }
+};
+
 // Weight gradient tile: dW[t][i0 + i][n0 + n] over rows [r0, r1) of
 // dc [Lout*B, N], against the tap-t gather of x [Lsrc, B, Csrc] (up: of its
 // x2 upsample). Both operands MN-major: a k-step is 64 rows m, each 64
@@ -320,6 +335,7 @@ struct WgradLoader {
   ConvGeom g;
   int t, i0, n0, r0, r1;
   bool up;
+  FastDiv divB;  // by g.B
 
   __device__ __forceinline__ int steps() const { return (r1 - r0 + kBK - 1) / kBK; }
 
@@ -330,7 +346,7 @@ struct WgradLoader {
       const int r = (threadIdx.x >> 3) + 16 * i;
       const int m = r0 + ks * kBK + r;
       const bool ok = m < r1;
-      const int l = m / g.B, bi = m - l * g.B;
+      const int l = divB.div(m), bi = m - l * g.B;
       const int p = !ok ? -1 : up ? src_pos<false, true>(l, t, g) : src_pos<false>(l, t, g);
       cp16(swz(a, r, j), p >= 0 ? x + ((size_t)(p * g.B + bi) * g.Csrc + i0 + 8 * j) : x, p >= 0);
       cp16(swz(b, r, j), ok ? dc + ((size_t)m * g.N + n0 + 8 * j) : dc, ok);
@@ -635,7 +651,7 @@ __device__ __forceinline__ void wgrad_job(unsigned char* dyn, const bf16* x, con
   j /= ti;
   const int t = j % g.taps, s = j / g.taps;
   const int M = g.Lout * g.B;
-  const WgradLoader ld{x, dc, g, t, i0, n0, s * sp.rows, min(M, (s + 1) * sp.rows), up};
+  const WgradLoader ld{x, dc, g, t, i0, n0, s * sp.rows, min(M, (s + 1) * sp.rows), up, FastDiv(g.B)};
   float acc[32], unused[32];
   mainloop<1, 1, false>(ld, ld.steps(), ld.steps(), ring_base(dyn), acc, unused);
   float* base = part + ((size_t)(s * g.taps + t) * g.Csrc + i0) * g.N + n0;

@@ -107,6 +107,8 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 template <class T> inline T __ldcg(const T* p) { return *p; }
+inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((unsigned long long)a * b) >> 32); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
