@@ -23,9 +23,9 @@ joint wave + ISI cVAE (16,115,748 parameters, four backbones, both loss
 kernels): a stage-1 epoch with each block backend, one step against the
 plain versions, the joint embeddings. Last it times the train steps with
 both block backends and each kernel. Each block kernel is split by kernel
-(device time and launches per call; at most 5 per enc_block_fwd call and 8
-per enc_block_bwd and dec_block_bwd call), and the block libraries' SASS is
-checked for wgmma (HGMMA).
+(device time and launches per call; at most 5 per enc_block_fwd and
+dec_block_fwd call and 8 per enc_block_bwd and dec_block_bwd call), and the
+block libraries' SASS is checked for wgmma (HGMMA).
 
 Every phase prints one line. The second-to-last line is the ``kernels`` JSON
 record, the last the device record. Exits non-zero, printing neither, when no
@@ -67,10 +67,11 @@ ENC_BLOCKS = ((1, 25, 64, 64), (1, 25, 64, 64), (2, 25, 64, 128), (1, 13, 128, 1
 DEC_BLOCKS = ((1, 4, 512, 512), (2, 4, 512, 256), (1, 8, 256, 256), (2, 8, 256, 128),
               (1, 16, 128, 128), (2, 16, 128, 64), (1, 32, 64, 64), (1, 32, 64, 64))
 # CUDA launches per call of the block kernels that run on the wgmma core
-BLOCK_LAUNCH_LIMITS = {"enc_block_fwd": 5, "enc_block_bwd": 8, "dec_block_bwd": 8}
+BLOCK_LAUNCH_LIMITS = {"enc_block_fwd": 5, "enc_block_bwd": 8, "dec_block_fwd": 5, "dec_block_bwd": 8}
 # kernels of each block library that must run wgmma (HGMMA in their SASS)
 WGMMA_KERNELS = {"enc_block": ("fwd_conv_kernel", "bwd_conv1_kernel", "bwd_mid_kernel", "bwd_dx_kernel"),
-                 "dec_block": ("bwd_conv2_kernel", "bwd_conv1_kernel", "bwd_mid_kernel", "bwd_dx_kernel")}
+                 "dec_block": ("dec_fwd_conv2_kernel", "dec_fwd_conv1_kernel", "bwd_conv2_kernel",
+                               "bwd_conv1_kernel", "bwd_mid_kernel", "bwd_dx_kernel")}
 
 
 class Backbone(NamedTuple):
@@ -463,7 +464,8 @@ def phase_build():
 
 def phase_kernel_vs_plain(device="cuda"):
     """The loss kernels against their plain versions: values rtol 4e-6,
-    gradients rtol 1e-5 / atol 1e-7; repeat runs equal bit for bit.
+    gradients rtol 1e-5 / atol 1e-7; repeat runs equal bit for bit; padded
+    rows at +-1e4, +-inf and +-1e7; vae_sums_fwd one CUDA launch per call.
 
     The values are sums of B*L = 25,600 and B*z = 5,120 nonnegative float32
     terms, summed in a different order by the kernel (per-thread strides, then
@@ -478,7 +480,8 @@ def phase_kernel_vs_plain(device="cuda"):
     from hippie_tpu_torch.ops import cuda_ops
 
     err = {"vae_sums_fwd": 0.0, "vae_sums_bwd": 0.0}
-    cases = {"full": (B, None), "tail_415": (415, None), "one_row_pad_1e7": (1, 1e7)}
+    cases = {"full": (B, None), "tail_415": (415, None), "tail_415_pad_1e4": (415, 1e4),
+             "tail_415_pad_inf": (415, np.inf), "one_row_pad_1e7": (1, 1e7)}
     for case, (n_real, pad) in cases.items():
         x = loss_inputs(n_real, pad, device=device)
         got = cuda_ops.vae_sums_fwd_cuda(*x)
@@ -503,6 +506,10 @@ def phase_kernel_vs_plain(device="cuda"):
         rel64 = float(((got.double() - exact).abs() / exact.abs()).max())
         print(f"  {case}: sums {got.tolist()} |kernel - plain| {fwd_err:.3g} "
               f"(kernel vs float64 rel {rel64:.3g}), grads |kernel - plain| {bwd_err:.3g}")
+    x = loss_inputs(415, device=device)
+    _, n_fwd, split = device_profile(lambda: cuda_ops.vae_sums_fwd_cuda(*x), n=50)
+    print(f"  vae_sums_fwd: {n_fwd:g} CUDA launches per call ({split_line(split)})")
+    check(n_fwd <= 1, f"vae_sums_fwd makes {n_fwd:g} CUDA launches per call, over 1")
     print(f"[3 kernel vs plain] vae_sums_fwd and vae_sums_bwd agree with the plain version on "
           f"{len(cases)} cases at B={B} L={L} z={Z}")
     err["masked_sse_fwd"] = masked_sse_vs_plain(device)

@@ -28,10 +28,24 @@
 // sizes the number of launches and of passes over device memory is what the
 // time is made of.
 //
-// Forward design (block_common.cuh): each step is its own launch,
-// implicit-GEMM convs on wmma tiles, fixed-order column statistics,
-// elementwise passes that normalise, activate and round; 17 launches with a
-// shortcut, 13 without.
+// Forward design (sm90_gemm.cuh, as the encoder's forward): 5 launches at
+// either stride,
+//   0 the tickets of the cross-block merges to zero (a memset)
+//   1 conv2 at Lin as a wgmma GEMM over M2 = Lin*B rows; its epilogue writes
+//     c2 (fp32) and each tile's masked moments per channel (count, sum, and
+//     the squares about the tile's own mean); the blocks that finish last
+//     merge the tiles' moments in a fixed order (Chan's formula) into st2,
+//     whose count is the masked rows of M2, sum(m) * Lin
+//   2 r = bf16(lrelu(bn2(c2))), elementwise (8 entries per thread)
+//   3 conv1 on up2(r) (+ c1b) and, at stride 2, the shortcut's conv on up2(x)
+//     (+ csb) into two accumulators of one tile at Lo (M1 = Lo*B rows; the
+//     loader reads the upsample in place); the epilogue adds the conv biases,
+//     writes c1, cs and their moments, merged into st1 and sts as in 1; at
+//     stride 1 the finisher writes sts = 0
+//   4 out = bf16(lrelu(bn1(c1) + (stride 2 ? bn_s(cs) : x))), elementwise
+// The two GEMM launches group their tiles by their own M, in one ticket
+// array sized for both: launch 1's finishers leave every ticket at zero, so
+// the one memset serves launch 3 as well.
 //
 // Backward design (sm90_gemm.cuh, as the encoder's backward): 7 launches at
 // either stride, each GEMM a wgmma tile fed by a 4-stage cp.async ring, each
@@ -68,39 +82,21 @@ using sm90::BnDx;
 using sm90::bn_dx1;
 using sm90::bn_dx8_kernel;
 using sm90::ConvLoader;
+using sm90::ConvOut;
 using sm90::ConvSeg;
 using sm90::ep_col;
 using sm90::ep_row0;
+using sm90::fwd_act8_kernel;
 using sm90::gemm_launch;
 using sm90::kLdS;
 using sm90::make_seg;
+using sm90::MomentGrid;
 using sm90::Split;
 using sm90::wgrad_job;
 using sm90::wgrad_split;
 using sm90::WgradSum;
 
 namespace {
-
-// Rows of the column-sum partials for both lengths of the block.
-inline size_t col_parts(int Lin, int Lo, int B, int Ci, int Co) {
-  return std::max((size_t)col_chunks(Lin * B, Ci) * Ci, (size_t)col_chunks(Lo * B, Co) * Co);
-}
-
-struct FwdScratch {
-  float *c2, *c1, *cs, *part;
-  bf16* r;
-};
-
-FwdScratch plan_fwd(Arena& a, int Lin, int B, int Ci, int Co, int stride) {
-  const int Lo = Lin * stride;
-  FwdScratch s;
-  s.c2 = a.take<float>((size_t)Lin * B * Ci);
-  s.r = a.take<bf16>((size_t)Lin * B * Ci);
-  s.c1 = a.take<float>((size_t)Lo * B * Co);
-  s.cs = stride != 1 ? a.take<float>((size_t)Lo * B * Co) : nullptr;
-  s.part = a.take<float>(col_parts(Lin, Lo, B, Ci, Co));
-  return s;
-}
 
 struct Plan {
   int Lin, B, Ci, Co, Lo, M2, M1;
@@ -128,6 +124,85 @@ Plan plan(int Lin, int B, int Ci, int Co, int stride) {
   return p;
 }
 
+// Ticket counters of the cross-block sums, for both lengths' grids.
+__host__ __device__ inline int tickets(const Plan& p) {
+  const int t1 = (p.g1 + 1) * p.nt1, t2 = (p.g2 + 1) * p.nt2;
+  return t1 > t2 ? t1 : t2;
+}
+
+// --- forward ---------------------------------------------------------------------
+
+struct FwdScratch {
+  float *c2, *c1, *cs, *part, *gpart;
+  bf16* r;
+  unsigned* tk;
+};
+
+// part, gpart and tk serve both GEMM launches: conv2's [M2, Ci] grid (one
+// statistic) and conv1's [M1, Co] grid (two with the shortcut).
+FwdScratch plan_fwd(Arena& a, const Plan& p, int stride) {
+  const int ns = stride != 1 ? 2 : 1;
+  FwdScratch s;
+  s.c2 = a.take<float>((size_t)p.M2 * p.Ci);
+  s.r = a.take<bf16>((size_t)p.M2 * p.Ci);
+  s.c1 = a.take<float>((size_t)p.M1 * p.Co);
+  s.cs = stride != 1 ? a.take<float>((size_t)p.M1 * p.Co) : nullptr;
+  s.part = a.take<float>(std::max((size_t)p.mt2 * 3 * p.Ci, (size_t)p.mt1 * 3 * ns * p.Co));
+  s.gpart = a.take<float>(std::max((size_t)p.g2 * 3 * p.Ci, (size_t)p.g1 * 3 * ns * p.Co));
+  s.tk = a.take<unsigned>(tickets(p));
+  return s;
+}
+
+struct FwdArgs {
+  const bf16 *x, *w2, *w1, *ws;
+  const float *c1b, *csb, *mask;
+  float *st2, *st1, *sts;
+  FwdScratch S;
+  Plan P;
+};
+
+// 1: conv2 at Lin -> c2, and st2 by the finishing blocks.
+__global__ void __launch_bounds__(sm90::kThreads) dec_fwd_conv2_kernel(FwdArgs A) {
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  const Plan& P = A.P;
+  const int mt = blockIdx.x, nt = blockIdx.y, m0 = mt * sm90::kBM, n0 = nt * sm90::kBN;
+  const uint32_t ring = sm90::ring_base(dyn);
+  const ConvLoader<false> ld(make_seg<false>(A.x, A.w2, P.c2g, m0), ConvSeg{}, m0, n0);
+  float acc[32], unused[32];
+  sm90::mainloop<0, 1, false>(ld, ld.steps(), ld.steps(), ring, acc, unused);
+  float* st = sm90::ring_ptr<float>(dyn, ring);
+  sm90::stage_acc(acc, st);
+  const ConvOut out[1] = {{A.S.c2, nullptr, A.st2}};
+  sm90::conv_stats_epilogue<1>(st, out, MomentGrid{A.mask, P.B, P.M2, P.Ci, P.mt2, P.nt2, A.S.part, A.S.gpart,
+                                                   A.S.tk}, mt, nt);
+}
+
+// 3: conv1 on up2(r) + c1b and the shortcut's conv on up2(x) + csb at Lo
+// (stride 1: conv1 on r alone) -> c1, cs, and st1, sts by the finishing blocks.
+template <bool SHORT>
+__global__ void __launch_bounds__(sm90::kThreads) dec_fwd_conv1_kernel(FwdArgs A) {
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  const Plan& P = A.P;
+  const int mt = blockIdx.x, nt = blockIdx.y, m0 = mt * sm90::kBM, n0 = nt * sm90::kBN;
+  const uint32_t ring = sm90::ring_base(dyn);
+  const ConvSeg s0 = make_seg<false>(A.S.r, A.w1, P.c1g, m0, SHORT);
+  const ConvSeg s1 = SHORT ? make_seg<false>(A.x, A.ws, P.c1g, m0, true) : ConvSeg{};
+  const ConvLoader<false> ld(s0, s1, m0, n0);
+  float acc0[32], acc1[32];
+  sm90::mainloop<0, 1, SHORT>(ld, ld.steps(), s0.nsteps, ring, acc0, acc1);
+  float* st = sm90::ring_ptr<float>(dyn, ring);
+  sm90::stage_acc(acc0, st);
+  if (SHORT) sm90::stage_acc(acc1, st + sm90::kBM * kLdS);
+  const ConvOut out[2] = {{A.S.c1, A.c1b, A.st1}, {A.S.cs, A.csb, A.sts}};
+  const MomentGrid grid{A.mask, P.B, P.M1, P.Co, P.mt1, P.nt1, A.S.part, A.S.gpart, A.S.tk};
+  if (sm90::conv_stats_epilogue<SHORT ? 2 : 1>(st, out, grid, mt, nt) && !SHORT) {
+    const int n = n0 + ep_col();
+    A.sts[n] = A.sts[P.Co + n] = A.sts[2 * P.Co + n] = 0.f;
+  }
+}
+
+// --- backward --------------------------------------------------------------------
+
 struct BwdScratch {
   bf16 *xh2, *r, *da2, *dc2, *xh1, *g0, *dc1, *xhs, *dcs;
   float *part, *gpart, *n, *wp1, *wp2, *wps;
@@ -154,7 +229,7 @@ BwdScratch plan_bwd(Arena& a, const Plan& p, int stride) {
   s.wp1 = a.take<float>(p.s1.splits * w1);
   s.wp2 = a.take<float>(p.s2.splits * w2);
   s.wps = short_ ? a.take<float>(p.ss.splits * w1) : nullptr;
-  s.tk = a.take<unsigned>(std::max((size_t)(p.g1 + 1) * p.nt1, (size_t)(p.g2 + 1) * p.nt2));
+  s.tk = a.take<unsigned>(tickets(p));
   return s;
 }
 
@@ -176,8 +251,7 @@ __global__ void __launch_bounds__(sm90::kThreads) bwd_conv2_kernel(BwdArgs A) {
   if (mt == 0 && nt == 0) {
     const float cnt = block_mask_count(A.mask, P.B);
     if (threadIdx.x == 0) A.S.n[0] = cnt * (float)P.Lo, A.S.n[1] = cnt * (float)P.Lin;
-    const int ntk = max((P.g1 + 1) * P.nt1, (P.g2 + 1) * P.nt2);
-    for (int i = threadIdx.x; i < ntk; i += sm90::kThreads) A.S.tk[i] = 0u;
+    for (int i = threadIdx.x; i < tickets(P); i += sm90::kThreads) A.S.tk[i] = 0u;
   }
   const uint32_t ring = sm90::ring_base(dyn);
   const ConvLoader<false> ld(make_seg<false>(A.x, A.w2, P.c2g, m0), ConvSeg{}, m0, n0);
@@ -409,14 +483,6 @@ __global__ void __launch_bounds__(sm90::kThreads) bwd_dx_kernel(BwdArgs A) {
   }
 }
 
-inline int ew_grid(size_t total) { return (int)((total + kEwThreads - 1) / kEwThreads); }
-
-// conv1 or the shortcut's conv: at stride 2 a ResizeConv1d (upsample, bias).
-inline int resize_conv(const bf16* src, const bf16* w, const float* bias, float* out,
-                       const ConvGeom& g, int stride, cudaStream_t s) {
-  return stride != 1 ? launch_conv<true>(src, w, out, g, s, bias) : launch_conv(src, w, out, g, s);
-}
-
 }  // namespace
 
 #define RET_IF(call)          \
@@ -430,7 +496,7 @@ extern "C" {
 // Bytes of scratch the forward / backward need for one block.
 long long dec_block_fwd_scratch(int Lin, int B, int Ci, int Co, int stride) {
   Arena a{nullptr};
-  plan_fwd(a, Lin, B, Ci, Co, stride);
+  plan_fwd(a, plan(Lin, B, Ci, Co, stride), stride);
   return (long long)a.used;
 }
 
@@ -451,34 +517,28 @@ int dec_block_fwd(const void* x_, const void* w2_, const float* g2, const float*
                   const float* mask, int Lin, int B, int Ci, int Co, int stride, void* out_,
                   float* st2, float* st1, float* sts, void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* w2 = static_cast<const bf16*>(w2_);
-  const bf16* w1 = static_cast<const bf16*>(w1_);
-  const bf16* ws = static_cast<const bf16*>(ws_);
-  bf16* out = static_cast<bf16*>(out_);
-  const bool short_ = stride != 1;
-  const int Lo = Lin * stride;
-  const int tin = Lin * B * Ci, tout = Lo * B * Co;
+  FwdArgs A;
+  A.x = static_cast<const bf16*>(x_);
+  A.w2 = static_cast<const bf16*>(w2_);
+  A.w1 = static_cast<const bf16*>(w1_);
+  A.ws = static_cast<const bf16*>(ws_);
+  A.c1b = c1b, A.csb = csb, A.mask = mask, A.st2 = st2, A.st1 = st1, A.sts = sts;
+  A.P = plan(Lin, B, Ci, Co, stride);
   Arena a{static_cast<char*>(scratch)};
-  const FwdScratch S = plan_fwd(a, Lin, B, Ci, Co, stride);
-  const ConvGeom c2g{Lin, Lin, B, Ci, Ci, 3, 1, 1};  // conv2: x -> c2
-  const ConvGeom c1g{Lin, Lo, B, Ci, Co, 3, 1, 1};   // conv1: r -> c1, shortcut: x -> cs
+  A.S = plan_fwd(a, A.P, stride);
+  const Plan& P = A.P;
+  const FwdScratch& S = A.S;
+  const size_t tin = (size_t)P.M2 * Ci, tout = (size_t)P.M1 * Co;
 
-  RET_IF(launch_conv(x, w2, S.c2, c2g, s));
-  RET_IF(launch_col_stats(S.c2, mask, Lin, B, Ci, S.part, st2, s));
-  bn_lrelu_kernel<<<ew_grid(tin), kEwThreads, 0, s>>>(S.c2, st2, g2, b2, Ci, tin, S.r);
+  RET_IF(static_cast<int>(cudaMemsetAsync(S.tk, 0, sizeof(unsigned) * tickets(P), s)));
+  RET_IF(gemm_launch(dec_fwd_conv2_kernel, dim3(P.mt2, P.nt2), 0, A, s));
+  fwd_act8_kernel<false><<<ew_grid(tin / 8), kEwThreads, 0, s>>>(S.c2, st2, g2, b2, nullptr, nullptr, nullptr,
+                                                                 nullptr, nullptr, Ci, (int)tin, S.r);
   BLOCKS_CHECK();
-  RET_IF(resize_conv(S.r, w1, c1b, S.c1, c1g, stride, s));
-  RET_IF(launch_col_stats(S.c1, mask, Lo, B, Co, S.part, st1, s));
-  if (short_) {
-    RET_IF(resize_conv(x, ws, csb, S.cs, c1g, stride, s));
-    RET_IF(launch_col_stats(S.cs, mask, Lo, B, Co, S.part, sts, s));
-  } else {
-    cudaMemsetAsync(sts, 0, sizeof(float) * 3 * Co, s);
-    BLOCKS_CHECK();
-  }
-  bn_add_lrelu_kernel<<<ew_grid(tout), kEwThreads, 0, s>>>(S.c1, st1, g1, b1, S.cs, sts, gs, bs,
-                                                           x, Co, tout, out);
+  RET_IF(gemm_launch(stride != 1 ? dec_fwd_conv1_kernel<true> : dec_fwd_conv1_kernel<false>, dim3(P.mt1, P.nt1), 0,
+                     A, s));
+  fwd_act8_kernel<true><<<ew_grid(tout / 8), kEwThreads, 0, s>>>(S.c1, st1, g1, b1, S.cs, sts, gs, bs, A.x, Co,
+                                                                 (int)tout, static_cast<bf16*>(out_));
   BLOCKS_CHECK();
   return 0;
 }

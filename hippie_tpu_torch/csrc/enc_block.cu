@@ -62,12 +62,15 @@ using namespace blocks;
 using sm90::BnDx;
 using sm90::bn_dx8_kernel;
 using sm90::ConvLoader;
+using sm90::ConvOut;
 using sm90::ConvSeg;
 using sm90::ep_col;
 using sm90::ep_row0;
+using sm90::fwd_act8_kernel;
 using sm90::gemm_launch;
 using sm90::kLdS;
 using sm90::make_seg;
+using sm90::MomentGrid;
 using sm90::Split;
 using sm90::wgrad_job;
 using sm90::wgrad_split;
@@ -76,7 +79,6 @@ using sm90::WgradSum;
 namespace {
 
 inline int out_len(int L, int stride) { return stride == 1 ? L : (L - 1) / 2 + 1; }
-inline int ew_grid(size_t total) { return (int)((total + kEwThreads - 1) / kEwThreads); }
 
 struct Plan {
   int L, B, Ci, Co, Lo, M;
@@ -141,7 +143,6 @@ struct FwdArgs {
 // merge those into st1, or st2 (and sts).
 template <bool SECOND, bool SHORT>
 __global__ void __launch_bounds__(sm90::kThreads) fwd_conv_kernel(FwdArgs A) {
-  constexpr int NS = SHORT ? 2 : 1;
   extern __shared__ __align__(1024) unsigned char dyn[];
   const Plan& P = A.P;
   const int mt = blockIdx.x, nt = blockIdx.y, m0 = mt * sm90::kBM, n0 = nt * sm90::kBN;
@@ -151,85 +152,15 @@ __global__ void __launch_bounds__(sm90::kThreads) fwd_conv_kernel(FwdArgs A) {
   const ConvLoader<false> ld(s0, s1, m0, n0);
   float acc0[32], acc1[32];
   sm90::mainloop<0, 1, SHORT>(ld, ld.steps(), s0.nsteps, ring, acc0, acc1);
-  __shared__ float msk[sm90::kBM];
-  float* st0 = sm90::ring_ptr<float>(dyn, ring);
-  float* st1 = st0 + sm90::kBM * kLdS;
-  sm90::stage_acc(acc0, st0);
-  if (SHORT) sm90::stage_acc(acc1, st1);
-  sm90::tile_mask(A.mask, m0, P.M, P.B, msk);
-  __syncthreads();
-  const int c = ep_col(), n = n0 + c, C = P.Co;
-  float* c0 = SECOND ? A.S.c2 : A.S.c1;
-  for (int r = ep_row0(); r < ep_row0() + 32 && m0 + r < P.M; ++r) {
-    const size_t i = (size_t)(m0 + r) * C + n;
-    c0[i] = st0[r * kLdS + c];
-    if (SHORT) A.S.cs[i] = st1[r * kLdS + c];
+  float* st = sm90::ring_ptr<float>(dyn, ring);
+  sm90::stage_acc(acc0, st);
+  if (SHORT) sm90::stage_acc(acc1, st + sm90::kBM * kLdS);
+  const ConvOut out[2] = {{SECOND ? A.S.c2 : A.S.c1, nullptr, SECOND ? A.st2 : A.st1}, {A.S.cs, nullptr, A.sts}};
+  const MomentGrid grid{A.mask, P.B, P.M, P.Co, P.mtiles, P.ntiles, A.S.part, A.S.gpart, A.S.tk};
+  if (sm90::conv_stats_epilogue<SHORT ? 2 : 1>(st, out, grid, mt, nt) && SECOND && !SHORT) {
+    const int n = n0 + ep_col();
+    A.sts[n] = A.sts[P.Co + n] = A.sts[2 * P.Co + n] = 0.f;
   }
-  float mom[6], m3[3];
-  sm90::tile_moments(st0, msk, m0, P.M, m3);
-  mom[0] = m3[0], mom[1] = m3[1], mom[2] = m3[2];
-  if (SHORT) {
-    sm90::tile_moments(st1, msk, m0, P.M, m3);
-    mom[3] = m3[0], mom[4] = m3[1], mom[5] = m3[2];
-  }
-  if (threadIdx.x < 64) {
-#pragma unroll
-    for (int q = 0; q < 3 * NS; ++q) A.S.part[((size_t)mt * 3 * NS + q) * C + n] = mom[q];
-  }
-  float tot[3 * NS];
-  if (sm90::finish_cols<sm90::MomentRows<NS>>(A.S.part, A.S.gpart, A.S.tk, mt, P.mtiles, nt, P.ntiles, C, n0,
-                                                tot) &&
-      threadIdx.x < 64) {
-    sm90::write_stats(tot, SECOND ? A.st2 : A.st1, C, n);
-    if (SECOND) {
-      if (SHORT) {
-        sm90::write_stats(tot + 3, A.sts, C, n);
-      } else {
-        A.sts[n] = A.sts[C + n] = A.sts[2 * C + n] = 0.f;
-      }
-    }
-  }
-}
-
-// 2 and 4, 8 entries per thread: r1 = bf16(lrelu(bn1(c1))), or (OUT) out =
-// bf16(lrelu(bn2(c2) + (cs ? bn_s(cs) : x))). st, sts are [3, C] rows (mean,
-// var, inv).
-template <bool OUT>
-__global__ void __launch_bounds__(kEwThreads)
-fwd_act8_kernel(const float* __restrict__ c, const float* __restrict__ st, const float* __restrict__ g,
-                const float* __restrict__ b, const float* __restrict__ cs, const float* __restrict__ sts,
-                const float* __restrict__ gs, const float* __restrict__ bs, const bf16* __restrict__ x, int C,
-                int total, bf16* __restrict__ out) {
-  const int base = (blockIdx.x * kEwThreads + threadIdx.x) * 8;
-  if (base >= total) return;
-  const int k = base % C;
-  float v[8], mu[8], inv[8], gm[8], bt[8], a[8];
-  sm90::load8(c + base, v);
-  sm90::load8(st + k, mu);
-  sm90::load8(st + 2 * C + k, inv);
-  sm90::load8(g + k, gm);
-  sm90::load8(b + k, bt);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) a[e] = bn_affine(v[e], mu[e], inv[e], gm[e], bt[e]);
-  if (OUT && cs) {
-    sm90::load8(cs + base, v);
-    sm90::load8(sts + k, mu);
-    sm90::load8(sts + 2 * C + k, inv);
-    sm90::load8(gs + k, gm);
-    sm90::load8(bs + k, bt);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) a[e] = __fadd_rn(a[e], bn_affine(v[e], mu[e], inv[e], gm[e], bt[e]));
-  } else if (OUT) {  // stride 1 and C_in == C_out: x's entry i is the output's
-    const uint4 xv = *reinterpret_cast<const uint4*>(x + base);
-    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) a[e] = __fadd_rn(a[e], bf(xe[e]));
-  }
-  uint4 ov;
-  bf16* o = reinterpret_cast<bf16*>(&ov);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) o[e] = to_bf(lrelu(a[e]));
-  *reinterpret_cast<uint4*>(out + base) = ov;
 }
 
 // --- backward --------------------------------------------------------------------

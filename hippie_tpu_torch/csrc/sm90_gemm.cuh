@@ -576,9 +576,120 @@ __device__ __forceinline__ void write_stats(const float* mom, float* st, int C, 
   st[2 * C + n] = 1.f / sqrtf(var + blocks::kEps);
 }
 
+// A forward conv's output: fp32 c [M, C], the bias [C] added before the
+// statistics (or null), and its BatchNorm statistics st [3, C].
+struct ConvOut {
+  float* c;
+  const float* bias;
+  float* st;
+};
+
+// The grid of a forward conv's statistics over [M, C]: row m's mask is
+// mask[m % B]; part [mtiles][3 NS][C], gpart [groups][3 NS][C] and the
+// tickets tk as finish_cols takes them.
+struct MomentGrid {
+  const float* mask;
+  int B, M, C, mtiles, ntiles;
+  float *part, *gpart;
+  unsigned* tk;
+};
+
+// The epilogue of NS forward convs of one tile (NS = 2: the shortcut's in a
+// second accumulator), staged in st (conv q at st + q * kBM * kLdS; the
+// block syncs here before reading it): adds
+// out[q].bias, writes out[q].c and each tile's masked moments (count, sum,
+// and the squares about the tile's own mean); the blocks that finish last
+// merge every tile's moments in a fixed order (Chan's formula) into
+// out[q].st. A tile whose rows are all padding has count 0 and merges as
+// nothing, so the padded rows reach no statistic, and the count is the
+// masked rows of M by itself. Returns true in the threads tid < 64 of the
+// last finisher.
+template <int NS>
+__device__ bool conv_stats_epilogue(float* st, const ConvOut* out, const MomentGrid& g, int mt, int nt) {
+  __shared__ float msk[kBM];
+  const int m0 = mt * kBM, n0 = nt * kBN, c = ep_col(), n = n0 + c;
+  tile_mask(g.mask, m0, g.M, g.B, msk);
+  float bias[NS];
+#pragma unroll
+  for (int q = 0; q < NS; ++q) bias[q] = out[q].bias ? out[q].bias[n] : 0.f;
+  __syncthreads();  // the staging tiles and msk
+  for (int r = ep_row0(); r < ep_row0() + 32 && m0 + r < g.M; ++r) {
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {  // this thread's own entries, which tile_moments reads back
+      float* v = st + q * kBM * kLdS + r * kLdS + c;
+      if (out[q].bias) *v = __fadd_rn(*v, bias[q]);
+      out[q].c[(size_t)(m0 + r) * g.C + n] = *v;
+    }
+  }
+  float mom[3 * NS];
+#pragma unroll
+  for (int q = 0; q < NS; ++q) {
+    float m3[3];
+    tile_moments(st + q * kBM * kLdS, msk, m0, g.M, m3);
+    mom[3 * q] = m3[0], mom[3 * q + 1] = m3[1], mom[3 * q + 2] = m3[2];
+  }
+  if (threadIdx.x < 64) {
+#pragma unroll
+    for (int q = 0; q < 3 * NS; ++q) g.part[((size_t)mt * 3 * NS + q) * g.C + n] = mom[q];
+  }
+  float tot[3 * NS];
+  if (!finish_cols<MomentRows<NS>>(g.part, g.gpart, g.tk, mt, g.mtiles, nt, g.ntiles, g.C, n0, tot) ||
+      threadIdx.x >= 64)
+    return false;
+#pragma unroll
+  for (int q = 0; q < NS; ++q) write_stats(tot + 3 * q, out[q].st, g.C, n);
+  return true;
+}
+
 // BatchNorm's backward, dc = bf16((gamma * inv) * (dy - (m / n) * (dbeta + xh * dgamma))).
 __device__ __forceinline__ bf16 bn_dx1(float dy, float xh, float gi, float mn, float dbeta, float dgamma) {
   return to_bf(__fmul_rn(gi, __fsub_rn(dy, __fmul_rn(mn, __fadd_rn(dbeta, __fmul_rn(xh, dgamma))))));
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// The forwards' elementwise passes, 8 entries per thread: out =
+// bf16(lrelu(bn(c))), or (OUT) the block's output bf16(lrelu(bn(c) + (cs ?
+// bn_s(cs) : x))). st, sts are [3, C] rows (mean, var, inv).
+template <bool OUT>
+__global__ void __launch_bounds__(kEwThreads)
+fwd_act8_kernel(const float* __restrict__ c, const float* __restrict__ st, const float* __restrict__ g,
+                const float* __restrict__ b, const float* __restrict__ cs, const float* __restrict__ sts,
+                const float* __restrict__ gs, const float* __restrict__ bs, const bf16* __restrict__ x, int C,
+                int total, bf16* __restrict__ out) {
+  const int base = (blockIdx.x * kEwThreads + threadIdx.x) * 8;
+  if (base >= total) return;
+  const int k = base % C;
+  float v[8], mu[8], inv[8], gm[8], bt[8], a[8];
+  load8(c + base, v);
+  load8(st + k, mu);
+  load8(st + 2 * C + k, inv);
+  load8(g + k, gm);
+  load8(b + k, bt);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) a[e] = blocks::bn_affine(v[e], mu[e], inv[e], gm[e], bt[e]);
+  if (OUT && cs) {
+    load8(cs + base, v);
+    load8(sts + k, mu);
+    load8(sts + 2 * C + k, inv);
+    load8(gs + k, gm);
+    load8(bs + k, bt);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a[e] = __fadd_rn(a[e], blocks::bn_affine(v[e], mu[e], inv[e], gm[e], bt[e]));
+  } else if (OUT) {  // stride 1 and C_in == C_out: x's entry i is the output's
+    const uint4 xv = *reinterpret_cast<const uint4*>(x + base);
+    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a[e] = __fadd_rn(a[e], bf(xe[e]));
+  }
+  uint4 ov;
+  bf16* o = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) o[e] = to_bf(blocks::lrelu(a[e]));
+  *reinterpret_cast<uint4*>(out + base) = ov;
 }
 
 // BatchNorm's backward over [M, C], 8 entries per thread; TWO: a second
@@ -588,11 +699,6 @@ struct BnDx {
   const float *gamma, *st, *dgamma, *dbeta;
   bf16* dc;
 };
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
 
 template <bool TWO>
 __global__ void __launch_bounds__(kEwThreads)

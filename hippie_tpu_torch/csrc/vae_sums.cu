@@ -21,22 +21,22 @@
 // the forward reads (2*B*L + 2*B*z + B) * 4 = 247,808 B, about 0.07 us at
 // 3.35 TB/s; the backward reads that and writes 245,760 B. Both are far
 // below a launch's latency (a few us), so the kernel is bound by launches:
-// 3 per train step (forward partials, forward final sum, backward).
-// masked_sse at B=512, L=100 reads (2*B*L + B) * 4 = 411,648 B, 0.12 us: one
-// more launch per joint step, bound the same way: its time is the chain of
-// a load, a block sum, a ticket and a last sum, so it takes 16 rows per block
-// (32 blocks for B=512) and finishes in one warp.
+// 2 per train step (forward, backward). masked_sse at B=512, L=100 reads
+// (2*B*L + B) * 4 = 411,648 B, 0.12 us: one more launch per joint step,
+// bound the same way.
 //
 // Design: the TPU kernel ran as one program over the whole batch in VMEM and
 // summed in one go. Here blocks run in parallel and in no fixed order, so
-// vae_sums' forward is two launches: blocks of kThreads threads each reduce kRowsPerBlock
-// rows into one (sse, kl) partial, and a single block sums the partials. At
-// these sizes a launch's time is the latency of its threads' dependent loads,
-// so the partial pass spreads the batch thin: 4 rows per block gives 128
-// blocks for B=512 and at most one load per thread per array (with 32 rows
-// per block, 16 blocks took 5.8 us on an H100; with 4, 2.9 us).
-// masked_sse is one: its partial pass ends with an integer ticket, and the
-// block that takes the last one sums the partials (masked_sse_kernel).
+// each forward is one launch whose blocks reduce their rows into a partial
+// and take an integer ticket; the block that takes the last one sums the
+// partials in index order in one warp, writes the result and resets the
+// ticket for the next call. The ticket and the partials live in a workspace
+// the caller keeps per kernel and stream. At these sizes a launch's time is
+// the chain of a load, a block sum, a ticket and a last sum, so the batch is
+// spread thin: vae_sums' forward takes 4 rows per block (128 blocks for
+// B=512, at most one load per thread per array; with 32 rows per block, 16
+// blocks took 5.8 us on an H100 where 4 took 2.9), masked_sse 16 rows per
+// block (32 blocks), a warp per row.
 // Every reduction has a fixed shape (strided per-thread loops, then warp
 // shuffles, then one warp over the warp sums), and there are no float
 // atomics, so repeated runs give the same bits. The backward reads
@@ -88,12 +88,32 @@ __device__ float block_sum1(float a, float* smem) {
   return a;
 }
 
+// atomicAdd(p, 1) with acquire-release order at device scope: the caller's
+// earlier writes are visible to whoever reads the value it returns, and the
+// caller sees the writes released before it.
+// (The host build of tests/test_torch_sm90_cpu.py brings its own.)
+#ifndef SM90_HOST_EMULATION
+__device__ __forceinline__ unsigned ticket_add(unsigned* p) {
+  unsigned t;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(t) : "l"(p) : "memory");
+  return t;
+}
+#endif  // SM90_HOST_EMULATION
+
+// One launch: each block reduces kRowsPerBlock rows into one (sse, kl)
+// partial, then takes an integer ticket; the block that takes the last one
+// sums the partials in index order in one warp, writes out and resets the
+// ticket for the next call. ws holds the ticket, then the partials (float2,
+// from ws + 2).
 __global__ void __launch_bounds__(kThreads)
-vae_sums_partial_kernel(const float* __restrict__ data, const float* __restrict__ dec,
-                        const float* __restrict__ mu, const float* __restrict__ logvar,
-                        const float* __restrict__ mask, int B, int L, int Z,
-                        float2* __restrict__ partial) {
+vae_sums_fwd_kernel(const float* __restrict__ data, const float* __restrict__ dec,
+                    const float* __restrict__ mu, const float* __restrict__ logvar,
+                    const float* __restrict__ mask, int B, int L, int Z, float* __restrict__ ws,
+                    float* __restrict__ out) {
   __shared__ float2 smem[kThreads / 32];
+  __shared__ bool last;
+  unsigned* ticket = reinterpret_cast<unsigned*>(ws);
+  float2* part = reinterpret_cast<float2*>(ws + 2);
   const int r0 = blockIdx.x * kRowsPerBlock;
   const int rows = min(kRowsPerBlock, B - r0);
   float sse = 0.f;
@@ -119,22 +139,27 @@ vae_sums_partial_kernel(const float* __restrict__ data, const float* __restrict_
   }
 
   const float2 s = block_sum2(sse, kl, smem);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s;
-}
-
-__global__ void __launch_bounds__(kThreads)
-vae_sums_final_kernel(const float2* __restrict__ partial, int n, float* __restrict__ out) {
-  __shared__ float2 smem[kThreads / 32];
-  float sse = 0.f;
-  float kl = 0.f;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    sse += partial[i].x;
-    kl += partial[i].y;
-  }
-  const float2 s = block_sum2(sse, kl, smem);
   if (threadIdx.x == 0) {
-    out[0] = s.x;
-    out[1] = s.y;
+    part[blockIdx.x] = s;
+    last = ticket_add(ticket) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last || threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  float a = 0.f, b = 0.f;
+  for (int i = lane; i < (int)gridDim.x; i += 32) {
+    const float2 v = __ldcg(part + i);
+    a += v.x;
+    b += v.y;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, off);
+    b += __shfl_down_sync(0xffffffffu, b, off);
+  }
+  if (lane == 0) {
+    out[0] = a;
+    out[1] = b;
+    *ticket = 0u;
   }
 }
 
@@ -166,15 +191,6 @@ vae_sums_bwd_kernel(const float* __restrict__ data, const float* __restrict__ de
 }
 
 constexpr int kSseRows = 16;  // batch rows per masked-SSE block: B=512 gives 32 blocks
-
-// atomicAdd(p, 1) with acquire-release order at device scope: the caller's
-// earlier writes are visible to whoever reads the value it returns, and the
-// caller sees the writes released before it.
-__device__ __forceinline__ unsigned ticket_add(unsigned* p) {
-  unsigned t;
-  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(t) : "l"(p) : "memory");
-  return t;
-}
 
 // One launch: each block sums kSseRows rows (a warp per row, data and dec as
 // float4 when L % 4 == 0 and both are 16-byte aligned, each row's mask read
@@ -240,24 +256,20 @@ masked_sse_kernel(const float* __restrict__ data, const float* __restrict__ dec,
 
 extern "C" {
 
-// Number of float2 partials the forward needs as scratch for a batch of B rows.
-int vae_sums_fwd_partials(int B) { return (B + kRowsPerBlock - 1) / kRowsPerBlock; }
+// Floats of the workspace of each forward for a batch of B rows: the ticket
+// (and, for vae_sums' float2 partials, a float of padding), then the partials.
+int vae_sums_fwd_workspace(int B) { return 2 + 2 * ((B + kRowsPerBlock - 1) / kRowsPerBlock); }
+int masked_sse_fwd_workspace(int B) { return 1 + (B + kSseRows - 1) / kSseRows; }
 
-// Number of partials of the masked SSE for a batch of B rows.
-int masked_sse_partials(int B) { return (B + kSseRows - 1) / kSseRows; }
-
-// out[0] = sse, out[1] = kl. `partial` holds vae_sums_fwd_partials(B) float2.
-// All arrays float32, contiguous: data/dec [B, L], mu/logvar [B, Z], mask [B].
+// out[0] = sse, out[1] = kl. ws: the caller's workspace for this stream,
+// vae_sums_fwd_workspace(B) floats whose first (the ticket) is zero before
+// the first call (the kernel leaves it zero). All arrays float32,
+// contiguous: data/dec [B, L], mu/logvar [B, Z], mask [B].
 int vae_sums_fwd(const float* data, const float* dec, const float* mu, const float* logvar,
-                 const float* mask, int B, int L, int Z, float* partial, float* out,
-                 void* stream) {
+                 const float* mask, int B, int L, int Z, float* ws, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nblocks = vae_sums_fwd_partials(B);
-  float2* p = reinterpret_cast<float2*>(partial);
-  vae_sums_partial_kernel<<<nblocks, kThreads, 0, s>>>(data, dec, mu, logvar, mask, B, L, Z, p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  vae_sums_final_kernel<<<1, kThreads, 0, s>>>(p, nblocks, out);
+  const int nblocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
+  vae_sums_fwd_kernel<<<nblocks, kThreads, 0, s>>>(data, dec, mu, logvar, mask, B, L, Z, ws, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -274,13 +286,13 @@ int vae_sums_bwd(const float* data, const float* dec, const float* mu, const flo
 }
 
 // out[0] = sum(mask * where(mask > 0, dec - data, 0)^2). ws: the caller's
-// workspace for this stream, an unsigned ticket that is zero before the
-// first call (the kernel leaves it zero), then masked_sse_partials(B) floats.
+// workspace for this stream, masked_sse_fwd_workspace(B) floats whose first
+// (the ticket) is zero before the first call (the kernel leaves it zero).
 // data/dec [B, L], mask [B], float32, contiguous.
 int masked_sse_fwd(const float* data, const float* dec, const float* mask, int B, int L,
                    float* ws, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  masked_sse_kernel<<<masked_sse_partials(B), kThreads, 0, s>>>(data, dec, mask, B, L, ws, out);
+  masked_sse_kernel<<<(B + kSseRows - 1) / kSseRows, kThreads, 0, s>>>(data, dec, mask, B, L, ws, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,9 +4,10 @@ decoder, forward and backward.
 Counterpart of hippie_tpu/ops/pallas_blocks.py (``_enc_block_prim``,
 ``_dec_block_prim``, ``basic_block_enc_fused``, ``basic_block_dec_fused``);
 the kernels are csrc/enc_block.cu and csrc/dec_block.cu on the wgmma GEMM
-core of csrc/sm90_gemm.cuh (the decoder's forward on the wmma primitives of
-csrc/block_common.cuh), whose header notes say what bounds them and how they
-are laid out.
+core of csrc/sm90_gemm.cuh, whose header notes say what bounds them and how
+they are laid out: each forward is 5 CUDA launches (the tickets' memset, two
+convs with their statistics in the epilogue, two elementwise passes), each
+backward 7.
 
 Layout at every function here is the JAX package's: activations ``[L, B, C]``
 (length leading) in bfloat16, conv weights ``[K, C_in, C_out]``, BatchNorm

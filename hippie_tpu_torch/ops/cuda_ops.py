@@ -15,10 +15,9 @@ on the card. A CUDA tensor never takes the plain path. The masked SSE's
 backward is elementwise torch ops on either device (``masked_sse_bwd``), as
 ``_sse_bwd`` is plain JAX.
 
-``launches`` counts kernel launches per wrapper: ``vae_sums_fwd`` one per
-forward call (two CUDA launches: partial sums, final sum), ``vae_sums_bwd`` one
-per backward call, ``masked_sse_fwd`` one per forward call (one CUDA launch,
-whose last block sums the partials; its workspace is cached per stream).
+``launches`` counts kernel launches per wrapper, one per call, and each call
+is one CUDA launch: ``vae_sums_fwd`` and ``masked_sse_fwd`` (whose last block
+sums the partials; each keeps a workspace per stream) and ``vae_sums_bwd``.
 """
 
 from __future__ import annotations
@@ -96,14 +95,13 @@ def _kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("vae_sums")
-        lib.vae_sums_fwd_partials.argtypes = [_I]
-        lib.vae_sums_fwd_partials.restype = _I
+        for name in ("vae_sums_fwd", "masked_sse_fwd"):
+            size = getattr(lib, f"{name}_workspace")
+            size.argtypes, size.restype = [_I], _I
         lib.vae_sums_fwd.argtypes = [_P] * 5 + [_I] * 3 + [_P] * 3
         lib.vae_sums_fwd.restype = _I
         lib.vae_sums_bwd.argtypes = [_P] * 6 + [_I] * 3 + [_P] * 5
         lib.vae_sums_bwd.restype = _I
-        lib.masked_sse_partials.argtypes = [_I]
-        lib.masked_sse_partials.restype = _I
         lib.masked_sse_fwd.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 3
         lib.masked_sse_fwd.restype = _I
         _lib = lib
@@ -159,19 +157,43 @@ def _check_tensors(want):
         raise ValueError(f"no kernel for device {data.device}")
 
 
+def _device(device: torch.device):
+    """``device`` made current for the call (no context switch when it is already)."""
+    return contextlib.nullcontext() if device.index == torch.cuda.current_device() else torch.cuda.device(device)
+
+
+_workspaces: dict = {}  # (kernel, device index, stream) -> (largest batch, float32 workspace)
+
+
+def _workspace(lib, kernel: str, device: torch.device, stream: int, B: int) -> torch.Tensor:
+    """``kernel``'s workspace on ``stream``: an integer ticket, zero when made,
+    then the kernel's partials, ``<kernel>_workspace(B)`` floats in all. The
+    kernel leaves the ticket zero, so one workspace serves every later call
+    of that kernel on that stream with a batch no larger (and a CUDA graph).
+    Each kernel has its own, so no two kernels ever share a ticket."""
+    key = (kernel, device.index, stream)
+    held = _workspaces.get(key)
+    if held is None or held[0] < B:
+        n = getattr(lib, f"{kernel}_workspace")(B)
+        held = _workspaces[key] = (B, torch.zeros(n, dtype=torch.float32, device=device))
+    return held[1]
+
+
 def vae_sums_fwd_cuda(data, dec, mu, logvar, mask_col) -> torch.Tensor:
-    """Launch the forward kernel: returns [sse, kl] on the device."""
+    """Launch the forward kernel on CUDA tensors: returns [sse, kl] on the
+    device. One CUDA launch; the call allocates only its output."""
+    device = data.device
+    if device.type != "cuda":
+        raise ValueError(f"vae_sums_fwd_cuda takes CUDA tensors, got {device}")
     lib = _kernels()
     B, L = data.shape
     Z = mu.shape[1]
-    with torch.cuda.device(data.device):
-        partial = torch.empty((lib.vae_sums_fwd_partials(B), 2), dtype=torch.float32,
-                              device=data.device)
-        out = torch.empty(2, dtype=torch.float32, device=data.device)
-        stream = torch.cuda.current_stream(data.device).cuda_stream
+    with _device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        out = torch.empty(2, dtype=torch.float32, device=device)
         err = lib.vae_sums_fwd(
-            data.data_ptr(), dec.data_ptr(), mu.data_ptr(), logvar.data_ptr(),
-            mask_col.data_ptr(), B, L, Z, partial.data_ptr(), out.data_ptr(), stream,
+            data.data_ptr(), dec.data_ptr(), mu.data_ptr(), logvar.data_ptr(), mask_col.data_ptr(), B, L, Z,
+            _workspace(lib, "vae_sums_fwd", device, stream, B).data_ptr(), out.data_ptr(), stream,
         )
     _check_launch(err, "vae_sums_fwd")
     launches["vae_sums_fwd"] += 1
@@ -199,21 +221,6 @@ def vae_sums_bwd_cuda(data, dec, mu, logvar, mask_col, g):
     return tuple(grads)
 
 
-_sse_workspaces: dict = {}  # (device index, stream) -> (largest batch, float32 workspace)
-
-
-def _sse_workspace(lib, device: torch.device, stream: int, B: int) -> torch.Tensor:
-    """The masked SSE's workspace on ``stream``: an integer ticket, zero when
-    made, and masked_sse_partials(B) partials. The kernel leaves the ticket
-    zero, so one workspace serves every later call on that stream with a
-    batch no larger (and a CUDA graph)."""
-    held = _sse_workspaces.get((device.index, stream))
-    if held is None or held[0] < B:
-        n = lib.masked_sse_partials(B) + 1
-        held = _sse_workspaces[(device.index, stream)] = (B, torch.zeros(n, dtype=torch.float32, device=device))
-    return held[1]
-
-
 def masked_sse_fwd_cuda(data, dec, mask_col) -> torch.Tensor:
     """Launch the masked-SSE kernel on CUDA tensors: a 0-dim sum on the device.
     One CUDA launch; the call allocates only its output."""
@@ -223,11 +230,12 @@ def masked_sse_fwd_cuda(data, dec, mask_col) -> torch.Tensor:
         raise ValueError(f"masked_sse_fwd_cuda takes CUDA tensors, got {device}")
     B, L = data.shape
     lib = _kernels()
-    with contextlib.nullcontext() if device.index == torch.cuda.current_device() else torch.cuda.device(device):
+    with _device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         out = torch.empty((), dtype=torch.float32, device=device)
         err = lib.masked_sse_fwd(data.data_ptr(), dec.data_ptr(), mask_col.data_ptr(), B, L,
-                                 _sse_workspace(lib, device, stream, B).data_ptr(), out.data_ptr(), stream)
+                                 _workspace(lib, "masked_sse_fwd", device, stream, B).data_ptr(), out.data_ptr(),
+                                 stream)
     _check_launch(err, "masked_sse_fwd")
     launches["masked_sse_fwd"] += 1
     return out

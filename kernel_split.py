@@ -11,9 +11,10 @@ package, it runs chip_smoke.py's phases 5b, 5d and 5f (the encoder and the
 decoder block kernels against their plain versions at the waveform encoder's,
 the decoder's and the ISI encoder's shapes, then each shape's µs/call, device
 µs, and each block kernel's device kernels by time and count per call, and
-the per-pass sums) and times masked_sse_fwd beside
-F.mse_loss(dec, data, reduction="sum"), twice. The helpers are this
-checkout's chip_smoke.py. Exits non-zero without a CUDA device.
+the per-pass sums) and times vae_sums_fwd (at the train step's shapes) and
+masked_sse_fwd beside F.mse_loss(dec, data, reduction="sum"), twice. The
+helpers are this checkout's chip_smoke.py. Exits non-zero without a CUDA
+device.
 """
 
 import importlib.util
@@ -40,9 +41,11 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"{card}; package {pathlib.Path(_build.__file__).parents[1]}; built {_build.build()}")
+    loss = smoke.loss_inputs(415)
     sse = smoke.sse_inputs(415)
     data_all, dec_all, _ = smoke.sse_inputs(smoke.B)
-    fns = {"masked_sse_fwd": lambda: cuda_ops.masked_sse_fwd_cuda(*sse),
+    fns = {"vae_sums_fwd": lambda: cuda_ops.vae_sums_fwd_cuda(*loss),
+           "masked_sse_fwd": lambda: cuda_ops.masked_sse_fwd_cuda(*sse),
            "F.mse_loss(sum)": lambda: F.mse_loss(dec_all, data_all, reduction="sum")}
     for _ in range(2):
         for name, fn in fns.items():

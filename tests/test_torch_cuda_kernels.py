@@ -8,11 +8,12 @@ installed; on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_kernels.py
 
-The block kernels on the wgmma core (the encoder's forward and backward, the
-decoder's backward) are also held at batches that are not multiples of 64
-(B = 100 and B = 1), where a 64-row tile spans several positions, repeat bit
-for bit on one stream and across two, and issue at most 5 (enc_block_fwd) or
-8 (enc_block_bwd, dec_block_bwd) CUDA launches per call. Tolerances of the VAE-loss and
+The block kernels, all on the wgmma core, are also held at batches that are
+not multiples of 64 (B = 100 and B = 1), where a 64-row tile spans several
+positions, repeat bit for bit on one stream and across two, and issue at
+most 5 (enc_block_fwd, dec_block_fwd) or 8 (enc_block_bwd, dec_block_bwd)
+CUDA launches per call; the loss kernels' forwards are one CUDA launch each
+and repeat bit for bit across two streams. Tolerances of the VAE-loss and
 masked-SSE kernels: values rtol 4e-6 (two
 summation orders of up to 51,200 nonnegative float32 terms, each within about
 1e-6 of the exact sum); gradients rtol 1e-5 / atol 1e-7 (elementwise, as
@@ -36,6 +37,19 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; chip_smoke.py phase 3 runs these checks on the card")
     return torch.device("cuda")
+
+
+def _device_launches(fn) -> int:
+    """CUDA kernels and memsets of one call of ``fn`` (after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
 
 
 def _inputs(device, n_real=B, pad=None, seed=0):
@@ -71,6 +85,31 @@ def test_kernel_repeats_bit_for_bit(cuda_device):
     x = _inputs(cuda_device, n_real=415)
     runs = [cuda_ops.vae_sums_fwd_cuda(*x) for _ in range(5)]
     assert all(torch.equal(r, runs[0]) for r in runs)
+
+
+@pytest.mark.cuda
+def test_kernel_repeats_bit_for_bit_across_streams(cuda_device):
+    x = _inputs(cuda_device, n_real=415, pad=np.inf)
+    first = cuda_ops.vae_sums_fwd_cuda(*x)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for s in streams:  # each stream takes its own workspace
+        with torch.cuda.stream(s):
+            outs += [cuda_ops.vae_sums_fwd_cuda(*x) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+    keys = [("vae_sums_fwd", cuda_device.index or 0, s.cuda_stream) for s in streams]
+    assert all(k in cuda_ops._workspaces for k in keys)
+    assert cuda_ops._workspaces[keys[0]][1].data_ptr() != cuda_ops._workspaces[keys[1]][1].data_ptr()
+
+
+@pytest.mark.cuda
+def test_forward_kernels_are_one_launch(cuda_device):
+    x = _inputs(cuda_device, n_real=415)
+    sse = _sse_inputs(cuda_device, n_real=415)
+    assert _device_launches(lambda: cuda_ops.vae_sums_fwd_cuda(*x)) == 1
+    assert _device_launches(lambda: cuda_ops.masked_sse_fwd_cuda(*sse)) == 1
 
 
 @pytest.mark.cuda
@@ -144,9 +183,9 @@ def test_masked_sse_kernel_repeats_bit_for_bit_across_streams(cuda_device):
             outs += [cuda_ops.masked_sse_fwd_cuda(*x) for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, first) for o in outs)
-    keys = [(cuda_device.index or 0, s.cuda_stream) for s in streams]
-    assert all(k in cuda_ops._sse_workspaces for k in keys)
-    assert cuda_ops._sse_workspaces[keys[0]][1].data_ptr() != cuda_ops._sse_workspaces[keys[1]][1].data_ptr()
+    keys = [("masked_sse_fwd", cuda_device.index or 0, s.cuda_stream) for s in streams]
+    assert all(k in cuda_ops._workspaces for k in keys)
+    assert cuda_ops._workspaces[keys[0]][1].data_ptr() != cuda_ops._workspaces[keys[1]][1].data_ptr()
 
 
 @pytest.mark.cuda
@@ -293,19 +332,6 @@ def test_enc_block_bwd_repeats_bit_for_bit_at_an_odd_batch(cuda_device, stride):
     st = cb.enc_block_fwd_cuda(stride, *args)[1:]
     runs = [cb.enc_block_bwd_cuda(stride, *args, *st, g) for _ in range(3)]
     assert all(a is None or torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
-
-
-def _device_launches(fn) -> int:
-    """CUDA kernels and memsets of one call of ``fn`` (after a warm-up call)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
 
 
 @pytest.mark.cuda
@@ -529,6 +555,48 @@ def test_dec_block_bwd_launches_at_most_8_kernels(cuda_device, stride):
     args, g = _dec_inputs(cuda_device, stride, 8, 256, 256 // stride)
     st = cb.dec_block_fwd_cuda(stride, *args)[1:]
     assert 0 < _device_launches(lambda: cb.dec_block_bwd_cuda(stride, *args, *st, g)) <= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ODD_BATCHES, ids=lambda b: f"B{b[0]}")
+@pytest.mark.parametrize("shape", [(1, 8, 256, 256), (2, 8, 256, 128)], ids=["s1", "s2"])
+def test_dec_block_fwd_matches_plain_at_odd_batches(cuda_device, shape, batch):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    stride, n_real = shape[0], batch[1]
+    args, _ = _dec_inputs(cuda_device, *shape, n_real=n_real, seed=2, batch=batch[0])
+    got = cb.dec_block_fwd_cuda(stride, *args)
+    ref = cb.dec_block_fwd_plain(stride, *args)
+    assert torch.isfinite(got[0]).all()
+    assert _rel(got[0][:, :n_real], ref[0][:, :n_real]) < 1e-2
+    assert all(_stats_ok(a, b) for a, b in zip(got[1:], ref[1:]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dec_block_fwd_launches_at_most_5_kernels(cuda_device, stride):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, _ = _dec_inputs(cuda_device, stride, 8, 256, 256 // stride)
+    assert 0 < _device_launches(lambda: cb.dec_block_fwd_cuda(stride, *args)) <= 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dec_block_fwd_repeats_bit_for_bit_across_streams(cuda_device, stride):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    args, _ = _dec_inputs(cuda_device, stride, 8, 256, 256 // stride, n_real=70, seed=3, batch=100)
+    first = cb.dec_block_fwd_cuda(stride, *args)
+    runs = [cb.dec_block_fwd_cuda(stride, *args) for _ in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            runs += [cb.dec_block_fwd_cuda(stride, *args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for r in runs for a, b in zip(r, first))
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """A host build of the block kernels (hippie_tpu_torch/csrc/enc_block.cu and
-dec_block.cu) held against their plain versions on the CPU.
+dec_block.cu) and of the loss kernels' forwards (csrc/vae_sums.cu) held
+against their plain versions on the CPU.
 
 No compiler here can build the kernels for the card, and the wgmma core of
 csrc/sm90_gemm.cuh has no interpret mode. So the sources are compiled with
@@ -16,19 +17,22 @@ csrc/sm90_gemm.cuh has no interpret mode. So the sources are compiled with
   the start address, the stride offset per 8 rows of a K-major operand and
   per 8 k-rows of an MN-major one, and the 128-byte swizzle (bits 4-6 of the
   address XOR bits 7-9); each thread adds the products into its own 32
-  accumulators in the instruction's layout. wmma (the decoder's forward) is
-  computed by lane 0 of each warp;
+  accumulators in the instruction's layout;
+- the loss kernels' acquire-release ticket is an atomic add;
 - launches (``kernel<<<...>>>``) and ``cudaMemsetAsync`` are counted.
 
 What it checks: the kernels' indexing, tiling, epilogues, tickets and
 fixed-order sums, their launch counts, and their agreement with the plain
-versions at small shapes (B <= 20, 64 and 128 channels, both strides), with
-padded rows at +-1e4. What it cannot check: the hardware's own reading of the
+versions at small shapes (B <= 20, 64 and 128 channels, both strides, and a
+415-row tail of B = 512), with padded rows at +-1e4; the loss kernels at B =
+3, 20 and 512 with padded rows at +-1e7 and +-inf, one launch per call, and
+a second call's bits equal to the first's (the ticket is reset). What it cannot check: the hardware's own reading of the
 descriptors and of the PTX, memory ordering between blocks that run at once,
 and speed. chip_smoke.py and tests/test_torch_cuda_kernels.py check those on
 the card. Limits as on the card (chip_smoke.py phase 5b): bf16 outputs and
 float32 gradients relative Frobenius 1e-2, statistics 1e-4 of their scale,
-the decoder's conv-bias gradients by their rounding-noise limit.
+the decoder's conv-bias gradients by their rounding-noise limit; the loss
+sums rtol 4e-6 (chip_smoke.py phase 3).
 """
 
 import ctypes
@@ -42,6 +46,7 @@ import pytest
 import torch
 
 from hippie_tpu_torch.ops import cuda_blocks as cb
+from hippie_tpu_torch.ops import cuda_ops
 
 torch.set_num_threads(1)
 
@@ -61,7 +66,6 @@ SHIM = r"""
 #include <functional>
 #include <memory>
 #include <thread>
-#include <type_traits>
 #include <vector>
 
 #define __global__
@@ -287,51 +291,8 @@ inline void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
 }
 }  // namespace sm90
 
-// wmma, computed by lane 0 of each warp (the only lane that stores)
-namespace nvcuda {
-namespace wmma {
-struct row_major {};
-struct col_major {};
-struct matrix_a {};
-struct matrix_b {};
-struct accumulator {};
-enum layout_t { mem_row_major, mem_col_major };
-template <class Use, int M, int N, int K, class T, class Layout = void>
-struct fragment { float v[256]; };
-inline bool lane0() { return (shim::tid() & 31) == 0; }
-template <class F>
-inline void fill_fragment(F& f, float x) {
-  if (lane0()) for (float& e : f.v) e = x;
-}
-template <class Use, class Layout>
-inline void load_matrix_sync(fragment<Use, 16, 16, 16, __nv_bfloat16, Layout>& f, const __nv_bfloat16* p,
-                             unsigned ld) {
-  if (!lane0()) return;
-  for (int r = 0; r < 16; ++r)
-    for (int c = 0; c < 16; ++c)
-      f.v[r * 16 + c] = __bfloat162float(std::is_same<Layout, row_major>::value ? p[r * ld + c] : p[c * ld + r]);
-}
-template <class LA, class LB>
-inline void mma_sync(fragment<accumulator, 16, 16, 16, float>& d,
-                     const fragment<matrix_a, 16, 16, 16, __nv_bfloat16, LA>& a,
-                     const fragment<matrix_b, 16, 16, 16, __nv_bfloat16, LB>& b,
-                     const fragment<accumulator, 16, 16, 16, float>& c) {
-  if (!lane0()) return;
-  for (int i = 0; i < 16; ++i)
-    for (int j = 0; j < 16; ++j) {
-      float s = c.v[i * 16 + j];
-      for (int k = 0; k < 16; ++k) s += a.v[i * 16 + k] * b.v[k * 16 + j];
-      d.v[i * 16 + j] = s;
-    }
-}
-inline void store_matrix_sync(float* p, const fragment<accumulator, 16, 16, 16, float>& f, unsigned ld,
-                              layout_t) {
-  if (!lane0()) return;
-  for (int i = 0; i < 16; ++i)
-    for (int j = 0; j < 16; ++j) p[i * ld + j] = f.v[i * 16 + j];
-}
-}  // namespace wmma
-}  // namespace nvcuda
+// vae_sums.cu's ticket: the blocks run one after another here
+inline unsigned ticket_add(unsigned* p) { return atomicAdd(p, 1u); }
 """
 
 
@@ -351,30 +312,37 @@ def libs(tmp_path_factory):
     d = tmp_path_factory.mktemp("sm90_host")
     (d / "include").mkdir()
     (d / "include" / "sm90_host_shim.h").write_text(SHIM)
-    for name in ("cuda_runtime.h", "cuda_bf16.h", "mma.h"):
+    for name in ("cuda_runtime.h", "cuda_bf16.h"):
         (d / "include" / name).write_text('#pragma once\n#include "sm90_host_shim.h"\n')
     for src in CSRC.glob("*.cu*"):
         (d / src.name).write_text(host_source(src.read_text()))
     procs = {}
-    for kind in ("enc", "dec"):
+    for kind, src in (("enc", "enc_block"), ("dec", "dec_block"), ("vae_sums", "vae_sums")):
         cmd = [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fno-strict-aliasing", "-fPIC", "-shared", "-pthread",
                "-I", str(d / "include"), "-include", "sm90_host_shim.h", "-x", "c++",
-               str(d / f"{kind}_block.cu"), "-o", str(d / f"{kind}_block.so")]
-        procs[kind] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+               str(d / f"{src}.cu"), "-o", str(d / f"{src}.so")]
+        procs[kind] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), src)
     out = {}
-    for kind, proc in procs.items():
+    for kind, (proc, src) in procs.items():
         log, _ = proc.communicate(timeout=300)
-        assert proc.returncode == 0, f"host build of {kind}_block.cu failed:\n{log[-6000:]}"
-        lib = ctypes.CDLL(str(d / f"{kind}_block.so"))
-        ints, *directions = cb._SIGNATURES[kind]
-        for direction, (n_in, n_out) in zip(("fwd", "bwd"), directions):
-            scratch = getattr(lib, f"{kind}_block_{direction}_scratch")
-            scratch.argtypes, scratch.restype = [ctypes.c_int] * ints, ctypes.c_longlong
-            fn = getattr(lib, f"{kind}_block_{direction}")
-            fn.argtypes = [ctypes.c_void_p] * n_in + [ctypes.c_int] * ints + [ctypes.c_void_p] * n_out
-            fn.restype = ctypes.c_int
+        assert proc.returncode == 0, f"host build of {src}.cu failed:\n{log[-6000:]}"
+        lib = ctypes.CDLL(str(d / f"{src}.so"))
         lib.shim_launches.restype = ctypes.c_long
         out[kind] = lib
+    for kind in ("enc", "dec"):
+        ints, *directions = cb._SIGNATURES[kind]
+        for direction, (n_in, n_out) in zip(("fwd", "bwd"), directions):
+            scratch = getattr(out[kind], f"{kind}_block_{direction}_scratch")
+            scratch.argtypes, scratch.restype = [ctypes.c_int] * ints, ctypes.c_longlong
+            fn = getattr(out[kind], f"{kind}_block_{direction}")
+            fn.argtypes = [ctypes.c_void_p] * n_in + [ctypes.c_int] * ints + [ctypes.c_void_p] * n_out
+            fn.restype = ctypes.c_int
+    loss = out["vae_sums"]
+    for name, n_in, ints in (("vae_sums_fwd", 5, 3), ("masked_sse_fwd", 3, 2)):
+        size = getattr(loss, f"{name}_workspace")
+        size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
+        fn = getattr(loss, name)
+        fn.argtypes, fn.restype = [ctypes.c_void_p] * n_in + [ctypes.c_int] * ints + [ctypes.c_void_p] * 3, ctypes.c_int
     return out
 
 
@@ -512,12 +480,13 @@ def _bias_grad_tol(g, gamma, st, dgamma):
 
 # (kind, stride, L, C_in, C_out, B, real rows); B and the lengths make tiles
 # that span positions and a ragged last tile; the L=64 and L=32 cases have
-# over 16 m-tiles (two ticket groups) and weight gradients in several splits
+# over 16 m-tiles (two ticket groups) and weight gradients in several splits;
+# the last is the train step's 415-row tail, whose padded rows fill whole tiles
 CASES = [("enc", 1, 7, 64, 64, 20, 13), ("enc", 2, 7, 64, 128, 20, 13), ("enc", 2, 5, 128, 128, 3, 2),
          ("enc", 1, 64, 64, 64, 20, 13),
          ("dec", 1, 4, 64, 64, 20, 13), ("dec", 2, 4, 128, 64, 20, 13), ("dec", 2, 3, 128, 128, 3, 2),
-         ("dec", 2, 32, 128, 64, 20, 13)]
-MOST = {"enc_block_fwd": 5, "enc_block_bwd": 8, "dec_block_fwd": 17, "dec_block_bwd": 8}
+         ("dec", 2, 32, 128, 64, 20, 13), ("dec", 2, 2, 64, 64, 512, 415)]
+MOST = {"enc_block_fwd": 5, "enc_block_bwd": 8, "dec_block_fwd": 5, "dec_block_bwd": 8}
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "{}-s{}-L{}-{}-{}-B{}".format(*c[:6]))
@@ -550,3 +519,58 @@ def test_block_kernels_match_plain_on_the_host(libs, case):
             assert torch.isfinite(a).all(), name
             assert _rel(a, b) < 1e-2, (name, _rel(a, b))
     assert _rel(dgot[0][:, :n_real], dref[0][:, :n_real]) < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# The loss kernels' forwards (csrc/vae_sums.cu), one launch each, on a fresh
+# workspace as ops/cuda_ops.py makes it (a zero ticket, then the partials).
+# ---------------------------------------------------------------------------
+
+# (B, real rows, pad): padded rows hold +-pad
+LOSS_CASES = [(b, n, pad) for b, n in ((3, 2), (20, 13), (512, 415)) for pad in (1e7, np.inf)]
+
+
+def _loss_inputs(batch, n_real, pad, cols, seed=0):
+    """[batch, c] float32 arrays for c in cols, rows past n_real at +-pad, and
+    the mask column."""
+    r = np.random.default_rng(seed)
+    out = []
+    for c in cols:
+        a = r.normal(size=(batch, c)).astype(np.float32)
+        a[n_real:] = pad * np.where(r.random((batch - n_real, c)) < 0.5, 1.0, -1.0)
+        out.append(torch.from_numpy(a))
+    return out, torch.from_numpy((np.arange(batch) < n_real).astype(np.float32).reshape(batch, 1))
+
+
+def _twice(lib, name, args, n_out, batch):
+    """Two calls of a loss kernel on one workspace: their outputs, each after
+    one launch and with the ticket back at zero."""
+    ws = torch.zeros(getattr(lib, f"{name}_workspace")(batch), dtype=torch.float32)
+    outs = []
+    for _ in range(2):
+        out = _nan(n_out)
+        assert _call(lib, name, *args, _ptr(ws), _ptr(out), None) == 1
+        assert ws[:1].view(torch.int32).item() == 0, "ticket not reset"
+        outs.append(out)
+    assert torch.isfinite(outs[0]).all()
+    assert torch.equal(outs[0], outs[1])
+    return outs[0]
+
+
+@pytest.mark.parametrize("case", LOSS_CASES, ids=lambda c: "B{}-{}-pad{:g}".format(*c))
+def test_vae_sums_fwd_matches_plain_on_the_host(libs, case):
+    batch, n_real, pad = case
+    (data, dec, mu, logvar), mask = _loss_inputs(batch, n_real, pad, (50, 50, 10, 10), seed=batch)
+    data = data.clamp(-10, 10)  # the data's padded rows stay finite, as the loader's
+    got = _twice(libs["vae_sums"], "vae_sums_fwd", [*(_ptr(t) for t in (data, dec, mu, logvar, mask)), batch, 50, 10],
+                 2, batch)
+    torch.testing.assert_close(got, cuda_ops.vae_sums_plain(data, dec, mu, logvar, mask), rtol=4e-6, atol=0)
+
+
+@pytest.mark.parametrize("case", LOSS_CASES, ids=lambda c: "B{}-{}-pad{:g}".format(*c))
+def test_masked_sse_fwd_matches_plain_on_the_host(libs, case):
+    batch, n_real, pad = case
+    (data, dec), mask = _loss_inputs(batch, n_real, pad, (100, 100), seed=batch + 1)
+    data = data.clamp(-10, 10)
+    got = _twice(libs["vae_sums"], "masked_sse_fwd", [*(_ptr(t) for t in (data, dec, mask)), batch, 100], 1, batch)
+    torch.testing.assert_close(got[0], cuda_ops.masked_sse_plain(data, dec, mask), rtol=4e-6, atol=0)
