@@ -21,8 +21,13 @@ decoder's training passes through them (backend="pallas") against the plain
 blocks and float32, and embeds the target dataset. Then the same for the
 joint wave + ISI cVAE (16,115,748 parameters, four backbones, both loss
 kernels): a stage-1 epoch with each block backend, one step against the
-plain versions, the joint embeddings. Last it times the train steps with
-both block backends and each kernel. Each block kernel is split by kernel
+plain versions, the joint embeddings. Then it times the train steps with
+both block backends and each kernel (vae_sums_bwd beside the device time of
+a one-element torch op, the launch floor). Last it runs the port's unimodal
+3-stage pipeline (run_unimodal_pipeline, the user's main path) at full width
+on cellexplorer-celltype, one epoch per stage through the loss and block
+kernels, and checks its 13 outputs, its checkpoints against the best
+snapshots, its 45 balanced accuracies and its kernel launches. Each block kernel is split by kernel
 (device time and launches per call; at most 5 per enc_block_fwd and
 dec_block_fwd call and 8 per enc_block_bwd and dec_block_bwd call), and the
 block libraries' SASS is checked for wgmma (HGMMA).
@@ -1242,6 +1247,13 @@ def phase_timings(ts, pool, idx, mask, joint_ts, joint_plan, card: str, errs: di
                 dev_us, n_dev, split = device_profile(fn, n=50)
                 print(f"    {name} {what}: {dev_us:.2f} us device in {n_dev:g} launches per call "
                       f"({split_line(split)})")
+        if name == "vae_sums_bwd":  # one launch: held to the device time of the smallest launch
+            one = torch.zeros(1, device="cuda")
+            for what, fn in (("kernel", kernel), ("one-element torch op (add_), the launch floor",
+                                                  lambda: one.add_(1.0))):
+                dev_us, n_dev, split = device_profile(fn, n=50)
+                print(f"    {name} {what}: {dev_us:.2f} us device in {n_dev:g} launches per call "
+                      f"({split_line(split)})")
         kernels.append({
             "name": name, "route": "cuda", "source": "hippie_tpu_torch/csrc/vae_sums.cu",
             "replaces": sources[name], "launches": launches[name], "max_abs_err": errs[name],
@@ -1249,6 +1261,136 @@ def phase_timings(ts, pool, idx, mask, joint_ts, joint_plan, card: str, errs: di
             "library_ms": library_ms,
         })
     return kernels
+
+
+def n_batches(n: int, batch_size: int) -> int:
+    """Batches of a batch_plan over n rows (at least one)."""
+    return max(1, -(-n // batch_size))
+
+
+def csv_table(path: str):
+    """(header, data rows) of a CSV written by the port."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def phase_pipeline(card: str, device="cuda"):
+    """The port's unimodal 3-stage pipeline, run_unimodal_pipeline, at full
+    width (z=10, ResNet18: 8,056,639 parameters per stage-1 model) on
+    datasets/cellexplorer-celltype, one epoch per stage, with the loss and
+    block kernels (loss_backend and block_backend "pallas"), outputs in a
+    temporary directory. Checks the 13 outputs (names, CSV headers and row
+    counts), that each .ckpt reloads into the port equal bit for bit to its
+    tracker's best snapshot (weights, buffers and AdamW moments), that the 45
+    balanced accuracies are finite, and that kernels 1, 2 and 4-7 were
+    launched exactly (train steps) x (launches per step) times; vae_sums_fwd
+    also runs in every validation step. Returns the launch counts."""
+    import math
+    import tempfile
+
+    import torch
+
+    from hippie_tpu_torch.data import sampling
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+    from hippie_tpu_torch.train import optim, pipeline
+
+    with tempfile.TemporaryDirectory(prefix="hippie_pipeline_") as tmp:
+        cfg = pipeline.PipelineConfig(z_dim=Z, dataset=TARGET, data_root=DATA_ROOT,
+                                      output_dir=f"{tmp}/out", checkpoint_dir=f"{tmp}/checkpoints",
+                                      loss_backend="pallas", block_backend="pallas", device=device,
+                                      verbose=False)
+        trackers = {}
+        sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+        reset_all_launches()
+        sync()
+        t0 = time.perf_counter()
+        results = pipeline.run_unimodal_pipeline(cfg, trackers=trackers)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+
+        # the steps of one epoch per stage and model
+        n_pool, n_target = 2975, 392
+        n_tr = int(cfg.train_val_split * n_pool)
+        n_ft = int(cfg.finetune_split * n_target)
+        n_stream = len(sampling.balanced_indices(results["label_train"], seed=cfg.seed))
+        train = 2 * (n_batches(n_tr, cfg.batch_size) + n_batches(n_ft, cfg.batch_size)
+                     + n_batches(n_stream, cfg.supervised_batch_size))
+        val = 2 * (n_batches(n_pool - n_tr, cfg.batch_size) + n_batches(n_target - n_ft, cfg.batch_size)
+                   + n_batches(len(results["label_val"]), cfg.supervised_batch_size))
+        blocks = sum(cfg.num_blocks)
+        want = {"vae_sums_fwd": train + val, "vae_sums_bwd": train, "masked_sse_fwd": 0,
+                **{k: blocks * train for k in ("enc_block_fwd", "enc_block_bwd", "dec_block_fwd",
+                                               "dec_block_bwd")}}
+        check(launches == want or device == "cpu", f"pipeline kernel launches {launches}, expected "
+                                                   f"{want} ({train} train and {val} val steps)")
+
+        ds, n_val = TARGET, len(results["label_val"])
+        tables = {f"pretraining_{ds}_{k}_embeddings.csv": (["", "embeddings"], n_ft)
+                  for k in ("waveform", "isi", "joint")}
+        for kind, width in (("waveform", Z), ("isi", Z), ("joint", 2 * Z)):
+            tables[f"{ds}_{kind}_knn.csv"] = (["", "pred", "true"], n_val)
+            tables[f"{ds}_{kind}_embeddings.csv"] = ([""] + [str(j) for j in range(width)] + ["label"],
+                                                     n_target)
+        classes = set(results["label_encoder"].classes_.tolist())
+        for name, (header, rows) in tables.items():
+            got_header, got_rows = csv_table(f"{cfg.output_dir}/{name}")
+            check(got_header == header, f"{name}: header {got_header[:4]}..., expected {header[:4]}...")
+            check(len(got_rows) == rows, f"{name}: {len(got_rows)} rows, expected {rows}")
+            if name.endswith("_embeddings.csv") and not name.startswith("pretraining"):
+                check(all(math.isfinite(float(v)) for r in got_rows for v in r[1:-1])
+                      and {r[-1] for r in got_rows} <= classes, f"{name}: non-finite value or unknown label")
+
+        n_classes = results["num_class_labels"]
+        for key, tracker in trackers.items():
+            ck = ckpt_mod.load_lightning_ckpt(tracker.path)
+            sd = ckpt_mod.model_state_from_ckpt(ck)
+            best = tracker.best_state_dict
+            check(list(sd) == list(best) and all(torch.equal(sd[k], v.cpu()) for k, v in best.items()),
+                  f"{tracker.path}: state_dict differs from the tracker's best snapshot")
+            opt_saved = ck["optimizer_states"][0]["state"]
+            opt_best = tracker.best_opt["state"]
+            check(len(opt_saved) == len(opt_best) == len(sd) - sum("running_" in k or "batches" in k
+                                                                  for k in sd),
+                  f"{tracker.path}: {len(opt_saved)} optimizer states for {len(opt_best)} parameters")
+            for i, e in opt_best.items():
+                check(float(opt_saved[i]["step"]) == float(e["step"]) and all(
+                    np.array_equal(opt_saved[i][m], e[m].cpu().numpy()) for m in ("exp_avg", "exp_avg_sq")),
+                    f"{tracker.path}: AdamW state {i} differs from the tracker's best snapshot")
+            # reload into a fresh port model and optimizer on the card
+            modality = key.split("_")[0]
+            cfg_m = pipeline.model_config(cfg, modality, n_classes if "supervised" in key else 5)
+            model = cvae.unimodal_cvae_init(cfg_m, torch.Generator().manual_seed(0), device=device)
+            check(not ckpt_mod.load_model_state(model, sd), f"{tracker.path}: keys left unloaded")
+            opt = optim.make_optimizer(model.parameters(), 1e-4, WD)
+            ckpt_mod.load_optimizer_state(opt, ck["optimizer_states"][0])
+            check(all(torch.equal(v, best[k]) for k, v in model.state_dict().items())
+                  and all(torch.equal(opt.state_dict()["state"][i][m], e[m])
+                          for i, e in opt_best.items() for m in ("exp_avg", "exp_avg_sq")),
+                  f"{tracker.path}: the reloaded model or optimizer differs from the snapshot")
+        ckpts = sorted(pathlib.Path(cfg.checkpoint_dir).glob("*.ckpt"))
+        check([p.name for p in ckpts] == sorted(f"{ds}_{m}_model{s}.ckpt" for m in ("wave", "time")
+                                                for s in ("", "_supervised")),
+              f"checkpoints {[p.name for p in ckpts]}")
+        accs = [a for kind in results["balanced_accuracy"].values() for a in kind]
+        check(len(accs) == 45 and all(math.isfinite(a) for a in accs), f"balanced accuracies {accs}")
+
+    timings = results["timings"]
+    fits = {k: round(v, 3) for k, v in timings.items() if k.split("_")[0] in ("pretrain", "finetune",
+                                                                              "supervised")}
+    print(f"[9 pipeline] run_unimodal_pipeline on {ds}, z={Z}, num_blocks={cfg.num_blocks}, one epoch per "
+          f"stage, loss_backend=pallas block_backend=pallas: {wall:.3f} s wall on {card}; "
+          f"{train} train and {val} val steps; launches {launches}")
+    print(f"  stage fits (s): {json.dumps(fits)}")
+    print(f"  stage timings (StageTimer): {json.dumps({k: round(v, 3) for k, v in timings.items()})}")
+    print(f"  13 outputs checked ({len(tables)} CSVs, {len(ckpts)} .ckpt reloaded equal to their "
+          f"snapshots); best balanced accuracy "
+          + ", ".join(f"{k} {v['balanced_accuracy']:.4f} (k={v['k']})" for k, v in results["best"].items()))
+    return launches
 
 
 def main() -> int:
@@ -1311,6 +1453,7 @@ def main() -> int:
         phase_embed(ts.model)
         phase_embed(jts.model, joint=True)
         kernels = phase_timings(ts, pool, idx, mask, jts, (jidx, jmask), card, errs, joint_launches)
+        phase_pipeline(card)
         kernels += block_kernels
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback

@@ -1,17 +1,19 @@
 """Dataset registry and CSV ingestion (the reference's on-disk data contract).
 
-Counterpart of hippie_tpu/data/registry.py (the parts the training slice
-needs). Layout: ``<data_root>/<name>/{waveforms,isi_dist}.csv``. The reference
-loads with bare ``pd.read_csv``, which keeps the CSV's index column as
-feature 0 (quirk Q4); this module does the same with the ``csv`` module, so
-it needs no pandas.
+Counterpart of hippie_tpu/data/registry.py (all but ``register_dataset`` and
+``discover_datasets``). Layout: ``<data_root>/<name>/{waveforms,isi_dist,
+labels,metadata}.csv``. The reference loads with bare ``pd.read_csv``, which
+keeps the CSV's index column as feature 0 (quirk Q4); this module does the
+same with the ``csv`` module, so it needs no pandas.
 """
 
 from __future__ import annotations
 
 import csv
+import datetime
 import os
-from typing import Dict, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -77,6 +79,17 @@ def read_numeric_csv(path: str) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def write_csv(path: str, header, rows):
+    """Write ``header`` and ``rows`` as pandas' ``to_csv`` does: minimal
+    quoting, ``\\n`` line ends, each numpy value as ``str`` prints it, NaN
+    as an empty field."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        for row in rows:
+            w.writerow(["" if isinstance(v, np.floating) and np.isnan(v) else str(v) for v in row])
+
+
 def load_raw(
     data_root: str,
     name: str,
@@ -98,3 +111,90 @@ def load_raw(
         wf = wf[:, ~np.isnan(wf).any(axis=0)]
         isi = isi[:, ~np.isnan(isi).any(axis=0)]
     return np.ascontiguousarray(wf), np.ascontiguousarray(isi)
+
+
+@dataclass
+class LabelEncoder:
+    """sklearn-compatible label encoder (sorted unique classes -> codes)."""
+
+    classes_: np.ndarray
+
+    @classmethod
+    def fit(cls, labels) -> "LabelEncoder":
+        return cls(classes_=np.unique(np.asarray(labels)))
+
+    def transform(self, labels) -> np.ndarray:
+        return np.searchsorted(self.classes_, np.asarray(labels)).astype(np.int64)
+
+    def inverse_transform(self, codes) -> np.ndarray:
+        return self.classes_[np.asarray(codes, dtype=np.int64)]
+
+
+def _read_table(path: str) -> Tuple[List[str], List[List[str]]]:
+    """(column names, rows of fields) of a CSV, named as ``pd.read_csv`` names
+    them: an empty header cell ``i`` becomes ``"Unnamed: i"``."""
+    with open(path, newline="") as f:
+        rows = [r for r in csv.reader(f) if r]
+    header = rows[0] if rows else []
+    return [h if h != "" else f"Unnamed: {i}" for i, h in enumerate(header)], rows[1:]
+
+
+def _column_values(fields: List[str]) -> np.ndarray:
+    """One column's values with pandas' type inference for the label files:
+    int64 when every field is an integer, float64 when every field is a
+    number or empty (NaN), else the strings as an object array."""
+    try:
+        return np.asarray([int(v) for v in fields], dtype=np.int64)
+    except ValueError:
+        pass
+    try:
+        return np.asarray([float(v) if v != "" else np.nan for v in fields], dtype=np.float64)
+    except ValueError:
+        return np.asarray(fields, dtype=object)
+
+
+def load_supervised_labels(data_root: str, name: str):
+    """Labels for the supervised stage (train_model.py:275-283).
+
+    The reference reads ``labels.csv["label"]`` and crashes on every shipped
+    dataset because none has a ``label`` column (quirk Q5). As the JAX
+    package, this takes ``label`` if it exists, else the last column that is
+    not a pandas index column. A missing file gives all-zero labels, the
+    reference's else-branch. Returns (encoded labels int64 [N], encoder).
+    """
+    path = os.path.join(data_root, name, "labels.csv")
+    if not os.path.exists(path):
+        wf, _ = load_raw(data_root, name)
+        labels = np.zeros(len(wf))
+        return labels.astype(np.int64), LabelEncoder.fit(labels)
+    columns, rows = _read_table(path)
+    if "label" in columns:
+        col = columns.index("label")
+    else:
+        named = [i for i, c in enumerate(columns) if not c.startswith("Unnamed")]
+        col = named[-1] if named else len(columns) - 1
+    raw = _column_values([r[col] if col < len(r) else "" for r in rows])
+    le = LabelEncoder.fit(raw)
+    return le.transform(raw), le
+
+
+def load_metadata(data_root: str, name: str) -> Optional[List[Dict[str, str]]]:
+    """Rows of ``<name>/metadata.csv`` as {column: field} dicts, or None when
+    the file is missing."""
+    path = os.path.join(data_root, name, "metadata.csv")
+    if not os.path.exists(path):
+        return None
+    columns, rows = _read_table(path)
+    return [dict(zip(columns, r)) for r in rows]
+
+
+def chip_finetune_split(metadata: List[Dict[str, str]]) -> Tuple[np.ndarray, np.ndarray]:
+    """Earliest-10-timestamps rule for chip datasets (train_model.py:182-188):
+    the rows whose time of day (``pd.to_datetime(datetime).dt.time``) is one
+    of the 10 earliest distinct times train, the rest test. Parses ISO dates
+    with a time ("2024-01-01 00:00:05", as synth.make_dataset writes them)."""
+    times = [datetime.datetime.fromisoformat(r["datetime"]).time() for r in metadata]
+    first = set(sorted(set(times))[:10])
+    train = np.asarray([i for i, t in enumerate(times) if t in first], dtype=np.int64)
+    test = np.asarray([i for i, t in enumerate(times) if t not in first], dtype=np.int64)
+    return train, test

@@ -1,7 +1,7 @@
 """Embedding extraction (reference scripts/utils.py:74-98 get_embeddings).
 
-Counterpart of zscore_rows, embed_unimodal and embed_multimodal in
-hippie_tpu/evaluate/embeddings.py. The embedding is ``encoded``, the
+Counterpart of zscore_rows, embed_unimodal, embed_multimodal and
+get_embeddings in hippie_tpu/evaluate/embeddings.py. The embedding is ``encoded``, the
 deterministic z-dim encoder_fc output, z-scored per row with the unbiased std.
 Extraction runs in eval mode (running BN statistics) in one whole-dataset
 forward, so rows cannot influence each other and no padding is needed.
@@ -9,8 +9,9 @@ forward, so rows cannot influence each other and no padding is needed.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from hippie_tpu_torch.nn.functional import full_fp32
@@ -48,3 +49,16 @@ def embed_multimodal(model, wave: torch.Tensor, isi: torch.Tensor, source: torch
     with full_fp32():
         enc, *_ = model(wave, isi, source, class_)
         return zscore_rows(enc)
+
+
+def get_embeddings(wave_model, time_model, wave: torch.Tensor, isi: torch.Tensor,
+                   source: torch.Tensor, class_: Optional[torch.Tensor] = None
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(wave_emb, isi_emb, joint) as numpy, like scripts/utils.py:74-98: each
+    unimodal model's embeddings of its modality and their hstack (2z
+    columns). Both embeddings come to the host in one copy."""
+    e_wave = embed_unimodal(wave_model, wave, source, class_)
+    e_time = embed_unimodal(time_model, isi, source, class_)
+    both = torch.cat([e_wave, e_time], dim=1).cpu().numpy()
+    z = e_wave.shape[1]
+    return both[:, :z].copy(), both[:, z:].copy(), both

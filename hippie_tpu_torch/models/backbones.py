@@ -31,6 +31,8 @@ BACKENDS = ("xla", "pallas")
 def check_backend(backend: str):
     """Raise on a block backend the port has not: hippie_tpu's "fused" and
     "bf16" have no port yet."""
+    if backend in ("fused", "bf16"):
+        raise ValueError(f"block backend {backend!r} is not ported yet: ROADMAP Queue 1 item 13")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: one of {BACKENDS}")
 

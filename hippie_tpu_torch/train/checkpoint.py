@@ -1,7 +1,10 @@
-"""Weights carried over from the JAX package's pytrees to a torch state_dict.
+"""Weights carried over from the JAX package's pytrees, and Lightning ``.ckpt`` I/O.
 
-Counterpart of the key naming and layouts of hippie_tpu/train/checkpoint.py
-(``flatten_interleaved``, ``_to_torch_layout``), copied rather than imported.
+Counterpart of hippie_tpu/train/checkpoint.py (``flatten_interleaved``,
+``_to_torch_layout``, ``parameter_key_order``, ``save_lightning_ckpt``,
+``load_lightning_ckpt``) and of the AdamW-state layout of
+hippie_tpu/train/optim.py (``adamw_state_to_torch``), copied rather than
+imported.
 The JAX package keeps its parameters and BatchNorm state as nested dicts in
 torch registration order; flattening them interleaved (a BatchNorm emits
 weight, bias, running_mean, running_var, num_batches_tracked) gives the keys
@@ -13,8 +16,9 @@ embeddings, biases and BN vectors unchanged; num_batches_tracked int64.
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,3 +77,150 @@ def state_dict_from_jax(params: dict, state: Optional[dict]) -> "OrderedDict[str
             arr = arr.astype(np.int64)
         sd[k] = torch.from_numpy(np.array(_to_torch_layout(k, arr), order="C"))
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Lightning .ckpt files
+# ---------------------------------------------------------------------------
+#
+# The reference's checkpoint contract (SURVEY.md §5): a torch-pickled dict with
+# ``state_dict`` (keys prefixed ``model.``), ``optimizer_states`` (a list with
+# one torch AdamW state dict), ``epoch``, ``global_step``,
+# ``pytorch-lightning_version`` and ``hyper_parameters``. The files this
+# module writes hold what the JAX package's ``save_lightning_ckpt`` writes, in
+# the same layout, so either package reads the other's.
+
+
+def parameter_key_order(model: torch.nn.Module) -> list:
+    """Names of the model's parameters (not its buffers) in
+    ``model.parameters()`` order: the index order of the optimizer state. For
+    the port's models this is the JAX package's ``parameter_key_order``."""
+    return [k for k, _ in model.named_parameters()]
+
+
+def adamw_state_to_torch(opt_state: dict, state_dict: Dict[str, torch.Tensor],
+                         param_keys: Sequence[str], *, lr: float, weight_decay: float) -> dict:
+    """A torch AdamW ``state_dict()`` over ``param_keys`` -> the layout of
+    hippie_tpu/train/optim.py:adamw_state_to_torch for ``optimizer_states[0]``:
+    per parameter index ``step`` (a numpy float32 scalar), ``exp_avg`` and
+    ``exp_avg_sq`` (float32 numpy arrays in torch layout), and one param
+    group with the JAX package's keys. A parameter without state yet (no
+    step taken) gets zero moments and step 0, as optax's fresh state."""
+    state = opt_state.get("state", {})
+    out = {}
+    for i, k in enumerate(param_keys):
+        entry = state.get(i)
+        if entry is None:
+            zeros = np.zeros(tuple(state_dict[k].shape), np.float32)
+            out[i] = {"step": np.asarray(0, dtype=np.float32), "exp_avg": zeros,
+                      "exp_avg_sq": zeros.copy()}
+            continue
+        out[i] = {
+            "step": np.asarray(float(entry["step"]), dtype=np.float32),
+            "exp_avg": entry["exp_avg"].detach().float().cpu().numpy(),
+            "exp_avg_sq": entry["exp_avg_sq"].detach().float().cpu().numpy(),
+        }
+    return {
+        "state": out,
+        "param_groups": [{
+            "lr": lr, "betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": weight_decay,
+            "amsgrad": False, "maximize": False, "foreach": None, "capturable": False,
+            "differentiable": False, "fused": None, "params": list(range(len(param_keys))),
+        }],
+    }
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, torch_opt_sd: dict):
+    """Load ``optimizer_states[0]`` (the layout above, from either package)
+    into a torch AdamW over the same parameters in the same order: each
+    index's moments onto the optimizer's parameter of that index, ``step`` as
+    a float32 tensor. The optimizer keeps its own hyperparameters, as the JAX
+    package's ``adamw_state_from_torch`` keeps its transform's."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    per_param = torch_opt_sd.get("state", {})
+    sd = optimizer.state_dict()
+    sd["state"] = {}
+    for i, p in enumerate(params):
+        entry = per_param.get(i, per_param.get(str(i)))
+        if entry is None:
+            continue
+        moments = {}
+        for name in ("exp_avg", "exp_avg_sq"):
+            t = torch.as_tensor(entry[name])
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"optimizer state {i} {name} has shape {tuple(t.shape)}, "
+                                 f"parameter {tuple(p.shape)}")
+            moments[name] = t.to(dtype=p.dtype)
+        st = entry.get("step", 0)
+        sd["state"][i] = {"step": torch.tensor(float(st), dtype=torch.float32), **moments}
+    optimizer.load_state_dict(sd)
+
+
+def save_lightning_ckpt(
+    path: str,
+    state_dict: Dict[str, torch.Tensor],
+    *,
+    optimizer_state: Optional[dict] = None,
+    epoch: int = 0,
+    global_step: int = 0,
+    hyper_parameters: Optional[dict] = None,
+):
+    """Write a Lightning-compatible .ckpt of a port model's ``state_dict``
+    (keys without prefix, tensors on any device) and an ``optimizer_state`` in
+    the layout of ``adamw_state_to_torch``.
+
+    Atomic: written to ``<path>.tmp.<pid>`` and renamed; on failure the
+    temporary file is removed and nothing is left at ``path``.
+    """
+    payload = {
+        "state_dict": OrderedDict(("model." + k, v.detach().cpu().clone())
+                                  for k, v in state_dict.items()),
+        "optimizer_states": [optimizer_state] if optimizer_state is not None else [],
+        "epoch": epoch,
+        "global_step": global_step,
+        "pytorch-lightning_version": "2.0.0",
+        "hyper_parameters": hyper_parameters or {},
+    }
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load_lightning_ckpt(path: str) -> dict:
+    """Read a .ckpt written by either package or by the torch reference, on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def model_state_from_ckpt(ckpt: dict) -> "OrderedDict[str, torch.Tensor]":
+    """The ckpt's ``state_dict`` without its ``model.`` prefix, as tensors."""
+    return OrderedDict((k[len("model."):], torch.as_tensor(v)) for k, v in ckpt["state_dict"].items()
+                       if k.startswith("model."))
+
+
+def load_model_state(model: torch.nn.Module, state: Dict[str, torch.Tensor],
+                     drop: Iterable[str] = ()) -> list:
+    """Load a state_dict (keys without prefix) into ``model`` and return the
+    keys the model kept its own values for.
+
+    Keys under a top-level module named in ``drop`` are skipped, and so is
+    ``class_embedding.weight`` when its class count differs from the model's:
+    the reference pops it and loads with ``strict=False`` (quirk Q10), so the
+    model's fresh class embedding survives. Any other missing, unexpected or
+    misshapen key raises.
+    """
+    drop = set(drop)
+    own = model.state_dict()
+    ce = "class_embedding.weight"
+    if ce in state and ce in own and state[ce].shape != own[ce].shape:
+        drop.add("class_embedding")
+    kept = {k: v for k, v in state.items() if k.split(".")[0] not in drop}
+    missing, unexpected = model.load_state_dict(kept, strict=False)
+    bad = [k for k in missing if k.split(".")[0] not in drop] + list(unexpected)
+    if bad:
+        raise KeyError(f"state_dict does not match the model: {bad}")
+    return list(missing)

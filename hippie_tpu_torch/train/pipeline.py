@@ -1,33 +1,98 @@
-"""Dataset assembly of the unimodal pipeline.
+"""The unimodal 3-stage HIPPIE pipeline: pretrain -> unsupervised fine-tune -> supervised.
 
-Counterpart of ``load_dataset`` and ``load_pretrain_pool`` in
-hippie_tpu/train/pipeline.py (train_model.py:64-100): load raw CSVs,
-preprocess on the device, and concatenate the leave-target-out pretraining
-pool. The stage runners, fit loop and CLI of that module are not ported yet.
+Counterpart of hippie_tpu/train/pipeline.py (``PipelineConfig``,
+``load_dataset``, ``load_pretrain_pool``, ``BestTracker``, ``_graft``,
+``_seed_from_best``, the stage fit, ``_finetune_split_indices``, the CSV
+exports and ``run_unimodal_pipeline``), the library side of
+scripts/train_model.py. Output filenames, CSV bytes and checkpoint contents
+follow the JAX package; the quirks kept are its:
+
+  - leave-target-out pool assembly with the Q2 default (registry.pretrain_pool);
+  - beta stays 1 in every stage (Q6); no gradient clip on the waveform model
+    in stages 1-2, clip on the ISI model, both clipped in stage 3 (Q7);
+  - the best model is reloaded after stage 1 (train_model.py:160-163);
+  - stage-2 best tracking carries across stages 1-2 (one tracker per model,
+    ``<ds>_<model>_model.ckpt``), so stage 3 may start from a stage-1 best;
+  - stage-2 embeddings come from the last-epoch model on the fine-tune train
+    split (train_model.py:235-237);
+  - the fine-tune data drops NaN columns, the supervised data does not (Q13);
+  - one balanced oversampled stream serves both stage-3 models; stage 3
+    rebuilds each model with the training split's class count and loads the
+    cross-stage best minus the class embedding, which stays fresh (Q10);
+  - stage-3 embeddings are class-conditioned unless ``honest_eval``.
+
+The port runs one fit loop (train/loop.py), the JAX host loop's
+(``--fit-loop host``). Random draws: splits, shuffles and model inits come
+from CPU ``torch.Generator``s and the reparameterization noise from a
+generator on the data's device, each seeded from ``seed`` and a fixed path
+(train/loop.py:epoch_key), where the JAX package folds the same integers into
+jax.random keys; the bits differ between the packages, the structure does
+not. The JAX pipeline's options with no port yet are not fields here; the
+CLI (scripts/train_model.py) raises on their flags.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from hippie_tpu_torch.data import registry
-from hippie_tpu_torch.data.device_data import ArrayDataset
+from hippie_tpu_torch.data import registry, sampling
+from hippie_tpu_torch.data.registry import write_csv
+from hippie_tpu_torch.data.device_data import ArrayDataset, batch_plan, train_val_split
+from hippie_tpu_torch.evaluate import embeddings as emb
+from hippie_tpu_torch.evaluate import knn_eval, metrics
+from hippie_tpu_torch.models import cvae
 from hippie_tpu_torch.ops import preprocess
+from hippie_tpu_torch.train import checkpoint as ckpt_mod
+from hippie_tpu_torch.train import loop, optim, step
+from hippie_tpu_torch.utils.profiling import StageTimer
 
 
 @dataclass
 class PipelineConfig:
-    """The fields of hippie_tpu's PipelineConfig that dataset assembly reads,
-    plus the device the arrays live on."""
+    """The fields of hippie_tpu's PipelineConfig that the unimodal pipeline
+    reads, with its defaults, plus the device the arrays and models live on."""
 
+    z_dim: int = 5
+    weight_decay: float = 0.01
+    learning_rate: float = 0.001
     dataset: str = "cellexplorer-celltype"
+    finetune_without_labels: bool = True
+    pretrain_max_epochs: int = 1
+    finetune_max_epochs: int = 1
+    supervised_max_epochs: int = 1
+    batch_size: int = 512
+    supervised_batch_size: int = 64
+    early_stopping_patience: int = 30
+    gradient_clip_val: float = 1.0
+    train_val_split: float = 0.8
+    finetune_split: float = 0.1
+    limit_train_batches: Optional[float] = None
+    limit_val_batches: Optional[float] = None
     data_root: str = "datasets"
+    output_dir: str = "."
+    checkpoint_dir: str = "checkpoints"
+    seed: int = 42
+    class_hidden_dim: int = 5
+    num_blocks: tuple = (2, 2, 2, 2)  # backbone depth; (2, 2, 2, 2) = ResNet18
     strict_leakage_guard: bool = False
-    drop_index_column: bool = False  # drop the CSV index feature (quirk Q4)
     verbose: bool = True
+    log_fn: Any = None  # optional callable(dict), one record per epoch
+    drop_index_column: bool = False  # drop the CSV index feature (quirk Q4)
+    honest_eval: bool = False  # stage-3 embeddings without class conditioning
+    loss_backend: str = "xla"  # "pallas": the loss kernels of ops/cuda_ops.py
+    block_backend: str = "xla"  # "pallas": the block kernels of ops/cuda_blocks.py
     device: str = "cuda"
+
+
+# ---------------------------------------------------------------------------
+# Data assembly
+# ---------------------------------------------------------------------------
 
 
 def load_dataset(cfg: PipelineConfig, name: str, *, dropna: bool = False) -> ArrayDataset:
@@ -62,3 +127,391 @@ def load_pretrain_pool(cfg: PipelineConfig) -> ArrayDataset:
     if cfg.verbose:
         print(f"Total waveforms {len(ds)} and total isi {len(ds)}")
     return ds
+
+
+# ---------------------------------------------------------------------------
+# Best checkpoints across stages
+# ---------------------------------------------------------------------------
+
+
+class BestTracker:
+    """ModelCheckpoint(save_top_k=1, mode='min') semantics, shareable across
+    stages like the reference's reused callback object.
+
+    ``update_from_fit`` keeps the fit's best snapshot (device clones of the
+    state_dict and the AdamW state) when it improves on the tracked best;
+    ``flush()`` writes it to ``path`` once, so a stage handoff reads the
+    snapshot on the device (``seed_from_best``), never the file. The JAX
+    tracker's ``flush_async`` writes in a thread because its fits donate
+    their buffers; the port's snapshots are clones no later fit touches, so
+    the pipeline flushes synchronously where the JAX one starts that thread.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self.best_val = math.inf
+        self.best_state_dict = None
+        self.best_opt = None
+        self._pending = None  # (parameter keys, lr, wd) awaiting flush
+
+    def update_from_fit(self, result: loop.FitResult, param_keys, opt_meta) -> bool:
+        if result.best_epoch >= 0 and result.best_val_loss < self.best_val:
+            self.best_val = result.best_val_loss
+            self.best_state_dict = result.best_state_dict
+            self.best_opt = result.best_opt_state
+            self._pending = (list(param_keys), *opt_meta)
+            return True
+        return False
+
+    def flush(self):
+        """Write the best checkpoint, with its AdamW state in the
+        ``optimizer_states[0]`` layout, if a new best is pending."""
+        if self._pending is None:
+            return
+        keys, lr, wd = self._pending
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        ckpt_mod.save_lightning_ckpt(self.path, self.best_state_dict, optimizer_state=(
+            ckpt_mod.adamw_state_to_torch(self.best_opt, self.best_state_dict, keys,
+                                          lr=lr, weight_decay=wd)))
+        self._pending = None
+
+
+def _graft(template: Dict[str, torch.Tensor], source: Dict[str, torch.Tensor], drop=()):
+    """The template state_dict with ``source``'s tensors grafted in, except
+    keys under a top-level module named in ``drop``, which keep the
+    template's values; in the template's key order."""
+    return {k: v if k.split(".")[0] in drop or k not in source else source[k]
+            for k, v in template.items()}
+
+
+def seed_from_best(model: torch.nn.Module, best_state_dict: Dict[str, torch.Tensor],
+                   drop=("class_embedding",)):
+    """Load a tracker's best snapshot into a freshly built ``model``, minus
+    the modules in ``drop`` (the class embedding, quirk Q10), which keep the
+    model's fresh values: the reference's reload-best-ckpt detour
+    (train_model.py:333-347) without the file. Copies, so the snapshot stays
+    valid for the tracker's write."""
+    model.load_state_dict(_graft(model.state_dict(), best_state_dict, drop), strict=True)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Stage fit
+# ---------------------------------------------------------------------------
+
+
+def fit_unimodal_stage(
+    *,
+    cfg: PipelineConfig,
+    ts: step.TrainState,
+    data: torch.Tensor,
+    source: torch.Tensor,
+    class_: torch.Tensor,
+    train_indices: np.ndarray,
+    val_indices: np.ndarray,
+    batch_size: int,
+    max_epochs: int,
+    beta: float,
+    use_class_labels: bool,
+    shuffle_train: bool,
+    fixed_train_stream: Optional[np.ndarray] = None,
+    stage_seed: int = 0,
+    lr: Optional[float] = None,
+) -> loop.FitResult:
+    """One Trainer.fit of a unimodal model (the JAX ``_fit_unimodal_stage``
+    with ``--fit-loop host``).
+
+    Each train epoch's plan is ``batch_plan`` over the stream (shuffled when
+    ``shuffle_train``), cut by ``limit_train_batches``; the val plan is fixed
+    and cut by ``limit_val_batches``. The shuffle draws from a CPU generator
+    split from the epoch's key, the noise from a generator on the data's
+    device (``torch.randperm`` takes a CPU generator here, the model's
+    ``torch.randn`` one on its device).
+    """
+    train_epoch, eval_epoch = step.make_unimodal_epoch_fns(
+        beta=beta, use_class_labels=use_class_labels,
+        loss_backend=cfg.loss_backend, block_backend=cfg.block_backend)
+    val_idx, val_mask = loop.limit_batches(batch_plan(val_indices, batch_size, shuffle=False),
+                                           cfg.limit_val_batches)
+    stream = np.asarray(fixed_train_stream if fixed_train_stream is not None else train_indices)
+    device = data.device
+
+    def run_train(state, key, epoch):
+        idx, mask = loop.limit_batches(
+            batch_plan(stream, batch_size, shuffle=shuffle_train, generator=loop.key_generator(key, 0)),
+            cfg.limit_train_batches)
+        return train_epoch(state, data, source, class_, idx, mask,
+                           generator=loop.key_generator(key, 1, device=device))
+
+    def run_val(state, key, epoch):
+        return eval_epoch(state.model, data, source, class_, val_idx, val_mask,
+                          generator=loop.key_generator(key, device=device))
+
+    return loop.fit(
+        ts, run_train_epoch=run_train, run_val_epoch=run_val, max_epochs=max_epochs,
+        early_stopping_patience=cfg.early_stopping_patience, seed=cfg.seed + stage_seed,
+        verbose=cfg.verbose, log_fn=cfg.log_fn, lr=lr,
+    )
+
+
+def finetune_split_indices(cfg: PipelineConfig, n: int, generator: torch.Generator
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """10%/90% fine-tune split, or the chip earliest-timestamps rule
+    (train_model.py:179-190)."""
+    meta = registry.load_metadata(cfg.data_root, cfg.dataset)
+    if meta is not None and "chip" in cfg.dataset:
+        return registry.chip_finetune_split(meta)
+    return train_val_split(n, cfg.finetune_split, generator)
+
+
+# ---------------------------------------------------------------------------
+# CSV exports (the reference's file contracts; the bytes pandas writes)
+# ---------------------------------------------------------------------------
+
+
+def export_pretraining_embeddings(cfg: PipelineConfig, tagged: Dict[str, np.ndarray]) -> dict:
+    """pretraining_<ds>_<kind>_embeddings.csv: an index column and one
+    'embeddings' column whose cells are numpy's print of each row
+    (train_model.py:249-264)."""
+    paths = {}
+    for kind, arr in tagged.items():
+        path = os.path.join(cfg.output_dir, f"pretraining_{cfg.dataset}_{kind}_embeddings.csv")
+        write_csv(path, ["", "embeddings"], ([i, np.asarray(r)] for i, r in enumerate(arr)))
+        paths[kind] = path
+    return paths
+
+
+def export_knn_csv(cfg: PipelineConfig, kind: str, pred, true, le) -> str:
+    path = os.path.join(cfg.output_dir, f"{cfg.dataset}_{kind}_knn.csv")
+    rows = zip(range(len(pred)), le.inverse_transform(pred), le.inverse_transform(true))
+    write_csv(path, ["", "pred", "true"], rows)
+    return path
+
+
+def export_embeddings_csv(cfg: PipelineConfig, kind: str, embeddings, labels, le) -> str:
+    arr = np.asarray(embeddings)
+    path = os.path.join(cfg.output_dir, f"{cfg.dataset}_{kind}_embeddings.csv")
+    header = [""] + [str(j) for j in range(arr.shape[1])] + ["label"]
+    write_csv(path, header, ([i, *arr[i], lab] for i, lab in enumerate(le.inverse_transform(labels))))
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Unimodal pipeline (scripts/train_model.py)
+# ---------------------------------------------------------------------------
+
+MODALITIES = ("wave", "time")
+
+
+def model_config(cfg: PipelineConfig, modality: str, num_classes: int) -> cvae.CVAEConfig:
+    return cvae.CVAEConfig(
+        z_dim=cfg.z_dim, output_size=50 if modality == "wave" else 100,
+        class_hidden_dim=cfg.class_hidden_dim, num_sources=registry.NUM_SOURCES,
+        num_classes=num_classes, num_blocks=tuple(cfg.num_blocks),
+    )
+
+
+def _init_state(cfg: PipelineConfig, cfg_m, init_key: int, lr: float, clip) -> step.TrainState:
+    model = cvae.unimodal_cvae_init(cfg_m, loop.key_generator(cfg.seed, init_key), device=cfg.device)
+    return step.TrainState(model, optim.make_optimizer(model.parameters(), lr, cfg.weight_decay, clip))
+
+
+def run_unimodal_pipeline(cfg: PipelineConfig,
+                          trackers: Optional[Dict[str, BestTracker]] = None) -> Dict[str, Any]:
+    """The three stages for the waveform and the ISI model, then the KNN
+    evaluation and the exports. Returns the JAX pipeline's ``results`` keys.
+
+    ``trackers``, when given, is filled with each checkpoint's BestTracker
+    ("wave", "time", "wave_supervised", "time_supervised"), so a caller can
+    hold the written files to the snapshots they came from.
+    """
+    timer = StageTimer()
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    seed = cfg.seed
+    trackers = {} if trackers is None else trackers
+
+    # ---------------- Stage 1: leave-target-out pretraining ----------------
+    with timer.stage("load_pool"):
+        pool = load_pretrain_pool(cfg)
+    tr_idx, va_idx = train_val_split(len(pool), cfg.train_val_split, loop.key_generator(seed, 0))
+
+    states: Dict[str, step.TrainState] = {}
+    for mi, modality in enumerate(MODALITIES):
+        clip = None if modality == "wave" else cfg.gradient_clip_val  # quirk Q7
+        cfg_m = model_config(cfg, modality, num_classes=5)
+        tracker = BestTracker(os.path.join(cfg.checkpoint_dir, f"{cfg.dataset}_{modality}_model.ckpt"))
+        with timer.stage("setup"):
+            ts = _init_state(cfg, cfg_m, 100 + mi, cfg.learning_rate, clip)
+        if cfg.verbose:
+            print(f"[stage 1] pretraining {modality} model ({cvae.param_count(ts.model):,} params)")
+        with timer.stage(f"pretrain_{modality}"):
+            result = fit_unimodal_stage(
+                cfg=cfg, ts=ts, data=pool.wave if modality == "wave" else pool.isi,
+                source=pool.source, class_=pool.source, train_indices=tr_idx, val_indices=va_idx,
+                batch_size=cfg.batch_size, max_epochs=cfg.pretrain_max_epochs, beta=1.0,  # Q6
+                use_class_labels=False, shuffle_train=True, stage_seed=10 + mi,
+                lr=cfg.learning_rate,
+            )
+        with timer.stage("ckpt_save"):
+            tracker.update_from_fit(result, ckpt_mod.parameter_key_order(ts.model),
+                                    (cfg.learning_rate, cfg.weight_decay))
+        # the reference reloads the best ckpt after stage 1 (train_model.py:160-163)
+        if tracker.best_state_dict is not None:
+            ts.model.load_state_dict(tracker.best_state_dict)
+        states[modality] = ts
+        trackers[modality] = tracker
+
+    # ---------------- Stage 2: unsupervised fine-tune on the target --------
+    with timer.stage("load_target"):
+        target = load_dataset(cfg, cfg.dataset, dropna=True)  # quirk Q13
+    target_source_id = registry.DATASET_SOURCE_IDS.get(cfg.dataset, 0)
+
+    ft_lr = cfg.learning_rate / 10.0
+    if cfg.finetune_without_labels:
+        ft_tr, ft_va = finetune_split_indices(cfg, len(target), loop.key_generator(seed, 1))
+        for mi, modality in enumerate(MODALITIES):
+            clip = None if modality == "wave" else cfg.gradient_clip_val
+            model = states[modality].model
+            # a fresh AdamW per fit, as the reference's configure_optimizers
+            ts = step.TrainState(model, optim.make_optimizer(model.parameters(), ft_lr,
+                                                             cfg.weight_decay, clip))
+            if cfg.verbose:
+                print(f"[stage 2] fine-tuning {modality} model on {cfg.dataset} (lr={ft_lr})")
+            with timer.stage(f"finetune_{modality}"):
+                result = fit_unimodal_stage(
+                    cfg=cfg, ts=ts, data=target.wave if modality == "wave" else target.isi,
+                    source=target.source, class_=target.source, train_indices=ft_tr, val_indices=ft_va,
+                    batch_size=cfg.batch_size, max_epochs=cfg.finetune_max_epochs, beta=1.0,
+                    use_class_labels=False,
+                    shuffle_train=False,  # the reference's shuffle=False here (train_model.py:198-199)
+                    stage_seed=20 + mi, lr=ft_lr,
+                )
+            with timer.stage("ckpt_save"):
+                trackers[modality].update_from_fit(result, ckpt_mod.parameter_key_order(model),
+                                                   (ft_lr, cfg.weight_decay))
+            # stage-2 embeddings use the LAST-epoch model (train_model.py:235)
+            states[modality] = result.state
+        emb_idx = torch.as_tensor(ft_tr, device=cfg.device).long()
+    else:
+        emb_idx = torch.arange(len(target), device=cfg.device)
+
+    with timer.stage("embeddings"):
+        ft_wave_emb, ft_isi_emb, ft_joint_emb = emb.get_embeddings(
+            states["wave"].model, states["time"].model,
+            target.wave[emb_idx], target.isi[emb_idx], target.source[emb_idx])
+    pretrain_paths = export_pretraining_embeddings(
+        cfg, {"waveform": ft_wave_emb, "isi": ft_isi_emb, "joint": ft_joint_emb})
+
+    # ---------------- Stage 3: supervised with class conditioning ----------
+    with timer.stage("load_target"):
+        sup_wf, sup_isi = registry.load_raw(cfg.data_root, cfg.dataset,
+                                            drop_index_column=cfg.drop_index_column)  # no dropna (Q13)
+        sup_wave, sup_isi_p = preprocess.preprocess_pair(sup_wf, sup_isi, device=cfg.device)
+        sup_labels, le = registry.load_supervised_labels(cfg.data_root, cfg.dataset)
+
+    n = len(sup_wf)
+    s_tr, s_va = train_val_split(n, cfg.train_val_split, loop.key_generator(seed, 2))
+    label_train = sup_labels[s_tr]
+    label_val = sup_labels[s_va]
+    num_class_labels = int(len(np.unique(label_train)))
+
+    labels_dev = torch.as_tensor(sup_labels, device=cfg.device).long()
+    source_dev = torch.full((n,), target_source_id, dtype=torch.long, device=cfg.device)
+
+    sup_models: Dict[str, torch.nn.Module] = {}
+    sup_trackers: Dict[str, BestTracker] = {}
+    # one balanced stream serves both modalities (fixed seed, same labels)
+    train_stream = np.asarray(s_tr)[sampling.balanced_indices(label_train, seed=cfg.seed)]
+    for mi, modality in enumerate(MODALITIES):
+        cfg_m = model_config(cfg, modality, num_classes=num_class_labels)
+        with timer.stage("setup"):
+            ts = _init_state(cfg, cfg_m, 200 + mi, ft_lr, cfg.gradient_clip_val)
+            tk = trackers[modality]
+            best = tk.best_state_dict if tk.best_state_dict is not None else \
+                states[modality].model.state_dict()
+            seed_from_best(ts.model, best)  # minus the class embedding (quirk Q10)
+        with timer.stage("ckpt_save"):
+            trackers[modality].flush()  # stages 1-2 are final for this model
+        tracker = BestTracker(
+            os.path.join(cfg.checkpoint_dir, f"{cfg.dataset}_{modality}_model_supervised.ckpt"))
+        if cfg.verbose:
+            print(f"[stage 3] supervised {modality} training ({num_class_labels} classes)")
+        with timer.stage(f"supervised_{modality}"):
+            result = fit_unimodal_stage(
+                cfg=cfg, ts=ts, data=sup_wave if modality == "wave" else sup_isi_p,
+                source=source_dev, class_=labels_dev, train_indices=np.asarray(s_tr),
+                val_indices=np.asarray(s_va), batch_size=cfg.supervised_batch_size,
+                max_epochs=cfg.supervised_max_epochs, beta=1.0, use_class_labels=True,
+                shuffle_train=False, fixed_train_stream=train_stream, stage_seed=30 + mi, lr=ft_lr,
+            )
+        with timer.stage("ckpt_save"):
+            tracker.update_from_fit(result, ckpt_mod.parameter_key_order(ts.model),
+                                    (ft_lr, cfg.weight_decay))
+            tracker.flush()
+        if tracker.best_state_dict is not None:
+            ts.model.load_state_dict(tracker.best_state_dict)
+        sup_models[modality] = ts.model
+        sup_trackers[modality] = tracker
+        trackers[f"{modality}_supervised"] = tracker
+
+    # ---------------- Evaluation: embeddings + KNN sweep --------------------
+    tr_dev = torch.as_tensor(s_tr, device=cfg.device).long()
+    va_dev = torch.as_tensor(s_va, device=cfg.device).long()
+    # The reference extracts stage-3 embeddings WITH class conditioning
+    # (train_model.py:407-413), a label leak; honest_eval opts out.
+    with timer.stage("embeddings"):
+        wave_tr, isi_tr, joint_tr = emb.get_embeddings(
+            sup_models["wave"], sup_models["time"], sup_wave[tr_dev], sup_isi_p[tr_dev],
+            source_dev[tr_dev], None if cfg.honest_eval else labels_dev[tr_dev])
+        wave_va, isi_va, joint_va = emb.get_embeddings(
+            sup_models["wave"], sup_models["time"], sup_wave[va_dev], sup_isi_p[va_dev],
+            source_dev[va_dev], None if cfg.honest_eval else labels_dev[va_dev])
+
+    neighbor_options = list(range(5, 20))  # train_model.py:419
+    accs: Dict[str, List[float]] = {}
+    preds_by_kind: Dict[str, Dict[int, np.ndarray]] = {}
+    with timer.stage("knn_eval"):
+        for kind, e_tr, e_va in (("joint", joint_tr, joint_va), ("waveform", wave_tr, wave_va),
+                                 ("isi", isi_tr, isi_va)):
+            preds = knn_eval.knn_predict_sweep(e_tr, label_train, e_va, neighbor_options,
+                                               device=cfg.device)
+            preds_by_kind[kind] = preds
+            accs[kind] = [metrics.balanced_accuracy_score(label_val, preds[k]) for k in neighbor_options]
+
+    results: Dict[str, Any] = {
+        "label_encoder": le,
+        "neighbor_options": neighbor_options,
+        "balanced_accuracy": accs,
+        "best": {},
+        "paths": {"pretraining_embeddings": pretrain_paths},
+        "num_class_labels": num_class_labels,
+        "checkpoints": {m: trackers[m].path for m in MODALITIES},
+        "supervised_checkpoints": {m: t.path for m, t in sup_trackers.items()},
+    }
+    for kind in ("waveform", "isi", "joint"):
+        best_k = neighbor_options[int(np.argmax(accs[kind]))]
+        pred = preds_by_kind[kind][best_k]
+        cm = metrics.confusion_matrix(label_val, pred, labels=np.arange(len(le.classes_)))
+        results["best"][kind] = {"k": best_k, "balanced_accuracy": float(np.max(accs[kind])),
+                                 "confusion_matrix": cm, "pred": pred}
+        results["paths"][f"{kind}_knn"] = export_knn_csv(cfg, kind, pred, label_val, le)
+
+    # full-dataset embeddings export (train_model.py:480-507)
+    with timer.stage("embeddings"):
+        wave_all, isi_all, joint_all = emb.get_embeddings(
+            sup_models["wave"], sup_models["time"], sup_wave, sup_isi_p, source_dev,
+            None if cfg.honest_eval else labels_dev)
+    for kind, arr in (("waveform", wave_all), ("isi", isi_all), ("joint", joint_all)):
+        results["paths"][f"{kind}_embeddings"] = export_embeddings_csv(cfg, kind, arr, sup_labels, le)
+
+    with timer.stage("ckpt_save"):
+        for t in [trackers[m] for m in MODALITIES] + list(sup_trackers.values()):
+            t.flush()
+    results["label_val"] = label_val
+    results["label_train"] = label_train
+    results["timings"] = dict(timer.timings)
+    if cfg.verbose and timer.timings:
+        print("stage timings:", timer.summary())
+    return results
+

@@ -631,3 +631,80 @@ def test_dec_block_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         cb.dec_block_fwd_cuda(2, *_dec_inputs(cuda_device, 2, 8, 96, 48)[0])
     with pytest.raises(ValueError):  # a stride-1 block with a shortcut
         cb.dec_block_fwd_cuda(1, *args)
+
+
+# ---------------------------------------------------------------------------
+# The unimodal pipeline's layers on the card: the KNN sweep and a stage fit
+# ---------------------------------------------------------------------------
+
+
+def _knn_data(kind: str):
+    """(train_x, train_y, test_x): small integers, whose squared distances are
+    exact in float32 on any device and tie often, or normal draws."""
+    r = np.random.default_rng(4)
+    if kind == "integer_ties":
+        return (r.integers(-2, 3, size=(300, 6)).astype(np.float32), r.integers(0, 4, size=300),
+                r.integers(-2, 3, size=(80, 6)).astype(np.float32))
+    return (r.normal(size=(300, 10)).astype(np.float32), r.integers(0, 4, size=300),
+            r.normal(size=(80, 10)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["integer_ties", "normal"])
+def test_knn_sweep_on_the_card_equals_the_cpu(cuda_device, kind):
+    """Every k of 5..19 predicts on the card exactly what it predicts on the
+    CPU, ties included (stable sort: lower train index; argmax: lower class)."""
+    from hippie_tpu_torch.evaluate import knn_eval
+
+    train_x, train_y, test_x = _knn_data(kind)
+    ks = list(range(5, 20))
+    got = knn_eval.knn_predict_sweep(train_x, train_y, test_x, ks, device=cuda_device)
+    ref = knn_eval.knn_predict_sweep(train_x, train_y, test_x, ks, device="cpu")
+    for k in ks:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=f"k={k}")
+
+
+@pytest.mark.cuda
+def test_stage_fit_on_the_card_runs_the_kernels_and_writes_a_ckpt(cuda_device, tmp_path):
+    """One stage fit (2 epochs, the small model) with the loss and block
+    kernels: every kernel of the path launches, once per train step per
+    block; the tracker's .ckpt reloads into a fresh model and optimizer equal
+    bit for bit to the best snapshot."""
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.ops import cuda_blocks
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+    from hippie_tpu_torch.train import optim, pipeline, step
+
+    cfg = pipeline.PipelineConfig(device="cuda", loss_backend="pallas", block_backend="pallas",
+                                  verbose=False, batch_size=32, checkpoint_dir=str(tmp_path))
+    cfg_m = cvae.CVAEConfig(z_dim=4, num_sources=5, num_classes=5, num_blocks=(1, 1, 1, 1))
+    model = cvae.unimodal_cvae_init(cfg_m, torch.Generator().manual_seed(0), device="cuda")
+    ts = step.TrainState(model, optim.make_optimizer(model.parameters(), 1e-3, 0.01))
+    r = np.random.default_rng(0)
+    data = torch.from_numpy(r.normal(size=(90, 50)).astype(np.float32)).cuda()
+    source = torch.from_numpy(r.integers(0, 5, size=90)).cuda()
+    cuda_ops.reset_launches()
+    cuda_blocks.reset_launches()
+    result = pipeline.fit_unimodal_stage(
+        cfg=cfg, ts=ts, data=data, source=source, class_=source, train_indices=np.arange(70),
+        val_indices=np.arange(70, 90), batch_size=32, max_epochs=2, beta=1.0,
+        use_class_labels=False, shuffle_train=True)
+    steps = 2 * 3  # 2 epochs of 70 rows at B = 32
+    assert result.epochs_run == 2 and all(np.isfinite(result.train_losses))
+    assert {**cuda_ops.launches, **cuda_blocks.launches} == {
+        "vae_sums_fwd": steps + 2, "vae_sums_bwd": steps, "masked_sse_fwd": 0,
+        "enc_block_fwd": 4 * steps, "enc_block_bwd": 4 * steps,
+        "dec_block_fwd": 4 * steps, "dec_block_bwd": 4 * steps}
+    tracker = pipeline.BestTracker(str(tmp_path / "stage.ckpt"))
+    assert tracker.update_from_fit(result, ckpt_mod.parameter_key_order(model), (1e-3, 0.01))
+    tracker.flush()
+    ck = ckpt_mod.load_lightning_ckpt(tracker.path)
+    fresh = cvae.unimodal_cvae_init(cfg_m, torch.Generator().manual_seed(1), device="cuda")
+    assert not ckpt_mod.load_model_state(fresh, ckpt_mod.model_state_from_ckpt(ck))
+    opt = optim.make_optimizer(fresh.parameters(), 1e-3, 0.01)
+    ckpt_mod.load_optimizer_state(opt, ck["optimizer_states"][0])
+    for k, v in fresh.state_dict().items():
+        assert torch.equal(v, tracker.best_state_dict[k]), k
+    for i, e in tracker.best_opt["state"].items():
+        for m in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(opt.state_dict()["state"][i][m].to(e[m].device), e[m]), (i, m)
