@@ -27,7 +27,14 @@ a one-element torch op, the launch floor). Last it runs the port's unimodal
 3-stage pipeline (run_unimodal_pipeline, the user's main path) at full width
 on cellexplorer-celltype, one epoch per stage through the loss and block
 kernels, and checks its 13 outputs, its checkpoints against the best
-snapshots, its 45 balanced accuracies and its kernel launches. Each block kernel is split by kernel
+snapshots, its 45 balanced accuracies and its kernel launches; then the
+joint 3-stage pipeline (run_pipeline(model_type="multimodal"), 16,115,748
+parameters in stage 1, the path that runs all seven kernels) the same way:
+5 outputs, 2 checkpoints, 15 balanced accuracies, exact launches, which
+are the ``launches`` of the kernels line. Last the inference CLI embeds
+the target with the unimodal pipeline's stage-3 checkpoints and the joint
+one's, each file held to the models called directly, and k-means and the
+GMM run on the card against the host. Each block kernel is split by kernel
 (device time and launches per call; at most 5 per enc_block_fwd and
 dec_block_fwd call and 8 per enc_block_bwd and dec_block_bwd call), and the
 block libraries' SASS is checked for wgmma (HGMMA).
@@ -46,6 +53,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -1277,107 +1285,125 @@ def csv_table(path: str):
     return rows[0], rows[1:]
 
 
-def phase_pipeline(card: str, device="cuda"):
+def check_ckpts(trackers: dict, fresh_model, device="cuda") -> int:
+    """Each tracker's .ckpt against its best snapshot, bit for bit: the
+    state_dict (weights and buffers) and every AdamW state (step and both
+    moments); then reloaded into ``fresh_model(key)`` and a fresh optimizer
+    on the card, equal again. Returns the number of files checked."""
+    import torch
+
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+    from hippie_tpu_torch.train import optim
+
+    for key, tracker in trackers.items():
+        ck = ckpt_mod.load_lightning_ckpt(tracker.path)
+        sd = ckpt_mod.model_state_from_ckpt(ck)
+        best = tracker.best_state_dict
+        check(list(sd) == list(best) and all(torch.equal(sd[k], v.cpu()) for k, v in best.items()),
+              f"{tracker.path}: state_dict differs from the tracker's best snapshot")
+        opt_saved = ck["optimizer_states"][0]["state"]
+        opt_best = tracker.best_opt["state"]
+        check(len(opt_saved) == len(opt_best) == len(sd) - sum("running_" in k or "batches" in k
+                                                              for k in sd),
+              f"{tracker.path}: {len(opt_saved)} optimizer states for {len(opt_best)} parameters")
+        for i, e in opt_best.items():
+            check(float(opt_saved[i]["step"]) == float(e["step"]) and all(
+                np.array_equal(opt_saved[i][m], e[m].cpu().numpy()) for m in ("exp_avg", "exp_avg_sq")),
+                f"{tracker.path}: AdamW state {i} differs from the tracker's best snapshot")
+        model = fresh_model(key)
+        check(not ckpt_mod.load_model_state(model, sd), f"{tracker.path}: keys left unloaded")
+        opt = optim.make_optimizer(model.parameters(), 1e-4, WD)
+        ckpt_mod.load_optimizer_state(opt, ck["optimizer_states"][0])
+        check(all(torch.equal(v, best[k]) for k, v in model.state_dict().items())
+              and all(torch.equal(opt.state_dict()["state"][i][m], e[m])
+                      for i, e in opt_best.items() for m in ("exp_avg", "exp_avg_sq")),
+              f"{tracker.path}: the reloaded model or optimizer differs from the snapshot")
+    return len(trackers)
+
+
+def check_tables(out_dir: str, tables: dict, classes: set):
+    """Each CSV's header and row count; the embedding files' values finite
+    and their labels known."""
+    import math
+
+    for name, (header, rows) in tables.items():
+        got_header, got_rows = csv_table(f"{out_dir}/{name}")
+        check(got_header == header, f"{name}: header {got_header[:4]}..., expected {header[:4]}...")
+        check(len(got_rows) == rows, f"{name}: {len(got_rows)} rows, expected {rows}")
+        if name.endswith("_embeddings.csv") and not name.startswith("pretraining"):
+            check(all(math.isfinite(float(v)) for r in got_rows for v in r[1:-1])
+                  and {r[-1] for r in got_rows} <= classes, f"{name}: non-finite value or unknown label")
+
+
+def phase_pipeline(card: str, workdir: str, device="cuda") -> dict:
     """The port's unimodal 3-stage pipeline, run_unimodal_pipeline, at full
     width (z=10, ResNet18: 8,056,639 parameters per stage-1 model) on
     datasets/cellexplorer-celltype, one epoch per stage, with the loss and
-    block kernels (loss_backend and block_backend "pallas"), outputs in a
-    temporary directory. Checks the 13 outputs (names, CSV headers and row
-    counts), that each .ckpt reloads into the port equal bit for bit to its
-    tracker's best snapshot (weights, buffers and AdamW moments), that the 45
-    balanced accuracies are finite, and that kernels 1, 2 and 4-7 were
-    launched exactly (train steps) x (launches per step) times; vae_sums_fwd
-    also runs in every validation step. Returns the launch counts."""
+    block kernels (loss_backend and block_backend "pallas"), outputs under
+    ``workdir``. Checks the 13 outputs (names, CSV headers and row counts),
+    that each .ckpt reloads into the port equal bit for bit to its tracker's
+    best snapshot (weights, buffers and AdamW moments), that the 45 balanced
+    accuracies are finite, and that kernels 1, 2 and 4-7 were launched
+    exactly (train steps) x (launches per step) times; vae_sums_fwd also
+    runs in every validation step. Returns the stage-3 checkpoints' paths
+    ("wave", "time")."""
     import math
-    import tempfile
 
     import torch
 
     from hippie_tpu_torch.data import sampling
     from hippie_tpu_torch.models import cvae
-    from hippie_tpu_torch.train import checkpoint as ckpt_mod
-    from hippie_tpu_torch.train import optim, pipeline
+    from hippie_tpu_torch.train import pipeline
 
-    with tempfile.TemporaryDirectory(prefix="hippie_pipeline_") as tmp:
-        cfg = pipeline.PipelineConfig(z_dim=Z, dataset=TARGET, data_root=DATA_ROOT,
-                                      output_dir=f"{tmp}/out", checkpoint_dir=f"{tmp}/checkpoints",
-                                      loss_backend="pallas", block_backend="pallas", device=device,
-                                      verbose=False)
-        trackers = {}
-        sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
-        reset_all_launches()
-        sync()
-        t0 = time.perf_counter()
-        results = pipeline.run_unimodal_pipeline(cfg, trackers=trackers)
-        sync()
-        wall = time.perf_counter() - t0
-        launches = all_launches()
+    cfg = pipeline.PipelineConfig(z_dim=Z, dataset=TARGET, data_root=DATA_ROOT,
+                                  output_dir=f"{workdir}/out", checkpoint_dir=f"{workdir}/checkpoints",
+                                  loss_backend="pallas", block_backend="pallas", device=device,
+                                  verbose=False)
+    trackers = {}
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    reset_all_launches()
+    sync()
+    t0 = time.perf_counter()
+    results = pipeline.run_unimodal_pipeline(cfg, trackers=trackers)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
 
-        # the steps of one epoch per stage and model
-        n_pool, n_target = 2975, 392
-        n_tr = int(cfg.train_val_split * n_pool)
-        n_ft = int(cfg.finetune_split * n_target)
-        n_stream = len(sampling.balanced_indices(results["label_train"], seed=cfg.seed))
-        train = 2 * (n_batches(n_tr, cfg.batch_size) + n_batches(n_ft, cfg.batch_size)
-                     + n_batches(n_stream, cfg.supervised_batch_size))
-        val = 2 * (n_batches(n_pool - n_tr, cfg.batch_size) + n_batches(n_target - n_ft, cfg.batch_size)
-                   + n_batches(len(results["label_val"]), cfg.supervised_batch_size))
-        blocks = sum(cfg.num_blocks)
-        want = {"vae_sums_fwd": train + val, "vae_sums_bwd": train, "masked_sse_fwd": 0,
-                **{k: blocks * train for k in ("enc_block_fwd", "enc_block_bwd", "dec_block_fwd",
-                                               "dec_block_bwd")}}
-        check(launches == want or device == "cpu", f"pipeline kernel launches {launches}, expected "
-                                                   f"{want} ({train} train and {val} val steps)")
+    # the steps of one epoch per stage and model
+    n_pool, n_target = 2975, 392
+    n_tr = int(cfg.train_val_split * n_pool)
+    n_ft = int(cfg.finetune_split * n_target)
+    n_stream = len(sampling.balanced_indices(results["label_train"], seed=cfg.seed))
+    train = 2 * (n_batches(n_tr, cfg.batch_size) + n_batches(n_ft, cfg.batch_size)
+                 + n_batches(n_stream, cfg.supervised_batch_size))
+    val = 2 * (n_batches(n_pool - n_tr, cfg.batch_size) + n_batches(n_target - n_ft, cfg.batch_size)
+               + n_batches(len(results["label_val"]), cfg.supervised_batch_size))
+    blocks = sum(cfg.num_blocks)
+    want = {"vae_sums_fwd": train + val, "vae_sums_bwd": train, "masked_sse_fwd": 0,
+            **{k: blocks * train for k in ("enc_block_fwd", "enc_block_bwd", "dec_block_fwd",
+                                           "dec_block_bwd")}}
+    check(launches == want or device == "cpu", f"pipeline kernel launches {launches}, expected "
+                                               f"{want} ({train} train and {val} val steps)")
 
-        ds, n_val = TARGET, len(results["label_val"])
-        tables = {f"pretraining_{ds}_{k}_embeddings.csv": (["", "embeddings"], n_ft)
-                  for k in ("waveform", "isi", "joint")}
-        for kind, width in (("waveform", Z), ("isi", Z), ("joint", 2 * Z)):
-            tables[f"{ds}_{kind}_knn.csv"] = (["", "pred", "true"], n_val)
-            tables[f"{ds}_{kind}_embeddings.csv"] = ([""] + [str(j) for j in range(width)] + ["label"],
-                                                     n_target)
-        classes = set(results["label_encoder"].classes_.tolist())
-        for name, (header, rows) in tables.items():
-            got_header, got_rows = csv_table(f"{cfg.output_dir}/{name}")
-            check(got_header == header, f"{name}: header {got_header[:4]}..., expected {header[:4]}...")
-            check(len(got_rows) == rows, f"{name}: {len(got_rows)} rows, expected {rows}")
-            if name.endswith("_embeddings.csv") and not name.startswith("pretraining"):
-                check(all(math.isfinite(float(v)) for r in got_rows for v in r[1:-1])
-                      and {r[-1] for r in got_rows} <= classes, f"{name}: non-finite value or unknown label")
+    ds, n_val = TARGET, len(results["label_val"])
+    tables = {f"pretraining_{ds}_{k}_embeddings.csv": (["", "embeddings"], n_ft)
+              for k in ("waveform", "isi", "joint")}
+    for kind, width in (("waveform", Z), ("isi", Z), ("joint", 2 * Z)):
+        tables[f"{ds}_{kind}_knn.csv"] = (["", "pred", "true"], n_val)
+        tables[f"{ds}_{kind}_embeddings.csv"] = ([""] + [str(j) for j in range(width)] + ["label"],
+                                                 n_target)
+    check_tables(cfg.output_dir, tables, set(results["label_encoder"].classes_.tolist()))
 
-        n_classes = results["num_class_labels"]
-        for key, tracker in trackers.items():
-            ck = ckpt_mod.load_lightning_ckpt(tracker.path)
-            sd = ckpt_mod.model_state_from_ckpt(ck)
-            best = tracker.best_state_dict
-            check(list(sd) == list(best) and all(torch.equal(sd[k], v.cpu()) for k, v in best.items()),
-                  f"{tracker.path}: state_dict differs from the tracker's best snapshot")
-            opt_saved = ck["optimizer_states"][0]["state"]
-            opt_best = tracker.best_opt["state"]
-            check(len(opt_saved) == len(opt_best) == len(sd) - sum("running_" in k or "batches" in k
-                                                                  for k in sd),
-                  f"{tracker.path}: {len(opt_saved)} optimizer states for {len(opt_best)} parameters")
-            for i, e in opt_best.items():
-                check(float(opt_saved[i]["step"]) == float(e["step"]) and all(
-                    np.array_equal(opt_saved[i][m], e[m].cpu().numpy()) for m in ("exp_avg", "exp_avg_sq")),
-                    f"{tracker.path}: AdamW state {i} differs from the tracker's best snapshot")
-            # reload into a fresh port model and optimizer on the card
-            modality = key.split("_")[0]
-            cfg_m = pipeline.model_config(cfg, modality, n_classes if "supervised" in key else 5)
-            model = cvae.unimodal_cvae_init(cfg_m, torch.Generator().manual_seed(0), device=device)
-            check(not ckpt_mod.load_model_state(model, sd), f"{tracker.path}: keys left unloaded")
-            opt = optim.make_optimizer(model.parameters(), 1e-4, WD)
-            ckpt_mod.load_optimizer_state(opt, ck["optimizer_states"][0])
-            check(all(torch.equal(v, best[k]) for k, v in model.state_dict().items())
-                  and all(torch.equal(opt.state_dict()["state"][i][m], e[m])
-                          for i, e in opt_best.items() for m in ("exp_avg", "exp_avg_sq")),
-                  f"{tracker.path}: the reloaded model or optimizer differs from the snapshot")
-        ckpts = sorted(pathlib.Path(cfg.checkpoint_dir).glob("*.ckpt"))
-        check([p.name for p in ckpts] == sorted(f"{ds}_{m}_model{s}.ckpt" for m in ("wave", "time")
-                                                for s in ("", "_supervised")),
-              f"checkpoints {[p.name for p in ckpts]}")
-        accs = [a for kind in results["balanced_accuracy"].values() for a in kind]
-        check(len(accs) == 45 and all(math.isfinite(a) for a in accs), f"balanced accuracies {accs}")
+    n_classes = results["num_class_labels"]
+    check_ckpts(trackers, lambda key: cvae.unimodal_cvae_init(
+        pipeline.model_config(cfg, key.split("_")[0], n_classes if "supervised" in key else 5),
+        torch.Generator().manual_seed(0), device=device), device)
+    ckpts = sorted(pathlib.Path(cfg.checkpoint_dir).glob("*.ckpt"))
+    check([p.name for p in ckpts] == sorted(f"{ds}_{m}_model{s}.ckpt" for m in ("wave", "time")
+                                            for s in ("", "_supervised")),
+          f"checkpoints {[p.name for p in ckpts]}")
+    accs = [a for kind in results["balanced_accuracy"].values() for a in kind]
+    check(len(accs) == 45 and all(math.isfinite(a) for a in accs), f"balanced accuracies {accs}")
 
     timings = results["timings"]
     fits = {k: round(v, 3) for k, v in timings.items() if k.split("_")[0] in ("pretrain", "finetune",
@@ -1390,7 +1416,207 @@ def phase_pipeline(card: str, device="cuda"):
     print(f"  13 outputs checked ({len(tables)} CSVs, {len(ckpts)} .ckpt reloaded equal to their "
           f"snapshots); best balanced accuracy "
           + ", ".join(f"{k} {v['balanced_accuracy']:.4f} (k={v['k']})" for k, v in results["best"].items()))
-    return launches
+    return {m: trackers[f"{m}_supervised"].path for m in ("wave", "time")}
+
+
+def phase_joint_pipeline(card: str, workdir: str, device="cuda"):
+    """The port's joint 3-stage pipeline, run_pipeline(model_type=
+    "multimodal"), at full width (z=10, four ResNet18 backbones: 16,115,748
+    parameters in stage 1) on datasets/cellexplorer-celltype, one epoch per
+    stage, with the loss and block kernels, outputs under ``workdir``. Checks
+    the 5 outputs (CSV headers and row counts; the stage-2 embeddings are the
+    fine-tune val split's), that both .ckpt files reload equal bit for bit to
+    their trackers' snapshots (weights, buffers, AdamW moments), the 15
+    finite balanced accuracies, and every kernel's exact launches: per joint
+    train step one of each loss kernel and 16 of each block kernel (two
+    backbones of 8 blocks per kind), per val step one vae_sums_fwd and one
+    masked_sse_fwd (18 train and 5 val steps at this data). Returns the
+    launch counts and the supervised checkpoint's path."""
+    import math
+
+    import torch
+
+    from hippie_tpu_torch.data import sampling
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import pipeline
+
+    t_phase = time.perf_counter()
+    cfg = pipeline.PipelineConfig(model_type="multimodal", z_dim=Z, num_blocks=(2, 2, 2, 2), dataset=TARGET,
+                                  data_root=DATA_ROOT, output_dir=f"{workdir}/joint_out",
+                                  checkpoint_dir=f"{workdir}/joint_checkpoints", loss_backend="pallas",
+                                  block_backend="pallas", device=device, verbose=False)
+    with torch.device("meta"):
+        n_params = cvae.param_count(cvae.MultiModalCVAE(pipeline.joint_model_config(cfg, 5)))
+    check(n_params == FULL_MM_PARAMS, f"{n_params} stage-1 parameters, expected {FULL_MM_PARAMS}")
+    trackers = {}
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    reset_all_launches()
+    sync()
+    t0 = time.perf_counter()
+    results = pipeline.run_pipeline(cfg, trackers=trackers)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+
+    n_pool, n_target = 2975, 392
+    n_tr = int(cfg.train_val_split * n_pool)
+    n_ft = int(cfg.finetune_split * n_target)
+    n_val = len(results["label_val"])
+    n_stream = len(sampling.balanced_indices(results["label_train"], seed=cfg.seed))
+    train = (n_batches(n_tr, cfg.batch_size) + n_batches(n_ft, cfg.batch_size)
+             + n_batches(n_stream, cfg.supervised_batch_size))
+    val = (n_batches(n_pool - n_tr, cfg.batch_size) + n_batches(n_target - n_ft, cfg.batch_size)
+           + n_batches(n_val, cfg.supervised_batch_size))
+    blocks = 2 * sum(cfg.num_blocks)
+    want = {"vae_sums_fwd": train + val, "vae_sums_bwd": train, "masked_sse_fwd": train + val,
+            **{k: blocks * train for k in ("enc_block_fwd", "enc_block_bwd", "dec_block_fwd",
+                                           "dec_block_bwd")}}
+    check(launches == want or device == "cpu", f"joint pipeline kernel launches {launches}, expected "
+                                               f"{want} ({train} train and {val} val steps)")
+    check(device == "cpu" or (train, val) == (18, 5), f"{train} train and {val} val steps, expected 18 and 5")
+
+    ds = TARGET
+    tables = {f"pretraining_{ds}_joint_embeddings.csv": (["", "embeddings"], n_target - n_ft),
+              f"{ds}_joint_knn.csv": (["", "pred", "true"], n_val),
+              f"{ds}_joint_embeddings.csv": ([""] + [str(j) for j in range(Z)] + ["label"], n_target)}
+    check(sorted(p.name for p in pathlib.Path(cfg.output_dir).iterdir()) == sorted(tables),
+          f"joint outputs {sorted(p.name for p in pathlib.Path(cfg.output_dir).iterdir())}")
+    check_tables(cfg.output_dir, tables, set(results["label_encoder"].classes_.tolist()))
+    n_classes = results["num_class_labels"]
+    check_ckpts(trackers, lambda key: cvae.multimodal_cvae_init(
+        pipeline.joint_model_config(cfg, n_classes if key == "joint_supervised" else 5),
+        torch.Generator().manual_seed(0), device=device), device)
+    ckpts = sorted(p.name for p in pathlib.Path(cfg.checkpoint_dir).glob("*.ckpt"))
+    check(ckpts == [f"{ds}_joint_model.ckpt", f"{ds}_joint_model_supervised.ckpt"], f"checkpoints {ckpts}")
+    accs = results["balanced_accuracy"]["joint"]
+    check(len(accs) == 15 and all(math.isfinite(a) for a in accs), f"balanced accuracies {accs}")
+
+    timings = {k: round(v, 3) for k, v in results["timings"].items()}
+    print(f"[10 joint pipeline] run_pipeline(model_type=multimodal) on {ds}, z={Z}, {n_params:,} stage-1 "
+          f"params, one epoch per stage, loss_backend=pallas block_backend=pallas: {wall:.3f} s wall on "
+          f"{card}; {train} train and {val} val steps; launches {launches}")
+    print(f"  stage timings (StageTimer): {json.dumps(timings)}")
+    best = results["best"]["joint"]
+    print(f"  5 outputs checked (3 CSVs, 2 .ckpt reloaded equal to their snapshots); 15 finite balanced "
+          f"accuracies, best {best['balanced_accuracy']:.4f} (k={best['k']}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, trackers["joint_supervised"].path
+
+
+def clustering_vs_host(x, method: str, k: int = 4, seed: int = 42, reps: int = 5, device="cuda"):
+    """``method`` of hippie_tpu_torch/ops/clustering.py on the card against
+    the same call on the host (same seed, so the same k-means++ draws from
+    the CPU generator). The assignments must be equal, every float (centres,
+    means, variances, weights) within 1e-4 of the host's relative to the
+    largest magnitude, inertia and log-likelihood rtol 1e-4: the two sides
+    differ only in the summation order of float32 reductions over at most
+    16,564 rows (about sqrt(n) * 6e-8, 8e-6 relative), far below these
+    limits, and a row whose assignment flips between devices would need its
+    two nearest centres (or two largest log-probabilities) within that
+    rounding of each other. Returns the card's ms per call (CUDA-synchronised
+    wall time, median of ``reps`` after one warm-up call)."""
+    import torch
+
+    from hippie_tpu_torch.ops import clustering
+
+    fn = getattr(clustering, method)
+    xd = torch.as_tensor(x, dtype=torch.float32).to(device)
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    got = [v.cpu() for v in fn(xd, k, seed=seed)]
+    ref = fn(xd.cpu(), k, seed=seed)
+    check(torch.equal(got[0], ref[0]),
+          f"{method}: {int((got[0] != ref[0]).sum())} of {len(got[0])} assignments differ on the card")
+    for a, b in zip(got[1:-1], ref[1:-1]):
+        err = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+        check(err <= 1e-4, f"{method}: card and host differ by {err:.3g} (relative)")
+    check(abs(float(got[-1]) - float(ref[-1])) <= 1e-4 * abs(float(ref[-1])),
+          f"{method}: {float(got[-1])} on the card, {float(ref[-1])} on the host")
+    times = []
+    for _ in range(reps + 1):
+        sync()
+        t0 = time.perf_counter()
+        fn(xd, k, seed=seed)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def phase_inference(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, device="cuda"):
+    """The port's inference CLI, in process, on the card: on phase 9's
+    stage-3 wave and time checkpoints with ``--cluster 4 --cluster-method
+    kmeans``, and on phase 10's supervised joint checkpoint with ``gmm``.
+    Every CSV has the dataset's 392 rows; each embedding file is within
+    1e-5 of embed_unimodal / embed_multimodal of the checkpoint's model
+    (export.load_model_from_ckpt) called directly on the same inputs (the
+    CLI's labels are the dummy zeros, so the source is 0); the clusters are
+    ids below 4. Then k-means and the GMM (k=4) on the card against the
+    host (clustering_vs_host) on the joint model's embeddings and on 16,564
+    x 20 rows drawn with numpy (four blobs; the largest reference dataset at
+    2z for z=10), with the card's ms per call."""
+    import io
+
+    import torch
+
+    from hippie_tpu_torch import export
+    from hippie_tpu_torch.data import registry
+    from hippie_tpu_torch.evaluate.embeddings import embed_multimodal, embed_unimodal
+    from hippie_tpu_torch.ops import preprocess
+    from hippie_tpu_torch.scripts import inference_from_trained_model as inference
+
+    t_phase = time.perf_counter()
+    wf, isi = registry.load_raw(DATA_ROOT, TARGET, dropna=True)
+    wave, isi_p = preprocess.preprocess_pair(wf, isi, device=device)
+    source = torch.zeros(len(wf), dtype=torch.long, device=device)
+    n = len(wf)
+    joint_emb = None
+    for mode, flags, method in (
+            ("dual", ["--wave-checkpoint", uni_ckpts["wave"], "--time-checkpoint", uni_ckpts["time"]], "kmeans"),
+            ("joint", ["--joint-checkpoint", joint_ckpt], "gmm")):
+        out = f"{workdir}/inference_{mode}"
+        said = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            inference.main(["--dataset", TARGET, "--data-root", DATA_ROOT, "--output-dir", out,
+                            "--cluster", "4", "--cluster-method", method, "--device", device, *flags])
+        cli_s = time.perf_counter() - t0
+        said = said.getvalue()
+        check("Inference completed successfully!" in said and "were skipped" not in said,
+              f"inference {mode}: {said[-400:]}")
+        if mode == "dual":
+            mw, _ = export.load_model_from_ckpt(uni_ckpts["wave"], device=device)
+            mt, _ = export.load_model_from_ckpt(uni_ckpts["time"], device=device)
+            e_wave, e_isi = embed_unimodal(mw, wave, source), embed_unimodal(mt, isi_p, source)
+            direct = {"waveform": e_wave, "isi": e_isi, "joint": torch.cat([e_wave, e_isi], dim=1)}
+        else:
+            mj, _ = export.load_model_from_ckpt(joint_ckpt, device=device)
+            joint_emb = embed_multimodal(mj, wave, isi_p, source)
+            direct = {"joint": joint_emb}
+        worst = 0.0
+        for kind, ref in direct.items():
+            header, rows = csv_table(f"{out}/{TARGET}_{kind}_embeddings.csv")
+            check(header == [str(j) for j in range(ref.shape[1])] + ["label", "label_name"],
+                  f"{kind} embeddings header {header}")
+            check(len(rows) == n and all(r[-2:] == ["0", "unknown"] for r in rows),
+                  f"{kind} embeddings: {len(rows)} rows or labels not (0, unknown)")
+            got = np.asarray([[float(v) for v in r[:-2]] for r in rows], np.float32)
+            err = float(np.abs(got - ref.cpu().numpy()).max())
+            check(err <= 1e-5, f"inference {mode} {kind}: {err} from the direct embedding")
+            worst = max(worst, err)
+        header, rows = csv_table(f"{out}/{TARGET}_joint_clusters.csv")
+        check(header == ["cluster", "label"] and len(rows) == n and {int(r[0]) for r in rows} <= set(range(4)),
+              f"{mode} clusters: header {header}, {len(rows)} rows")
+        print(f"[11 inference] {mode}: {sorted(direct)} embeddings and {method} clusters of {n} rows in "
+              f"{cli_s:.2f} s (the CLI in process, with the checkpoints' loading); max |CSV - direct| "
+              f"{worst:.3g}")
+    r = np.random.default_rng(0)
+    centres = 6.0 * r.normal(size=(4, 2 * Z))
+    synthetic = (centres[r.integers(0, 4, size=16_564)] + r.normal(size=(16_564, 2 * Z))).astype(np.float32)
+    ms = {}
+    for label, x in (("joint embeddings 392x10", joint_emb), ("synthetic 16564x20", synthetic)):
+        for method in ("kmeans", "gmm"):
+            ms[f"{method} {label}"] = round(clustering_vs_host(x, method, device=device), 3)
+    print(f"  clustering k=4 on the card, equal to the host's (ms per call): {json.dumps(ms)} on {card}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1453,8 +1679,14 @@ def main() -> int:
         phase_embed(ts.model)
         phase_embed(jts.model, joint=True)
         kernels = phase_timings(ts, pool, idx, mask, jts, (jidx, jmask), card, errs, joint_launches)
-        phase_pipeline(card)
         kernels += block_kernels
+        with tempfile.TemporaryDirectory(prefix="hippie_pipeline_") as workdir:
+            uni_ckpts = phase_pipeline(card, workdir)
+            # the slice's main path, which runs all seven kernels: its launches go on the kernels line
+            pipeline_launches, joint_ckpt = phase_joint_pipeline(card, workdir)
+            for record in kernels:
+                record["launches"] = pipeline_launches[record["name"]]
+            phase_inference(card, workdir, uni_ckpts, joint_ckpt)
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback

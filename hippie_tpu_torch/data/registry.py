@@ -139,10 +139,10 @@ def _read_table(path: str) -> Tuple[List[str], List[List[str]]]:
     return [h if h != "" else f"Unnamed: {i}" for i, h in enumerate(header)], rows[1:]
 
 
-def _column_values(fields: List[str]) -> np.ndarray:
-    """One column's values with pandas' type inference for the label files:
-    int64 when every field is an integer, float64 when every field is a
-    number or empty (NaN), else the strings as an object array."""
+def column_values(fields: List[str]) -> np.ndarray:
+    """One column's values with pandas' type inference for the label and
+    metadata files: int64 when every field is an integer, float64 when every
+    field is a number or empty (NaN), else the strings as an object array."""
     try:
         return np.asarray([int(v) for v in fields], dtype=np.int64)
     except ValueError:
@@ -173,7 +173,7 @@ def load_supervised_labels(data_root: str, name: str):
     else:
         named = [i for i, c in enumerate(columns) if not c.startswith("Unnamed")]
         col = named[-1] if named else len(columns) - 1
-    raw = _column_values([r[col] if col < len(r) else "" for r in rows])
+    raw = column_values([r[col] if col < len(r) else "" for r in rows])
     le = LabelEncoder.fit(raw)
     return le.transform(raw), le
 

@@ -11,12 +11,15 @@ the kernels on the host). Differences: ``--fit-loop`` takes only ``host``
 (the port's one loop, trajectory-equal to the JAX host loop), ``--aot-dir``
 defaults to none, and the JAX options with no port yet (``--resume``,
 ``--dp-devices``, ``--fsdp``, ``--aot-dir``, ``--profile-dir``,
-``--stage1-*-ckpt``, ``--optimizer schedule-free``, ``--opt-state-dtype
-bfloat16``, ``--discover-datasets``, ``--progress-every``,
-``--log-every-step``, ``--wandb``, ``--block-backend fused|bf16``) raise
-with the ROADMAP item that ports them (``UNPORTED``). ``--beta`` is read by
-no stage: the unimodal pipeline keeps beta = 1 (quirk Q6), as the JAX one. Without matplotlib or seaborn the PNGs
-are skipped, with one line saying so.
+``--optimizer schedule-free``, ``--opt-state-dtype bfloat16``,
+``--discover-datasets``, ``--progress-every``, ``--log-every-step``,
+``--wandb``, ``--block-backend fused|bf16``) raise with the ROADMAP item
+that ports them (``UNPORTED``). ``--stage1-wave-ckpt`` and
+``--stage1-time-ckpt`` seed stage 1 from Lightning checkpoints. ``--beta``
+goes into the config, where the joint model
+(scripts/train_model_with_multimodal.py) reads it; the unimodal pipeline
+keeps beta = 1 (quirk Q6), as the JAX one. Without matplotlib or seaborn
+the PNGs are skipped, with one line saying so.
 """
 
 from __future__ import annotations
@@ -80,8 +83,11 @@ def build_parser():
     parser.add_argument("--fsdp", action="store_true", help="not ported (raises)")
     parser.add_argument("--aot-dir", type=str, default=None,
                         help="not ported (raises when given; the JAX CLI's compiled-program cache)")
-    parser.add_argument("--stage1-wave-ckpt", type=str, default=None, help="not ported (raises)")
-    parser.add_argument("--stage1-time-ckpt", type=str, default=None, help="not ported (raises)")
+    parser.add_argument("--stage1-wave-ckpt", type=str, default=None,
+                        help="seed the wave model from this Lightning stage-1 ckpt and skip its "
+                             "pretrain fit; geometry must match --z_dim")
+    parser.add_argument("--stage1-time-ckpt", type=str, default=None,
+                        help="same for the time/ISI model")
     parser.add_argument("--fit-loop", choices=("host",), default="host",
                         help="the port's one fit loop: per-epoch on the host, the trajectory of "
                              "the JAX CLI's --fit-loop host")
@@ -116,8 +122,6 @@ def jsonl_logger(path: str):
 
 # flags of the JAX CLI with no port yet: (dest, its default, the ROADMAP Queue 1 item that ports it)
 UNPORTED = (
-    ("stage1_wave_ckpt", None, "item 11 (lr-sweep and its exported stage-1 winner)"),
-    ("stage1_time_ckpt", None, "item 11 (lr-sweep and its exported stage-1 winner)"),
     ("resume", False, "item 12 (mid-run resume)"),
     ("dp_devices", None, "item 12 (data parallelism)"),
     ("fsdp", False, "item 12 (FSDP)"),
@@ -132,9 +136,11 @@ UNPORTED = (
 )
 
 
-def config_from_args(args):
+def config_from_args(args, model_type: str = "unimodal"):
     """The pipeline's config from the parsed flags; raises ValueError for a
-    flag set to what the port has not."""
+    flag set to what the port has not. The multimodal CLI's flags
+    (``--mod1-weight``, ``--mod2-weight``, ``--stage1-joint-ckpt``) keep
+    their defaults when the parser has none."""
     from hippie_tpu_torch.models.backbones import check_backend
     from hippie_tpu_torch.train.pipeline import PipelineConfig
 
@@ -143,11 +149,11 @@ def config_from_args(args):
             raise ValueError(f"--{dest.replace('_', '-')} {getattr(args, dest)!r} is not ported yet: "
                              f"ROADMAP Queue 1 {item}")
     check_backend(args.block_backend)  # 'fused' and 'bf16' raise (item 13)
-    # --beta is read by no stage: the unimodal pipeline keeps beta = 1 (quirk Q6)
     return PipelineConfig(
         z_dim=args.z_dim,
         weight_decay=args.weight_decay,
         learning_rate=args.learning_rate,
+        beta=args.beta,  # the joint model's; the unimodal pipeline keeps 1 (quirk Q6)
         dataset=args.dataset,
         finetune_without_labels=args.finetune_without_labels,
         pretrain_max_epochs=args.pretrain_max_epochs,
@@ -161,6 +167,9 @@ def config_from_args(args):
         finetune_split=args.finetune_split,
         limit_train_batches=args.limit_train_batches,
         limit_val_batches=args.limit_val_batches,
+        model_type=model_type,
+        mod1_weight=getattr(args, "mod1_weight", 1.0),
+        mod2_weight=getattr(args, "mod2_weight", 1.0),
         data_root=args.data_root,
         output_dir=args.output_dir,
         checkpoint_dir=args.checkpoint_dir,
@@ -171,6 +180,9 @@ def config_from_args(args):
         loss_backend=args.loss_backend,
         block_backend=args.block_backend,
         device=args.device,
+        stage1_wave_ckpt=args.stage1_wave_ckpt,
+        stage1_time_ckpt=args.stage1_time_ckpt,
+        stage1_joint_ckpt=getattr(args, "stage1_joint_ckpt", None),
         log_fn=jsonl_logger(args.log_file) if args.log_file else None,
     )
 
@@ -194,10 +206,10 @@ def save_confmats(results, dataset: str, output_dir: str):
         print(f"saved {fig_path}")
 
 
-def run(args):
-    from hippie_tpu_torch.train.pipeline import run_unimodal_pipeline
+def run(args, model_type: str = "unimodal"):
+    from hippie_tpu_torch.train.pipeline import run_pipeline
 
-    results = run_unimodal_pipeline(config_from_args(args))
+    results = run_pipeline(config_from_args(args, model_type))
     for kind, info in results["best"].items():
         print(f"best_balanced_accuracy_{kind}: {info['balanced_accuracy']:.4f} (k={info['k']})")
     save_confmats(results, args.dataset, args.output_dir)

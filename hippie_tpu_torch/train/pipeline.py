@@ -1,11 +1,13 @@
-"""The unimodal 3-stage HIPPIE pipeline: pretrain -> unsupervised fine-tune -> supervised.
+"""The 3-stage HIPPIE pipelines: pretrain -> unsupervised fine-tune -> supervised.
 
 Counterpart of hippie_tpu/train/pipeline.py (``PipelineConfig``,
 ``load_dataset``, ``load_pretrain_pool``, ``BestTracker``, ``_graft``,
-``_seed_from_best``, the stage fit, ``_finetune_split_indices``, the CSV
-exports and ``run_unimodal_pipeline``), the library side of
-scripts/train_model.py. Output filenames, CSV bytes and checkpoint contents
-follow the JAX package; the quirks kept are its:
+``_seed_from_best``, the shared stage fit, ``_finetune_split_indices``, the
+CSV exports, ``run_unimodal_pipeline``, ``run_multimodal_pipeline`` and
+``run_pipeline``), the library side of scripts/train_model.py and
+scripts/train_model_with_multimodal.py. Output filenames, CSV bytes and
+checkpoint contents follow the JAX package; the quirks kept are its, first
+for the unimodal pipeline:
 
   - leave-target-out pool assembly with the Q2 default (registry.pretrain_pool);
   - beta stays 1 in every stage (Q6); no gradient clip on the waveform model
@@ -19,7 +21,22 @@ follow the JAX package; the quirks kept are its:
   - one balanced oversampled stream serves both stage-3 models; stage 3
     rebuilds each model with the training split's class count and loads the
     cross-stage best minus the class embedding, which stays fresh (Q10);
-  - stage-3 embeddings are class-conditioned unless ``honest_eval``.
+  - stage-3 embeddings are class-conditioned unless ``honest_eval``;
+  - ``stage1_wave_ckpt`` and ``stage1_time_ckpt`` seed a model from a
+    Lightning checkpoint and skip its stage-1 fit (with both, the pool is
+    never loaded); the loaded weights are the tracker's best until stage 2
+    improves on them.
+
+and then for the joint (wave + ISI) pipeline, which trains one model:
+
+  - beta is ``cfg.beta`` and the gradients are clipped in every stage;
+  - stage 1 has 5 classes; stage 2 reloads the best model (the tracker
+    carries across stages 1-2) and embeds the fine-tune *val* split, or
+    every target row without ``finetune_without_labels``;
+  - stage 3 as the unimodal one (class count of the training split, the
+    cross-stage best minus the class embedding, the balanced stream, lr/10),
+    then the KNN sweep on the joint embeddings only;
+  - ``stage1_joint_ckpt`` is its stage-1 seam.
 
 The port runs one fit loop (train/loop.py), the JAX host loop's
 (``--fit-loop host``). Random draws: splits, shuffles and model inits come
@@ -27,8 +44,9 @@ from CPU ``torch.Generator``s and the reparameterization noise from a
 generator on the data's device, each seeded from ``seed`` and a fixed path
 (train/loop.py:epoch_key), where the JAX package folds the same integers into
 jax.random keys; the bits differ between the packages, the structure does
-not. The JAX pipeline's options with no port yet are not fields here; the
-CLI (scripts/train_model.py) raises on their flags.
+not. The AdamW optimizer is fresh in every stage. The JAX pipeline's
+options with no port yet are not fields here; the CLI
+(scripts/train_model.py) raises on their flags.
 """
 
 from __future__ import annotations
@@ -41,6 +59,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hippie_tpu_torch import export
 from hippie_tpu_torch.data import registry, sampling
 from hippie_tpu_torch.data.registry import write_csv
 from hippie_tpu_torch.data.device_data import ArrayDataset, batch_plan, train_val_split
@@ -55,12 +74,13 @@ from hippie_tpu_torch.utils.profiling import StageTimer
 
 @dataclass
 class PipelineConfig:
-    """The fields of hippie_tpu's PipelineConfig that the unimodal pipeline
-    reads, with its defaults, plus the device the arrays and models live on."""
+    """The fields of hippie_tpu's PipelineConfig that the two pipelines read,
+    with its defaults, plus the device the arrays and models live on."""
 
     z_dim: int = 5
     weight_decay: float = 0.01
     learning_rate: float = 0.001
+    beta: float = 1.0  # the joint model's; the unimodal pipeline keeps 1 (Q6)
     dataset: str = "cellexplorer-celltype"
     finetune_without_labels: bool = True
     pretrain_max_epochs: int = 1
@@ -74,6 +94,9 @@ class PipelineConfig:
     finetune_split: float = 0.1
     limit_train_batches: Optional[float] = None
     limit_val_batches: Optional[float] = None
+    model_type: str = "unimodal"  # or "multimodal"
+    mod1_weight: float = 1.0
+    mod2_weight: float = 1.0
     data_root: str = "datasets"
     output_dir: str = "."
     checkpoint_dir: str = "checkpoints"
@@ -88,6 +111,13 @@ class PipelineConfig:
     loss_backend: str = "xla"  # "pallas": the loss kernels of ops/cuda_ops.py
     block_backend: str = "xla"  # "pallas": the block kernels of ops/cuda_blocks.py
     device: str = "cuda"
+    # Lightning stage-1 checkpoints that seed a model and skip its stage-1
+    # fit; the geometry must be this pipeline's stage-1 config.
+    # stage1_{wave,time}_ckpt: the unimodal pipeline; stage1_joint_ckpt: the
+    # multimodal one.
+    stage1_wave_ckpt: Optional[str] = None
+    stage1_time_ckpt: Optional[str] = None
+    stage1_joint_ckpt: Optional[str] = None
 
 
 # ---------------------------------------------------------------------------
@@ -200,51 +230,51 @@ def seed_from_best(model: torch.nn.Module, best_state_dict: Dict[str, torch.Tens
 # ---------------------------------------------------------------------------
 
 
-def fit_unimodal_stage(
+def fit_stage(
     *,
     cfg: PipelineConfig,
     ts: step.TrainState,
-    data: torch.Tensor,
+    arrays: Tuple[torch.Tensor, ...],
     source: torch.Tensor,
     class_: torch.Tensor,
     train_indices: np.ndarray,
     val_indices: np.ndarray,
     batch_size: int,
     max_epochs: int,
-    beta: float,
-    use_class_labels: bool,
     shuffle_train: bool,
+    make_epoch_fns,
     fixed_train_stream: Optional[np.ndarray] = None,
     stage_seed: int = 0,
     lr: Optional[float] = None,
 ) -> loop.FitResult:
-    """One Trainer.fit of a unimodal model (the JAX ``_fit_unimodal_stage``
+    """One Trainer.fit, shared by both model families (the JAX ``_fit_stage``
     with ``--fit-loop host``).
 
-    Each train epoch's plan is ``batch_plan`` over the stream (shuffled when
-    ``shuffle_train``), cut by ``limit_train_batches``; the val plan is fixed
-    and cut by ``limit_val_batches``. The shuffle draws from a CPU generator
-    split from the epoch's key, the noise from a generator on the data's
-    device (``torch.randperm`` takes a CPU generator here, the model's
+    ``arrays`` holds the per-sample gather sources ((data,) unimodal, (wave,
+    isi) joint); the family enters only through ``make_epoch_fns``, which
+    builds its (train_epoch, eval_epoch). Each train epoch's plan is
+    ``batch_plan`` over the stream (shuffled when ``shuffle_train``), cut by
+    ``limit_train_batches``; the val plan is fixed and cut by
+    ``limit_val_batches``. The shuffle draws from a CPU generator split from
+    the epoch's key, the noise from a generator on the data's device
+    (``torch.randperm`` takes a CPU generator here, the model's
     ``torch.randn`` one on its device).
     """
-    train_epoch, eval_epoch = step.make_unimodal_epoch_fns(
-        beta=beta, use_class_labels=use_class_labels,
-        loss_backend=cfg.loss_backend, block_backend=cfg.block_backend)
+    train_epoch, eval_epoch = make_epoch_fns()
     val_idx, val_mask = loop.limit_batches(batch_plan(val_indices, batch_size, shuffle=False),
                                            cfg.limit_val_batches)
     stream = np.asarray(fixed_train_stream if fixed_train_stream is not None else train_indices)
-    device = data.device
+    device = arrays[0].device
 
     def run_train(state, key, epoch):
         idx, mask = loop.limit_batches(
             batch_plan(stream, batch_size, shuffle=shuffle_train, generator=loop.key_generator(key, 0)),
             cfg.limit_train_batches)
-        return train_epoch(state, data, source, class_, idx, mask,
+        return train_epoch(state, *arrays, source, class_, idx, mask,
                            generator=loop.key_generator(key, 1, device=device))
 
     def run_val(state, key, epoch):
-        return eval_epoch(state.model, data, source, class_, val_idx, val_mask,
+        return eval_epoch(state.model, *arrays, source, class_, val_idx, val_mask,
                           generator=loop.key_generator(key, device=device))
 
     return loop.fit(
@@ -252,6 +282,25 @@ def fit_unimodal_stage(
         early_stopping_patience=cfg.early_stopping_patience, seed=cfg.seed + stage_seed,
         verbose=cfg.verbose, log_fn=cfg.log_fn, lr=lr,
     )
+
+
+def fit_unimodal_stage(*, cfg: PipelineConfig, data: torch.Tensor, beta: float,
+                       use_class_labels: bool, **kw) -> loop.FitResult:
+    """One Trainer.fit of a unimodal model on ``data`` [N, L] (fit_stage's
+    other keywords: ``ts``, ``source``, ``class_``, the indices, ...)."""
+    return fit_stage(cfg=cfg, arrays=(data,), make_epoch_fns=lambda: step.make_unimodal_epoch_fns(
+        beta=beta, use_class_labels=use_class_labels, loss_backend=cfg.loss_backend,
+        block_backend=cfg.block_backend), **kw)
+
+
+def fit_multimodal_stage(*, cfg: PipelineConfig, wave: torch.Tensor, isi: torch.Tensor,
+                         use_class_labels: bool, **kw) -> loop.FitResult:
+    """One Trainer.fit of the joint model on (wave [N, 50], isi [N, 100]),
+    with ``cfg.beta`` and the modality weights."""
+    return fit_stage(cfg=cfg, arrays=(wave, isi), make_epoch_fns=lambda: step.make_multimodal_epoch_fns(
+        beta=cfg.beta, mod1_weight=cfg.mod1_weight, mod2_weight=cfg.mod2_weight,
+        use_class_labels=use_class_labels, loss_backend=cfg.loss_backend,
+        block_backend=cfg.block_backend), **kw)
 
 
 def finetune_split_indices(cfg: PipelineConfig, n: int, generator: torch.Generator
@@ -316,6 +365,24 @@ def _init_state(cfg: PipelineConfig, cfg_m, init_key: int, lr: float, clip) -> s
     return step.TrainState(model, optim.make_optimizer(model.parameters(), lr, cfg.weight_decay, clip))
 
 
+def _seed_stage1(cfg: PipelineConfig, tracker: BestTracker, path: str, cfg_m, name: str
+                 ) -> step.TrainState:
+    """A stage-1 seam (``stage1_<name>_ckpt``): the model of the Lightning
+    checkpoint at ``path`` in place of a stage-1 fit, its weights the
+    tracker's best (``best_val`` stays inf, so the first stage-2 improvement
+    takes over the file). Its geometry must be ``cfg_m``, the pipeline's
+    stage-1 config."""
+    model, lcfg = export.load_model_from_ckpt(path, multimodal=name == "joint",
+                                              fallback_config=cfg_m, device=cfg.device)
+    if tuple(lcfg) != tuple(cfg_m):
+        raise ValueError(f"--stage1-{name}-ckpt geometry {lcfg} does not match this pipeline's "
+                         f"stage-1 config {cfg_m}; re-run the sweep with matching --z-dim/--num-blocks")
+    tracker.best_state_dict = loop.clone_tree(model.state_dict())
+    if cfg.verbose:
+        print(f"[stage 1] {name} model seeded from {path} (fit skipped)")
+    return step.TrainState(model, None)
+
+
 def run_unimodal_pipeline(cfg: PipelineConfig,
                           trackers: Optional[Dict[str, BestTracker]] = None) -> Dict[str, Any]:
     """The three stages for the waveform and the ISI model, then the KNN
@@ -332,15 +399,22 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
     trackers = {} if trackers is None else trackers
 
     # ---------------- Stage 1: leave-target-out pretraining ----------------
-    with timer.stage("load_pool"):
-        pool = load_pretrain_pool(cfg)
-    tr_idx, va_idx = train_val_split(len(pool), cfg.train_val_split, loop.key_generator(seed, 0))
+    if not (cfg.stage1_wave_ckpt and cfg.stage1_time_ckpt):  # with both, no pool is needed
+        with timer.stage("load_pool"):
+            pool = load_pretrain_pool(cfg)
+        tr_idx, va_idx = train_val_split(len(pool), cfg.train_val_split, loop.key_generator(seed, 0))
 
     states: Dict[str, step.TrainState] = {}
     for mi, modality in enumerate(MODALITIES):
         clip = None if modality == "wave" else cfg.gradient_clip_val  # quirk Q7
         cfg_m = model_config(cfg, modality, num_classes=5)
         tracker = BestTracker(os.path.join(cfg.checkpoint_dir, f"{cfg.dataset}_{modality}_model.ckpt"))
+        trackers[modality] = tracker
+        stage1_ckpt = cfg.stage1_wave_ckpt if modality == "wave" else cfg.stage1_time_ckpt
+        if stage1_ckpt:
+            with timer.stage(f"load_stage1_{modality}"):
+                states[modality] = _seed_stage1(cfg, tracker, stage1_ckpt, cfg_m, modality)
+            continue
         with timer.stage("setup"):
             ts = _init_state(cfg, cfg_m, 100 + mi, cfg.learning_rate, clip)
         if cfg.verbose:
@@ -360,7 +434,6 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
         if tracker.best_state_dict is not None:
             ts.model.load_state_dict(tracker.best_state_dict)
         states[modality] = ts
-        trackers[modality] = tracker
 
     # ---------------- Stage 2: unsupervised fine-tune on the target --------
     with timer.stage("load_target"):
@@ -515,3 +588,182 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
         print("stage timings:", timer.summary())
     return results
 
+
+
+# ---------------------------------------------------------------------------
+# Multimodal pipeline (scripts/train_model_with_multimodal.py)
+# ---------------------------------------------------------------------------
+
+
+def joint_model_config(cfg: PipelineConfig, num_classes: int) -> cvae.MultiModalConfig:
+    return cvae.MultiModalConfig(
+        z_dim=cfg.z_dim, class_hidden_dim=cfg.class_hidden_dim, num_sources=registry.NUM_SOURCES,
+        num_classes=num_classes, num_blocks=tuple(cfg.num_blocks),
+    )
+
+
+def _init_joint(cfg: PipelineConfig, mm_cfg, init_key: int, lr: float) -> step.TrainState:
+    model = cvae.multimodal_cvae_init(mm_cfg, loop.key_generator(cfg.seed, init_key), device=cfg.device)
+    return step.TrainState(model, optim.make_optimizer(model.parameters(), lr, cfg.weight_decay,
+                                                       cfg.gradient_clip_val))
+
+
+def run_multimodal_pipeline(cfg: PipelineConfig,
+                            trackers: Optional[Dict[str, BestTracker]] = None) -> Dict[str, Any]:
+    """The three stages for the joint wave + ISI model, then the KNN sweep on
+    its embeddings and the exports. Returns the JAX pipeline's ``results``
+    keys; ``trackers``, when given, is filled with "joint" and
+    "joint_supervised"."""
+    timer = StageTimer()
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    seed = cfg.seed
+    trackers = {} if trackers is None else trackers
+
+    # ---------------- Stage 1: leave-target-out pretraining ----------------
+    mm_cfg = joint_model_config(cfg, num_classes=5)
+    tracker = trackers["joint"] = BestTracker(
+        os.path.join(cfg.checkpoint_dir, f"{cfg.dataset}_joint_model.ckpt"))
+    if cfg.stage1_joint_ckpt:  # no pool and no fit
+        with timer.stage("load_stage1_joint"):
+            model = _seed_stage1(cfg, tracker, cfg.stage1_joint_ckpt, mm_cfg, "joint").model
+    else:
+        with timer.stage("load_pool"):
+            pool = load_pretrain_pool(cfg)
+        tr_idx, va_idx = train_val_split(len(pool), cfg.train_val_split, loop.key_generator(seed, 0))
+        ts = _init_joint(cfg, mm_cfg, 100, cfg.learning_rate)
+        if cfg.verbose:
+            print(f"[stage 1] pretraining joint model ({cvae.param_count(ts.model):,} params)")
+        with timer.stage("pretrain_joint"):
+            result = fit_multimodal_stage(
+                cfg=cfg, ts=ts, wave=pool.wave, isi=pool.isi, source=pool.source, class_=pool.source,
+                train_indices=tr_idx, val_indices=va_idx, batch_size=cfg.batch_size,
+                max_epochs=cfg.pretrain_max_epochs, use_class_labels=False, shuffle_train=True,
+                stage_seed=10, lr=cfg.learning_rate,
+            )
+        tracker.update_from_fit(result, ckpt_mod.parameter_key_order(ts.model),
+                                (cfg.learning_rate, cfg.weight_decay))
+        model = ts.model
+        if tracker.best_state_dict is not None:  # else the last state (max_epochs=0)
+            model.load_state_dict(tracker.best_state_dict)
+
+    # ---------------- Stage 2: unsupervised fine-tune on the target --------
+    target = load_dataset(cfg, cfg.dataset, dropna=True)  # quirk Q13
+    ft_lr = cfg.learning_rate / 10.0
+    if cfg.finetune_without_labels:
+        ft_tr, ft_va = finetune_split_indices(cfg, len(target), loop.key_generator(seed, 1))
+        ts = step.TrainState(model, optim.make_optimizer(model.parameters(), ft_lr, cfg.weight_decay,
+                                                         cfg.gradient_clip_val))
+        if cfg.verbose:
+            print(f"[stage 2] fine-tuning joint model on {cfg.dataset} (lr={ft_lr})")
+        with timer.stage("finetune_joint"):
+            result = fit_multimodal_stage(
+                cfg=cfg, ts=ts, wave=target.wave, isi=target.isi, source=target.source,
+                class_=target.source, train_indices=ft_tr, val_indices=ft_va,
+                batch_size=cfg.batch_size, max_epochs=cfg.finetune_max_epochs,
+                use_class_labels=False, shuffle_train=False, stage_seed=20, lr=ft_lr,
+            )
+        tracker.update_from_fit(result, ckpt_mod.parameter_key_order(model), (ft_lr, cfg.weight_decay))
+        # the joint stage 2 reloads the best model and embeds the fine-tune
+        # VAL split (train_model_with_multimodal.py:772-777)
+        if tracker.best_state_dict is not None:
+            model.load_state_dict(tracker.best_state_dict)
+        emb_idx = torch.as_tensor(ft_va, device=cfg.device).long()
+    else:
+        emb_idx = torch.arange(len(target), device=cfg.device)
+    ft_joint = emb.embed_multimodal(model, target.wave[emb_idx], target.isi[emb_idx],
+                                    target.source[emb_idx]).cpu().numpy()
+    pretrain_paths = export_pretraining_embeddings(cfg, {"joint": ft_joint})
+
+    # ---------------- Stage 3: supervised with class conditioning ----------
+    sup_wf, sup_isi = registry.load_raw(cfg.data_root, cfg.dataset,
+                                        drop_index_column=cfg.drop_index_column)  # no dropna (Q13)
+    sup_wave, sup_isi_p = preprocess.preprocess_pair(sup_wf, sup_isi, device=cfg.device)
+    sup_labels, le = registry.load_supervised_labels(cfg.data_root, cfg.dataset)
+    n = len(sup_wf)
+    s_tr, s_va = train_val_split(n, cfg.train_val_split, loop.key_generator(seed, 2))
+    label_train = sup_labels[s_tr]
+    label_val = sup_labels[s_va]
+    num_class_labels = int(len(np.unique(label_train)))
+
+    ts = _init_joint(cfg, joint_model_config(cfg, num_class_labels), 200, ft_lr)
+    # the cross-stage best minus the class embedding, which stays fresh (Q10)
+    seed_from_best(ts.model, tracker.best_state_dict if tracker.best_state_dict is not None
+                   else model.state_dict())
+    with timer.stage("ckpt_save"):
+        tracker.flush()  # stages 1-2 are final
+    train_stream = np.asarray(s_tr)[sampling.balanced_indices(label_train, seed=cfg.seed)]
+    labels_dev = torch.as_tensor(sup_labels, device=cfg.device).long()
+    source_dev = torch.full((n,), registry.DATASET_SOURCE_IDS.get(cfg.dataset, 0), dtype=torch.long,
+                            device=cfg.device)
+    sup_tracker = trackers["joint_supervised"] = BestTracker(
+        os.path.join(cfg.checkpoint_dir, f"{cfg.dataset}_joint_model_supervised.ckpt"))
+    if cfg.verbose:
+        print(f"[stage 3] supervised joint training ({num_class_labels} classes)")
+    with timer.stage("supervised_joint"):
+        result = fit_multimodal_stage(
+            cfg=cfg, ts=ts, wave=sup_wave, isi=sup_isi_p, source=source_dev, class_=labels_dev,
+            train_indices=np.asarray(s_tr), val_indices=np.asarray(s_va),
+            batch_size=cfg.supervised_batch_size, max_epochs=cfg.supervised_max_epochs,
+            use_class_labels=True, shuffle_train=False, fixed_train_stream=train_stream,
+            stage_seed=30, lr=ft_lr,
+        )
+    with timer.stage("ckpt_save"):
+        sup_tracker.update_from_fit(result, ckpt_mod.parameter_key_order(ts.model),
+                                    (ft_lr, cfg.weight_decay))
+        sup_tracker.flush()
+    sup_model = ts.model
+    if sup_tracker.best_state_dict is not None:
+        sup_model.load_state_dict(sup_tracker.best_state_dict)
+
+    # ---------------- Evaluation: joint embeddings + KNN sweep --------------
+    # class-conditioned like the reference (the label leak) unless honest_eval
+    def embed(rows=None):
+        sel = slice(None) if rows is None else torch.as_tensor(rows, device=cfg.device).long()
+        cls = None if cfg.honest_eval else labels_dev[sel]
+        return emb.embed_multimodal(sup_model, sup_wave[sel], sup_isi_p[sel], source_dev[sel],
+                                    cls).cpu().numpy()
+
+    neighbor_options = list(range(5, 20))
+    preds = knn_eval.knn_predict_sweep(embed(s_tr), label_train, embed(s_va), neighbor_options,
+                                       device=cfg.device)
+    accs = [metrics.balanced_accuracy_score(label_val, preds[k]) for k in neighbor_options]
+    best_k = neighbor_options[int(np.argmax(accs))]
+    pred = preds[best_k]
+    cm = metrics.confusion_matrix(label_val, pred, labels=np.arange(len(le.classes_)))
+    results: Dict[str, Any] = {
+        "label_encoder": le,
+        "neighbor_options": neighbor_options,
+        "balanced_accuracy": {"joint": accs},
+        "best": {"joint": {"k": best_k, "balanced_accuracy": float(np.max(accs)),
+                           "confusion_matrix": cm, "pred": pred}},
+        "paths": {"pretraining_embeddings": pretrain_paths},
+        "num_class_labels": num_class_labels,
+        "checkpoints": {"joint": tracker.path},
+        "supervised_checkpoints": {"joint": sup_tracker.path},
+        "label_val": label_val,
+        "label_train": label_train,
+    }
+    results["paths"]["joint_knn"] = export_knn_csv(cfg, "joint", pred, label_val, le)
+    results["paths"]["joint_embeddings"] = export_embeddings_csv(cfg, "joint", embed(), sup_labels, le)
+    results["timings"] = dict(timer.timings)
+    if cfg.verbose and timer.timings:
+        print("stage timings:", timer.summary())
+    return results
+
+
+def run_pipeline(cfg: PipelineConfig, trackers: Optional[Dict[str, BestTracker]] = None
+                 ) -> Dict[str, Any]:
+    """The pipeline of ``cfg.model_type``; a stage-1 checkpoint given to the
+    other pipeline raises."""
+    if cfg.model_type == "multimodal":
+        if cfg.stage1_wave_ckpt or cfg.stage1_time_ckpt:
+            raise ValueError(
+                "--stage1-{wave,time}-ckpt seed the UNIMODAL pipeline's "
+                "stage 1; the multimodal pipeline takes --stage1-joint-ckpt")
+        return run_multimodal_pipeline(cfg, trackers)
+    if cfg.stage1_joint_ckpt:
+        raise ValueError(
+            "--stage1-joint-ckpt seeds the MULTIMODAL pipeline's stage 1; "
+            "the unimodal pipeline takes --stage1-{wave,time}-ckpt")
+    return run_unimodal_pipeline(cfg, trackers)

@@ -708,3 +708,62 @@ def test_stage_fit_on_the_card_runs_the_kernels_and_writes_a_ckpt(cuda_device, t
     for i, e in tracker.best_opt["state"].items():
         for m in ("exp_avg", "exp_avg_sq", "step"):
             assert torch.equal(opt.state_dict()["state"][i][m].to(e[m].device), e[m]), (i, m)
+
+
+def _blobs(k: int, d: int, n: int, seed: int) -> np.ndarray:
+    r = np.random.default_rng(seed)
+    centres = 6.0 * r.normal(size=(k, d))
+    return (centres[r.integers(0, k, size=n)] + 0.5 * r.normal(size=(n, d))).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["kmeans", "gmm"])
+def test_clustering_on_the_card_equals_the_cpu(cuda_device, method):
+    """The same seed on the card and on the host: the same draws (a CPU
+    generator), so the same assignments on separated blobs; every float
+    within 1e-4 of the host's (means of up to 2,000 rows of magnitude 10 to
+    20, summed in another order on each device), the inertia and the
+    log-likelihood rtol 1e-5."""
+    from hippie_tpu_torch.ops import clustering
+
+    x = _blobs(5, 20, 2000, 6)
+    fn = getattr(clustering, method)
+    got = [v.cpu() for v in fn(torch.from_numpy(x).to(cuda_device), 5, seed=3)]
+    ref = fn(x, 5, seed=3, device="cpu")
+    assert got[0].device.type == "cpu" and torch.equal(got[0], ref[0])
+    for a, b in zip(got[1:-1], ref[1:-1]):
+        assert (a - b).abs().max() <= 1e-4
+    np.testing.assert_allclose(float(got[-1]), float(ref[-1]), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_joint_pipeline_on_the_card_runs_every_kernel(cuda_device, tmp_path):
+    """run_pipeline(model_type="multimodal") at num_blocks=(1, 1, 1, 1), one
+    batch per stage, with the loss and block kernels: per train step one
+    launch of each loss kernel and 8 of each block kernel (two encoders or
+    two decoders of 4 blocks), per val step one vae_sums_fwd and one
+    masked_sse_fwd; both .ckpt files reload equal bit for bit to their
+    trackers' snapshots; 15 finite balanced accuracies."""
+    from hippie_tpu_torch.ops import cuda_blocks
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+    from hippie_tpu_torch.train import pipeline
+
+    cfg = pipeline.PipelineConfig(model_type="multimodal", num_blocks=(1, 1, 1, 1), batch_size=64,
+                                  supervised_batch_size=32, limit_train_batches=1, limit_val_batches=1,
+                                  loss_backend="pallas", block_backend="pallas", verbose=False,
+                                  output_dir=str(tmp_path / "out"), checkpoint_dir=str(tmp_path / "ckpt"))
+    cuda_ops.reset_launches()
+    cuda_blocks.reset_launches()
+    trackers = {}
+    results = pipeline.run_pipeline(cfg, trackers=trackers)
+    train = val = 3  # one batch per stage
+    assert {**cuda_ops.launches, **cuda_blocks.launches} == {
+        "vae_sums_fwd": train + val, "vae_sums_bwd": train, "masked_sse_fwd": train + val,
+        **{k: 8 * train for k in ("enc_block_fwd", "enc_block_bwd", "dec_block_fwd", "dec_block_bwd")}}
+    accs = results["balanced_accuracy"]["joint"]
+    assert len(accs) == 15 and np.isfinite(accs).all()
+    for tracker in trackers.values():
+        sd = ckpt_mod.model_state_from_ckpt(ckpt_mod.load_lightning_ckpt(tracker.path))
+        assert list(sd) == list(tracker.best_state_dict)
+        for k, v in tracker.best_state_dict.items():
+            assert torch.equal(sd[k], v.cpu()), k

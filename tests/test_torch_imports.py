@@ -1,6 +1,6 @@
-"""The port stands alone: no module of hippie_tpu_torch, and neither
-chip_smoke.py nor kernel_split.py, imports jax or hippie_tpu (the machine
-with the card has no JAX)."""
+"""The port stands alone: no module of hippie_tpu_torch (its scripts
+included), and neither chip_smoke.py nor kernel_split.py, imports jax,
+hippie_tpu, pandas or sklearn (the machine with the card has none of them)."""
 
 import ast
 import pathlib
@@ -12,7 +12,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "hippie_tpu_torch"
 FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernel_split.py"]
-FORBIDDEN = ("jax", "jaxlib", "optax", "hippie_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "hippie_tpu", "pandas", "sklearn")
 
 
 def _module_names():
