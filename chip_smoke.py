@@ -31,10 +31,17 @@ snapshots, its 45 balanced accuracies and its kernel launches; then the
 joint 3-stage pipeline (run_pipeline(model_type="multimodal"), 16,115,748
 parameters in stage 1, the path that runs all seven kernels) the same way:
 5 outputs, 2 checkpoints, 15 balanced accuracies, exact launches, which
-are the ``launches`` of the kernels line. Last the inference CLI embeds
-the target with the unimodal pipeline's stage-3 checkpoints and the joint
-one's, each file held to the models called directly, and k-means and the
-GMM run on the card against the host. Each block kernel is split by kernel
+are the ``launches`` of the kernels line. Both pipelines write their
+checkpoints in a background thread (BestTracker.flush_async), and print each
+write's split and their peak device memory. Then the
+inference CLI embeds the target with the unimodal pipeline's stage-3
+checkpoints and the joint one's, each file held to the models called
+directly, and k-means and the GMM run on the card against the host. Then
+the unimodal pipeline with schedule-free AdamW and the joint one with bf16
+Adam moments (12), with one step of each optimizer on the full-width model
+against the host and the optimizer's device memory with float32 and bf16
+moments, and last the embedding server on both pipelines'
+checkpoints with its load test (13). Each block kernel is split by kernel
 (device time and launches per call; at most 5 per enc_block_fwd and
 dec_block_fwd call and 8 per enc_block_bwd and dec_block_bwd call), and the
 block libraries' SASS is checked for wgmma (HGMMA).
@@ -42,6 +49,17 @@ block libraries' SASS is checked for wgmma (HGMMA).
 Every phase prints one line. The second-to-last line is the ``kernels`` JSON
 record, the last the device record. Exits non-zero, printing neither, when no
 CUDA device is present, outside the repository, or when any phase fails.
+
+To compare the pipelines of another checkout (a parent commit unpacked with
+``git archive``) with this one on the same card:
+
+    python3 chip_smoke.py --compare CHECKOUT [--pairs N]
+
+runs, N times in turns (CHECKOUT then this tree, then this tree then
+CHECKOUT, ...), a fresh process per run that builds that tree's kernels and
+runs its phase 9 twice (cold: the process's first pipeline, as a CLI run;
+then warm) and its phase 10, and prints each run's wall times and
+``ckpt_save`` and the medians.
 """
 
 from __future__ import annotations
@@ -49,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -1285,13 +1304,22 @@ def csv_table(path: str):
     return rows[0], rows[1:]
 
 
-def check_ckpts(trackers: dict, fresh_model, device="cuda") -> int:
+def check_ckpts(trackers: dict, fresh_model, device="cuda", state_dtype=None) -> int:
     """Each tracker's .ckpt against its best snapshot, bit for bit: the
-    state_dict (weights and buffers) and every AdamW state (step and both
-    moments); then reloaded into ``fresh_model(key)`` and a fresh optimizer
-    on the card, equal again. Returns the number of files checked."""
+    state_dict (weights and buffers), reloaded through
+    export.load_model_from_ckpt too, and the optimizer state. AdamW: every
+    state (step and both moments, written as float32 whatever
+    ``state_dtype`` stores them in), then reloaded into ``fresh_model(key)``
+    and a fresh optimizer of ``state_dtype`` on the card, equal again.
+    Schedule-free: empty ``optimizer_states`` and a ``.sfstate`` sidecar
+    that restores k, weight_sum, lr_max, z and exp_avg_sq into a fresh
+    schedule-free optimizer equal to the snapshot's. Returns the number of
+    files checked."""
+    import os
+
     import torch
 
+    from hippie_tpu_torch import export
     from hippie_tpu_torch.train import checkpoint as ckpt_mod
     from hippie_tpu_torch.train import optim
 
@@ -1301,6 +1329,22 @@ def check_ckpts(trackers: dict, fresh_model, device="cuda") -> int:
         best = tracker.best_state_dict
         check(list(sd) == list(best) and all(torch.equal(sd[k], v.cpu()) for k, v in best.items()),
               f"{tracker.path}: state_dict differs from the tracker's best snapshot")
+        loaded, _ = export.load_model_from_ckpt(tracker.path, device=device)
+        check(all(torch.equal(v, best[k]) for k, v in loaded.state_dict().items()),
+              f"{tracker.path}: export.load_model_from_ckpt differs from the snapshot")
+        model = fresh_model(key)
+        check(not ckpt_mod.load_model_state(model, sd), f"{tracker.path}: keys left unloaded")
+        sf = optim.find_schedule_free_state(tracker.best_opt)
+        if sf is not None:
+            check(ck["optimizer_states"] == [] and os.path.exists(tracker.path + optim.SF_SIDECAR_SUFFIX),
+                  f"{tracker.path}: schedule-free checkpoint without empty optimizer_states and sidecar")
+            opt = optim.make_optimizer(model.parameters(), 1e-4, WD, algorithm="schedule-free")
+            optim.load_schedule_free_sidecar(tracker.path, opt, ckpt_mod.parameter_key_order(model))
+            got = optim.find_schedule_free_state(opt)
+            check(all(torch.equal(getattr(got, n), getattr(sf, n)) for n in ("k", "weight_sum", "lr_max"))
+                  and all(torch.equal(a, b) for a, b in zip(got.z + got.exp_avg_sq, sf.z + sf.exp_avg_sq)),
+                  f"{tracker.path}: the sidecar's state differs from the snapshot's")
+            continue
         opt_saved = ck["optimizer_states"][0]["state"]
         opt_best = tracker.best_opt["state"]
         check(len(opt_saved) == len(opt_best) == len(sd) - sum("running_" in k or "batches" in k
@@ -1308,17 +1352,24 @@ def check_ckpts(trackers: dict, fresh_model, device="cuda") -> int:
               f"{tracker.path}: {len(opt_saved)} optimizer states for {len(opt_best)} parameters")
         for i, e in opt_best.items():
             check(float(opt_saved[i]["step"]) == float(e["step"]) and all(
-                np.array_equal(opt_saved[i][m], e[m].cpu().numpy()) for m in ("exp_avg", "exp_avg_sq")),
+                opt_saved[i][m].dtype == np.float32
+                and np.array_equal(opt_saved[i][m], e[m].float().cpu().numpy()) for m in ("exp_avg", "exp_avg_sq")),
                 f"{tracker.path}: AdamW state {i} differs from the tracker's best snapshot")
-        model = fresh_model(key)
-        check(not ckpt_mod.load_model_state(model, sd), f"{tracker.path}: keys left unloaded")
-        opt = optim.make_optimizer(model.parameters(), 1e-4, WD)
+        opt = optim.make_optimizer(model.parameters(), 1e-4, WD, state_dtype=state_dtype)
         ckpt_mod.load_optimizer_state(opt, ck["optimizer_states"][0])
         check(all(torch.equal(v, best[k]) for k, v in model.state_dict().items())
               and all(torch.equal(opt.state_dict()["state"][i][m], e[m])
                       for i, e in opt_best.items() for m in ("exp_avg", "exp_avg_sq")),
               f"{tracker.path}: the reloaded model or optimizer differs from the snapshot")
     return len(trackers)
+
+
+def writer_split(trackers: dict) -> str:
+    """Each checkpoint's background writes, split into the D2H fetch (of it
+    the pinned buffer, the copy and the host-side split), the conversion and
+    torch.save, and the foreground's wait for them (s)."""
+    return json.dumps({key: {"writes": [{k: round(v, 4) for k, v in w.items()} for w in t.writes],
+                             "wait_s": round(t.wait_s, 4)} for key, t in trackers.items()})
 
 
 def check_tables(out_dir: str, tables: dict, classes: set):
@@ -1335,7 +1386,8 @@ def check_tables(out_dir: str, tables: dict, classes: set):
                   and {r[-1] for r in got_rows} <= classes, f"{name}: non-finite value or unknown label")
 
 
-def phase_pipeline(card: str, workdir: str, device="cuda") -> dict:
+def phase_pipeline(card: str, workdir: str, device="cuda", optimizer: str = "adamw",
+                   label: str = "9 pipeline") -> dict:
     """The port's unimodal 3-stage pipeline, run_unimodal_pipeline, at full
     width (z=10, ResNet18: 8,056,639 parameters per stage-1 model) on
     datasets/cellexplorer-celltype, one epoch per stage, with the loss and
@@ -1345,8 +1397,12 @@ def phase_pipeline(card: str, workdir: str, device="cuda") -> dict:
     best snapshot (weights, buffers and AdamW moments), that the 45 balanced
     accuracies are finite, and that kernels 1, 2 and 4-7 were launched
     exactly (train steps) x (launches per step) times; vae_sums_fwd also
-    runs in every validation step. Returns the stage-3 checkpoints' paths
-    ("wave", "time")."""
+    runs in every validation step. Prints each checkpoint's background write
+    split (BestTracker.writes: D2H fetch, conversion, torch.save) and the
+    foreground's wait. ``optimizer="schedule-free"`` (phase 12) writes its
+    outputs under ``workdir/sf_*`` and holds its checkpoints to the
+    schedule-free layout. Returns the stage-3 checkpoints' paths ("wave",
+    "time")."""
     import math
 
     import torch
@@ -1355,10 +1411,11 @@ def phase_pipeline(card: str, workdir: str, device="cuda") -> dict:
     from hippie_tpu_torch.models import cvae
     from hippie_tpu_torch.train import pipeline
 
+    sub = "" if optimizer == "adamw" else "sf_"
     cfg = pipeline.PipelineConfig(z_dim=Z, dataset=TARGET, data_root=DATA_ROOT,
-                                  output_dir=f"{workdir}/out", checkpoint_dir=f"{workdir}/checkpoints",
+                                  output_dir=f"{workdir}/{sub}out", checkpoint_dir=f"{workdir}/{sub}checkpoints",
                                   loss_backend="pallas", block_backend="pallas", device=device,
-                                  verbose=False)
+                                  verbose=False, optimizer=optimizer)
     trackers = {}
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     reset_all_launches()
@@ -1402,24 +1459,29 @@ def phase_pipeline(card: str, workdir: str, device="cuda") -> dict:
     check([p.name for p in ckpts] == sorted(f"{ds}_{m}_model{s}.ckpt" for m in ("wave", "time")
                                             for s in ("", "_supervised")),
           f"checkpoints {[p.name for p in ckpts]}")
+    sidecars = sorted(p.name for p in pathlib.Path(cfg.checkpoint_dir).glob("*.sfstate"))
+    check(sidecars == ([] if optimizer == "adamw" else [p.name + ".sfstate" for p in ckpts]),
+          f"sidecars {sidecars}")
     accs = [a for kind in results["balanced_accuracy"].values() for a in kind]
     check(len(accs) == 45 and all(math.isfinite(a) for a in accs), f"balanced accuracies {accs}")
 
     timings = results["timings"]
     fits = {k: round(v, 3) for k, v in timings.items() if k.split("_")[0] in ("pretrain", "finetune",
                                                                               "supervised")}
-    print(f"[9 pipeline] run_unimodal_pipeline on {ds}, z={Z}, num_blocks={cfg.num_blocks}, one epoch per "
-          f"stage, loss_backend=pallas block_backend=pallas: {wall:.3f} s wall on {card}; "
-          f"{train} train and {val} val steps; launches {launches}")
+    print(f"[{label}] run_unimodal_pipeline on {ds}, z={Z}, num_blocks={cfg.num_blocks}, one epoch per "
+          f"stage, optimizer={optimizer}, loss_backend=pallas block_backend=pallas: {wall:.3f} s wall on "
+          f"{card}; {train} train and {val} val steps; launches {launches}")
     print(f"  stage fits (s): {json.dumps(fits)}")
     print(f"  stage timings (StageTimer): {json.dumps({k: round(v, 3) for k, v in timings.items()})}")
+    print(f"  checkpoint writes in the background (s): {writer_split(trackers)}")
     print(f"  13 outputs checked ({len(tables)} CSVs, {len(ckpts)} .ckpt reloaded equal to their "
-          f"snapshots); best balanced accuracy "
+          f"snapshots{'' if optimizer == 'adamw' else ', with their sidecars'}); best balanced accuracy "
           + ", ".join(f"{k} {v['balanced_accuracy']:.4f} (k={v['k']})" for k, v in results["best"].items()))
     return {m: trackers[f"{m}_supervised"].path for m in ("wave", "time")}
 
 
-def phase_joint_pipeline(card: str, workdir: str, device="cuda"):
+def phase_joint_pipeline(card: str, workdir: str, device="cuda", opt_state_dtype=None,
+                         label: str = "10 joint pipeline"):
     """The port's joint 3-stage pipeline, run_pipeline(model_type=
     "multimodal"), at full width (z=10, four ResNet18 backbones: 16,115,748
     parameters in stage 1) on datasets/cellexplorer-celltype, one epoch per
@@ -1430,8 +1492,11 @@ def phase_joint_pipeline(card: str, workdir: str, device="cuda"):
     finite balanced accuracies, and every kernel's exact launches: per joint
     train step one of each loss kernel and 16 of each block kernel (two
     backbones of 8 blocks per kind), per val step one vae_sums_fwd and one
-    masked_sse_fwd (18 train and 5 val steps at this data). Returns the
-    launch counts and the supervised checkpoint's path."""
+    masked_sse_fwd (18 train and 5 val steps at this data). Prints each
+    checkpoint's background write split and the foreground's wait.
+    ``opt_state_dtype="bfloat16"`` (phase 12) writes under ``workdir/bf16_*``
+    and checks the checkpoints' moments float32. Returns the launch counts
+    and the supervised checkpoint's path."""
     import math
 
     import torch
@@ -1441,10 +1506,12 @@ def phase_joint_pipeline(card: str, workdir: str, device="cuda"):
     from hippie_tpu_torch.train import pipeline
 
     t_phase = time.perf_counter()
+    sub = "" if opt_state_dtype is None else "bf16_"
     cfg = pipeline.PipelineConfig(model_type="multimodal", z_dim=Z, num_blocks=(2, 2, 2, 2), dataset=TARGET,
-                                  data_root=DATA_ROOT, output_dir=f"{workdir}/joint_out",
-                                  checkpoint_dir=f"{workdir}/joint_checkpoints", loss_backend="pallas",
-                                  block_backend="pallas", device=device, verbose=False)
+                                  data_root=DATA_ROOT, output_dir=f"{workdir}/{sub}joint_out",
+                                  checkpoint_dir=f"{workdir}/{sub}joint_checkpoints", loss_backend="pallas",
+                                  block_backend="pallas", device=device, verbose=False,
+                                  opt_state_dtype=opt_state_dtype)
     with torch.device("meta"):
         n_params = cvae.param_count(cvae.MultiModalCVAE(pipeline.joint_model_config(cfg, 5)))
     check(n_params == FULL_MM_PARAMS, f"{n_params} stage-1 parameters, expected {FULL_MM_PARAMS}")
@@ -1452,11 +1519,14 @@ def phase_joint_pipeline(card: str, workdir: str, device="cuda"):
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     reset_all_launches()
     sync()
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = pipeline.run_pipeline(cfg, trackers=trackers)
     sync()
     wall = time.perf_counter() - t0
     launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**20 if device != "cpu" else float("nan")
 
     n_pool, n_target = 2975, 392
     n_tr = int(cfg.train_val_split * n_pool)
@@ -1485,17 +1555,24 @@ def phase_joint_pipeline(card: str, workdir: str, device="cuda"):
     n_classes = results["num_class_labels"]
     check_ckpts(trackers, lambda key: cvae.multimodal_cvae_init(
         pipeline.joint_model_config(cfg, n_classes if key == "joint_supervised" else 5),
-        torch.Generator().manual_seed(0), device=device), device)
+        torch.Generator().manual_seed(0), device=device), device, state_dtype=opt_state_dtype)
+    if opt_state_dtype is not None:
+        check(all(e[m].dtype == getattr(torch, opt_state_dtype) for t in trackers.values()
+                  for e in t.best_opt["state"].values() for m in ("exp_avg", "exp_avg_sq")),
+              f"the snapshots' moments are not {opt_state_dtype}")
     ckpts = sorted(p.name for p in pathlib.Path(cfg.checkpoint_dir).glob("*.ckpt"))
     check(ckpts == [f"{ds}_joint_model.ckpt", f"{ds}_joint_model_supervised.ckpt"], f"checkpoints {ckpts}")
     accs = results["balanced_accuracy"]["joint"]
     check(len(accs) == 15 and all(math.isfinite(a) for a in accs), f"balanced accuracies {accs}")
 
     timings = {k: round(v, 3) for k, v in results["timings"].items()}
-    print(f"[10 joint pipeline] run_pipeline(model_type=multimodal) on {ds}, z={Z}, {n_params:,} stage-1 "
-          f"params, one epoch per stage, loss_backend=pallas block_backend=pallas: {wall:.3f} s wall on "
-          f"{card}; {train} train and {val} val steps; launches {launches}")
+    print(f"[{label}] run_pipeline(model_type=multimodal) on {ds}, z={Z}, {n_params:,} stage-1 "
+          f"params, one epoch per stage, opt_state_dtype={opt_state_dtype}, loss_backend=pallas "
+          f"block_backend=pallas: {wall:.3f} s wall on {card}; {train} train and {val} val steps; "
+          f"launches {launches}")
     print(f"  stage timings (StageTimer): {json.dumps(timings)}")
+    print(f"  checkpoint writes in the background (s): {writer_split(trackers)}")
+    print(f"  peak device memory allocated over the pipeline: {peak:.1f} MiB")
     best = results["best"]["joint"]
     print(f"  5 outputs checked (3 CSVs, 2 .ckpt reloaded equal to their snapshots); 15 finite balanced "
           f"accuracies, best {best['balanced_accuracy']:.4f} (k={best['k']}); phase "
@@ -1619,7 +1696,313 @@ def phase_inference(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, d
           f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def optimizer_steps_vs_cpu(card: str, device="cuda"):
+    """One step of schedule-free AdamW and one of AdamW with bf16 moments
+    (clip 1.0) on the full-width unimodal model (8,056,639 parameters) on
+    the card, each against the same update on the CPU from the same state
+    (one host step from fresh, loaded into the card's optimizer) and the same
+    numpy gradients: parameters and schedule-free states rtol 1e-5 / atol
+    1e-7, k exact (tests/test_torch_schedule_free.py); bf16 moments within
+    one bf16 ulp (tests/test_torch_bf16_moments.py) plus rtol 1e-5 of the
+    moment update's terms, since the clip's global norm over 8 M elements
+    differs between card and host in its last bits."""
+    import torch
+
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import optim
+
+    r = np.random.default_rng(0)
+    host = cvae.unimodal_cvae_init(full_config(), torch.Generator().manual_seed(0), device="cpu")
+    shapes = [tuple(p.shape) for p in host.parameters()]
+    grads = [[r.normal(size=s).astype(np.float32) for s in shapes] for _ in range(2)]
+
+    def set_grads(ps, g):
+        for p, gi in zip(ps, g):
+            p.grad = torch.from_numpy(gi.copy()).to(p.device)  # the clip scales in place
+
+    out = {}
+    for algorithm, state_dtype in (("schedule-free", None), ("adamw", "bfloat16")):
+        def make(ps):
+            return optim.make_optimizer(ps, LR, WD, CLIP, state_dtype=state_dtype, algorithm=algorithm)
+
+        cp = [torch.nn.Parameter(p.detach().clone()) for p in host.parameters()]
+        co = make(cp)
+        set_grads(cp, grads[0])
+        co.step()
+        gp = [torch.nn.Parameter(p.detach().clone().to(device)) for p in cp]
+        go = make(gp)
+        go.load_state_dict(copy.deepcopy(co.state_dict()))  # no tensor shared with the host's
+        before = {m: [co.state[p][m].float().numpy().copy() for p in cp] for m in ("exp_avg", "exp_avg_sq")
+                  if state_dtype is not None}
+        for ps, opt in ((cp, co), (gp, go)):
+            set_grads(ps, grads[1])
+            opt.step()
+        pairs = [(a.detach(), b.detach()) for a, b in zip(gp, cp)]
+        if algorithm == "schedule-free":
+            gs, cs = optim.find_schedule_free_state(go), optim.find_schedule_free_state(co)
+            check(int(gs.k) == int(cs.k) == 2, f"schedule-free k {int(gs.k)} on the card, {int(cs.k)} on the host")
+            check(gs.k.device == gp[0].device, f"schedule-free k on {gs.k.device}, the parameters on {gp[0].device}")
+            pairs += list(zip(gs.z + gs.exp_avg_sq, cs.z + cs.exp_avg_sq))
+        else:
+            for j, (a, b) in enumerate(zip(gp, cp)):
+                for m in ("exp_avg", "exp_avg_sq"):
+                    x, y = go.state[a][m], co.state[b][m]
+                    check(x.dtype == y.dtype == torch.bfloat16, f"{m} stored as {x.dtype} / {y.dtype}")
+                    x, y = x.float().cpu().numpy(), y.float().numpy()
+                    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(y), 1e-30))) - 7)
+                    # plus rtol 1e-5 of the update's terms: the card's clip norm differs from the
+                    # host's in its last bits, and where b*m and (1-b)*g cancel the float32
+                    # moments differ by more than the bf16 spacing of their small result
+                    g = b.grad.numpy()
+                    terms = (0.9 * np.abs(before[m][j]) + 0.1 * np.abs(g) if m == "exp_avg"
+                             else 0.999 * before[m][j] + 0.001 * g * g)
+                    bad = np.abs(x - y) > ulp + 1e-5 * terms
+                    check(not bad.any(), f"bf16 {m} of shape {tuple(x.shape)} beyond one ulp of the host's at "
+                                         f"{int(bad.sum())} elements, e.g. card {x[bad][:4].tolist()} host "
+                                         f"{y[bad][:4].tolist()} (stored before this step: "
+                                         f"{before[m][j][bad][:4].tolist()})")
+        worst = 0.0
+        for a, b in pairs:
+            a, b = a.cpu().numpy(), b.numpy()
+            check(np.allclose(a, b, rtol=1e-5, atol=1e-7), f"{algorithm} step on the card differs from the host's")
+            worst = max(worst, float(np.abs(a - b).max()))
+        out[f"{algorithm}{'' if state_dtype is None else ' ' + state_dtype}"] = worst
+    print(f"  one optimizer step of the full-width model on the card against the host from the same state "
+          f"(max abs diff, rtol 1e-5 / atol 1e-7): {json.dumps({k: float(f'{v:.3g}') for k, v in out.items()})} "
+          f"on {card}")
+
+
+def optimizer_memory(card: str, device="cuda") -> dict:
+    """AdamW's device memory on the full-width joint model (16,115,748
+    parameters, clip 1.0) with float32 and with bf16 moments: the moments'
+    bytes and the step's transient peak above what was allocated before it
+    (the second step, the states made by the first). bf16 moments must take
+    less in all: their float32 copies are made one bucket at a time
+    (optim.UPCAST_BUCKET elements)."""
+    import torch
+
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import optim
+
+    out = {}
+    for state_dtype in (None, "bfloat16"):
+        model = cvae.multimodal_cvae_init(joint_config(), torch.Generator().manual_seed(0), device=device)
+        ps = list(model.parameters())
+        opt = optim.make_optimizer(ps, LR, WD, CLIP, state_dtype=state_dtype)
+        g = torch.Generator(device=device).manual_seed(0)
+        for _ in range(2):
+            for p in ps:
+                p.grad = torch.randn(p.shape, device=device, generator=g)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            opt.step()
+            torch.cuda.synchronize()
+        state = sum(opt.state[p][m].nbytes for p in ps for m in ("exp_avg", "exp_avg_sq"))
+        step_peak = torch.cuda.max_memory_allocated() - before
+        out[str(state_dtype or "float32")] = {"moments_MiB": state / 2**20, "step_peak_MiB": step_peak / 2**20,
+                                              "total_MiB": (state + step_peak) / 2**20}
+        del model, ps, opt
+    check(out["bfloat16"]["total_MiB"] < out["float32"]["total_MiB"],
+          f"bf16 moments take more device memory than float32 ones: {out}")
+    print(f"  AdamW device memory on the joint model, moments plus the step's transient peak: "
+          f"{json.dumps({k: {n: round(x, 1) for n, x in v.items()} for k, v in out.items()})} on {card}")
+    return out
+
+
+def phase_optimizers(card: str, workdir: str, device="cuda"):
+    """Phase 12: the unimodal pipeline at full width with
+    optimizer="schedule-free" and the joint pipeline with
+    opt_state_dtype="bfloat16", one epoch per stage, both on the kernels,
+    with every check of phases 9 and 10 (the same exact kernel launches: the
+    optimizer does not change the step's kernels; the outputs; finite
+    accuracies; each checkpoint reloaded through export.load_model_from_ckpt
+    and equal to its snapshot), the schedule-free ones with empty
+    optimizer_states and a sidecar, the bf16 ones with float32 moments; then
+    one schedule-free and one bf16-moment step on the card against the host
+    (optimizer_steps_vs_cpu) and AdamW's device memory with float32 and
+    bf16 moments (optimizer_memory)."""
+    t0 = time.perf_counter()
+    phase_pipeline(card, workdir, device, optimizer="schedule-free", label="12 schedule-free pipeline")
+    phase_joint_pipeline(card, workdir, device, opt_state_dtype="bfloat16", label="12 bf16-moment joint pipeline")
+    optimizer_steps_vs_cpu(card, device)
+    optimizer_memory(card, device)
+    print(f"  phase 12 {time.perf_counter() - t0:.1f} s")
+
+
+def _free_server(argv: list, timeout: float = 300.0):
+    """Start the port's server (python -m hippie_tpu_torch.scripts.serve_embeddings
+    ``argv`` --port 0) and return (process, url) once it says where it serves."""
+    import queue
+    import threading
+
+    proc = subprocess.Popen([sys.executable, "-m", "hippie_tpu_torch.scripts.serve_embeddings", *argv,
+                             "--host", "127.0.0.1", "--port", "0"], cwd=str(REPO), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put(None)],
+                     daemon=True).start()
+    said, deadline = [], time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        try:
+            line = lines.get(timeout=max(0.1, deadline - time.perf_counter()))
+        except queue.Empty:
+            break
+        if line is None:
+            break
+        said.append(line.rstrip())
+        m = re.search(r"on (http://127\.0\.0\.1:\d+)", line)
+        if m:
+            return proc, m.group(1), said
+    proc.kill()
+    proc.wait()
+    raise PhaseError(f"the server did not start: {said[-10:]}")
+
+
+def _post(url: str, body: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url + "/embed", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, device="cuda"):
+    """Phase 13: the port's embedding server on the card, in a process of
+    its own on 127.0.0.1 at a free port, warmed with the ladder 512,1024:
+    with phase 9's stage-3 wave and time checkpoints (dual) and with phase
+    10's supervised joint one. The target's raw rows go in 7 requests of up
+    to 64 rows (source 0); every reply is within 1e-5 of the checkpoint's
+    model called directly (export.load_model_from_ckpt, embed_unimodal /
+    embed_multimodal) on preprocess_pair of the same rows. Then the port's
+    load-test client at its defaults (16 clients x 20 requests x 64 rows,
+    raw widths 41/91) prints requests/s, p50/p99 and the server's device
+    dispatches and coalesced requests. The server is stopped after."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hippie_tpu_torch import export
+    from hippie_tpu_torch.data import registry
+    from hippie_tpu_torch.evaluate.embeddings import embed_multimodal, embed_unimodal
+    from hippie_tpu_torch.ops import preprocess
+    from hippie_tpu_torch.scripts import serving_load_test
+
+    t_phase = time.perf_counter()
+    wf, isi = registry.load_raw(DATA_ROOT, TARGET, dropna=True)
+    wf, isi = np.asarray(wf, np.float32), np.asarray(isi, np.float32)
+    wave, isi_p = preprocess.preprocess_pair(wf, isi, device=device)
+    source = torch.zeros(len(wf), dtype=torch.long, device=device)
+    for mode, flags in (("dual", ["--wave-checkpoint", uni_ckpts["wave"], "--time-checkpoint", uni_ckpts["time"]]),
+                        ("joint", ["--joint-checkpoint", joint_ckpt])):
+        if mode == "dual":
+            mw, _ = export.load_model_from_ckpt(uni_ckpts["wave"], device=device)
+            mt, _ = export.load_model_from_ckpt(uni_ckpts["time"], device=device)
+            e_w, e_i = embed_unimodal(mw, wave, source), embed_unimodal(mt, isi_p, source)
+            direct = {"waveform": e_w, "isi": e_i, "joint": torch.cat([e_w, e_i], dim=1)}
+        else:
+            mj, _ = export.load_model_from_ckpt(joint_ckpt, device=device)
+            direct = {"joint": embed_multimodal(mj, wave, isi_p, source)}
+        direct = {k: v.cpu().numpy() for k, v in direct.items()}
+        t0 = time.perf_counter()
+        proc, url, said = _free_server(flags + ["--warmup-buckets", "512,1024", "--device", device])
+        start_s = time.perf_counter() - t0
+        try:
+            worst, n_req = 0.0, 0
+            for lo in range(0, len(wf), 64):
+                rows = slice(lo, lo + 64)
+                reply = _post(url, {"waveforms": wf[rows].tolist(), "isi_dists": isi[rows].tolist()})
+                n_req += 1
+                for kind, ref in direct.items():
+                    got = np.asarray(reply[kind], np.float32)
+                    check(got.shape == ref[rows].shape, f"{mode} {kind} reply of shape {got.shape}")
+                    worst = max(worst, float(np.abs(got - ref[rows]).max()))
+            check(worst <= 1e-5, f"serving {mode}: a reply {worst} from the model called directly")
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                res = serving_load_test.main(["--url", url])
+            stats = json.loads(urllib_get(url + "/stats"))
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        check(res["requests"] == 16 * 20, f"load test: {res['requests']} requests")
+        print(f"[13 serving] {mode}: the server started and warmed (512, 1024) in {start_s:.1f} s "
+              f"({'; '.join(x for x in said if x.startswith('warmup'))}); {n_req} requests of the target's "
+              f"{len(wf)} raw rows, max |reply - direct| {worst:.3g} (limit 1e-5)")
+        print(f"  load test (16 clients x 20 requests x 64 rows, widths 41/91) on {card}: "
+              f"{res['req_per_s']} req/s, {res['rows_per_s']} rows/s, client p50 {res['client_p50_ms']} ms, "
+              f"p99 {res['client_p99_ms']} ms, max {res['client_max_ms']} ms; {res['device_dispatches']} "
+              f"device dispatches for {res['requests']} requests "
+              f"({res['device_dispatches'] / res['requests']:.3f} per request), {res['coalesced_requests']} "
+              f"coalesced; server /stats p50 {stats['p50_latency_ms']} ms, p99 {stats['p99_latency_ms']} ms")
+    print(f"  phase 13 {time.perf_counter() - t_phase:.1f} s")
+
+
+def urllib_get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read().decode()
+
+
+def phases_of(checkout: str):
+    """In this process: build ``checkout``'s kernels and run its phase 9
+    twice (cold, then warm) and its phase 10, with its own chip_smoke.py."""
+    os.chdir(checkout)
+    sys.path.insert(0, checkout)
+    sys.modules.pop("chip_smoke", None)
+    import chip_smoke as cs  # the checkout's, not this file
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    with open(os.devnull, "w") as devnull, contextlib.redirect_stdout(devnull):
+        cs.phase_build()
+    with tempfile.TemporaryDirectory(prefix="hippie_phases_") as wd:
+        cs.phase_pipeline(card, wd)
+        cs.phase_pipeline(card, wd)
+        cs.phase_joint_pipeline(card, wd)
+
+
+def compare(other: str, pairs: int) -> int:
+    """Phases 9 (cold, warm) and 10 of ``other`` and of this tree, each run
+    in a fresh process, ``pairs`` times in turns; prints each run's wall
+    times and ckpt_save (s) and the medians per tree."""
+    trees = {"other": str(pathlib.Path(other).resolve()), "this": str(REPO)}
+    runs = {k: [] for k in trees}
+    for i in range(pairs):
+        for name in (("other", "this") if i % 2 == 0 else ("this", "other")):
+            proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--phases-of", trees[name]],
+                                  capture_output=True, text=True, timeout=900)
+            walls = [float(w) for w in re.findall(r"^\[(?:9|10)[^\]]*\].*?: ([0-9.]+) s wall", proc.stdout, re.M)]
+            saves = [json.loads(t).get("ckpt_save", 0.0)
+                     for t in re.findall(r"stage timings \(StageTimer\): (\{.*\})", proc.stdout)]
+            if proc.returncode != 0 or len(walls) != 3 or len(saves) != 3:
+                print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n")
+                print(f"chip_smoke: FAILED: the {name} tree's phases (rc {proc.returncode})", file=sys.stderr)
+                return 1
+            run = {"phase9_cold": walls[0], "phase9_warm": walls[1], "phase10": walls[2],
+                   "ckpt_save": saves}
+            runs[name].append(run)
+            print(f"[compare {i}] {name} ({trees[name]}): {json.dumps(run)}", flush=True)
+    for name, rs in runs.items():
+        med = {k: float(np.median([r[k] for r in rs])) for k in ("phase9_cold", "phase9_warm", "phase10")}
+        print(f"[compare] {name} medians over {len(rs)} runs (s): {json.dumps(med)}")
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--phases-of"]:
+        phases_of(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--compare"]:
+        pairs = int(sys.argv[4]) if sys.argv[3:4] == ["--pairs"] else 5
+        return compare(sys.argv[2], pairs)
     try:
         import torch
     except ImportError as e:
@@ -1687,6 +2070,8 @@ def main() -> int:
             for record in kernels:
                 record["launches"] = pipeline_launches[record["name"]]
             phase_inference(card, workdir, uni_ckpts, joint_ckpt)
+            phase_optimizers(card, workdir)
+            phase_serving(card, uni_ckpts, joint_ckpt)
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback

@@ -1,7 +1,7 @@
 """Linear resampling as a precomputed interpolation-matrix matmul.
 
-Counterpart of hippie_tpu/ops/resample.py (a copy of its numpy
-``interp_matrix``). The reference resamples every sample with
+Counterpart of hippie_tpu/ops/resample.py (copies of its numpy
+``interp_matrix`` and ``padded_interp_matrix``). The reference resamples every sample with
 ``F.interpolate(x, size=(out,), mode="linear")`` (align_corners=False); here a
 whole dataset is resampled as one ``X @ R`` with the same coefficients.
 """
@@ -34,6 +34,20 @@ def interp_matrix(in_len: int, out_len: int) -> np.ndarray:
     cols = np.arange(out_len, dtype=np.int64)
     np.add.at(R, (lo, cols), np.float32(1.0) - frac)
     np.add.at(R, (hi, cols), frac)
+    R.setflags(write=False)
+    return R
+
+
+@functools.lru_cache(maxsize=None)
+def padded_interp_matrix(in_len: int, out_len: int, cap: int) -> np.ndarray:
+    """interp_matrix(in_len, out_len) zero-padded to [cap, out_len] rows, so
+    one [N, cap] @ [cap, out_len] product resamples any raw width <= cap of
+    rows zero-padded to cap columns (the server's width-agnostic path). The
+    cached array is read-only."""
+    if in_len > cap:
+        raise ValueError(f"in_len {in_len} exceeds padded width cap {cap}")
+    R = np.zeros((cap, out_len), dtype=np.float32)
+    R[:in_len] = interp_matrix(in_len, out_len)
     R.setflags(write=False)
     return R
 

@@ -11,10 +11,11 @@ the kernels on the host). Differences: ``--fit-loop`` takes only ``host``
 (the port's one loop, trajectory-equal to the JAX host loop), ``--aot-dir``
 defaults to none, and the JAX options with no port yet (``--resume``,
 ``--dp-devices``, ``--fsdp``, ``--aot-dir``, ``--profile-dir``,
-``--optimizer schedule-free``, ``--opt-state-dtype bfloat16``,
 ``--discover-datasets``, ``--progress-every``, ``--log-every-step``,
 ``--wandb``, ``--block-backend fused|bf16``) raise with the ROADMAP item
-that ports them (``UNPORTED``). ``--stage1-wave-ckpt`` and
+that ports them (``UNPORTED``). ``--optimizer schedule-free`` and
+``--opt-state-dtype bfloat16`` reach the pipeline; together they raise the
+JAX CLI's ValueError. ``--stage1-wave-ckpt`` and
 ``--stage1-time-ckpt`` seed stage 1 from Lightning checkpoints. ``--beta``
 goes into the config, where the joint model
 (scripts/train_model_with_multimodal.py) reads it; the unimodal pipeline
@@ -96,9 +97,12 @@ def build_parser():
     parser.add_argument("--log-every-step", action="store_true",
                         help="device fit loop only: not ported (raises)")
     parser.add_argument("--opt-state-dtype", choices=("float32", "bfloat16"), default="float32",
-                        help="Adam moment storage dtype; bfloat16 is not ported (raises)")
+                        help="Adam moment storage dtype; bfloat16 stores the moments in bf16 "
+                             "(the update stays float32)")
     parser.add_argument("--optimizer", choices=("adamw", "schedule-free"), default="adamw",
-                        help="'schedule-free' is not ported (raises)")
+                        help="'schedule-free' = schedule-free AdamW: validation, embeddings and "
+                             "ckpts use the averaged x iterate, ckpts omit optimizer_states and "
+                             "keep the averaging state in a .sfstate sidecar")
     parser.add_argument("--block-backend", choices=("xla", "bf16", "fused", "pallas"), default="xla",
                         help="backbone blocks of the training steps: 'pallas' = the hand-written "
                              "CUDA block kernels, 'xla' = torch convolutions; 'fused' and 'bf16' "
@@ -129,8 +133,6 @@ UNPORTED = (
     ("profile_dir", None, "item 12 (profiling with torch.profiler)"),
     ("discover_datasets", False, "item 12 (the remaining CLI)"),
     ("wandb", False, "item 12 (the remaining CLI)"),
-    ("optimizer", "adamw", "item 9 (schedule-free AdamW)"),
-    ("opt_state_dtype", "float32", "item 9 (bf16 Adam moments)"),
     ("progress_every", None, "item 3 (options of the JAX device fit loop, which has no port)"),
     ("log_every_step", False, "item 3 (options of the JAX device fit loop, which has no port)"),
 )
@@ -142,6 +144,7 @@ def config_from_args(args, model_type: str = "unimodal"):
     (``--mod1-weight``, ``--mod2-weight``, ``--stage1-joint-ckpt``) keep
     their defaults when the parser has none."""
     from hippie_tpu_torch.models.backbones import check_backend
+    from hippie_tpu_torch.train.optim import check_optimizer
     from hippie_tpu_torch.train.pipeline import PipelineConfig
 
     for dest, default, item in UNPORTED:
@@ -149,6 +152,8 @@ def config_from_args(args, model_type: str = "unimodal"):
             raise ValueError(f"--{dest.replace('_', '-')} {getattr(args, dest)!r} is not ported yet: "
                              f"ROADMAP Queue 1 {item}")
     check_backend(args.block_backend)  # 'fused' and 'bf16' raise (item 13)
+    opt_state_dtype = None if args.opt_state_dtype == "float32" else args.opt_state_dtype
+    check_optimizer(args.optimizer, opt_state_dtype)  # schedule-free with bf16 moments raises
     return PipelineConfig(
         z_dim=args.z_dim,
         weight_decay=args.weight_decay,
@@ -179,6 +184,8 @@ def config_from_args(args, model_type: str = "unimodal"):
         honest_eval=args.honest_eval,
         loss_backend=args.loss_backend,
         block_backend=args.block_backend,
+        opt_state_dtype=opt_state_dtype,
+        optimizer=args.optimizer,
         device=args.device,
         stage1_wave_ckpt=args.stage1_wave_ckpt,
         stage1_time_ckpt=args.stage1_time_ckpt,

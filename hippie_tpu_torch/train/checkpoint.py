@@ -1,10 +1,10 @@
 """Weights carried over from the JAX package's pytrees, and Lightning ``.ckpt`` I/O.
 
 Counterpart of hippie_tpu/train/checkpoint.py (``flatten_interleaved``,
-``_to_torch_layout``, ``parameter_key_order``, ``save_lightning_ckpt``,
-``load_lightning_ckpt``) and of the AdamW-state layout of
-hippie_tpu/train/optim.py (``adamw_state_to_torch``), copied rather than
-imported.
+``_to_torch_layout``, ``_from_torch_layout``, ``bulk_host_fetch``,
+``parameter_key_order``, ``save_lightning_ckpt``, ``load_lightning_ckpt``)
+and of the AdamW-state layout of hippie_tpu/train/optim.py
+(``adamw_state_to_torch``), copied rather than imported.
 The JAX package keeps its parameters and BatchNorm state as nested dicts in
 torch registration order; flattening them interleaved (a BatchNorm emits
 weight, bias, running_mean, running_var, num_batches_tracked) gives the keys
@@ -17,6 +17,8 @@ embeddings, biases and BN vectors unchanged; num_batches_tracked int64.
 from __future__ import annotations
 
 import os
+import threading
+import time
 from collections import OrderedDict
 from typing import Any, Dict, Iterable, Optional, Sequence
 
@@ -64,6 +66,125 @@ def _to_torch_layout(key: str, x: np.ndarray) -> np.ndarray:
     return x
 
 
+def _from_torch_layout(key: str, x: np.ndarray) -> np.ndarray:
+    if x.ndim == 3:  # conv kernel [O, I, K] -> [K, I, O]
+        return np.transpose(x, (2, 1, 0))
+    if x.ndim == 2 and "embedding" not in key:
+        return np.transpose(x, (1, 0))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Device -> host in one copy
+# ---------------------------------------------------------------------------
+
+
+_pinned = None  # the host buffer of bulk_host_fetch, kept pinned and reused
+_pinned_lock = threading.Lock()
+
+
+def _pinned_buffer(n: int) -> torch.Tensor:
+    """``n`` float32 of the process's pinned host buffer, grown as needed
+    (the caller holds ``_pinned_lock``)."""
+    global _pinned
+    if _pinned is None or _pinned.numel() < n:
+        _pinned = None
+        _pinned = torch.empty(n, dtype=torch.float32, pin_memory=True)
+    return _pinned[:n]
+
+
+def bulk_host_fetch(flat: Dict[Any, Any], ready: Optional["torch.cuda.Event"] = None,
+                    times: Optional[dict] = None) -> Dict[Any, Any]:
+    """``flat`` with every tensor value as a numpy array, the CUDA ones
+    fetched in ONE device-to-host copy; other values pass through.
+
+    The CUDA tensors are concatenated into one float32 buffer on a side
+    stream, copied into pinned host memory and split on the host, so a
+    checkpoint of several hundred tensors costs one copy and one wait instead
+    of one synchronising ``.cpu()`` each, and the copy does not queue behind
+    the default stream's later kernels. The side stream first waits for
+    ``ready``, an event recorded on the stream that produced the tensors
+    (default: recorded on the current stream now). The tensors stay
+    referenced until the copy has completed. The pinned buffer is one per
+    process, reused by every fetch (one at a time) and grown to the largest.
+    Values come back in their own dtype (bfloat16 as float32), each an array
+    of its own; integers survive the float32 round trip exactly below 2**24
+    (BatchNorm step counters). ``times``, when given, gets the seconds spent
+    getting the pinned buffer (``pin_s``), from the copy's launch to its end
+    (``copy_s``), and splitting on the host (``split_s``).
+    """
+    out = dict(flat)
+    on_card = [k for k, v in flat.items() if isinstance(v, torch.Tensor) and v.is_cuda]
+    for k, v in flat.items():
+        if isinstance(v, torch.Tensor) and not v.is_cuda:
+            v = v.detach()
+            out[k] = np.array((v.float() if v.dtype == torch.bfloat16 else v).numpy())
+    if not on_card:
+        return out
+    tensors = [flat[k].detach() for k in on_card]
+    device = tensors[0].device
+    if ready is None:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(device))
+    side = torch.cuda.Stream(device)
+    total = sum(t.numel() for t in tensors)
+    with _pinned_lock:
+        t0 = time.perf_counter()
+        host = _pinned_buffer(total)
+        t1 = time.perf_counter()
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            packed = torch.cat([t.reshape(-1) for t in tensors], out=torch.empty(
+                total, dtype=torch.float32, device=device))
+            host.copy_(packed, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        done.synchronize()  # the sources and ``packed`` stay referenced until here
+        t2 = time.perf_counter()
+        flat_host = host.numpy()
+        at = 0
+        for k, t in zip(on_card, tensors):
+            n = t.numel()
+            dtype = np.float32 if t.dtype == torch.bfloat16 else torch.empty(0, dtype=t.dtype).numpy().dtype
+            out[k] = flat_host[at:at + n].astype(dtype).reshape(tuple(t.shape))  # a copy
+            at += n
+        t3 = time.perf_counter()
+    if times is not None:
+        times.update(pin_s=t1 - t0, copy_s=t2 - t1, split_s=t3 - t2)
+    return out
+
+
+def host_tree(tree, ready: Optional["torch.cuda.Event"] = None, times: Optional[dict] = None):
+    """A nested dict / list / tuple with its tensor leaves as numpy arrays,
+    all fetched by one ``bulk_host_fetch`` (``ready`` and ``times`` as
+    there); other leaves are kept."""
+    flat = {}
+
+    def collect(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                collect(v, path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                collect(v, path + (i,))
+        elif isinstance(node, torch.Tensor):
+            flat[path] = node
+
+    collect(tree, ())
+    if not flat:
+        return tree
+    host = bulk_host_fetch(flat, ready, times)
+
+    def rebuild(node, path):
+        if isinstance(node, dict):
+            return type(node)((k, rebuild(v, path + (k,))) for k, v in node.items())
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v, path + (i,)) for i, v in enumerate(node))
+        return host.get(path, node)
+
+    return rebuild(tree, ())
+
+
 def state_dict_from_jax(params: dict, state: Optional[dict]) -> "OrderedDict[str, torch.Tensor]":
     """JAX (params, bn_state) nested dicts of arrays -> the port's state_dict.
 
@@ -98,15 +219,17 @@ def parameter_key_order(model: torch.nn.Module) -> list:
     return [k for k, _ in model.named_parameters()]
 
 
-def adamw_state_to_torch(opt_state: dict, state_dict: Dict[str, torch.Tensor],
+def adamw_state_to_torch(opt_state: dict, state_dict: Dict[str, Any],
                          param_keys: Sequence[str], *, lr: float, weight_decay: float) -> dict:
     """A torch AdamW ``state_dict()`` over ``param_keys`` -> the layout of
     hippie_tpu/train/optim.py:adamw_state_to_torch for ``optimizer_states[0]``:
     per parameter index ``step`` (a numpy float32 scalar), ``exp_avg`` and
-    ``exp_avg_sq`` (float32 numpy arrays in torch layout), and one param
-    group with the JAX package's keys. A parameter without state yet (no
-    step taken) gets zero moments and step 0, as optax's fresh state."""
-    state = opt_state.get("state", {})
+    ``exp_avg_sq`` (float32 numpy arrays in torch layout, whatever dtype the
+    moments are stored in), and one param group with the JAX package's keys.
+    A parameter without state yet (no step taken) gets zero moments and step
+    0, as optax's fresh state. Tensors on the card come over in one
+    ``host_tree`` fetch; numpy input is used as it is."""
+    state = host_tree(opt_state.get("state", {}))
     out = {}
     for i, k in enumerate(param_keys):
         entry = state.get(i)
@@ -116,9 +239,9 @@ def adamw_state_to_torch(opt_state: dict, state_dict: Dict[str, torch.Tensor],
                       "exp_avg_sq": zeros.copy()}
             continue
         out[i] = {
-            "step": np.asarray(float(entry["step"]), dtype=np.float32),
-            "exp_avg": entry["exp_avg"].detach().float().cpu().numpy(),
-            "exp_avg_sq": entry["exp_avg_sq"].detach().float().cpu().numpy(),
+            "step": np.asarray(entry["step"], dtype=np.float32),
+            "exp_avg": np.asarray(entry["exp_avg"], dtype=np.float32),
+            "exp_avg_sq": np.asarray(entry["exp_avg_sq"], dtype=np.float32),
         }
     return {
         "state": out,
@@ -158,7 +281,7 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer, torch_opt_sd: dict):
 
 def save_lightning_ckpt(
     path: str,
-    state_dict: Dict[str, torch.Tensor],
+    state_dict: Dict[str, Any],
     *,
     optimizer_state: Optional[dict] = None,
     epoch: int = 0,
@@ -166,15 +289,17 @@ def save_lightning_ckpt(
     hyper_parameters: Optional[dict] = None,
 ):
     """Write a Lightning-compatible .ckpt of a port model's ``state_dict``
-    (keys without prefix, tensors on any device) and an ``optimizer_state`` in
-    the layout of ``adamw_state_to_torch``.
+    (keys without prefix; tensors on any device, fetched in one
+    ``host_tree`` copy, or numpy arrays from one) and an ``optimizer_state``
+    in the layout of ``adamw_state_to_torch``.
 
     Atomic: written to ``<path>.tmp.<pid>`` and renamed; on failure the
     temporary file is removed and nothing is left at ``path``.
     """
+    host = host_tree(dict(state_dict))
     payload = {
-        "state_dict": OrderedDict(("model." + k, v.detach().cpu().clone())
-                                  for k, v in state_dict.items()),
+        "state_dict": OrderedDict(("model." + k, torch.from_numpy(host[k]).contiguous())
+                                  for k in state_dict),
         "optimizer_states": [optimizer_state] if optimizer_state is not None else [],
         "epoch": epoch,
         "global_step": global_step,

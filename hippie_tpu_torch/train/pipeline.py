@@ -44,15 +44,26 @@ from CPU ``torch.Generator``s and the reparameterization noise from a
 generator on the data's device, each seeded from ``seed`` and a fixed path
 (train/loop.py:epoch_key), where the JAX package folds the same integers into
 jax.random keys; the bits differ between the packages, the structure does
-not. The AdamW optimizer is fresh in every stage. The JAX pipeline's
-options with no port yet are not fields here; the CLI
-(scripts/train_model.py) raises on their flags.
+not. The AdamW optimizer is fresh in every stage (with ``opt_state_dtype=
+"bfloat16"`` its moments are stored in bf16). With ``optimizer=
+"schedule-free"`` validation runs at the x iterate, every consumer of a fit
+(checkpoints, embeddings, handoffs) gets x, and the averaging state (k,
+weight_sum, lr_max, z, exp_avg_sq) carries over into the next stage's
+optimizer, the stage-3 class embedding's entries fresh (Q10), training
+resuming at y = train_params(x). The best checkpoints are written by a
+background thread that overlaps the later stages (``BestTracker.
+flush_async``), at the JAX pipeline's points. The JAX pipeline's options
+with no port yet are not fields here; the CLI (scripts/train_model.py)
+raises on their flags.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
+import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -108,6 +119,8 @@ class PipelineConfig:
     log_fn: Any = None  # optional callable(dict), one record per epoch
     drop_index_column: bool = False  # drop the CSV index feature (quirk Q4)
     honest_eval: bool = False  # stage-3 embeddings without class conditioning
+    opt_state_dtype: Optional[str] = None  # "bfloat16": the AdamW moments stored in bf16
+    optimizer: str = "adamw"  # or "schedule-free" (train/schedule_free.py)
     loss_backend: str = "xla"  # "pallas": the loss kernels of ops/cuda_ops.py
     block_backend: str = "xla"  # "pallas": the block kernels of ops/cuda_blocks.py
     device: str = "cuda"
@@ -169,41 +182,109 @@ class BestTracker:
     stages like the reference's reused callback object.
 
     ``update_from_fit`` keeps the fit's best snapshot (device clones of the
-    state_dict and the AdamW state) when it improves on the tracked best;
-    ``flush()`` writes it to ``path`` once, so a stage handoff reads the
-    snapshot on the device (``seed_from_best``), never the file. The JAX
-    tracker's ``flush_async`` writes in a thread because its fits donate
-    their buffers; the port's snapshots are clones no later fit touches, so
-    the pipeline flushes synchronously where the JAX one starts that thread.
+    state_dict and the optimizer state) when it improves on the tracked
+    best; a write puts it in ``path`` once, so a stage handoff reads the
+    snapshot on the device (``seed_from_best``), never the file. As the JAX
+    tracker does, the write runs in a background thread started by
+    ``flush_async``, so it overlaps the later stages; the snapshots are
+    clones no later fit touches. The thread fetches the snapshot in one copy
+    (``checkpoint.host_tree``), converts it and saves it. ``wait()`` and
+    ``flush()`` join the thread and re-raise its error. ``writes`` records
+    each write's seconds: the fetch (``d2h_s``, of which ``pin_s``,
+    ``copy_s`` and ``split_s``, see ``checkpoint.bulk_host_fetch``), the
+    conversion (``convert_s``) and the save (``save_s``); ``wait_s`` the
+    foreground's seconds spent joining.
     """
 
     def __init__(self, path: str):
         self.path = path
         self.best_val = math.inf
         self.best_state_dict = None
-        self.best_opt = None
-        self._pending = None  # (parameter keys, lr, wd) awaiting flush
+        self.best_opt = None  # survives the write: stage handoffs continue from it
+        self._pending = None  # (state_dict, optimizer state, parameter keys, lr, wd) to write
+        self._thread = None
+        self._thread_err = None
+        self.writes: List[dict] = []
+        self.wait_s = 0.0
 
     def update_from_fit(self, result: loop.FitResult, param_keys, opt_meta) -> bool:
         if result.best_epoch >= 0 and result.best_val_loss < self.best_val:
             self.best_val = result.best_val_loss
             self.best_state_dict = result.best_state_dict
             self.best_opt = result.best_opt_state
-            self._pending = (list(param_keys), *opt_meta)
+            self._pending = (self.best_state_dict, self.best_opt, list(param_keys), *opt_meta)
             return True
         return False
 
+    def _write(self, job, ready=None):
+        """Write ``job``'s snapshot to ``path``: the .ckpt with the AdamW state
+        in the ``optimizer_states[0]`` layout, or for schedule-free an empty
+        ``optimizer_states`` and the sidecar."""
+        sd, opt, keys, lr, wd = job
+        split = {}
+        t0 = time.perf_counter()
+        sd, opt = ckpt_mod.host_tree((sd, opt), ready, split)
+        t1 = time.perf_counter()
+        if optim.find_schedule_free_state(opt) is None:
+            sidecar = None
+            opt_torch = ckpt_mod.adamw_state_to_torch(opt, sd, keys, lr=lr, weight_decay=wd)
+        else:
+            sidecar, opt_torch = optim.schedule_free_payload(opt, keys), None
+        t2 = time.perf_counter()
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        if sidecar is not None:
+            optim.write_sidecar(self.path, sidecar)
+        ckpt_mod.save_lightning_ckpt(self.path, sd, optimizer_state=opt_torch)
+        self.writes.append({"d2h_s": t1 - t0, **split, "convert_s": t2 - t1,
+                            "save_s": time.perf_counter() - t2})
+        if self._pending is job:
+            self._pending = None
+
     def flush(self):
-        """Write the best checkpoint, with its AdamW state in the
-        ``optimizer_states[0]`` layout, if a new best is pending."""
+        """Write the best checkpoint if a new best is pending, after joining
+        any write in flight."""
+        self.wait()
+        if self._pending is not None:
+            t0 = time.perf_counter()
+            self._write(self._pending)
+            self.wait_s += time.perf_counter() - t0
+
+    def flush_async(self):
+        """Start the pending write in a background thread (joining an
+        earlier one first). The host fetch waits on an event recorded here,
+        on the stream that made the snapshot."""
+        self.wait()
         if self._pending is None:
             return
-        keys, lr, wd = self._pending
-        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
-        ckpt_mod.save_lightning_ckpt(self.path, self.best_state_dict, optimizer_state=(
-            ckpt_mod.adamw_state_to_torch(self.best_opt, self.best_state_dict, keys,
-                                          lr=lr, weight_decay=wd)))
-        self._pending = None
+        job = self._pending
+        ready = None
+        device = next(iter(job[0].values())).device
+        if device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+
+        def run():
+            try:
+                self._write(job, ready)
+            except BaseException as e:  # re-raised on wait()
+                self._thread_err = e
+
+        # Non-daemon: if the pipeline dies mid-stage, interpreter shutdown
+        # waits for the write in flight instead of killing it half done (the
+        # write itself is atomic too, checkpoint.save_lightning_ckpt).
+        self._thread = threading.Thread(target=run, daemon=False)
+        self._thread.start()
+
+    def wait(self):
+        """Join the write in flight, if any, and re-raise its error."""
+        if self._thread is not None:
+            t0 = time.perf_counter()
+            self._thread.join()
+            self.wait_s += time.perf_counter() - t0
+            self._thread = None
+        if self._thread_err is not None:
+            err, self._thread_err = self._thread_err, None
+            raise err
 
 
 def _graft(template: Dict[str, torch.Tensor], source: Dict[str, torch.Tensor], drop=()):
@@ -274,14 +355,85 @@ def fit_stage(
                            generator=loop.key_generator(key, 1, device=device))
 
     def run_val(state, key, epoch):
-        return eval_epoch(state.model, *arrays, source, class_, val_idx, val_mask,
-                          generator=loop.key_generator(key, device=device))
+        with optim.evaluated_at_x(state.optimizer):  # schedule-free validates x
+            return eval_epoch(state.model, *arrays, source, class_, val_idx, val_mask,
+                              generator=loop.key_generator(key, device=device))
 
-    return loop.fit(
+    return _finalize_fit(cfg, loop.fit(
         ts, run_train_epoch=run_train, run_val_epoch=run_val, max_epochs=max_epochs,
         early_stopping_patience=cfg.early_stopping_patience, seed=cfg.seed + stage_seed,
         verbose=cfg.verbose, log_fn=cfg.log_fn, lr=lr,
-    )
+    ))
+
+
+@torch.no_grad()
+def _finalize_fit(cfg: PipelineConfig, result: loop.FitResult) -> loop.FitResult:
+    """With schedule-free, everything downstream of a fit (checkpoints,
+    embeddings, stage handoffs) consumes the averaged x iterate, the
+    reference's .eval() mode switch (optimizers.py:82-92): the best snapshot's
+    parameters and the model's become x, computed from their own optimizer
+    states. The identity for AdamW."""
+    if cfg.optimizer != "schedule-free":
+        return result
+    model = result.state.model
+    keys = ckpt_mod.parameter_key_order(model)
+    best = result.best_state_dict
+    if result.best_opt_state is not None:
+        best = type(best)(best)
+        best.update(zip(keys, optim.maybe_eval_params(result.best_opt_state, [best[k] for k in keys])))
+    ps = list(model.parameters())
+    torch._foreach_copy_(ps, optim.maybe_eval_params(result.state.optimizer, ps))
+    return dataclasses.replace(result, best_state_dict=best)
+
+
+def _optimizer(cfg: PipelineConfig, model: torch.nn.Module, lr: float, clip) -> torch.optim.Optimizer:
+    """A fresh optimizer of ``cfg.optimizer`` over ``model``'s parameters."""
+    return optim.make_optimizer(model.parameters(), lr, cfg.weight_decay, clip,
+                                state_dtype=cfg.opt_state_dtype, algorithm=cfg.optimizer)
+
+
+@torch.no_grad()
+def _sf_fork_state(cfg: PipelineConfig, model: torch.nn.Module, lr: float, clip, prev_opt,
+                   drop=()) -> step.TrainState:
+    """A stage warm start that CONTINUES schedule-free averaging.
+
+    A fresh optimizer would restart the run-weighted average (k=0, fresh z)
+    at every stage boundary; instead the previous stage's (k, weight_sum,
+    lr_max, z, exp_avg_sq) are carried into the fresh one, except for the
+    parameters under a top-level module in ``drop`` (the stage-3 class
+    embedding, quirk Q10), which keep their fresh z (their own value) and
+    zero exp_avg_sq; training resumes at y = train_params(x). ``model`` must
+    hold the x iterate, which is what ``_finalize_fit`` hands every
+    consumer of a schedule-free fit."""
+    opt = _optimizer(cfg, model, lr, clip)
+    prev = optim.find_schedule_free_state(prev_opt)
+    if prev is None:  # an AdamW or unfitted predecessor: a plain fork
+        return step.TrainState(model, opt)
+    from hippie_tpu_torch.train.schedule_free import train_params
+
+    group = opt.param_groups[0]
+    ps = group["params"]
+    keys = ckpt_mod.parameter_key_order(model)
+    if len(prev.z) != len(ps):
+        raise ValueError(f"schedule-free state of {len(prev.z)} parameters for {len(ps)}")
+    for name in ("k", "weight_sum", "lr_max"):
+        group[name].copy_(getattr(prev, name))
+    keep = [i for i, k in enumerate(keys) if k.split(".")[0] not in drop]
+    for name, src in (("z", prev.z), ("exp_avg_sq", prev.exp_avg_sq)):
+        torch._foreach_copy_([opt.state[ps[i]][name] for i in keep], [src[i] for i in keep])
+    torch._foreach_copy_(ps, train_params(ps, [opt.state[p]["z"] for p in ps], prev.b1))
+    return step.TrainState(model, opt)
+
+
+def _stage_fork(cfg: PipelineConfig, model: torch.nn.Module, lr: float, clip, prev_opt,
+                drop=()) -> step.TrainState:
+    """The next stage's TrainState on ``model``: schedule-free continues the
+    averaging from ``prev_opt`` (a tracker's or a fit's optimizer state);
+    AdamW gets the reference's fresh per-fit optimizer (configure_optimizers
+    per Trainer.fit)."""
+    if cfg.optimizer == "schedule-free" and prev_opt is not None:
+        return _sf_fork_state(cfg, model, lr, clip, prev_opt, drop)
+    return step.TrainState(model, _optimizer(cfg, model, lr, clip))
 
 
 def fit_unimodal_stage(*, cfg: PipelineConfig, data: torch.Tensor, beta: float,
@@ -362,7 +514,7 @@ def model_config(cfg: PipelineConfig, modality: str, num_classes: int) -> cvae.C
 
 def _init_state(cfg: PipelineConfig, cfg_m, init_key: int, lr: float, clip) -> step.TrainState:
     model = cvae.unimodal_cvae_init(cfg_m, loop.key_generator(cfg.seed, init_key), device=cfg.device)
-    return step.TrainState(model, optim.make_optimizer(model.parameters(), lr, cfg.weight_decay, clip))
+    return step.TrainState(model, _optimizer(cfg, model, lr, clip))
 
 
 def _seed_stage1(cfg: PipelineConfig, tracker: BestTracker, path: str, cfg_m, name: str
@@ -405,6 +557,7 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
         tr_idx, va_idx = train_val_split(len(pool), cfg.train_val_split, loop.key_generator(seed, 0))
 
     states: Dict[str, step.TrainState] = {}
+    prev_opts: Dict[str, Any] = {}  # schedule-free continuation, per model
     for mi, modality in enumerate(MODALITIES):
         clip = None if modality == "wave" else cfg.gradient_clip_val  # quirk Q7
         cfg_m = model_config(cfg, modality, num_classes=5)
@@ -414,6 +567,7 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
         if stage1_ckpt:
             with timer.stage(f"load_stage1_{modality}"):
                 states[modality] = _seed_stage1(cfg, tracker, stage1_ckpt, cfg_m, modality)
+            prev_opts[modality] = None
             continue
         with timer.stage("setup"):
             ts = _init_state(cfg, cfg_m, 100 + mi, cfg.learning_rate, clip)
@@ -434,6 +588,8 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
         if tracker.best_state_dict is not None:
             ts.model.load_state_dict(tracker.best_state_dict)
         states[modality] = ts
+        prev_opts[modality] = (tracker.best_opt if tracker.best_state_dict is not None
+                               else result.best_opt_state)
 
     # ---------------- Stage 2: unsupervised fine-tune on the target --------
     with timer.stage("load_target"):
@@ -446,9 +602,9 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
         for mi, modality in enumerate(MODALITIES):
             clip = None if modality == "wave" else cfg.gradient_clip_val
             model = states[modality].model
-            # a fresh AdamW per fit, as the reference's configure_optimizers
-            ts = step.TrainState(model, optim.make_optimizer(model.parameters(), ft_lr,
-                                                             cfg.weight_decay, clip))
+            # a fresh AdamW per fit, as the reference's configure_optimizers;
+            # schedule-free carries its averaging over
+            ts = _stage_fork(cfg, model, ft_lr, clip, prev_opts[modality])
             if cfg.verbose:
                 print(f"[stage 2] fine-tuning {modality} model on {cfg.dataset} (lr={ft_lr})")
             with timer.stage(f"finetune_{modality}"):
@@ -499,13 +655,17 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
     for mi, modality in enumerate(MODALITIES):
         cfg_m = model_config(cfg, modality, num_classes=num_class_labels)
         with timer.stage("setup"):
-            ts = _init_state(cfg, cfg_m, 200 + mi, ft_lr, cfg.gradient_clip_val)
+            model = cvae.unimodal_cvae_init(cfg_m, loop.key_generator(cfg.seed, 200 + mi),
+                                            device=cfg.device)
             tk = trackers[modality]
             best = tk.best_state_dict if tk.best_state_dict is not None else \
                 states[modality].model.state_dict()
-            seed_from_best(ts.model, best)  # minus the class embedding (quirk Q10)
+            seed_from_best(model, best)  # minus the class embedding (quirk Q10)
+            ts = _stage_fork(cfg, model, ft_lr, cfg.gradient_clip_val, tk.best_opt,
+                             drop=("class_embedding",))
         with timer.stage("ckpt_save"):
-            trackers[modality].flush()  # stages 1-2 are final for this model
+            # stages 1-2 are final for this model: the write overlaps the supervised fits
+            trackers[modality].flush_async()
         tracker = BestTracker(
             os.path.join(cfg.checkpoint_dir, f"{cfg.dataset}_{modality}_model_supervised.ckpt"))
         if cfg.verbose:
@@ -521,7 +681,7 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
         with timer.stage("ckpt_save"):
             tracker.update_from_fit(result, ckpt_mod.parameter_key_order(ts.model),
                                     (ft_lr, cfg.weight_decay))
-            tracker.flush()
+            tracker.flush_async()  # overlaps the evaluation and exports below
         if tracker.best_state_dict is not None:
             ts.model.load_state_dict(tracker.best_state_dict)
         sup_models[modality] = ts.model
@@ -604,8 +764,7 @@ def joint_model_config(cfg: PipelineConfig, num_classes: int) -> cvae.MultiModal
 
 def _init_joint(cfg: PipelineConfig, mm_cfg, init_key: int, lr: float) -> step.TrainState:
     model = cvae.multimodal_cvae_init(mm_cfg, loop.key_generator(cfg.seed, init_key), device=cfg.device)
-    return step.TrainState(model, optim.make_optimizer(model.parameters(), lr, cfg.weight_decay,
-                                                       cfg.gradient_clip_val))
+    return step.TrainState(model, _optimizer(cfg, model, lr, cfg.gradient_clip_val))
 
 
 def run_multimodal_pipeline(cfg: PipelineConfig,
@@ -627,6 +786,7 @@ def run_multimodal_pipeline(cfg: PipelineConfig,
     if cfg.stage1_joint_ckpt:  # no pool and no fit
         with timer.stage("load_stage1_joint"):
             model = _seed_stage1(cfg, tracker, cfg.stage1_joint_ckpt, mm_cfg, "joint").model
+        prev_opt = None
     else:
         with timer.stage("load_pool"):
             pool = load_pretrain_pool(cfg)
@@ -646,14 +806,14 @@ def run_multimodal_pipeline(cfg: PipelineConfig,
         model = ts.model
         if tracker.best_state_dict is not None:  # else the last state (max_epochs=0)
             model.load_state_dict(tracker.best_state_dict)
+        prev_opt = tracker.best_opt if tracker.best_state_dict is not None else result.best_opt_state
 
     # ---------------- Stage 2: unsupervised fine-tune on the target --------
     target = load_dataset(cfg, cfg.dataset, dropna=True)  # quirk Q13
     ft_lr = cfg.learning_rate / 10.0
     if cfg.finetune_without_labels:
         ft_tr, ft_va = finetune_split_indices(cfg, len(target), loop.key_generator(seed, 1))
-        ts = step.TrainState(model, optim.make_optimizer(model.parameters(), ft_lr, cfg.weight_decay,
-                                                         cfg.gradient_clip_val))
+        ts = _stage_fork(cfg, model, ft_lr, cfg.gradient_clip_val, prev_opt)
         if cfg.verbose:
             print(f"[stage 2] fine-tuning joint model on {cfg.dataset} (lr={ft_lr})")
         with timer.stage("finetune_joint"):
@@ -686,12 +846,15 @@ def run_multimodal_pipeline(cfg: PipelineConfig,
     label_val = sup_labels[s_va]
     num_class_labels = int(len(np.unique(label_train)))
 
-    ts = _init_joint(cfg, joint_model_config(cfg, num_class_labels), 200, ft_lr)
+    sup_model = cvae.multimodal_cvae_init(joint_model_config(cfg, num_class_labels),
+                                          loop.key_generator(cfg.seed, 200), device=cfg.device)
     # the cross-stage best minus the class embedding, which stays fresh (Q10)
-    seed_from_best(ts.model, tracker.best_state_dict if tracker.best_state_dict is not None
+    seed_from_best(sup_model, tracker.best_state_dict if tracker.best_state_dict is not None
                    else model.state_dict())
     with timer.stage("ckpt_save"):
-        tracker.flush()  # stages 1-2 are final
+        tracker.flush_async()  # stages 1-2 are final: the write overlaps the supervised fit
+    ts = _stage_fork(cfg, sup_model, ft_lr, cfg.gradient_clip_val, tracker.best_opt,
+                     drop=("class_embedding",))
     train_stream = np.asarray(s_tr)[sampling.balanced_indices(label_train, seed=cfg.seed)]
     labels_dev = torch.as_tensor(sup_labels, device=cfg.device).long()
     source_dev = torch.full((n,), registry.DATASET_SOURCE_IDS.get(cfg.dataset, 0), dtype=torch.long,
@@ -711,8 +874,7 @@ def run_multimodal_pipeline(cfg: PipelineConfig,
     with timer.stage("ckpt_save"):
         sup_tracker.update_from_fit(result, ckpt_mod.parameter_key_order(ts.model),
                                     (ft_lr, cfg.weight_decay))
-        sup_tracker.flush()
-    sup_model = ts.model
+        sup_tracker.flush_async()  # overlaps the evaluation and exports below
     if sup_tracker.best_state_dict is not None:
         sup_model.load_state_dict(sup_tracker.best_state_dict)
 
@@ -746,6 +908,9 @@ def run_multimodal_pipeline(cfg: PipelineConfig,
     }
     results["paths"]["joint_knn"] = export_knn_csv(cfg, "joint", pred, label_val, le)
     results["paths"]["joint_embeddings"] = export_embeddings_csv(cfg, "joint", embed(), sup_labels, le)
+    with timer.stage("ckpt_save"):
+        tracker.flush()
+        sup_tracker.flush()
     results["timings"] = dict(timer.timings)
     if cfg.verbose and timer.timings:
         print("stage timings:", timer.summary())

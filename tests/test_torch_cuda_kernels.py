@@ -767,3 +767,110 @@ def test_joint_pipeline_on_the_card_runs_every_kernel(cuda_device, tmp_path):
         assert list(sd) == list(tracker.best_state_dict)
         for k, v in tracker.best_state_dict.items():
             assert torch.equal(sd[k], v.cpu()), k
+
+
+@pytest.mark.cuda
+def test_host_fetch_on_a_side_stream_equals_cpu(cuda_device):
+    """checkpoint.bulk_host_fetch / host_tree: every CUDA tensor of a dict
+    (float32, int64, bfloat16, 0-d) in one copy on a side stream, equal to
+    its ``.cpu()``, with the tensors made by work still queued on the default
+    stream when the fetch starts; a later fetch reuses the pinned buffer, and
+    the arrays it returned earlier are copies of their own."""
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    big = torch.randn(4096, 4096, device=cuda_device, generator=g)
+    flat = {"w": (big @ big)[:7, :5], "conv": torch.randn(3, 4, 5, device=cuda_device, generator=g),
+            "nbt": torch.tensor(123457, device=cuda_device), "m": torch.randn(
+                33, device=cuda_device, generator=g).to(torch.bfloat16), "s": big.sum(),
+            "host": torch.arange(3), "np": np.ones(2, np.float32)}
+    times = {}
+    got = ckpt_mod.bulk_host_fetch(flat, times=times)
+    assert set(times) == {"pin_s", "copy_s", "split_s"}
+    buf = ckpt_mod._pinned
+    assert buf.is_pinned() and buf.numel() >= sum(v.numel() for v in flat.values()
+                                                  if isinstance(v, torch.Tensor) and v.is_cuda)
+    # reuses the pinned buffer, overwriting its start: ``got`` below is unchanged
+    again = ckpt_mod.bulk_host_fetch({"conv": -flat["conv"]})
+    assert ckpt_mod._pinned is buf
+    np.testing.assert_array_equal(again["conv"], -flat["conv"].cpu().numpy())
+    for k, v in flat.items():
+        if isinstance(v, torch.Tensor):
+            want = v.float().cpu().numpy() if v.dtype == torch.bfloat16 else v.cpu().numpy()
+            assert got[k].dtype == want.dtype and got[k].shape == want.shape, k
+            np.testing.assert_array_equal(got[k], want, err_msg=k)
+    assert got["np"] is flat["np"]
+    tree = ckpt_mod.host_tree({"a": [flat["w"], {"b": flat["nbt"]}], "c": 3})
+    np.testing.assert_array_equal(tree["a"][0], flat["w"].cpu().numpy())
+    assert tree["a"][1]["b"] == 123457 and tree["c"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,state_dtype", [("schedule-free", None), ("adamw", "bfloat16")])
+def test_optimizer_step_on_the_card_equals_the_cpu(cuda_device, algorithm, state_dtype):
+    """Two steps of schedule-free AdamW and of bf16-moment AdamW (clip 1.0)
+    on the card against the same steps on the CPU from the same gradients:
+    parameters and states rtol 1e-5 / atol 1e-7 (tests/test_torch_schedule_free.py),
+    bf16 moments within one bf16 ulp, schedule-free k exact."""
+    from hippie_tpu_torch.train import optim
+
+    r = np.random.default_rng(0)
+    shapes = [(64, 32, 3), (64,), (10, 64)]
+    init = [r.normal(size=s).astype(np.float32) for s in shapes]
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        ps = [torch.nn.Parameter(torch.from_numpy(v.copy()).to(dev)) for v in init]
+        sides[dev] = (ps, optim.make_optimizer(ps, 1e-3, 0.01, 1.0, state_dtype=state_dtype,
+                                               algorithm=algorithm))
+    for _ in range(2):
+        grads = [r.normal(size=s).astype(np.float32) for s in shapes]
+        for ps, opt in sides.values():
+            for p, g in zip(ps, grads):
+                p.grad = torch.from_numpy(g.copy()).to(p.device)  # the clip scales in place
+            opt.step()
+    (cp, co), (gp, go) = sides["cpu"], sides["cuda"]
+    for a, b in zip(gp, cp):
+        np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(), rtol=1e-5, atol=1e-7)
+    if algorithm == "schedule-free":
+        gs, cs = optim.find_schedule_free_state(go), optim.find_schedule_free_state(co)
+        assert int(gs.k) == int(cs.k) == 2
+        for a, b in zip(gs.z + gs.exp_avg_sq, cs.z + cs.exp_avg_sq):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-7)
+    else:
+        for a, b in zip(gp, cp):
+            for m in ("exp_avg", "exp_avg_sq"):
+                x, y = go.state[a][m], co.state[b][m]
+                assert x.dtype == y.dtype == torch.bfloat16
+                x, y = x.float().cpu().numpy(), y.float().numpy()
+                ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(y), 1e-30))) - 7)
+                assert (np.abs(x - y) <= ulp).all(), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["adamw", "schedule-free"])
+def test_flush_async_on_the_card_writes_the_bytes_of_flush(cuda_device, tmp_path, algorithm):
+    """A snapshot on the card written by the background writer (one fetch
+    on a side stream) and by a synchronous flush: the same bytes, .ckpt and
+    sidecar."""
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+    from hippie_tpu_torch.train import loop, optim, pipeline
+
+    model = cvae.unimodal_cvae_init(cvae.CVAEConfig(z_dim=4, num_blocks=(1, 1, 1, 1)),
+                                    torch.Generator().manual_seed(0), device="cuda")
+    opt = optim.make_optimizer(model.parameters(), 1e-3, 0.01, algorithm=algorithm)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    sd, osd = loop.snapshot(type("TS", (), {"model": model, "optimizer": opt})())
+    result = loop.FitResult(state=None, best_state_dict=sd, best_opt_state=osd, best_val_loss=1.0,
+                            best_epoch=0, epochs_run=1)
+    for how in ("sync", "async"):
+        t = pipeline.BestTracker(str(tmp_path / how / "m.ckpt"))
+        t.update_from_fit(result, ckpt_mod.parameter_key_order(model), (1e-3, 0.01))
+        t.flush() if how == "sync" else (t.flush_async(), t.wait())
+    names = sorted(p.name for p in (tmp_path / "sync").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "async").iterdir())
+    assert len(names) == (1 if algorithm == "adamw" else 2)
+    for n in names:
+        assert (tmp_path / "sync" / n).read_bytes() == (tmp_path / "async" / n).read_bytes(), n

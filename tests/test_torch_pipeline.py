@@ -243,8 +243,8 @@ def test_cli_builds_the_pipeline_config():
 
 @pytest.mark.parametrize("argv", [["--resume"], ["--dp-devices", "2"], ["--fsdp"], ["--aot-dir", "x"],
                                   ["--profile-dir", "x"], ["--dp-devices", "2", "--fsdp"],
-                                  ["--progress-every", "0"], ["--optimizer", "schedule-free"],
-                                  ["--opt-state-dtype", "bfloat16"], ["--discover-datasets"],
+                                  ["--progress-every", "0"], ["--wandb", "--resume"],
+                                  ["--profile-dir", "x", "--discover-datasets"], ["--discover-datasets"],
                                   ["--progress-every", "5"], ["--log-every-step"],
                                   ["--block-backend", "fused"], ["--block-backend", "bf16"], ["--wandb"]])
 def test_cli_raises_on_options_not_ported(argv):
