@@ -40,8 +40,14 @@ directly, and k-means and the GMM run on the card against the host. Then
 the unimodal pipeline with schedule-free AdamW and the joint one with bf16
 Adam moments (12), with one step of each optimizer on the full-width model
 against the host and the optimizer's device memory with float32 and bf16
-moments, and last the embedding server on both pipelines'
-checkpoints with its load test (13). Each block kernel is split by kernel
+moments, the embedding server on both pipelines'
+checkpoints with its load test (13), the deployable artifact (14: the
+three stage-3 checkpoints exported, loaded in a fresh process, held to the
+models called directly, timed with bench_artifact, served), K-replica
+training (15: a K=4 ensemble epoch through the kernels, exactly 4x the
+launches, each replica its single-model epoch; the lr_sweep CLI with its
+winners through the stage-1 seams) and k-fold (16: kfold_eval embed-once,
+refit, and --fold-parallel, which runs the sequential refits, against it). Each block kernel is split by kernel
 (device time and launches per call; at most 5 per enc_block_fwd and
 dec_block_fwd call and 8 per enc_block_bwd and dec_block_bwd call), and the
 block libraries' SASS is checked for wgmma (HGMMA).
@@ -59,7 +65,8 @@ runs, N times in turns (CHECKOUT then this tree, then this tree then
 CHECKOUT, ...), a fresh process per run that builds that tree's kernels and
 runs its phase 9 twice (cold: the process's first pipeline, as a CLI run;
 then warm) and its phase 10, and prints each run's wall times and
-``ckpt_save`` and the medians.
+``ckpt_save`` and the medians. ``python3 chip_smoke.py --artifact-replies
+DIR [DEVICE]`` is phase 14's fresh process.
 """
 
 from __future__ import annotations
@@ -1868,7 +1875,7 @@ def _post(url: str, body: dict) -> dict:
         return json.loads(r.read())
 
 
-def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, device="cuda"):
+def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, device="cuda") -> dict:
     """Phase 13: the port's embedding server on the card, in a process of
     its own on 127.0.0.1 at a free port, warmed with the ladder 512,1024:
     with phase 9's stage-3 wave and time checkpoints (dual) and with phase
@@ -1878,23 +1885,19 @@ def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, device="cuda"):
     embed_multimodal) on preprocess_pair of the same rows. Then the port's
     load-test client at its defaults (16 clients x 20 requests x 64 rows,
     raw widths 41/91) prints requests/s, p50/p99 and the server's device
-    dispatches and coalesced requests. The server is stopped after."""
-    import contextlib
-    import io
-
+    dispatches and coalesced requests. The server is stopped after. Returns
+    the replies, {mode: {kind: [rows, width]}}, for phase 14."""
     import torch
 
     from hippie_tpu_torch import export
-    from hippie_tpu_torch.data import registry
     from hippie_tpu_torch.evaluate.embeddings import embed_multimodal, embed_unimodal
     from hippie_tpu_torch.ops import preprocess
-    from hippie_tpu_torch.scripts import serving_load_test
 
     t_phase = time.perf_counter()
-    wf, isi = registry.load_raw(DATA_ROOT, TARGET, dropna=True)
-    wf, isi = np.asarray(wf, np.float32), np.asarray(isi, np.float32)
+    wf, isi = target_raw_rows()
     wave, isi_p = preprocess.preprocess_pair(wf, isi, device=device)
     source = torch.zeros(len(wf), dtype=torch.long, device=device)
+    replies = {}
     for mode, flags in (("dual", ["--wave-checkpoint", uni_ckpts["wave"], "--time-checkpoint", uni_ckpts["time"]]),
                         ("joint", ["--joint-checkpoint", joint_ckpt])):
         if mode == "dual":
@@ -1906,42 +1909,430 @@ def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, device="cuda"):
             mj, _ = export.load_model_from_ckpt(joint_ckpt, device=device)
             direct = {"joint": embed_multimodal(mj, wave, isi_p, source)}
         direct = {k: v.cpu().numpy() for k, v in direct.items()}
-        t0 = time.perf_counter()
-        proc, url, said = _free_server(flags + ["--warmup-buckets", "512,1024", "--device", device])
-        start_s = time.perf_counter() - t0
-        try:
-            worst, n_req = 0.0, 0
-            for lo in range(0, len(wf), 64):
-                rows = slice(lo, lo + 64)
-                reply = _post(url, {"waveforms": wf[rows].tolist(), "isi_dists": isi[rows].tolist()})
-                n_req += 1
-                for kind, ref in direct.items():
-                    got = np.asarray(reply[kind], np.float32)
-                    check(got.shape == ref[rows].shape, f"{mode} {kind} reply of shape {got.shape}")
-                    worst = max(worst, float(np.abs(got - ref[rows]).max()))
-            check(worst <= 1e-5, f"serving {mode}: a reply {worst} from the model called directly")
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                res = serving_load_test.main(["--url", url])
-            stats = json.loads(urllib_get(url + "/stats"))
-        finally:
-            proc.terminate()
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-        check(res["requests"] == 16 * 20, f"load test: {res['requests']} requests")
+        got, res, stats, start_s, said = serve_and_load(flags, wf, isi, device)
+        check(all(got[kind].shape == ref.shape for kind, ref in direct.items()),
+              f"{mode} replies of shapes {[v.shape for v in got.values()]}")
+        worst = max(float(np.abs(got[kind] - ref).max()) for kind, ref in direct.items())
+        check(worst <= 1e-5, f"serving {mode}: a reply {worst} from the model called directly")
+        replies[mode] = got
         print(f"[13 serving] {mode}: the server started and warmed (512, 1024) in {start_s:.1f} s "
-              f"({'; '.join(x for x in said if x.startswith('warmup'))}); {n_req} requests of the target's "
-              f"{len(wf)} raw rows, max |reply - direct| {worst:.3g} (limit 1e-5)")
-        print(f"  load test (16 clients x 20 requests x 64 rows, widths 41/91) on {card}: "
-              f"{res['req_per_s']} req/s, {res['rows_per_s']} rows/s, client p50 {res['client_p50_ms']} ms, "
-              f"p99 {res['client_p99_ms']} ms, max {res['client_max_ms']} ms; {res['device_dispatches']} "
-              f"device dispatches for {res['requests']} requests "
-              f"({res['device_dispatches'] / res['requests']:.3f} per request), {res['coalesced_requests']} "
-              f"coalesced; server /stats p50 {stats['p50_latency_ms']} ms, p99 {stats['p99_latency_ms']} ms")
+              f"({'; '.join(x for x in said if x.startswith('warmup'))}); {n_requests(wf)} requests of the "
+              f"target's {len(wf)} raw rows, max |reply - direct| {worst:.3g} (limit 1e-5)")
+        print(load_test_line(res, stats, card))
     print(f"  phase 13 {time.perf_counter() - t_phase:.1f} s")
+    return replies
+
+
+def target_raw_rows():
+    """The target's raw waveform and ISI rows (NaN columns dropped), float32."""
+    from hippie_tpu_torch.data import registry
+
+    wf, isi = registry.load_raw(DATA_ROOT, TARGET, dropna=True)
+    return np.asarray(wf, np.float32), np.asarray(isi, np.float32)
+
+
+def n_requests(wf) -> int:
+    return -(-len(wf) // 64)
+
+
+def serve_and_load(flags: list, wf, isi, device="cuda"):
+    """Start the port's server with ``flags`` (warmed with 512,1024), send
+    the raw rows in requests of up to 64 rows (source 0), run the load-test
+    client at its defaults, stop the server. Returns (replies {kind: [rows,
+    width]}, the load test's result, the server's /stats, start-up seconds,
+    the server's lines)."""
+    import contextlib
+    import io
+
+    from hippie_tpu_torch.scripts import serving_load_test
+
+    t0 = time.perf_counter()
+    proc, url, said = _free_server(flags + ["--warmup-buckets", "512,1024", "--device", device])
+    start_s = time.perf_counter() - t0
+    try:
+        parts = {}
+        for lo in range(0, len(wf), 64):
+            rows = slice(lo, lo + 64)
+            reply = _post(url, {"waveforms": wf[rows].tolist(), "isi_dists": isi[rows].tolist()})
+            for kind in ("waveform", "isi", "joint"):
+                if kind in reply:
+                    parts.setdefault(kind, []).append(np.asarray(reply[kind], np.float32))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = serving_load_test.main(["--url", url])
+        stats = json.loads(urllib_get(url + "/stats"))
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    check(res["requests"] == 16 * 20, f"load test: {res['requests']} requests")
+    replies = {k: np.concatenate(v) for k, v in parts.items()}
+    check(all(v.shape[0] == len(wf) for v in replies.values()),
+          f"replies of {[v.shape for v in replies.values()]} rows for {len(wf)}")
+    return replies, res, stats, start_s, said
+
+
+def load_test_line(res: dict, stats: dict, card: str) -> str:
+    return (f"  load test (16 clients x 20 requests x 64 rows, widths 41/91) on {card}: "
+            f"{res['req_per_s']} req/s, {res['rows_per_s']} rows/s, client p50 {res['client_p50_ms']} ms, "
+            f"p99 {res['client_p99_ms']} ms, max {res['client_max_ms']} ms; {res['device_dispatches']} "
+            f"device dispatches for {res['requests']} requests "
+            f"({res['device_dispatches'] / res['requests']:.3f} per request), {res['coalesced_requests']} "
+            f"coalesced; server /stats p50 {stats['p50_latency_ms']} ms, p99 {stats['p99_latency_ms']} ms")
+
+
+# ---------------------------------------------------------------------------
+# Phases 14-16: the embedding artifact, K-replica training, k-fold
+# ---------------------------------------------------------------------------
+
+ARTIFACT_ROWS = (1, 415, 4096)  # the replies held to the checkpoint's model
+BENCH_ROWS = "512,4096,16384"  # bench_artifact's row counts
+ARTIFACTS = ("wave", "time", "joint")
+
+
+def artifact_inputs(seed: int = 14) -> dict:
+    """Preprocessed-width rows drawn with numpy, 4,096 per artifact: {name:
+    (data..., source)}; each row count of ARTIFACT_ROWS takes a prefix."""
+    r = np.random.default_rng(seed)
+    n = max(ARTIFACT_ROWS)
+    src = r.integers(0, 5, size=n).astype(np.int64)
+    wave, isi = (r.normal(size=(n, w)).astype(np.float32) for w in (L, L_ISI))
+    return {"wave": (wave, src), "time": (isi, src), "joint": (wave, isi, src)}
+
+
+def artifact_replies(workdir: str, device: str = "cuda"):
+    """In a fresh process (``chip_smoke.py --artifact-replies WORKDIR``):
+    load each artifact of phase 14 with export.load_artifact on the card,
+    the "highest" one and its "default" (TF32) twin, reply at each row count
+    of ARTIFACT_ROWS, then run bench_artifact on the "highest" one; writes
+    the replies to ``replies.npz`` and the load seconds and bench records to
+    ``replies.json`` under ``workdir``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hippie_tpu_torch import export
+    from hippie_tpu_torch.scripts import bench_artifact
+
+    inputs = artifact_inputs()
+    out, meta = {}, {"load_s": {}, "bench": {}}
+    for name in ARTIFACTS:
+        for tag in ("", "_tf32"):
+            t0 = time.perf_counter()
+            call, _ = export.load_artifact(f"{workdir}/{name}{tag}.hippie", device=device)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            meta["load_s"][name + tag] = time.perf_counter() - t0
+            for n in ARTIFACT_ROWS:
+                out[f"{name}{tag}_{n}"] = call(*(a[:n] for a in inputs[name])).cpu().numpy()
+        with contextlib.redirect_stdout(io.StringIO()):
+            meta["bench"][name] = bench_artifact.main(["--artifact", f"{workdir}/{name}.hippie",
+                                                       "--rows", BENCH_ROWS, "--device", device])
+    np.savez(f"{workdir}/replies.npz", **out)
+    with open(f"{workdir}/replies.json", "w") as f:
+        json.dump(meta, f)
+
+
+def checkpoint_path_ms(model, arrays, embed, rows: int, iters: int = 20) -> float:
+    """The checkpoint path's warm ms per call at ``rows`` rows, measured as
+    bench_artifact measures an artifact: numpy rows up, the reply down."""
+    import torch
+
+    dev = next(model.parameters()).device
+
+    def call():
+        t = [torch.from_numpy(a[:rows]).to(dev) for a in arrays]
+        return embed(model, *t).cpu()
+
+    call()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_artifacts(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, ckpt_replies: dict,
+                    device="cuda"):
+    """Phase 14: the deployable artifact. Exports phase 9's stage-3 wave and
+    time checkpoints and phase 10's supervised joint one with the
+    export_model CLI (precision "highest"), writes each one's "default"
+    (TF32) twin (the same program; torch applies the precision around each
+    call, export.py), and loads them in a fresh process on the card
+    (artifact_replies). Every "highest" reply at 1, 415 and 4,096 rows is
+    within 1e-5 of embed_unimodal / embed_multimodal of the checkpoint's
+    model (export.load_model_from_ckpt) on the same rows; the TF32 drift is
+    printed as the least row cosine and the max |difference|. Prints the
+    fresh process's bench_artifact records (rows 512, 4096, 16384) beside
+    the checkpoint path's warm ms measured the same way, and the export and
+    load seconds. Then the server on the artifacts (--wave-artifact
+    --time-artifact, and --joint-artifact) with phase 13's requests and load
+    test: every reply within 1e-5 of the checkpoint server's."""
+    import contextlib
+    import io
+    import zipfile
+
+    import torch
+
+    from hippie_tpu_torch import export
+    from hippie_tpu_torch.evaluate.embeddings import embed_multimodal, embed_unimodal
+    from hippie_tpu_torch.scripts import export_model
+
+    t_phase = time.perf_counter()
+    art_dir = f"{workdir}/artifacts"
+    os.makedirs(art_dir, exist_ok=True)
+    ckpts = {"wave": uni_ckpts["wave"], "time": uni_ckpts["time"], "joint": joint_ckpt}
+    export_s, sizes = {}, {}
+    for name, ckpt in ckpts.items():
+        path = f"{art_dir}/{name}.hippie"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            manifest = export_model.main(["--checkpoint", ckpt, "--output", path, "--precision", "highest",
+                                          "--device", device])
+        export_s[name] = time.perf_counter() - t0
+        sizes[name] = os.path.getsize(path)
+        with zipfile.ZipFile(path) as zf:
+            check(sorted(zf.namelist()) == ["manifest.json", "model.pt2"], f"{name} artifact holds {zf.namelist()}")
+            blob = zf.read("model.pt2")
+        export.save_artifact(f"{art_dir}/{name}_tf32.hippie", blob, dict(manifest, precision="default"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--artifact-replies", art_dir, device],
+                          cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    fresh_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the fresh process failed (rc {proc.returncode}): {proc.stderr[-2000:]}")
+    replies = np.load(f"{art_dir}/replies.npz")
+    with open(f"{art_dir}/replies.json") as f:
+        meta = json.load(f)
+
+    inputs = artifact_inputs()
+    for name, ckpt in ckpts.items():
+        t0 = time.perf_counter()
+        model, _ = export.load_model_from_ckpt(ckpt, device=device)
+        load_ckpt_s = time.perf_counter() - t0
+        embed = embed_multimodal if name == "joint" else embed_unimodal
+        err = drift = 0.0
+        cos = 1.0
+        for n in ARTIFACT_ROWS:
+            ref = embed(model, *(torch.from_numpy(a[:n]).to(device) for a in inputs[name])).cpu().numpy()
+            got, tf32 = replies[f"{name}_{n}"], replies[f"{name}_tf32_{n}"]
+            check(got.shape == ref.shape, f"{name} artifact reply of shape {got.shape} at {n} rows")
+            err = max(err, float(np.abs(got - ref).max()))
+            drift = max(drift, float(np.abs(tf32 - got).max()))
+            cos = min(cos, float((np.sum(tf32 * got, 1) / (np.linalg.norm(tf32, axis=1)
+                                                          * np.linalg.norm(got, axis=1))).min()))
+        check(err <= 1e-5, f"{name} artifact: {err} from the checkpoint's model called directly")
+        bench = {r["rows"]: r for r in meta["bench"][name]}
+        ckpt_ms = {rows: round(checkpoint_path_ms(model, inputs[name] if rows <= max(ARTIFACT_ROWS) else
+                                                  tuple(np.resize(a, (rows,) + a.shape[1:]) for a in inputs[name]),
+                                                  embed, rows), 3)
+                   for rows in bench}
+        print(f"[14 artifacts] {name} on {card}: export_model {export_s[name]:.2f} s ({sizes[name] / 1e6:.1f} MB), "
+              f"load_artifact in a fresh process {meta['load_s'][name]:.2f} s (load_model_from_ckpt "
+              f"{load_ckpt_s:.2f} s); max |artifact - checkpoint model| {err:.3g} at rows "
+              f"{list(ARTIFACT_ROWS)} (limit 1e-5); TF32 ('default') drift: max |d| {drift:.3g}, least "
+              f"row cosine {cos:.7f}")
+        print(f"  bench_artifact on {card} (ms per call, host copies included): "
+              + "; ".join(f"{rows} rows cold {r['cold_ms']} warm {r['warm_ms']} ({r['rows_per_sec']:.0f} rows/s), "
+                          f"checkpoint path warm {ckpt_ms[rows]}" for rows, r in bench.items()))
+    print(f"  the fresh process (6 loads, replies, 3 benches) {fresh_s:.1f} s on {card}")
+
+    wf, isi = target_raw_rows()
+    for mode, flags in (("dual", ["--wave-artifact", f"{art_dir}/wave.hippie",
+                                  "--time-artifact", f"{art_dir}/time.hippie"]),
+                        ("joint", ["--joint-artifact", f"{art_dir}/joint.hippie"])):
+        got, res, stats, start_s, said = serve_and_load(flags, wf, isi, device)
+        ref = ckpt_replies[mode]
+        check(sorted(got) == sorted(ref), f"artifact server {mode} replies {sorted(got)}")
+        worst = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+        check(worst <= 1e-5, f"artifact server {mode}: a reply {worst} from the checkpoint server's")
+        print(f"[14 artifact server] {mode} on {card}: started and warmed (512, 1024) in {start_s:.1f} s; "
+              f"{n_requests(wf)} requests, max |reply - checkpoint server's| {worst:.3g} (limit 1e-5)")
+        print(load_test_line(res, stats, card))
+    print(f"  phase 14 {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    """The largest |a - b| over the float tensors of two state_dicts (or
+    other dicts of tensors); inf when an integer one differs."""
+    worst = 0.0
+    for k, v in a.items():
+        if v.is_floating_point():
+            worst = max(worst, float((v.double() - b[k].double()).abs().max()))
+        elif not bool((v == b[k]).all()):
+            return float("inf")
+    return worst
+
+
+def phase_ensemble(card: str, workdir: str, pool, cfg_m=None, device="cuda", k_replicas: int = 4):
+    """Phase 15: K-replica training. One stage-1 epoch over phase 4's pool
+    plan of a K=4 unimodal ensemble at full width (z=10, (2,2,2,2)) with
+    learning rates 1e-3, 2e-3, 5e-4, 3e-3, block_backend="pallas" and
+    loss_backend="pallas" (ensemble.make_unimodal_ensemble_epoch_fns, each
+    replica's noise from its own generator), timed after the four
+    single-model epochs below and against their median after the first
+    (which warms the path). Its kernel launches must be
+    exactly 4x a single-model epoch's. Replica k must equal a single-model
+    epoch (step.make_unimodal_epoch_fns) from the same init, lr and noise:
+    bit for bit where two runs of the single model agree bit for bit,
+    otherwise within twice their spread (weights, buffers and the per-step
+    losses), measured here and printed. Then the lr_sweep CLI with
+    --modality wave and --modality joint, K=4, one epoch, --export-winner,
+    at z=10 and the pipeline's stage-1 geometry; each winner is loaded
+    through its pipeline's stage-1 seam (pipeline._seed_stage1) and must
+    equal the file."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+
+    from hippie_tpu_torch.data import device_data
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.scripts import lr_sweep
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+    from hippie_tpu_torch.train import ensemble, loop, optim, pipeline, step
+
+    t_phase = time.perf_counter()
+    cfg_m = full_config() if cfg_m is None else cfg_m
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    lrs = [1e-3, 2e-3, 5e-4, 3e-3][:k_replicas]
+    key, epoch_key = 15, loop.epoch_key(15, 0, 1)
+    idx, mask = device_data.batch_plan(np.arange(len(pool)), B, shuffle=True,
+                                       generator=torch.Generator().manual_seed(1))
+
+    def noise(k):
+        return loop.key_generator(epoch_key, 1, k, device=device)
+
+    single_epoch, _ = step.make_unimodal_epoch_fns(loss_backend="pallas", block_backend="pallas")
+
+    def single(k):
+        model = cvae.unimodal_cvae_init(cfg_m, loop.key_generator(key, k), device=device)
+        ts = step.TrainState(model, optim.make_optimizer(model.parameters(), lrs[k], WD))
+        reset_all_launches()
+        sync()
+        t0 = time.perf_counter()
+        ts, m = single_epoch(ts, pool.wave, pool.source, None, idx, mask, generator=noise(k))
+        losses = m.loss.cpu()
+        sync()
+        return ts.model.state_dict(), losses, all_launches(), time.perf_counter() - t0
+
+    runs = [single(k) for k in range(k_replicas)]
+
+    states = ensemble.init_unimodal_ensemble(key, cfg_m, lambda ps: optim.make_optimizer(ps, LR, WD),
+                                             k_replicas, device=device)
+    states = ensemble.set_ensemble_lr(states, lrs)
+    train_epoch, _ = ensemble.make_unimodal_ensemble_epoch_fns(loss_backend="pallas", block_backend="pallas")
+    reset_all_launches()
+    sync()
+    t0 = time.perf_counter()
+    states, ms = train_epoch(states, pool.wave, pool.source, None, idx, mask,
+                             generators=[noise(k) for k in range(k_replicas)])
+    ens_losses = ms.loss.cpu()
+    sync()
+    ens_s = time.perf_counter() - t0
+    ens_launches = all_launches()
+
+    runs.append(single(0))  # the single model's spread: its first run against this one
+    want = {name: k_replicas * n for name, n in runs[0][2].items()}
+    check(ens_launches == want, f"ensemble epoch launches {ens_launches}, expected {k_replicas} x "
+                                f"{runs[0][2]}")
+    spread = max(max_abs_diff(runs[0][0], runs[-1][0]),
+                 float((runs[0][1] - runs[-1][1]).abs().max()))
+    diffs = []
+    for k in range(k_replicas):
+        d = max(max_abs_diff(states[k].model.state_dict(), runs[k][0]),
+                float((ens_losses[:, k] - runs[k][1]).abs().max()))
+        check(d == 0.0 if spread == 0.0 else d <= 2 * spread,
+              f"replica {k}: {d} from its single-model epoch (two single runs differ by {spread})")
+        diffs.append(d)
+    single_s = [r[3] for r in runs]
+    warm = float(np.median(single_s[1:]))
+    print(f"[15 ensemble] K={k_replicas} unimodal ensemble, z={cfg_m.z_dim}, num_blocks={cfg_m.num_blocks}, "
+          f"lrs {lrs}, one stage-1 epoch of {idx.shape[0]} steps on the pool, loss_backend=pallas "
+          f"block_backend=pallas: {ens_s:.3f} s wall on {card}, {ens_s / warm:.2f}x the median single-model "
+          f"epoch after the first (single epochs in run order, the ensemble's between the 4th and 5th: "
+          f"{[round(x, 3) for x in single_s]} s); launches {ens_launches} = {k_replicas} x the single epoch's")
+    print(f"  replica k against its single-model epoch (same init, lr, noise): max |diff| "
+          f"{[f'{d:.3g}' for d in diffs]}; two runs of the single model differ by {spread:.3g} "
+          f"({'bit for bit' if spread == 0.0 else 'limit twice that'})")
+
+    for modality in ("wave", "joint"):
+        path = f"{workdir}/sweep_{modality}_winner.ckpt"
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = lr_sweep.main(["--dataset", TARGET, "--data-root", DATA_ROOT, "--modality", modality,
+                                "--lrs", "1e-3,3e-3,1e-4,3e-4", "--max-epochs", "1", "--z-dim", str(cfg_m.z_dim),
+                                "--num-blocks", ",".join(map(str, cfg_m.num_blocks)), "--export-winner", path,
+                                "--device", device])
+        sweep_s = time.perf_counter() - t0
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        check(rc == 0 and rec["exported"] == path and len(rec["best_val_loss"]) == 4
+              and all(math.isfinite(v) for v in rec["best_val_loss"]), f"lr_sweep {modality}: {rec}")
+        pcfg = pipeline.PipelineConfig(z_dim=cfg_m.z_dim, num_blocks=tuple(cfg_m.num_blocks), dataset=TARGET,
+                                       data_root=DATA_ROOT, device=device, verbose=False)
+        joint = modality == "joint"
+        seam_cfg = pipeline.joint_model_config(pcfg, 5) if joint else pipeline.model_config(pcfg, "wave", 5)
+        t0 = time.perf_counter()
+        seeded = pipeline._seed_stage1(pcfg, pipeline.BestTracker(f"{workdir}/seam_{modality}.ckpt"), path,
+                                       seam_cfg, "joint" if joint else "wave")
+        seam_s = time.perf_counter() - t0
+        want_sd = ckpt_mod.model_state_from_ckpt(ckpt_mod.load_lightning_ckpt(path))
+        d = max_abs_diff({k: v.cpu() for k, v in seeded.model.state_dict().items()}, want_sd)
+        check(d == 0.0, f"the {modality} stage-1 seam holds {d} from the sweep's winner")
+        print(f"[15 lr_sweep] --modality {modality}, K=4 (lrs {rec['lrs']}), 1 epoch: {sweep_s:.2f} s wall on "
+              f"{card}; best val {[round(v, 4) for v in rec['best_val_loss']]}, winner {rec['winner']}; the "
+              f"winner loaded through the {'joint' if joint else 'wave'} stage-1 seam in {seam_s:.2f} s, "
+              f"equal to the file ({cvae.param_count(seeded.model):,} params)")
+    print(f"  phase 15 {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def phase_kfold(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, device="cuda"):
+    """Phase 16: the kfold_eval CLI on phase 9's stage-3 checkpoints (the
+    dual pair) and phase 10's supervised joint one: embed-once at 5 folds;
+    then --refit --refit-epochs 1 --folds 5, sequential; then the same with
+    --fold-parallel, which runs the sequential refits: its per-fold refit
+    embeddings must equal the sequential run's bit for bit (phase 15's rule:
+    the kernel path repeats bit for bit on the card). Checks both CSVs' rows
+    and that every accuracy lies in [0, 1]."""
+    import contextlib
+    import io
+
+    from hippie_tpu_torch.scripts import kfold_eval
+
+    t_phase = time.perf_counter()
+    for mode, flags in (("dual", ["--wave-checkpoint", uni_ckpts["wave"], "--time-checkpoint", uni_ckpts["time"]]),
+                        ("joint", ["--joint-checkpoint", joint_ckpt])):
+        base = ["--dataset", TARGET, "--data-root", DATA_ROOT, "--folds", "5", "--device", device, *flags]
+        runs, walls, said = {}, {}, {}
+        for name, extra in (("embed_once", []), ("sequential", ["--refit", "--refit-epochs", "1"]),
+                            ("fold_parallel", ["--refit", "--refit-epochs", "1", "--fold-parallel"])):
+            out_dir = f"{workdir}/kfold_{mode}_{name}"
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                runs[name] = kfold_eval.main(base + extra + ["--output-dir", out_dir])
+            walls[name] = round(time.perf_counter() - t0, 3)
+            said[name] = out.getvalue()
+            kinds = ["joint"] if mode == "joint" else ["waveform", "isi", "joint"]
+            modes = ["embed_once"] + (["refit"] if extra else [])
+            header, rows = csv_table(f"{out_dir}/{TARGET}_kfold_knn.csv")
+            check(header == ["mode", "kind", "k", "mean_balanced_accuracy", "std_balanced_accuracy", "folds"]
+                  and len(rows) == len(modes) * len(kinds) * len(kfold_eval.KS)
+                  and all(0.0 <= float(r[3]) <= 1.0 and r[5] == "5" for r in rows),
+                  f"kfold {mode} {name}: {header}, {len(rows)} rows")
+            _, fold_rows = csv_table(f"{out_dir}/{TARGET}_kfold_knn_folds.csv")
+            check(len(fold_rows) == 5 * len(rows), f"kfold {mode} {name}: {len(fold_rows)} fold rows")
+        seq, par = (runs[n]["refit"] for n in ("sequential", "fold_parallel"))
+        diff = max(float(np.abs(a - b).max()) for kind in seq for a, b in zip(seq[kind], par[kind]))
+        check(diff == 0.0, f"kfold {mode}: fold-parallel refit embeddings {diff} from the sequential ones")
+        lines = [x for x in said["fold_parallel"].splitlines() if "embed-once" in x]
+        print(f"[16 kfold] {mode}: wall s on {card}: {json.dumps(walls)}; fold-parallel refit embeddings "
+              f"{diff:.3g} from the sequential run's (bit for bit); {' | '.join(lines)}")
+    print(f"  phase 16 {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 def urllib_get(url: str) -> str:
@@ -1997,6 +2388,9 @@ def compare(other: str, pairs: int) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--artifact-replies"]:
+        artifact_replies(*sys.argv[2:4])
+        return 0
     if sys.argv[1:2] == ["--phases-of"]:
         phases_of(sys.argv[2])
         return 0
@@ -2071,7 +2465,10 @@ def main() -> int:
                 record["launches"] = pipeline_launches[record["name"]]
             phase_inference(card, workdir, uni_ckpts, joint_ckpt)
             phase_optimizers(card, workdir)
-            phase_serving(card, uni_ckpts, joint_ckpt)
+            ckpt_replies = phase_serving(card, uni_ckpts, joint_ckpt)
+            phase_artifacts(card, workdir, uni_ckpts, joint_ckpt, ckpt_replies)
+            phase_ensemble(card, workdir, pool)
+            phase_kfold(card, workdir, uni_ckpts, joint_ckpt)
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback

@@ -1,7 +1,6 @@
 """Dataset registry and CSV ingestion (the reference's on-disk data contract).
 
-Counterpart of hippie_tpu/data/registry.py (all but ``register_dataset`` and
-``discover_datasets``). Layout: ``<data_root>/<name>/{waveforms,isi_dist,
+Counterpart of hippie_tpu/data/registry.py. Layout: ``<data_root>/<name>/{waveforms,isi_dist,
 labels,metadata}.csv``. The reference loads with bare ``pd.read_csv``, which
 keeps the CSV's index column as feature 0 (quirk Q4); this module does the
 same with the ``csv`` module, so it needs no pandas.
@@ -11,7 +10,9 @@ from __future__ import annotations
 
 import csv
 import datetime
+import json
 import os
+import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -30,6 +31,73 @@ DATASET_SOURCE_IDS: Dict[str, int] = {
 }
 
 NUM_SOURCES = max(DATASET_SOURCE_IDS.values()) + 1  # train_model.py:62
+
+
+def register_dataset(name: str, source_id: Optional[int] = None) -> int:
+    """Register a custom dataset name: ``source_id`` defaults to the next
+    free ID (sharing an existing one shares that source embedding).
+    Re-registering a name is a no-op when the IDs agree and an error when
+    they conflict. Updates ``NUM_SOURCES``, the source-embedding size of
+    models built afterwards."""
+    global NUM_SOURCES
+    prior = DATASET_SOURCE_IDS.get(name)
+    if prior is not None:
+        if source_id is not None and int(source_id) != prior:
+            raise ValueError(f"dataset {name!r} already registered with source_id {prior}; "
+                             f"got conflicting source_id {source_id}")
+        return prior
+    sid = NUM_SOURCES if source_id is None else int(source_id)
+    if sid < 0:
+        raise ValueError(f"source_id must be >= 0, got {sid}")
+    DATASET_SOURCE_IDS[name] = sid
+    NUM_SOURCES = max(NUM_SOURCES, sid + 1)
+    return sid
+
+
+def discover_datasets(data_root: str) -> list:
+    """Register the unknown dataset directories of ``data_root`` (those with
+    ``waveforms.csv`` and ``isi_dist.csv``), as the JAX package does: the
+    pins of ``<data_root>/registry.json`` ({name: source_id}) first, each
+    reserving its ID; then new names get fresh sequential IDs in sorted
+    order, persisted back to ``registry.json`` so that a later discovery
+    cannot remap them. Idempotent. Returns the newly registered names
+    (sorted)."""
+    pinned = {}
+    manifest = os.path.join(data_root, "registry.json")
+    if os.path.exists(manifest):
+        with open(manifest) as f:
+            raw = json.load(f)
+        if not isinstance(raw, dict):
+            raise ValueError(f"{manifest} must be a JSON object of name -> source_id")
+        pinned = {str(k): int(v) for k, v in raw.items()}
+    new = []
+    for name in sorted(pinned):
+        if name not in DATASET_SOURCE_IDS:
+            new.append(name)
+        register_dataset(name, pinned[name])
+    found = []
+    if os.path.isdir(data_root):
+        for entry in sorted(os.listdir(data_root)):
+            d = os.path.join(data_root, entry)
+            if (os.path.isdir(d) and os.path.exists(os.path.join(d, "waveforms.csv"))
+                    and os.path.exists(os.path.join(d, "isi_dist.csv")) and entry not in DATASET_SOURCE_IDS):
+                found.append(entry)
+    for name in found:
+        register_dataset(name, None)
+        new.append(name)
+    unpersisted = [n for n in found if n not in pinned]
+    if unpersisted:
+        merged = dict(pinned)
+        merged.update({n: DATASET_SOURCE_IDS[n] for n in unpersisted})
+        try:
+            tmp = f"{manifest}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(merged, f, indent=1, sort_keys=True)
+            os.replace(tmp, manifest)
+        except OSError as e:  # a read-only data root: the IDs live for this process only
+            warnings.warn(f"could not persist dataset source IDs to {manifest} ({e}); "
+                          f"pin them manually to keep checkpoints portable")
+    return sorted(new)
 
 
 def pretrain_pool(target_dataset: str, *, strict_leakage_guard: bool = False) -> list:

@@ -4,9 +4,18 @@
         --time-checkpoint b.ckpt --port 8477
     python -m hippie_tpu_torch.scripts.serve_embeddings --joint-checkpoint j.ckpt
 
-Counterpart of the JAX package's scripts/serve_embeddings.py on its
-checkpoint backends. The models are loaded once (geometry from the
-checkpoint, export.load_model_from_ckpt) and stay on the device; stdlib HTTP:
+Counterpart of the JAX package's scripts/serve_embeddings.py. Model
+backends, as there:
+
+  --wave-checkpoint/--time-checkpoint   dual unimodal Lightning ckpts
+  --wave-artifact/--time-artifact       exported artifacts (scripts/export_model.py)
+  --joint-checkpoint / --joint-artifact the MultiModalCVAE joint model
+
+A checkpoint is loaded once (geometry from the checkpoint,
+export.load_model_from_ckpt), an artifact once (export.load_artifact: no
+model code, the manifest's geometry); either stays on the device. A slot
+takes its checkpoint or its artifact, and the dual slots may mix them.
+stdlib HTTP:
 
   GET  /healthz  -> {"status": "ok", "z_dim", "mode", "num_sources"}
   GET  /stats    -> request counters and latency aggregates (p50/p99)
@@ -28,11 +37,11 @@ up to ``--max-wave-width`` / ``--max-isi-width`` go through one
 width-agnostic preprocessing (rows zero-padded to the caps, the resample
 coefficients a device tensor per width; ops/preprocess.py).
 
-The JAX server's StableHLO backends (``--wave-artifact``,
-``--time-artifact``, ``--joint-artifact``) raise: the port's own artifact
-format is ROADMAP Queue 1 item 10's second half. ``--aot-dir`` (the JAX
-compiled-program cache) has no port target and raises. The server runs on
-``cuda`` unless ``--device cpu`` is given.
+An artifact is called on the same padded row buckets as a checkpoint
+(``_bucketed_artifact_call``). A JAX StableHLO artifact (``model.shlo``)
+raises: it needs JAX. ``--aot-dir`` (the JAX compiled-program cache) has no
+port target and raises. The server runs on ``cuda`` unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -55,12 +64,14 @@ def build_parser():
     parser.add_argument("--wave-checkpoint", type=str, default=None)
     parser.add_argument("--time-checkpoint", type=str, default=None)
     parser.add_argument("--wave-artifact", type=str, default=None,
-                        help="not ported (raises): the port's artifact format is ROADMAP item 10")
-    parser.add_argument("--time-artifact", type=str, default=None, help="not ported (raises)")
+                        help="exported artifact (python -m hippie_tpu_torch.scripts.export_model) "
+                             "instead of --wave-checkpoint: no model code, no checkpoint parsing")
+    parser.add_argument("--time-artifact", type=str, default=None)
     parser.add_argument("--joint-checkpoint", type=str, default=None,
                         help="serve a MultiModalCVAE joint checkpoint (reply has 'joint' "
                              "embeddings only)")
-    parser.add_argument("--joint-artifact", type=str, default=None, help="not ported (raises)")
+    parser.add_argument("--joint-artifact", type=str, default=None,
+                        help="exported multimodal artifact")
     parser.add_argument("--num-sources", type=int, default=5)
     parser.add_argument("--num-classes", type=int, default=5)
     parser.add_argument("--aot-dir", type=str, default=None,
@@ -116,12 +127,6 @@ class _Item:
         return (self.wf.shape[1], self.isi.shape[1], bool(self.normalize))
 
 
-def _artifact_error(flag: str) -> ValueError:
-    return ValueError(f"{flag}: the JAX server's StableHLO artifacts cannot be loaded without JAX, "
-                      "and the port's own artifact format is not ported yet (ROADMAP Queue 1 item "
-                      "10, second half); serve the checkpoint with the --*-checkpoint flags")
-
-
 class EmbeddingService:
     """The model-backed embedding engine shared by all server threads. All
     device work runs on ONE dispatch worker thread; pending compatible
@@ -135,10 +140,6 @@ class EmbeddingService:
         from hippie_tpu_torch.evaluate import embeddings as emb
         from hippie_tpu_torch.models import cvae
 
-        for flag, given in (("--wave-artifact", wave_artifact), ("--time-artifact", time_artifact),
-                            ("--joint-artifact", joint_artifact)):
-            if given is not None:
-                raise _artifact_error(flag)
         self._lock = threading.Lock()
         self.device = device
         self.z_dim = z_dim
@@ -151,21 +152,47 @@ class EmbeddingService:
         self.device_dispatches = 0
         self._latencies = collections.deque(maxlen=8192)
 
-        if joint_ckpt and (wave_ckpt or time_ckpt):
+        if (joint_ckpt or joint_artifact) and (wave_ckpt or time_ckpt or wave_artifact or time_artifact):
             raise ValueError("--joint-* is exclusive with the wave/time model flags")
-        self.mode = "joint" if joint_ckpt else "dual"
+        self.mode = "joint" if (joint_ckpt or joint_artifact) else "dual"
         self._embed_fns = {}
         # the models' source-embedding size: an out-of-range source is a 400
         self.num_sources: int = num_sources
-        if self.mode == "joint":
+        if self.mode == "joint" and joint_artifact is not None:
+            call, manifest = export.load_artifact(joint_artifact, device=device)
+            if manifest.get("modality") != "multimodal":
+                raise ValueError(f"--joint-artifact {joint_artifact} is not a multimodal export "
+                                 f"(modality={manifest.get('modality')!r})")
+            self.z_dim = int(manifest.get("z_dim", self.z_dim))
+            self.num_sources = int(manifest.get("num_sources", num_sources))
+            self._embed_fns["joint"] = self._bucketed_artifact_call(call)
+        elif self.mode == "joint":
             model, cfg = export.load_model_from_ckpt(joint_ckpt, multimodal=True, device=device)
             self.z_dim, self.num_sources = cfg.z_dim, cfg.num_sources
             self._embed_fns["joint"] = lambda wave, isi, src, m=model: emb.embed_multimodal(
                 m, wave, isi, src)
         else:
-            for name, ckpt in (("wave", wave_ckpt), ("time", time_ckpt)):
+            for name, ckpt, artifact in (("wave", wave_ckpt, wave_artifact),
+                                         ("time", time_ckpt, time_artifact)):
+                if artifact is not None:
+                    call, manifest = export.load_artifact(artifact, device=device)
+                    if manifest.get("modality") not in (None, "unimodal"):
+                        raise ValueError(
+                            f"--{name}-artifact {artifact} is not a unimodal export "
+                            f"(modality={manifest.get('modality')!r}); serve multimodal artifacts "
+                            f"with --joint-artifact")
+                    want_len = 50 if name == "wave" else 100
+                    got_len = manifest.get("input_len")
+                    if got_len is not None and int(got_len) != want_len:
+                        raise ValueError(
+                            f"--{name}-artifact {artifact} expects input length {got_len}, but the "
+                            f"{name} slot feeds resampled length {want_len}: wrong modality's artifact?")
+                    self.z_dim = int(manifest.get("z_dim", self.z_dim))
+                    self.num_sources = int(manifest.get("num_sources", num_sources))
+                    self._embed_fns[name] = self._bucketed_artifact_call(call)
+                    continue
                 if ckpt is None:
-                    raise ValueError(f"provide --{name}-checkpoint")
+                    raise ValueError(f"provide --{name}-checkpoint or --{name}-artifact")
                 fallback = cvae.CVAEConfig(z_dim=z_dim, output_size=50 if name == "wave" else 100,
                                            class_hidden_dim=5, num_sources=num_sources,
                                            num_classes=num_classes)
@@ -183,6 +210,23 @@ class EmbeddingService:
         self._worker.start()
 
     _bucket_rows = staticmethod(_bucket_rows)
+
+    @classmethod
+    def _bucketed_artifact_call(cls, call):
+        """An artifact's call on ``_bucket_rows`` rows: the inputs padded
+        with zero rows, the reply cut back. Eval mode, so a padded row cannot
+        move a real one. ``_run_group`` already hands it bucketed rows; a
+        direct caller's rows go through the same rule."""
+        import torch
+
+        def run(*arrays):
+            n = arrays[0].shape[0]
+            b = cls._bucket_rows(n)
+            padded = [torch.cat([a, a.new_zeros((b - n,) + tuple(a.shape[1:]))]) if b > n else a
+                      for a in arrays]
+            return call(*padded)[:n]
+
+        return run
 
     # ------------------------------------------------------------------
     # Dispatch worker

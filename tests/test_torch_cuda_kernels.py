@@ -874,3 +874,75 @@ def test_flush_async_on_the_card_writes_the_bytes_of_flush(cuda_device, tmp_path
     assert len(names) == (1 if algorithm == "adamw" else 2)
     for n in names:
         assert (tmp_path / "sync" / n).read_bytes() == (tmp_path / "async" / n).read_bytes(), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traced_on", ["cpu", "cuda"])
+def test_artifact_on_the_card_equals_the_model(cuda_device, tmp_path, traced_on):
+    """An artifact traced on the host or on the card (the weights stored on
+    the CPU either way) runs on the card, at 1, 3 and 415 rows, within 1e-5
+    of embed_unimodal on the card (both at "highest", full float32), and on
+    the CPU within 1e-5 of the CPU model."""
+    from hippie_tpu_torch import export
+    from hippie_tpu_torch.evaluate import embeddings as emb
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+
+    model = cvae.unimodal_cvae_init(cvae.CVAEConfig(z_dim=4, num_blocks=(1, 1, 1, 1)),
+                                    torch.Generator().manual_seed(0), device="cpu")
+    ckpt = str(tmp_path / "m.ckpt")
+    ckpt_mod.save_lightning_ckpt(ckpt, model.state_dict())
+    art = str(tmp_path / "m.hippie")
+    export.export_from_checkpoint(ckpt, art, device=traced_on)
+    on_card, _ = export.load_artifact(art, device="cuda")
+    on_host, _ = export.load_artifact(art, device="cpu")
+    card_model = model.to("cuda")
+    r = np.random.default_rng(1)
+    for n in (1, 3, 415):
+        x = r.normal(size=(n, 50)).astype(np.float32)
+        s = r.integers(0, 5, size=n)
+        got = on_card(x, s)
+        assert got.device.type == "cuda"
+        want = emb.embed_unimodal(card_model, torch.from_numpy(x).cuda(), torch.from_numpy(s).cuda())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        torch.testing.assert_close(on_host(x, s), want.cpu(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ensemble_epoch_on_the_card_launches_k_times_the_kernels(cuda_device):
+    """A K=3 ensemble epoch with the loss and block kernels launches every
+    kernel exactly 3 times as often as one model's epoch, and replica 0's
+    losses are those of its single-model epoch from the same init, lr and
+    noise (within 1e-4: cuDNN's and cuBLAS's backward algorithms may reduce
+    in another order from run to run)."""
+    from hippie_tpu_torch.data.device_data import batch_plan
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.ops import cuda_blocks
+    from hippie_tpu_torch.train import ensemble, loop, optim, step
+
+    cfg = cvae.CVAEConfig(z_dim=4, num_blocks=(1, 1, 1, 1))
+    r = np.random.default_rng(0)
+    data = torch.from_numpy(r.normal(size=(70, 50)).astype(np.float32)).cuda()
+    source = torch.from_numpy(r.integers(0, 5, size=70)).cuda()
+    idx, mask = batch_plan(np.arange(70), 32, shuffle=False)
+
+    def counts():
+        return {**cuda_ops.launches, **cuda_blocks.launches}
+
+    states = ensemble.init_unimodal_ensemble(3, cfg, lambda ps: optim.make_optimizer(ps, 1e-3, 0.01), 3,
+                                             device="cuda")
+    train, _ = ensemble.make_unimodal_ensemble_epoch_fns(loss_backend="pallas", block_backend="pallas")
+    cuda_ops.reset_launches()
+    cuda_blocks.reset_launches()
+    states, ms = train(states, data, source, None, idx, mask,
+                       generators=[loop.key_generator(7, 1, k, device="cuda") for k in range(3)])
+    ens = counts()
+    model = cvae.unimodal_cvae_init(cfg, loop.key_generator(3, 0), device="cuda")
+    single, _ = step.make_unimodal_epoch_fns(loss_backend="pallas", block_backend="pallas")
+    cuda_ops.reset_launches()
+    cuda_blocks.reset_launches()
+    _, m0 = single(step.TrainState(model, optim.make_optimizer(model.parameters(), 1e-3, 0.01)), data, source,
+                   None, idx, mask, generator=loop.key_generator(7, 1, 0, device="cuda"))
+    one = counts()
+    assert one["enc_block_fwd"] == 4 * 3 and ens == {k: 3 * v for k, v in one.items()}
+    torch.testing.assert_close(ms.loss[:, 0], m0.loss, rtol=1e-4, atol=0)

@@ -15,6 +15,13 @@ FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernel_spli
 FORBIDDEN = ("jax", "jaxlib", "optax", "hippie_tpu", "pandas", "sklearn")
 
 
+def test_the_scripts_are_covered():
+    """Every CLI of the port is among FILES (its scripts/ are globbed)."""
+    scripts = {p.name for p in FILES if p.parent.name == "scripts"}
+    assert {"export_model.py", "bench_artifact.py", "lr_sweep.py", "kfold_eval.py", "serve_embeddings.py",
+            "train_model.py"} <= scripts
+
+
 def _module_names():
     return [
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")

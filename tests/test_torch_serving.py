@@ -335,9 +335,21 @@ def test_widths_beyond_the_caps_take_the_exact_path(server):
 
 @pytest.mark.parametrize("argv", [["--wave-artifact", "a.hippie"], ["--time-artifact", "b.hippie"],
                                   ["--joint-artifact", "j.hippie"]])
-def test_artifact_flags_raise_naming_the_roadmap_item(argv):
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 10"):
-        tse.main(argv + ["--device", "cpu"])
+def test_artifact_flags_raise_naming_the_roadmap_item(argv, tmp_path, ckpts):
+    """Each --*-artifact flag reaches export.load_artifact, which refuses a
+    JAX StableHLO artifact (model.shlo) and says why (the time slot's after
+    a wave checkpoint, which its slot is read before). The backends'
+    replies are tests/test_torch_artifact.py's."""
+    import zipfile
+
+    path = tmp_path / argv[1]
+    with zipfile.ZipFile(path, "w") as zf:
+        zf.writestr("manifest.json", json.dumps({"format_version": 1, "modality": "unimodal",
+                                                 "platforms": ["cpu", "tpu"], "jax_version": "0.4"}))
+        zf.writestr("model.shlo", b"\0")
+    with pytest.raises(ValueError, match="StableHLO export .model.shlo., which needs JAX"):
+        wave = ["--wave-checkpoint", ckpts["wave"]] if argv[0] == "--time-artifact" else []
+        tse.main(wave + [argv[0], str(path), "--device", "cpu"])
 
 
 def test_aot_dir_raises():
