@@ -55,7 +55,13 @@ fit with schedule-free AdamW and with bf16 moments; lr_sweep --resume-dir)
 and the rest of the CLI with the "fused" and "bf16" block backends (18:
 hippie-tpu-torch train with --profile-dir --discover-datasets --wandb,
 sweep_targets, profile_train_step with each backend, a stage-1 epoch with
-"fused" and "bf16"). Each block kernel is split by kernel
+"fused" and "bf16"). Then data parallelism and FSDP (19, this slice's main
+path, whose segmented block entries' launches are the kernels line's): one
+rank over NCCL equal to the single process bit for bit, the segmented
+block entry points equal to the unsegmented ones and held to their plain
+versions, two gloo ranks sharing the card within the JAX envelope of one
+process, FSDP beside them, and the joint pipeline on the two ranks with
+rank 0 the only writer. Each block kernel is split by kernel
 (device time and launches per call; at most 5 per enc_block_fwd and
 dec_block_fwd call and 8 per enc_block_bwd and dec_block_bwd call), and the
 block libraries' SASS is checked for wgmma (HGMMA).
@@ -74,7 +80,9 @@ CHECKOUT, ...), a fresh process per run that builds that tree's kernels and
 runs its phase 9 twice (cold: the process's first pipeline, as a CLI run;
 then warm) and its phase 10, and prints each run's wall times and
 ``ckpt_save`` and the medians. ``python3 chip_smoke.py --artifact-replies
-DIR [DEVICE]`` is phase 14's fresh process.
+DIR [DEVICE]`` is phase 14's fresh process. ``python3 chip_smoke.py
+--dp-walls`` (2 or more GPUs of one host) times the joint training CLI on
+1, 2 and all the GPUs over NCCL, and with --fsdp.
 """
 
 from __future__ import annotations
@@ -2730,6 +2738,407 @@ def phase_cli_backends(card: str, workdir: str, pool, xla_losses: list, device="
     print(f"  phase 18 {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: data parallelism and FSDP across processes
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 2  # the steps the JAX envelope is held after (tests/test_parallel.py)
+# 19b-c's runs: (model, block backend, FSDP); the float32 path once, the kernels' with both models
+DP_RUNS_2 = (("unimodal", "xla", False), ("unimodal", "pallas", False), ("joint", "pallas", False),
+             ("unimodal", "pallas", True), ("joint", "pallas", True))
+DP_RUNS = tuple(dict.fromkeys((k, b) for k, b, _ in DP_RUNS_2))
+ENVELOPE = 4.5e-3
+SEG_NAMES = ("enc_block_fwd_seg", "enc_block_bwd_seg", "dec_block_fwd_seg", "dec_block_bwd_seg")
+
+
+def dp_epoch(kind: str, pool, idx, mask, mesh, fsdp: bool = False, steps=None, perturb: float = 0.0,
+             block: str = "pallas"):
+    """A stage-1 epoch (the plan's first ``steps`` batches) of the unimodal or
+    the joint model from phases 4 and 8's seeded weights, plan and noise,
+    the block backend ``block`` and loss_backend="pallas", under ``mesh``
+    (None: one process), the optimizer sharded with ``fsdp``; ``perturb`` is
+    added to the waveforms. ``"xla"`` runs in full float32 (no TF32), the
+    JAX envelope's own setting. Returns the losses and the model."""
+    import torch
+
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.nn.functional import full_fp32
+    from hippie_tpu_torch.parallel import mesh as pmesh
+    from hippie_tpu_torch.parallel.fsdp import ShardedOptimizer
+    from hippie_tpu_torch.train import optim, step
+
+    joint = kind == "joint"
+    init = cvae.multimodal_cvae_init if joint else cvae.unimodal_cvae_init
+    model = init(joint_config() if joint else full_config(), torch.Generator().manual_seed(0), device="cuda")
+    clip = CLIP if joint else None
+    if fsdp:
+        opt = ShardedOptimizer(model, mesh, lambda ps: optim.make_optimizer(ps, LR, WD), clip)
+    else:
+        opt = optim.make_optimizer(model.parameters(), LR, WD, clip_val=clip)
+    make = step.make_multimodal_epoch_fns if joint else step.make_unimodal_epoch_fns
+    train_epoch, _ = make(beta=1.0, loss_backend="pallas", block_backend=block)
+    n = idx.shape[0] if steps is None else steps
+    wave = pool.wave + perturb if perturb else pool.wave
+    with pmesh.data_parallel(mesh), (full_fp32() if block == "xla" else contextlib.nullcontext()):
+        _, ms = train_epoch(step.TrainState(model, opt), *((wave, pool.isi) if joint else (wave,)), pool.source,
+                            None, idx[:n], mask[:n], generator=torch.Generator(device="cuda").manual_seed(2))
+    return ms.loss.tolist(), model
+
+
+def host_params(model) -> dict:
+    """The parameters (not the BatchNorm buffers, which the JAX envelope does
+    not bound: a running variance moves with the batch's) on the host."""
+    return {k: v.detach().cpu().numpy() for k, v in model.named_parameters()}
+
+
+def param_diff(a: dict, b: dict) -> float:
+    """The largest |a - b| over two models' parameters."""
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in a)
+
+
+def digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def merge_shapes(bb: Backbone) -> list:
+    """(statistics, channels) of each bn_stats_merge of one pass of ``bb``'s
+    blocks: two per segmented forward (the second merges the shortcut's too)."""
+    out = []
+    for stride, _, ci, co in bb.blocks:
+        out += [(1, co if bb.kind == "enc" else ci), (2 if stride != 1 else 1, co)]
+    return out
+
+
+def dp_seg_checks(mesh, card: str) -> dict:
+    """19a's kernel checks, at one rank: every segmented entry point against
+    its unsegmented call, bit for bit, at the full-width backbones' distinct
+    block shapes, B=512, a full batch and a 415-row tail padded at +-1e4; and
+    against its plain version under the mesh, with phase 5b's limits
+    (relative Frobenius 1e-2, statistics 1e-4 of their scale). Then each
+    one's time beside the unsegmented call's and the plain version's, its
+    CUDA launches per call, and bn_stats_merge against its plain version on
+    two ranks' moments. Returns the kernels-line records of the five."""
+    import torch
+
+    from hippie_tpu_torch.nn.functional import full_fp32
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+    from hippie_tpu_torch.parallel import mesh as pmesh
+
+    records, errs, per = [], {}, {}
+    for bb in (ENC, DEC):
+        ops = cb.ENC_OPS if bb.kind == "enc" else cb.DEC_OPS
+        fwd, bwd = f"{bb.kind}_block_fwd_seg", f"{bb.kind}_block_bwd_seg"
+        errs[fwd] = errs[bwd] = 0.0
+        for stride, L, ci, co in sorted(set(bb.blocks), key=bb.blocks.index):
+            for n_real, pad in ((B, None), (415, 1e4)):
+                tag = f"{bb.kind} s{stride} L{L} {ci}->{co} real {n_real}"
+                args, g = block_inputs(bb, stride, L, ci, co, n_real, pad, seed=L + co)
+                got, ref = ops.fwd_mesh(mesh, stride, *args), ops.fwd_cuda(stride, *args)
+                dgot, dref = ops.bwd_mesh(mesh, stride, *args, *got[1:], g), ops.bwd_cuda(stride, *args, *ref[1:], g)
+                check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"{tag}: segmented forward differs")
+                check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(dgot, dref)),
+                      f"{tag}: segmented backward differs")
+                with full_fp32(), pmesh.data_parallel(mesh):
+                    pl = ops.fwd_plain(stride, *args)
+                    dpl = ops.bwd_plain(stride, *args, *got[1:], g)
+                rels = {"out": rel_err(got[0], pl[0]), "dx": rel_err(dgot[0], dpl[0])}
+                for name, a, b in zip(bb.grads, dgot, dpl):
+                    if a is not None and name not in bb.bias_grads:
+                        rels[name] = rel_err(a, b)
+                st = max(stats_err(a, b) for a, b in zip(got[1:], pl[1:]))
+                check(max(rels.values()) <= 1e-2 and st <= 1e-4,
+                      f"{tag}: segmented vs plain {rels}, statistics {st:.3g}")
+                if pad is None:
+                    errs[fwd] = max(errs[fwd], float((got[0].float() - pl[0].float()).abs().max()))
+                    errs[bwd] = max(errs[bwd], float((dgot[0].float() - dpl[0].float()).abs().max()))
+            args, g = block_inputs(bb, stride, L, ci, co, 415, seed=L + co)
+            st = ops.fwd_cuda(stride, *args)[1:]
+            bounds = block_bounds(bb, stride, L, ci, co)
+            for name, seg, plain_fn, unseg in (
+                    (fwd, lambda: ops.fwd_mesh(mesh, stride, *args), lambda: ops.fwd_plain(stride, *args),
+                     lambda: ops.fwd_cuda(stride, *args)),
+                    (bwd, lambda: ops.bwd_mesh(mesh, stride, *args, *st, g),
+                     lambda: ops.bwd_plain(stride, *args, *st, g), lambda: ops.bwd_cuda(stride, *args, *st, g))):
+                with pmesh.data_parallel(mesh):
+                    plain_ms = time_ms(plain_fn, n=3, warmup=1)
+                ms, unseg_ms = time_ms(seg, n=20, warmup=3), time_ms(unseg, n=20, warmup=3)
+                dev_us, n_dev, _ = device_profile(seg, n=5)
+                per[(stride, L, ci, co, name)] = (ms, plain_ms, bounds[name.removesuffix("_seg")][0], unseg_ms,
+                                                  bounds[name.removesuffix("_seg")][1], n_dev)
+        for d, line in zip(("fwd", "bwd"), bb.lines):
+            name = f"{bb.kind}_block_{d}_seg"
+            rows = [per[blk + (name,)] for blk in bb.blocks]
+            tot = [sum(r[k] for r in rows) for k in range(4)]
+            by_ops = sum(r[2] for r in rows if r[4] == "operations")
+            n_dev = sorted({round(r[5]) for r in rows})
+            print(f"  {name} over the {len(bb.blocks)} blocks, one rank over NCCL: {tot[0]:.4f} ms (unsegmented "
+                  f"{tot[3]:.4f} ms, {tot[0] - tot[3]:+.4f}), plain {tot[1]:.4f} ms, bound {tot[2]:.4f} ms, "
+                  f"{'/'.join(map(str, n_dev))} CUDA launches and copies per call on {card}")
+            records.append({"name": name, "route": "cuda", "source": bb.source,
+                            "replaces": f"hippie_tpu/ops/pallas_blocks.py:{line}", "launches": 0,
+                            "max_abs_err": errs[name], "ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[2],
+                            "bound_by": "operations" if by_ops >= tot[2] / 2 else "bytes", "library_ms": None})
+
+    # bn_stats_merge on two ranks' moments: one pass of both waveform backbones' merges
+    r = torch.Generator(device="cuda").manual_seed(19)
+    calls = []
+    for ns, c in merge_shapes(ENC) + merge_shapes(DEC):
+        rows = torch.rand((2, 3 * ns, c), generator=r, device="cuda") + 0.5
+        rows[:, 0::3] = torch.tensor([256.0, 159.0], device="cuda").view(2, 1, 1) * 7  # counts
+        rows[:, 1::3] *= 100.0  # sums
+        sts = [torch.empty((3, c), device="cuda") for _ in range(ns)]
+        calls.append((rows, sts))
+    err = 0.0
+    for rows, sts in calls:
+        cb.bn_stats_merge_cuda(rows, *sts)
+        ref = cb.bn_stats_merge_plain(rows)
+        got = torch.cat(sts)
+        check(bool(torch.allclose(got, ref, rtol=1e-5, atol=0)), "bn_stats_merge differs from its plain version")
+        err = max(err, float((got - ref).abs().max()))
+    ms = time_ms(lambda: [cb.bn_stats_merge_cuda(rows, *sts) for rows, sts in calls], n=20, warmup=3)
+    plain_ms = time_ms(lambda: [cb.bn_stats_merge_plain(rows) for rows, _ in calls], n=5, warmup=1)
+    nbytes = sum(4 * (rows.numel() + 3 * rows.shape[1] // 3 * rows.shape[2]) for rows, _ in calls)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"  bn_stats_merge, the {len(calls)} merges of one pass of both backbones on 2 ranks' moments: "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes), max |err| {err:.3g} "
+          f"(rtol 1e-5) on {card}")
+    records.append({"name": "bn_stats_merge", "route": "cuda", "source": "hippie_tpu_torch/csrc/sm90_gemm.cuh",
+                    "replaces": "hippie_tpu/ops/pallas_blocks.py:568", "launches": 0, "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
+    return records
+
+
+def dp_rank_one(mesh, idx, mask, card: str) -> dict:
+    """Phase 19a, in one rank over NCCL on cuda:0: the unimodal stage-1 epoch
+    through parallel.mesh equals the single-process epoch bit for bit (losses
+    and every tensor of the state), launching only the segmented entries;
+    then the single-process references of 19b-c (the first DP_STEPS steps of
+    each model, and the same with the waveforms moved by 1e-6: the path's own
+    spread) and dp_seg_checks."""
+    import torch
+
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+    from hippie_tpu_torch.train import pipeline
+
+    pool = pipeline.load_pretrain_pool(pipeline.PipelineConfig(dataset=TARGET, data_root=DATA_ROOT, verbose=False))
+    l0, m0 = dp_epoch("unimodal", pool, idx, mask, None)
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    l1, m1 = dp_epoch("unimodal", pool, idx, mask, mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    seg, old = dict(cb.seg_launches), dict(cb.launches)
+    check(l0 == l1, f"the one-rank epoch's losses {l1} differ from the single process's {l0}")
+    diff = [k for k, v in m0.state_dict().items() if not torch.equal(v, m1.state_dict()[k])]
+    check(not diff, f"the one-rank epoch differs from the single process's in {diff[:5]}")
+    per = 8 * idx.shape[0]
+    want = {**{k: per for k in SEG_NAMES}, "bn_stats_merge": 2 * 2 * per}
+    check(seg == want and not any(old.values()), f"one-rank launches {seg} {old}, expected {want}")
+    out = {"epoch": (l1, secs, seg), "refs": {}}
+    del m0, m1
+    for kind, block in DP_RUNS:
+        losses, model = dp_epoch(kind, pool, idx, mask, None, steps=DP_STEPS, block=block)
+        params = host_params(model)
+        moved, pmodel = dp_epoch(kind, pool, idx, mask, None, steps=DP_STEPS, perturb=1e-6, block=block)
+        out["refs"][(kind, block)] = (losses, params, param_diff(host_params(pmodel), params),
+                                      [abs(a - b) / abs(b) for a, b in zip(moved, losses)])
+    out["secs"] = time.perf_counter() - t0
+    out["records"] = dp_seg_checks(mesh, card)
+    return out
+
+
+def dp_rank_two(mesh, idx, mask, workdir: str) -> dict:
+    """Phases 19b-d in each of two gloo ranks sharing cuda:0: the first
+    DP_STEPS steps of each model data-parallel with each block backend (b)
+    and with FSDP on the kernels (c), each with its losses, its parameters
+    (rank 0's), a digest of its state, its launches and the rank's peak
+    device memory; then the joint pipeline at 1 epoch per stage with
+    dp_devices=2 (d), recording every file this rank writes."""
+    import torch
+
+    from hippie_tpu_torch.data import registry
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+    from hippie_tpu_torch.ops import cuda_ops
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+    from hippie_tpu_torch.train import pipeline, resume
+
+    pool = pipeline.load_pretrain_pool(pipeline.PipelineConfig(dataset=TARGET, data_root=DATA_ROOT, verbose=False))
+    out = {}
+    for kind, block, fsdp in DP_RUNS_2:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cb.reset_launches()
+        t0 = time.perf_counter()
+        losses, model = dp_epoch(kind, pool, idx, mask, mesh, fsdp=fsdp, steps=DP_STEPS, block=block)
+        torch.cuda.synchronize()
+        out[(kind, block, fsdp)] = {
+            "losses": losses, "secs": time.perf_counter() - t0, "digest": digest(model),
+            "params": host_params(model) if mesh.rank == 0 else None, "seg": dict(cb.seg_launches),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        del model
+
+    writes = []
+
+    def recorded(fn, what):
+        def wrapper(*a, **kw):
+            writes.append(what)
+            return fn(*a, **kw)
+        return wrapper
+
+    registry.write_csv = pipeline.write_csv = recorded(registry.write_csv, "csv")
+    ckpt_mod.save_lightning_ckpt = recorded(ckpt_mod.save_lightning_ckpt, "ckpt")
+    resume._atomic_save = recorded(resume._atomic_save, "resume")
+    cfg = pipeline.PipelineConfig(model_type="multimodal", z_dim=Z, num_blocks=(2, 2, 2, 2), dataset=TARGET,
+                                  data_root=DATA_ROOT, output_dir=f"{workdir}/dp_joint_out",
+                                  checkpoint_dir=f"{workdir}/dp_joint_checkpoints", loss_backend="pallas",
+                                  block_backend="pallas", verbose=False, dp_devices=2)
+    torch.cuda.synchronize()
+    cb.reset_launches()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    results = pipeline.run_pipeline(cfg)
+    torch.cuda.synchronize()
+    out["pipeline"] = {"secs": time.perf_counter() - t0, "writes": writes,
+                       "accs": results["balanced_accuracy"]["joint"], "timings": results["timings"],
+                       "launches": {**cuda_ops.launches, **cb.launches}, "seg": dict(cb.seg_launches)}
+    return out
+
+
+def phase_data_parallel(card: str, workdir: str, idx, mask) -> list:
+    """Phase 19: data parallelism and FSDP (parallel/mesh.py, parallel/fsdp.py)
+    at full width, B=512 global. (a) One rank over NCCL (dp_rank_one): the
+    mesh epoch equals the single-process one bit for bit, and the segmented
+    block entry points equal the unsegmented ones bit for bit. (b) Two gloo
+    ranks sharing cuda:0 (dp_rank_two; NCCL takes one rank per GPU): the
+    first 2 steps of each model against the single process's, in the JAX
+    envelope (tests/test_parallel.py: losses rtol 1e-3, atol 1e-4, every
+    parameter within 4.5e-3) on the float32 path; on the kernels' bf16 path
+    the first loss and the parameters in it and the second loss within 5e-2
+    (its own spread under a 1e-6 input change exceeds the envelope); the
+    ranks' states bit-equal, the segmented entries launched. (c) The same
+    with FSDP, each rank's peak device memory beside (b)'s. (d)
+    The joint pipeline with dp_devices=2 at 1 epoch per stage: rank 0 writes
+    phase 10's files, rank 1 nothing, 15 finite balanced accuracies; its
+    segmented launches are the kernels line's. These two ranks share one
+    card: no number here is a scaling. Returns the five kernels-line records."""
+    import math
+
+    from hippie_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    one = pmesh.launch(dp_rank_one, 1, idx, mask, card, device="cuda")[0]
+    t_one = time.perf_counter() - t_phase
+    l1, secs, seg = one["epoch"]
+    print(f"[19a one rank, NCCL] the unimodal stage-1 epoch ({idx.shape[0]} steps, B={B}) through the mesh: "
+          f"losses and state equal to the single process's bit for bit; {secs:.3f} s; launches {seg}")
+    t0 = time.perf_counter()
+    ranks = pmesh.launch(dp_rank_two, 2, idx, mask, workdir, devices=["cuda:0", "cuda:0"], backend="gloo")
+    t_two = time.perf_counter() - t0
+    for kind, block, fsdp in DP_RUNS_2:
+        tag = "19c FSDP" if fsdp else "19b data-parallel"
+        r0, r1 = ranks[0][(kind, block, fsdp)], ranks[1][(kind, block, fsdp)]
+        ref_losses, ref_params, spread, loss_spread = one["refs"][(kind, block)]
+        d = param_diff(r0["params"], ref_params)
+        rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref_losses)]
+        check(r0["digest"] == r1["digest"], f"{tag} {kind} {block}: the ranks' states differ")
+        check(r0["losses"] == r1["losses"], f"{tag} {kind} {block}: the ranks' losses differ")
+        line = (f"[{tag}, block_backend={block}, 2 gloo ranks on one card] {kind}: losses "
+                f"{[round(x, 6) for x in r0['losses']]} vs one process {[round(x, 6) for x in ref_losses]} "
+                f"(rel {[f'{x:.2e}' for x in rel]}); max |param - one process| {d:.3g} (limit {ENVELOPE}); "
+                f"the one process's own spread under a 1e-6 input change: params {spread:.3g}, losses rel "
+                f"{[f'{x:.2e}' for x in loss_spread]}; ranks bit-equal; {r0['secs']:.2f} s for {DP_STEPS} "
+                f"steps; peak device memory per rank {r0['peak_mib']:.1f} / {r1['peak_mib']:.1f} MiB")
+        if fsdp:
+            dp = ranks[0][(kind, block, False)]
+            line += (f"; against 19b's data-parallel run: max |param| {param_diff(r0['params'], dp['params']):.3g}, "
+                     f"peak {dp['peak_mib']:.1f} MiB")
+        print(line + f"; launches {r0['seg']}")
+        check(d < ENVELOPE, f"{tag} {kind} {block}: parameters {d:.3g} from one process's, limit {ENVELOPE}")
+        # the JAX envelope's losses, rtol 1e-3 and atol 1e-4; on the kernels' bf16 path only the first
+        # step's (the same parameters): its second loss moves with the first step's bf16 flips, by more
+        # than the envelope under a 1e-6 input change alone, and is held to phase 4b's 5e-2
+        n_env = DP_STEPS if block == "xla" else 1
+        check(all(abs(a - b) <= 1e-4 + 1e-3 * abs(b) for a, b in zip(r0["losses"][:n_env], ref_losses)),
+              f"{tag} {kind} {block}: losses {r0['losses']} outside the JAX envelope of {ref_losses}")
+        check(all(x <= 5e-2 for x in rel), f"{tag} {kind} {block}: losses {rel} rel, limit 5e-2")
+        if block == "pallas":
+            check(all(r0["seg"][k] > 0 for k in (*SEG_NAMES, "bn_stats_merge")),
+                  f"{tag} {kind}: a segmented entry was not launched: {r0['seg']}")
+    p0, p1 = ranks[0]["pipeline"], ranks[1]["pipeline"]
+    out_dir, ck_dir = pathlib.Path(workdir) / "dp_joint_out", pathlib.Path(workdir) / "dp_joint_checkpoints"
+    files = sorted(p.name for p in out_dir.iterdir())
+    want_files = sorted([f"pretraining_{TARGET}_joint_embeddings.csv", f"{TARGET}_joint_knn.csv",
+                         f"{TARGET}_joint_embeddings.csv"])
+    ckpts = sorted(p.name for p in ck_dir.glob("*.ckpt"))
+    check(files == want_files, f"19d outputs {files}")
+    check(ckpts == [f"{TARGET}_joint_model.ckpt", f"{TARGET}_joint_model_supervised.ckpt"], f"19d ckpts {ckpts}")
+    check(p1["writes"] == [] and p0["writes"].count("csv") == 3 and p0["writes"].count("ckpt") == 2,
+          f"19d writes: rank 0 {p0['writes']}, rank 1 {p1['writes']}")
+    accs = p0["accs"]
+    check(len(accs) == 15 and all(math.isfinite(a) for a in accs) and accs == p1["accs"],
+          f"19d balanced accuracies {accs} / {p1['accs']}")
+    train, val = 18, 5  # phase 10's steps at this data
+    want = {"vae_sums_fwd": train + val, "vae_sums_bwd": train, "masked_sse_fwd": train + val,
+            **{k: 0 for k in ("enc_block_fwd", "enc_block_bwd", "dec_block_fwd", "dec_block_bwd")}}
+    want_seg = {**{k: 16 * train for k in SEG_NAMES}, "bn_stats_merge": 2 * 2 * 16 * train}
+    check(p0["launches"] == want and p0["seg"] == want_seg,
+          f"19d launches {p0['launches']} {p0['seg']}, expected {want} {want_seg}")
+    print(f"[19d joint pipeline, dp_devices=2, 2 gloo ranks on one card] {p0['secs']:.3f} s wall "
+          f"(rank 1 {p1['secs']:.3f} s); rank 0 wrote {files} and {ckpts}, rank 1 nothing; 15 finite "
+          f"balanced accuracies, equal on both ranks; launches {p0['launches']} {p0['seg']}; stage timings "
+          f"{json.dumps({k: round(v, 3) for k, v in p0['timings'].items()})}")
+    records = one["records"]
+    for record in records:
+        record["launches"] = p0["seg"][record["name"]]
+    print(f"[19 data parallelism] phase {time.perf_counter() - t_phase:.1f} s on {card}: the NCCL rank's launch "
+          f"{t_one:.1f} s ({one['secs']:.1f} s of epochs and references), the two gloo ranks' {t_two:.1f} s")
+    return records
+
+
+def dp_walls() -> int:
+    """``python3 chip_smoke.py --dp-walls``: the joint training CLI at full
+    width (one epoch per stage, the loss and block kernels) on 1, 2 and N
+    data-parallel ranks over NCCL, N the visible GPUs, and on N with
+    --fsdp, then on N again; a fresh command each, its wall (the ranks'
+    start-up included; the first command also builds the kernels) and rank
+    0's stage timings. Needs N >= 2 GPUs of one
+    host; phase 19's two ranks share one card instead.
+    Returns 1 when a run fails."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"chip_smoke --dp-walls: {n} GPU(s); needs 2 or more", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    print(f"{n} x {card[0]}")
+    with tempfile.TemporaryDirectory(prefix="hippie_dp_walls_") as workdir:
+        for flags in ([], ["--dp-devices", "2"], ["--dp-devices", str(n)], ["--dp-devices", str(n), "--fsdp"],
+                      ["--dp-devices", str(n)]):
+            out = f"{workdir}/out"
+            cmd = [sys.executable, "-m", "hippie_tpu_torch.scripts.train_model_with_multimodal", "--model-type",
+                   "multimodal", "--loss-backend", "pallas", "--block-backend", "pallas", "--output-dir", out,
+                   "--checkpoint-dir", f"{out}/ck", "--data-root", DATA_ROOT, *flags]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=600)
+            wall = time.perf_counter() - t0
+            lines = [x for x in proc.stdout.splitlines() if x.startswith(("stage timings", "best_balanced"))]
+            files = sorted(p.name for p in pathlib.Path(out).rglob("*") if p.is_file())
+            print(f"[dp walls] {' '.join(flags) or '(one process)'}: rc {proc.returncode}, {wall:.3f} s wall; "
+                  f"{len(files)} files {files}; " + "; ".join(lines))
+            if proc.returncode != 0:
+                print(proc.stderr[-3000:], file=sys.stderr)
+                return 1
+            subprocess.run(["rm", "-rf", out], check=True)
+    return 0
+
+
 def urllib_get(url: str) -> str:
     import urllib.request
 
@@ -2789,6 +3198,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--phases-of"]:
         phases_of(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--dp-walls"]:
+        return dp_walls()
     if sys.argv[1:2] == ["--compare"]:
         pairs = int(sys.argv[4]) if sys.argv[3:4] == ["--pairs"] else 5
         return compare(sys.argv[2], pairs)
@@ -2869,6 +3280,9 @@ def main() -> int:
             for record in kernels:
                 record["launches"] = resume_launches[record["name"]]
             phase_cli_backends(card, workdir, pool, losses)
+            # this slice's main path, the joint pipeline on two data-parallel
+            # ranks: the segmented entries' launches, counted from 0 in it
+            kernels += phase_data_parallel(card, workdir, idx, mask)
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback

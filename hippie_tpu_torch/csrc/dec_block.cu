@@ -157,6 +157,7 @@ struct FwdArgs {
   const bf16 *x, *w2, *w1, *ws;
   const float *c1b, *csb, *mask;
   float *st2, *st1, *sts;
+  float* mom;  // segmented: this rank's moments [3 NS, C] in place of st2 / st1, sts
   FwdScratch S;
   Plan P;
 };
@@ -172,7 +173,7 @@ __global__ void __launch_bounds__(sm90::kThreads) dec_fwd_conv2_kernel(FwdArgs A
   sm90::mainloop<0, 1, false>(ld, ld.steps(), ld.steps(), ring, acc, unused);
   float* st = sm90::ring_ptr<float>(dyn, ring);
   sm90::stage_acc(acc, st);
-  const ConvOut out[1] = {{A.S.c2, nullptr, A.st2}};
+  const ConvOut out[1] = {{A.S.c2, nullptr, A.st2, A.mom}};
   sm90::conv_stats_epilogue<1>(st, out, MomentGrid{A.mask, P.B, P.M2, P.Ci, P.mt2, P.nt2, A.S.part, A.S.gpart,
                                                    A.S.tk}, mt, nt);
 }
@@ -193,7 +194,7 @@ __global__ void __launch_bounds__(sm90::kThreads) dec_fwd_conv1_kernel(FwdArgs A
   float* st = sm90::ring_ptr<float>(dyn, ring);
   sm90::stage_acc(acc0, st);
   if (SHORT) sm90::stage_acc(acc1, st + sm90::kBM * kLdS);
-  const ConvOut out[2] = {{A.S.c1, A.c1b, A.st1}, {A.S.cs, A.csb, A.sts}};
+  const ConvOut out[2] = {{A.S.c1, A.c1b, A.st1, A.mom}, {A.S.cs, A.csb, A.sts, A.mom ? A.mom + 3 * P.Co : nullptr}};
   const MomentGrid grid{A.mask, P.B, P.M1, P.Co, P.mt1, P.nt1, A.S.part, A.S.gpart, A.S.tk};
   if (sm90::conv_stats_epilogue<SHORT ? 2 : 1>(st, out, grid, mt, nt) && !SHORT) {
     const int n = n0 + ep_col();
@@ -236,6 +237,7 @@ BwdScratch plan_bwd(Arena& a, const Plan& p, int stride) {
 struct BwdArgs {
   const bf16 *x, *w2, *w1, *ws, *g;
   const float *g2, *b2, *c1b, *g1, *b1, *csb, *gs, *bs, *mask, *st2, *st1, *sts;
+  const float* nc;  // the counts (n1, n2) BatchNorm's backward divides by: S.n, or the global ones
   bf16* dx;
   float *dw2, *dg2, *db2, *dw1, *dc1b, *dg1, *db1, *dws, *dcsb, *dgs, *dbs;
   BwdScratch S;
@@ -360,7 +362,7 @@ __global__ void __launch_bounds__(sm90::kThreads) bwd_dc_bias_kernel(BwdArgs A) 
   sm90::load8(A.db1 + n, db1);
   sm90::load8(A.dgs + n, dgs);
   sm90::load8(A.dbs + n, dbs);
-  const float n1 = A.S.n[0];
+  const float n1 = A.nc[0];
   uint4 dy[4], h1[4], hs[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {  // every row's loads ahead of the stores
@@ -491,6 +493,108 @@ __global__ void __launch_bounds__(sm90::kThreads) bwd_dx_kernel(BwdArgs A) {
     if (e_ != 0) return e_;   \
   } while (0)
 
+namespace {
+
+// Segments first..last of the forward (1: memset and conv2, 2: r and conv1,
+// 3: the output); mom null: the statistics straight into st2, st1, sts.
+int fwd_run(const void* x_, const void* w2_, const float* g2, const float* b2, const void* w1_, const float* c1b,
+            const float* g1, const float* b1, const void* ws_, const float* csb, const float* gs, const float* bs,
+            const float* mask, int Lin, int B, int Ci, int Co, int stride, void* out_, float* st2, float* st1,
+            float* sts, void* scratch, void* stream, float* mom, int first, int last) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FwdArgs A;
+  A.x = static_cast<const bf16*>(x_);
+  A.w2 = static_cast<const bf16*>(w2_);
+  A.w1 = static_cast<const bf16*>(w1_);
+  A.ws = static_cast<const bf16*>(ws_);
+  A.c1b = c1b, A.csb = csb, A.mask = mask, A.st2 = st2, A.st1 = st1, A.sts = sts, A.mom = mom;
+  A.P = plan(Lin, B, Ci, Co, stride);
+  Arena a{static_cast<char*>(scratch)};
+  A.S = plan_fwd(a, A.P, stride);
+  const Plan& P = A.P;
+  const FwdScratch& S = A.S;
+  const size_t tin = (size_t)P.M2 * Ci, tout = (size_t)P.M1 * Co;
+
+  if (first <= 1 && 1 <= last) {
+    RET_IF(static_cast<int>(cudaMemsetAsync(S.tk, 0, sizeof(unsigned) * tickets(P), s)));
+    RET_IF(gemm_launch(dec_fwd_conv2_kernel, dim3(P.mt2, P.nt2), 0, A, s));
+  }
+  if (first <= 2 && 2 <= last) {
+    fwd_act8_kernel<false><<<ew_grid(tin / 8), kEwThreads, 0, s>>>(S.c2, st2, g2, b2, nullptr, nullptr, nullptr,
+                                                                   nullptr, nullptr, Ci, (int)tin, S.r);
+    BLOCKS_CHECK();
+    RET_IF(gemm_launch(stride != 1 ? dec_fwd_conv1_kernel<true> : dec_fwd_conv1_kernel<false>, dim3(P.mt1, P.nt1),
+                       0, A, s));
+  }
+  if (first <= 3 && 3 <= last) {
+    fwd_act8_kernel<true><<<ew_grid(tout / 8), kEwThreads, 0, s>>>(S.c1, st1, g1, b1, S.cs, sts, gs, bs, A.x, Co,
+                                                                   (int)tout, static_cast<bf16*>(out_));
+    BLOCKS_CHECK();
+  }
+  return 0;
+}
+
+// Segments first..last of the backward (1: the recomputes, dg1, db1, dgs,
+// dbs; 2: dc1, dcs and dr, dg2 and db2; 3: dc2, dx and the weight
+// gradients); n null: the counts the first launch writes into scratch.
+int bwd_run(const void* x_, const void* w2_, const float* g2, const float* b2, const void* w1_, const float* c1b,
+            const float* g1, const float* b1, const void* ws_, const float* csb, const float* gs, const float* bs,
+            const float* mask, const float* st2, const float* st1, const float* sts, const void* g_, int Lin, int B,
+            int Ci, int Co, int stride, void* dx_, float* dw2, float* dg2, float* db2, float* dw1, float* dc1b,
+            float* dg1, float* db1, float* dws, float* dcsb, float* dgs, float* dbs, void* scratch, void* stream,
+            const float* n, int first, int last) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool short_ = stride != 1;
+  BwdArgs A;
+  A.x = static_cast<const bf16*>(x_);
+  A.w2 = static_cast<const bf16*>(w2_);
+  A.w1 = static_cast<const bf16*>(w1_);
+  A.ws = static_cast<const bf16*>(ws_);
+  A.g = static_cast<const bf16*>(g_);
+  A.g2 = g2, A.b2 = b2, A.c1b = c1b, A.g1 = g1, A.b1 = b1, A.csb = csb, A.gs = gs, A.bs = bs;
+  A.mask = mask, A.st2 = st2, A.st1 = st1, A.sts = sts;
+  A.dx = static_cast<bf16*>(dx_);
+  A.dw2 = dw2, A.dg2 = dg2, A.db2 = db2, A.dw1 = dw1, A.dc1b = dc1b, A.dg1 = dg1, A.db1 = db1;
+  A.dws = dws, A.dcsb = dcsb, A.dgs = dgs, A.dbs = dbs;
+  A.P = plan(Lin, B, Ci, Co, stride);
+  Arena a{static_cast<char*>(scratch)};
+  A.S = plan_bwd(a, A.P, stride);
+  A.nc = n ? n : A.S.n;
+  const Plan& P = A.P;
+  const BwdScratch& S = A.S;
+  const size_t tin = (size_t)P.M2 * Ci, tout = (size_t)P.M1 * Co;
+  const BnDx bn1{S.xh1, g1, st1, dg1, db1, S.dc1}, bn2{S.xh2, g2, st2, dg2, db2, S.dc2};
+  const int mid = P.s1.jobs + (short_ ? P.ss.jobs : 0) + P.mt2 * P.nt2;
+  const int last_grid = P.s2.jobs + P.mt2 * P.nt2;
+
+  if (first <= 1 && 1 <= last) {
+    RET_IF(gemm_launch(bwd_conv2_kernel, dim3(P.mt2, P.nt2), 0, A, s));
+    RET_IF(gemm_launch(short_ ? bwd_conv1_kernel<true> : bwd_conv1_kernel<false>, dim3(P.mt1, P.nt1),
+                       short_ ? 1 : 2, A, s));
+  }
+  if (first <= 2 && 2 <= last) {
+    if (short_) {
+      bwd_dc_bias_kernel<<<dim3(P.mt1, P.nt1), sm90::kThreads, 0, s>>>(A);
+    } else {
+      bn_dx8_kernel<false><<<ew_grid(tout / 8), kEwThreads, 0, s>>>(S.g0, bn1, bn1, mask, A.nc, B, Co, (int)tout);
+    }
+    BLOCKS_CHECK();
+    RET_IF(gemm_launch(short_ ? bwd_mid_kernel<true> : bwd_mid_kernel<false>, dim3(mid), 1, A, s));
+  }
+  if (first <= 3 && 3 <= last) {
+    bn_dx8_kernel<false><<<ew_grid(tin / 8), kEwThreads, 0, s>>>(S.da2, bn2, bn2, mask, A.nc + 1, B, Ci, (int)tin);
+    BLOCKS_CHECK();
+    RET_IF(gemm_launch(short_ ? bwd_dx_kernel<true> : bwd_dx_kernel<false>, dim3(last_grid), short_ ? 0 : 1, A, s));
+    const WgradSum w1s{S.wp1, P.s1.splits, 3 * Ci * Co, dw1}, w2s{S.wp2, P.s2.splits, 3 * Ci * Ci, dw2};
+    const WgradSum wss{S.wps, P.ss.splits, short_ ? 3 * Ci * Co : 0, dws};
+    sm90::wgrad_sum3_kernel<<<ew_grid((size_t)w1s.n + w2s.n + wss.n), kEwThreads, 0, s>>>(w1s, w2s, wss);
+    BLOCKS_CHECK();
+  }
+  return 0;
+}
+
+}  // namespace
+
 extern "C" {
 
 // Bytes of scratch the forward / backward need for one block.
@@ -516,31 +620,26 @@ int dec_block_fwd(const void* x_, const void* w2_, const float* g2, const float*
                   const void* ws_, const float* csb, const float* gs, const float* bs,
                   const float* mask, int Lin, int B, int Ci, int Co, int stride, void* out_,
                   float* st2, float* st1, float* sts, void* scratch, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FwdArgs A;
-  A.x = static_cast<const bf16*>(x_);
-  A.w2 = static_cast<const bf16*>(w2_);
-  A.w1 = static_cast<const bf16*>(w1_);
-  A.ws = static_cast<const bf16*>(ws_);
-  A.c1b = c1b, A.csb = csb, A.mask = mask, A.st2 = st2, A.st1 = st1, A.sts = sts;
-  A.P = plan(Lin, B, Ci, Co, stride);
-  Arena a{static_cast<char*>(scratch)};
-  A.S = plan_fwd(a, A.P, stride);
-  const Plan& P = A.P;
-  const FwdScratch& S = A.S;
-  const size_t tin = (size_t)P.M2 * Ci, tout = (size_t)P.M1 * Co;
+  return fwd_run(x_, w2_, g2, b2, w1_, c1b, g1, b1, ws_, csb, gs, bs, mask, Lin, B, Ci, Co, stride, out_, st2, st1,
+                 sts, scratch, stream, nullptr, 1, 3);
+}
 
-  RET_IF(static_cast<int>(cudaMemsetAsync(S.tk, 0, sizeof(unsigned) * tickets(P), s)));
-  RET_IF(gemm_launch(dec_fwd_conv2_kernel, dim3(P.mt2, P.nt2), 0, A, s));
-  fwd_act8_kernel<false><<<ew_grid(tin / 8), kEwThreads, 0, s>>>(S.c2, st2, g2, b2, nullptr, nullptr, nullptr,
-                                                                 nullptr, nullptr, Ci, (int)tin, S.r);
-  BLOCKS_CHECK();
-  RET_IF(gemm_launch(stride != 1 ? dec_fwd_conv1_kernel<true> : dec_fwd_conv1_kernel<false>, dim3(P.mt1, P.nt1), 0,
-                     A, s));
-  fwd_act8_kernel<true><<<ew_grid(tout / 8), kEwThreads, 0, s>>>(S.c1, st1, g1, b1, S.cs, sts, gs, bs, A.x, Co,
-                                                                 (int)tout, static_cast<bf16*>(out_));
-  BLOCKS_CHECK();
-  return 0;
+// The forward in three segments for data parallelism, each stopping at a
+// statistic (the same arguments, the same scratch in every segment):
+//   seg 1: the tickets' memset and conv2; its moments go to mom [3, Ci]
+//   seg 2: r from st2, then conv1 (+ the shortcut's conv); their moments go
+//          to mom [3 NS, Co] (c1's rows 0-2, cs's 3-5)
+//   seg 3: the output from st1, sts
+// Between segments the caller merges every rank's mom into st2, or st1 and
+// sts (bn_stats_merge of enc_block.cu). sts = 0 at stride 1.
+int dec_block_fwd_seg(const void* x_, const void* w2_, const float* g2, const float* b2,
+                      const void* w1_, const float* c1b, const float* g1, const float* b1,
+                      const void* ws_, const float* csb, const float* gs, const float* bs,
+                      const float* mask, int Lin, int B, int Ci, int Co, int stride, void* out_,
+                      float* st2, float* st1, float* sts, void* scratch, void* stream, float* mom, int seg) {
+  if (seg < 1 || seg > 3) return 1;  // cudaErrorInvalidValue
+  return fwd_run(x_, w2_, g2, b2, w1_, c1b, g1, b1, ws_, csb, gs, bs, mask, Lin, B, Ci, Co, stride, out_, st2, st1,
+                 sts, scratch, stream, mom, seg, seg);
 }
 
 // As the forward, plus st2, st1, sts from it and g bf16 [Lo, B, Co], the
@@ -555,49 +654,33 @@ int dec_block_bwd(const void* x_, const void* w2_, const float* g2, const float*
                   float* dw2, float* dg2, float* db2, float* dw1, float* dc1b, float* dg1,
                   float* db1, float* dws, float* dcsb, float* dgs, float* dbs, void* scratch,
                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool short_ = stride != 1;
-  BwdArgs A;
-  A.x = static_cast<const bf16*>(x_);
-  A.w2 = static_cast<const bf16*>(w2_);
-  A.w1 = static_cast<const bf16*>(w1_);
-  A.ws = static_cast<const bf16*>(ws_);
-  A.g = static_cast<const bf16*>(g_);
-  A.g2 = g2, A.b2 = b2, A.c1b = c1b, A.g1 = g1, A.b1 = b1, A.csb = csb, A.gs = gs, A.bs = bs;
-  A.mask = mask, A.st2 = st2, A.st1 = st1, A.sts = sts;
-  A.dx = static_cast<bf16*>(dx_);
-  A.dw2 = dw2, A.dg2 = dg2, A.db2 = db2, A.dw1 = dw1, A.dc1b = dc1b, A.dg1 = dg1, A.db1 = db1;
-  A.dws = dws, A.dcsb = dcsb, A.dgs = dgs, A.dbs = dbs;
-  A.P = plan(Lin, B, Ci, Co, stride);
-  Arena a{static_cast<char*>(scratch)};
-  A.S = plan_bwd(a, A.P, stride);
-  const Plan& P = A.P;
-  const BwdScratch& S = A.S;
-  const size_t tin = (size_t)P.M2 * Ci, tout = (size_t)P.M1 * Co;
-  const BnDx bn1{S.xh1, g1, st1, dg1, db1, S.dc1}, bn2{S.xh2, g2, st2, dg2, db2, S.dc2};
-  const int mid = P.s1.jobs + (short_ ? P.ss.jobs : 0) + P.mt2 * P.nt2;
-  const int last = P.s2.jobs + P.mt2 * P.nt2;
+  return bwd_run(x_, w2_, g2, b2, w1_, c1b, g1, b1, ws_, csb, gs, bs, mask, st2, st1, sts, g_, Lin, B, Ci, Co,
+                 stride, dx_, dw2, dg2, db2, dw1, dc1b, dg1, db1, dws, dcsb, dgs, dbs, scratch, stream, nullptr, 1,
+                 3);
+}
 
-  RET_IF(gemm_launch(bwd_conv2_kernel, dim3(P.mt2, P.nt2), 0, A, s));
-  if (short_) {
-    RET_IF(gemm_launch(bwd_conv1_kernel<true>, dim3(P.mt1, P.nt1), 1, A, s));
-    bwd_dc_bias_kernel<<<dim3(P.mt1, P.nt1), sm90::kThreads, 0, s>>>(A);
-    BLOCKS_CHECK();
-    RET_IF(gemm_launch(bwd_mid_kernel<true>, dim3(mid), 1, A, s));
-  } else {
-    RET_IF(gemm_launch(bwd_conv1_kernel<false>, dim3(P.mt1, P.nt1), 2, A, s));
-    bn_dx8_kernel<false><<<ew_grid(tout / 8), kEwThreads, 0, s>>>(S.g0, bn1, bn1, mask, S.n, B, Co, (int)tout);
-    BLOCKS_CHECK();
-    RET_IF(gemm_launch(bwd_mid_kernel<false>, dim3(mid), 1, A, s));
-  }
-  bn_dx8_kernel<false><<<ew_grid(tin / 8), kEwThreads, 0, s>>>(S.da2, bn2, bn2, mask, S.n + 1, B, Ci, (int)tin);
-  BLOCKS_CHECK();
-  RET_IF(gemm_launch(short_ ? bwd_dx_kernel<true> : bwd_dx_kernel<false>, dim3(last), short_ ? 0 : 1, A, s));
-  const WgradSum w1s{S.wp1, P.s1.splits, 3 * Ci * Co, dw1}, w2s{S.wp2, P.s2.splits, 3 * Ci * Ci, dw2};
-  const WgradSum wss{S.wps, P.ss.splits, short_ ? 3 * Ci * Co : 0, dws};
-  sm90::wgrad_sum3_kernel<<<ew_grid((size_t)w1s.n + w2s.n + wss.n), kEwThreads, 0, s>>>(w1s, w2s, wss);
-  BLOCKS_CHECK();
-  return 0;
+// The backward in three segments for data parallelism, each stopping where
+// a BatchNorm's dgamma, dbeta are finished (the same arguments, the same
+// scratch in every segment):
+//   seg 1: conv2 and conv1 (+ the shortcut's conv) recomputed; writes dg1,
+//          db1 (and dgs, dbs)
+//   seg 2: dc1 (dcs, and the conv biases' gradients), then dr; writes dg2, db2
+//   seg 3: dc2, dx and the weight gradients
+// Between segments the caller sums the dgamma, dbeta just written over the
+// ranks in place; n is float32 [2] on the device, the global counts
+// (sum(mask) * Lo, sum(mask) * Lin) over every rank, which BatchNorm's
+// backward divides by. The weight and conv-bias gradients stay this rank's.
+int dec_block_bwd_seg(const void* x_, const void* w2_, const float* g2, const float* b2,
+                      const void* w1_, const float* c1b, const float* g1, const float* b1,
+                      const void* ws_, const float* csb, const float* gs, const float* bs,
+                      const float* mask, const float* st2, const float* st1, const float* sts,
+                      const void* g_, int Lin, int B, int Ci, int Co, int stride, void* dx_,
+                      float* dw2, float* dg2, float* db2, float* dw1, float* dc1b, float* dg1,
+                      float* db1, float* dws, float* dcsb, float* dgs, float* dbs, void* scratch,
+                      void* stream, const float* n, int seg) {
+  if (seg < 1 || seg > 3 || n == nullptr) return 1;  // cudaErrorInvalidValue
+  return bwd_run(x_, w2_, g2, b2, w1_, c1b, g1, b1, ws_, csb, gs, bs, mask, st2, st1, sts, g_, Lin, B, Ci, Co,
+                 stride, dx_, dw2, dg2, db2, dw1, dc1b, dg1, db1, dws, dcsb, dgs, dbs, scratch, stream, n, seg, seg);
 }
 
 }  // extern "C"

@@ -134,6 +134,7 @@ struct FwdArgs {
   const bf16 *x, *w1, *w2, *ws;
   const float* mask;
   float *st1, *st2, *sts;
+  float* mom;  // segmented: this rank's moments [3 NS, Co] in place of st1 / st2, sts
   FwdScratch S;
   Plan P;
 };
@@ -155,7 +156,8 @@ __global__ void __launch_bounds__(sm90::kThreads) fwd_conv_kernel(FwdArgs A) {
   float* st = sm90::ring_ptr<float>(dyn, ring);
   sm90::stage_acc(acc0, st);
   if (SHORT) sm90::stage_acc(acc1, st + sm90::kBM * kLdS);
-  const ConvOut out[2] = {{SECOND ? A.S.c2 : A.S.c1, nullptr, SECOND ? A.st2 : A.st1}, {A.S.cs, nullptr, A.sts}};
+  const ConvOut out[2] = {{SECOND ? A.S.c2 : A.S.c1, nullptr, SECOND ? A.st2 : A.st1, A.mom},
+                          {A.S.cs, nullptr, A.sts, A.mom ? A.mom + 3 * P.Co : nullptr}};
   const MomentGrid grid{A.mask, P.B, P.M, P.Co, P.mtiles, P.ntiles, A.S.part, A.S.gpart, A.S.tk};
   if (sm90::conv_stats_epilogue<SHORT ? 2 : 1>(st, out, grid, mt, nt) && SECOND && !SHORT) {
     const int n = n0 + ep_col();
@@ -197,6 +199,7 @@ BwdScratch plan_bwd(Arena& a, const Plan& p, int has_short) {
 struct BwdArgs {
   const bf16 *x, *w1, *w2, *ws, *g;
   const float *g1, *b1, *g2, *b2, *gs, *bs, *mask, *st1, *st2, *sts;
+  const float* nc;  // the count n BatchNorm's backward divides by: S.n, or the global one
   bf16* dx;
   float *dw1, *dg1, *db1, *dw2, *dg2, *db2, *dws, *dgs, *dbs;
   BwdScratch S;
@@ -379,6 +382,110 @@ __global__ void __launch_bounds__(sm90::kThreads) bwd_dx_kernel(BwdArgs A) {
     if (e_ != 0) return e_;   \
   } while (0)
 
+namespace {
+
+// Segments first..last of the forward (1: memset and conv1, 2: r1 and conv2,
+// 3: the output); mom null: the statistics straight into st1, st2, sts.
+int fwd_run(const void* x_, const void* w1_, const float* g1, const float* b1, const void* w2_, const float* g2,
+            const float* b2, const void* ws_, const float* gs, const float* bs, const float* mask, int L, int B,
+            int Ci, int Co, int stride, int has_short, void* out_, float* st1, float* st2, float* sts, void* scratch,
+            void* stream, float* mom, int first, int last) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FwdArgs A;
+  A.x = static_cast<const bf16*>(x_);
+  A.w1 = static_cast<const bf16*>(w1_);
+  A.w2 = static_cast<const bf16*>(w2_);
+  A.ws = static_cast<const bf16*>(ws_);
+  A.mask = mask, A.st1 = st1, A.st2 = st2, A.sts = sts, A.mom = mom;
+  A.P = plan(L, B, Ci, Co, stride);
+  Arena a{static_cast<char*>(scratch)};
+  A.S = plan_fwd(a, A.P, has_short);
+  const Plan& P = A.P;
+  const FwdScratch& S = A.S;
+  const size_t tot = (size_t)P.M * Co;
+  const dim3 tiles(P.mtiles, P.ntiles);
+
+  if (first <= 1 && 1 <= last) {
+    RET_IF(static_cast<int>(cudaMemsetAsync(S.tk, 0, sizeof(unsigned) * (P.groups + 1) * P.ntiles, s)));
+    RET_IF(gemm_launch(fwd_conv_kernel<false, false>, tiles, 0, A, s));
+  }
+  if (first <= 2 && 2 <= last) {
+    fwd_act8_kernel<false><<<ew_grid(tot / 8), kEwThreads, 0, s>>>(S.c1, st1, g1, b1, nullptr, nullptr, nullptr,
+                                                                   nullptr, nullptr, Co, (int)tot, S.r1);
+    BLOCKS_CHECK();
+    RET_IF(gemm_launch(has_short ? fwd_conv_kernel<true, true> : fwd_conv_kernel<true, false>, tiles, 0, A, s));
+  }
+  if (first <= 3 && 3 <= last) {
+    fwd_act8_kernel<true><<<ew_grid(tot / 8), kEwThreads, 0, s>>>(S.c2, st2, g2, b2, S.cs, sts, gs, bs, A.x, Co,
+                                                                  (int)tot, static_cast<bf16*>(out_));
+    BLOCKS_CHECK();
+  }
+  return 0;
+}
+
+// Segments first..last of the backward (1: the recomputes, dg2 and db2; 2:
+// dc2 and the transposed conv2, dg1 and db1; 3: dc1, dx and the weight
+// gradients); n null: the count the first launch writes into scratch.
+int bwd_run(const void* x_, const void* w1_, const float* g1, const float* b1, const void* w2_, const float* g2,
+            const float* b2, const void* ws_, const float* gs, const float* bs, const float* mask, const float* st1,
+            const float* st2, const float* sts, const void* g_, int L, int B, int Ci, int Co, int stride,
+            int has_short, void* dx_, float* dw1, float* dg1, float* db1, float* dw2, float* dg2, float* db2,
+            float* dws, float* dgs, float* dbs, void* scratch, void* stream, const float* n, int first, int last) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdArgs A;
+  A.x = static_cast<const bf16*>(x_);
+  A.w1 = static_cast<const bf16*>(w1_);
+  A.w2 = static_cast<const bf16*>(w2_);
+  A.ws = static_cast<const bf16*>(ws_);
+  A.g = static_cast<const bf16*>(g_);
+  A.g1 = g1, A.b1 = b1, A.g2 = g2, A.b2 = b2, A.gs = gs, A.bs = bs;
+  A.mask = mask, A.st1 = st1, A.st2 = st2, A.sts = sts;
+  A.dx = static_cast<bf16*>(dx_);
+  A.dw1 = dw1, A.dg1 = dg1, A.db1 = db1, A.dw2 = dw2, A.dg2 = dg2, A.db2 = db2;
+  A.dws = dws, A.dgs = dgs, A.dbs = dbs;
+  A.P = plan(L, B, Ci, Co, stride);
+  Arena a{static_cast<char*>(scratch)};
+  A.S = plan_bwd(a, A.P, has_short);
+  A.nc = n ? n : A.S.n;
+  const Plan& P = A.P;
+  const BwdScratch& S = A.S;
+  const size_t tot = (size_t)P.M * Co;
+  const dim3 tiles(P.mtiles, P.ntiles);
+  const int ew8 = ew_grid(tot / 8);
+  const BnDx bn2{S.xh2, g2, st2, dg2, db2, S.dc2}, bns{S.xhs, gs, sts, dgs, dbs, S.dcs};
+  const BnDx bn1{S.xh1, g1, st1, dg1, db1, S.dc1};
+  const int mid = P.s2.jobs + (has_short ? P.ss.jobs : 0) + P.mtiles * P.ntiles;
+  const int last_grid = P.s1.jobs + P.xtiles * (Ci / sm90::kBN);
+
+  if (first <= 1 && 1 <= last) {
+    RET_IF(gemm_launch(bwd_conv1_kernel, tiles, 0, A, s));
+    RET_IF(gemm_launch(has_short ? bwd_conv2_kernel<true> : bwd_conv2_kernel<false>, tiles, has_short ? 1 : 2, A,
+                       s));
+  }
+  if (first <= 2 && 2 <= last) {
+    if (has_short) {
+      bn_dx8_kernel<true><<<ew8, kEwThreads, 0, s>>>(S.g0, bn2, bns, mask, A.nc, B, Co, (int)tot);
+    } else {
+      bn_dx8_kernel<false><<<ew8, kEwThreads, 0, s>>>(S.g0, bn2, bn2, mask, A.nc, B, Co, (int)tot);
+    }
+    BLOCKS_CHECK();
+    RET_IF(gemm_launch(has_short ? bwd_mid_kernel<true> : bwd_mid_kernel<false>, dim3(mid), 1, A, s));
+  }
+  if (first <= 3 && 3 <= last) {
+    bn_dx8_kernel<false><<<ew8, kEwThreads, 0, s>>>(S.da1, bn1, bn1, mask, A.nc, B, Co, (int)tot);
+    BLOCKS_CHECK();
+    RET_IF(gemm_launch(has_short ? bwd_dx_kernel<true> : bwd_dx_kernel<false>, dim3(last_grid), has_short ? 0 : 1,
+                       A, s));
+    const WgradSum w1s{S.wp1, P.s1.splits, 3 * Ci * Co, dw1}, w2s{S.wp2, P.s2.splits, 3 * Co * Co, dw2};
+    const WgradSum wss{S.wps, P.ss.splits, has_short ? Ci * Co : 0, dws};
+    sm90::wgrad_sum3_kernel<<<ew_grid((size_t)w1s.n + w2s.n + wss.n), kEwThreads, 0, s>>>(w1s, w2s, wss);
+    BLOCKS_CHECK();
+  }
+  return 0;
+}
+
+}  // namespace
+
 extern "C" {
 
 // Bytes of scratch the forward / backward need for one block.
@@ -403,31 +510,26 @@ int enc_block_fwd(const void* x_, const void* w1_, const float* g1, const float*
                   const float* gs, const float* bs, const float* mask, int L, int B, int Ci,
                   int Co, int stride, int has_short, void* out_, float* st1, float* st2,
                   float* sts, void* scratch, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FwdArgs A;
-  A.x = static_cast<const bf16*>(x_);
-  A.w1 = static_cast<const bf16*>(w1_);
-  A.w2 = static_cast<const bf16*>(w2_);
-  A.ws = static_cast<const bf16*>(ws_);
-  A.mask = mask, A.st1 = st1, A.st2 = st2, A.sts = sts;
-  A.P = plan(L, B, Ci, Co, stride);
-  Arena a{static_cast<char*>(scratch)};
-  A.S = plan_fwd(a, A.P, has_short);
-  const Plan& P = A.P;
-  const FwdScratch& S = A.S;
-  const size_t tot = (size_t)P.M * Co;
-  const dim3 tiles(P.mtiles, P.ntiles);
+  return fwd_run(x_, w1_, g1, b1, w2_, g2, b2, ws_, gs, bs, mask, L, B, Ci, Co, stride, has_short, out_, st1,
+                 st2, sts, scratch, stream, nullptr, 1, 3);
+}
 
-  RET_IF(static_cast<int>(cudaMemsetAsync(S.tk, 0, sizeof(unsigned) * (P.groups + 1) * P.ntiles, s)));
-  RET_IF(gemm_launch(fwd_conv_kernel<false, false>, tiles, 0, A, s));
-  fwd_act8_kernel<false><<<ew_grid(tot / 8), kEwThreads, 0, s>>>(S.c1, st1, g1, b1, nullptr, nullptr, nullptr,
-                                                                 nullptr, nullptr, Co, (int)tot, S.r1);
-  BLOCKS_CHECK();
-  RET_IF(gemm_launch(has_short ? fwd_conv_kernel<true, true> : fwd_conv_kernel<true, false>, tiles, 0, A, s));
-  fwd_act8_kernel<true><<<ew_grid(tot / 8), kEwThreads, 0, s>>>(S.c2, st2, g2, b2, S.cs, sts, gs, bs, A.x, Co,
-                                                                (int)tot, static_cast<bf16*>(out_));
-  BLOCKS_CHECK();
-  return 0;
+// The forward in three segments for data parallelism, each stopping at a
+// statistic (the same arguments, the same scratch in every segment):
+//   seg 1: the tickets' memset and conv1; its moments go to mom [3, Co]
+//   seg 2: r1 from st1, then conv2 (+ the shortcut's conv); their moments go
+//          to mom [3 NS, Co] (c2's rows 0-2, cs's 3-5)
+//   seg 3: the output from st2, sts
+// Between segments the caller merges every rank's mom into st1, or st2 and
+// sts (bn_stats_merge). sts = 0 without a shortcut, as enc_block_fwd.
+int enc_block_fwd_seg(const void* x_, const void* w1_, const float* g1, const float* b1,
+                      const void* w2_, const float* g2, const float* b2, const void* ws_,
+                      const float* gs, const float* bs, const float* mask, int L, int B, int Ci,
+                      int Co, int stride, int has_short, void* out_, float* st1, float* st2,
+                      float* sts, void* scratch, void* stream, float* mom, int seg) {
+  if (seg < 1 || seg > 3) return 1;  // cudaErrorInvalidValue
+  return fwd_run(x_, w1_, g1, b1, w2_, g2, b2, ws_, gs, bs, mask, L, B, Ci, Co, stride, has_short, out_, st1,
+                 st2, sts, scratch, stream, mom, seg, seg);
 }
 
 // As the forward, plus st1, st2, sts from it and g bf16 [Lo, B, Co], the
@@ -441,49 +543,39 @@ int enc_block_bwd(const void* x_, const void* w1_, const float* g1, const float*
                   int Co, int stride, int has_short, void* dx_, float* dw1, float* dg1,
                   float* db1, float* dw2, float* dg2, float* db2, float* dws, float* dgs,
                   float* dbs, void* scratch, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  BwdArgs A;
-  A.x = static_cast<const bf16*>(x_);
-  A.w1 = static_cast<const bf16*>(w1_);
-  A.w2 = static_cast<const bf16*>(w2_);
-  A.ws = static_cast<const bf16*>(ws_);
-  A.g = static_cast<const bf16*>(g_);
-  A.g1 = g1, A.b1 = b1, A.g2 = g2, A.b2 = b2, A.gs = gs, A.bs = bs;
-  A.mask = mask, A.st1 = st1, A.st2 = st2, A.sts = sts;
-  A.dx = static_cast<bf16*>(dx_);
-  A.dw1 = dw1, A.dg1 = dg1, A.db1 = db1, A.dw2 = dw2, A.dg2 = dg2, A.db2 = db2;
-  A.dws = dws, A.dgs = dgs, A.dbs = dbs;
-  A.P = plan(L, B, Ci, Co, stride);
-  Arena a{static_cast<char*>(scratch)};
-  A.S = plan_bwd(a, A.P, has_short);
-  const Plan& P = A.P;
-  const BwdScratch& S = A.S;
-  const size_t tot = (size_t)P.M * Co;
-  const dim3 tiles(P.mtiles, P.ntiles);
-  const int ew8 = ew_grid(tot / 8);
-  const BnDx bn2{S.xh2, g2, st2, dg2, db2, S.dc2}, bns{S.xhs, gs, sts, dgs, dbs, S.dcs};
-  const BnDx bn1{S.xh1, g1, st1, dg1, db1, S.dc1};
-  const int mid = P.s2.jobs + (has_short ? P.ss.jobs : 0) + P.mtiles * P.ntiles;
-  const int last = P.s1.jobs + P.xtiles * (Ci / sm90::kBN);
+  return bwd_run(x_, w1_, g1, b1, w2_, g2, b2, ws_, gs, bs, mask, st1, st2, sts, g_, L, B, Ci, Co, stride,
+                 has_short, dx_, dw1, dg1, db1, dw2, dg2, db2, dws, dgs, dbs, scratch, stream, nullptr, 1, 3);
+}
 
-  RET_IF(gemm_launch(bwd_conv1_kernel, tiles, 0, A, s));
-  if (has_short) {
-    RET_IF(gemm_launch(bwd_conv2_kernel<true>, tiles, 1, A, s));
-    bn_dx8_kernel<true><<<ew8, kEwThreads, 0, s>>>(S.g0, bn2, bns, mask, S.n, B, Co, (int)tot);
-    BLOCKS_CHECK();
-    RET_IF(gemm_launch(bwd_mid_kernel<true>, dim3(mid), 1, A, s));
-  } else {
-    RET_IF(gemm_launch(bwd_conv2_kernel<false>, tiles, 2, A, s));
-    bn_dx8_kernel<false><<<ew8, kEwThreads, 0, s>>>(S.g0, bn2, bn2, mask, S.n, B, Co, (int)tot);
-    BLOCKS_CHECK();
-    RET_IF(gemm_launch(bwd_mid_kernel<false>, dim3(mid), 1, A, s));
-  }
-  bn_dx8_kernel<false><<<ew8, kEwThreads, 0, s>>>(S.da1, bn1, bn1, mask, S.n, B, Co, (int)tot);
-  BLOCKS_CHECK();
-  RET_IF(gemm_launch(has_short ? bwd_dx_kernel<true> : bwd_dx_kernel<false>, dim3(last), has_short ? 0 : 1, A, s));
-  const WgradSum w1s{S.wp1, P.s1.splits, 3 * Ci * Co, dw1}, w2s{S.wp2, P.s2.splits, 3 * Co * Co, dw2};
-  const WgradSum wss{S.wps, P.ss.splits, has_short ? Ci * Co : 0, dws};
-  sm90::wgrad_sum3_kernel<<<ew_grid((size_t)w1s.n + w2s.n + wss.n), kEwThreads, 0, s>>>(w1s, w2s, wss);
+// The backward in three segments for data parallelism, each stopping where
+// a BatchNorm's dgamma, dbeta are finished (the same arguments, the same
+// scratch in every segment):
+//   seg 1: conv1 and conv2 recomputed; writes dg2, db2 (and dgs, dbs)
+//   seg 2: dc2 (dcs), then the transposed conv2; writes dg1, db1
+//   seg 3: dc1, dx and the weight gradients
+// Between segments the caller sums the dgamma, dbeta just written over the
+// ranks in place; n is the global count, sum(mask) * Lo over every rank
+// (a device float), which BatchNorm's backward divides by. The weight
+// gradients stay this rank's.
+int enc_block_bwd_seg(const void* x_, const void* w1_, const float* g1, const float* b1,
+                      const void* w2_, const float* g2, const float* b2, const void* ws_,
+                      const float* gs, const float* bs, const float* mask, const float* st1,
+                      const float* st2, const float* sts, const void* g_, int L, int B, int Ci,
+                      int Co, int stride, int has_short, void* dx_, float* dw1, float* dg1,
+                      float* db1, float* dw2, float* dg2, float* db2, float* dws, float* dgs,
+                      float* dbs, void* scratch, void* stream, const float* n, int seg) {
+  if (seg < 1 || seg > 3 || n == nullptr) return 1;  // cudaErrorInvalidValue
+  return bwd_run(x_, w1_, g1, b1, w2_, g2, b2, ws_, gs, bs, mask, st1, st2, sts, g_, L, B, Ci, Co, stride,
+                 has_short, dx_, dw1, dg1, db1, dw2, dg2, db2, dws, dgs, dbs, scratch, stream, n, seg, seg);
+}
+
+// rows float32 [world][3 NS][C]: every rank's moments of NS statistics (the
+// segmented forwards' mom) -> st0 and (NS = 2) st1 [3, C] = (mean, var, inv),
+// merged in rank order. One launch; shared by both block kinds.
+int bn_stats_merge(const float* rows, int world, int ns, int C, float* st0, float* st1, void* stream) {
+  if (world < 1 || ns < 1 || ns > 2) return 1;  // cudaErrorInvalidValue
+  sm90::merge_stats_kernel<<<ew_grid((size_t)ns * C), kEwThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, world, ns, C, st0, st1);
   BLOCKS_CHECK();
   return 0;
 }

@@ -577,11 +577,15 @@ __device__ __forceinline__ void write_stats(const float* mom, float* st, int C, 
 }
 
 // A forward conv's output: fp32 c [M, C], the bias [C] added before the
-// statistics (or null), and its BatchNorm statistics st [3, C].
+// statistics (or null), and its BatchNorm statistics st [3, C]. With mom
+// set (the segmented entry points of data parallelism), the finisher writes
+// the merged moments (count, sum, M2) [3, C] there instead of st, for the
+// cross-rank merge (merge_stats_kernel).
 struct ConvOut {
   float* c;
   const float* bias;
   float* st;
+  float* mom = nullptr;
 };
 
 // The grid of a forward conv's statistics over [M, C]: row m's mask is
@@ -637,8 +641,34 @@ __device__ bool conv_stats_epilogue(float* st, const ConvOut* out, const MomentG
       threadIdx.x >= 64)
     return false;
 #pragma unroll
-  for (int q = 0; q < NS; ++q) write_stats(tot + 3 * q, out[q].st, g.C, n);
+  for (int q = 0; q < NS; ++q) {
+    if (out[q].mom) {
+      out[q].mom[n] = tot[3 * q], out[q].mom[g.C + n] = tot[3 * q + 1], out[q].mom[2 * g.C + n] = tot[3 * q + 2];
+    } else {
+      write_stats(tot + 3 * q, out[q].st, g.C, n);
+    }
+  }
   return true;
+}
+
+// The cross-rank merge of a segmented forward's statistics: rows
+// [world][3 NS][C] hold each rank's merged moments (count, sum, M2), which
+// are merged rank by rank in order (merge_moments) and written as
+// (mean, var, inv) into st0 [3, C] (statistic 0) and st1 (statistic 1), as
+// the finisher's write_stats does. A merge of one row is that row, so one
+// rank gives the unsegmented forward's bits.
+__global__ void __launch_bounds__(kEwThreads)
+merge_stats_kernel(const float* __restrict__ rows, int world, int ns, int C, float* st0, float* st1) {
+  const int i = blockIdx.x * kEwThreads + threadIdx.x;
+  if (i >= ns * C) return;
+  const int q = i / C, n = i - q * C;
+  float a[3] = {0.f, 0.f, 0.f};
+  for (int r = 0; r < world; ++r) {
+    const float* p = rows + ((size_t)r * 3 * ns + 3 * q) * C + n;
+    const float b[3] = {p[0], p[C], p[2 * C]};
+    merge_moments(a, b);
+  }
+  write_stats(a, q ? st1 : st0, C, n);
 }
 
 // BatchNorm's backward, dc = bf16((gamma * inv) * (dy - (m / n) * (dbeta + xh * dgamma))).

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from hippie_tpu_torch.nn.functional import full_fp32
+from hippie_tpu_torch.parallel import mesh as pmesh
 
 
 def pairwise_sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -43,16 +44,21 @@ def knn_sweep(train_x: torch.Tensor, train_y: torch.Tensor, test_x: torch.Tensor
     return torch.argmax(counts, dim=2)
 
 
-def knn_predict_sweep(train_x, train_y, test_x, ks: Sequence[int], device="cuda") -> dict:
+def knn_predict_sweep(train_x, train_y, test_x, ks: Sequence[int], device="cuda", mesh=None) -> dict:
     """Predictions for every k in ``ks`` in one pass on ``device``.
 
     ``train_x`` / ``test_x`` are [n, d] embeddings (numpy or tensors),
     ``train_y`` integer labels 0..C-1. Returns {k: np.ndarray[n_test]}; one
-    copy to the host.
+    copy to the host. With ``mesh`` (parallel/mesh.py) the query rows are
+    zero-padded to a multiple of the ranks and each rank scores its block
+    against the whole train set, so the [n_test, n_train] distances never
+    sit on one device; the predictions are gathered on every rank.
     """
     train_y = np.asarray(train_y, dtype=np.int64)
     max_k = int(max(ks))
     as_dev = lambda x: torch.as_tensor(x, dtype=torch.float32).to(device)  # noqa: E731
-    preds = knn_sweep(as_dev(train_x), torch.from_numpy(train_y).to(device), as_dev(test_x),
-                      max_k=max_k, num_classes=int(train_y.max()) + 1).cpu().numpy()
+    n, (queries,) = pmesh.place_eval_inputs(mesh, [as_dev(test_x)])
+    local = knn_sweep(as_dev(train_x), torch.from_numpy(train_y).to(device), queries,
+                      max_k=max_k, num_classes=int(train_y.max()) + 1)
+    preds = pmesh.gather_eval_rows(mesh, local, n).cpu().numpy()
     return {k: preds[:, k - 1] for k in ks}

@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from hippie_tpu_torch.parallel import mesh as pmesh
+
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     """LeakyReLU as hippie_tpu's ``where(x >= 0, x, x * slope)``: slope 0.01 in
@@ -71,6 +73,15 @@ def batch_norm(
     instead. ``mask`` is an optional ``[B]`` vector: rows with mask 0 are
     excluded from the batch statistics. A bf16 (or fp16) ``x`` is
     normalized in float32 and the result rounded back.
+
+    Under an active mesh (parallel/mesh.py) the statistics are the global
+    batch's: the count is ``row_count``, and the masked sum and then the
+    centred sum of squares are each summed over the ranks (``cross_sum``,
+    whose backward sums the cotangents, so the backward reduces the sums of
+    dy and dy * x_hat too). That is this function's single-process
+    computation with two cross-rank sums inserted; at one rank it is the
+    same bits. Every rank gets the same mean, variance and Bessel factor, so
+    the running-statistic EMA stays bit-equal across ranks.
     """
     if x.dtype in (torch.bfloat16, torch.float16):
         # the "bf16" block backend: statistics and the running-stat EMA in
@@ -84,7 +95,16 @@ def batch_norm(
         return ((x - running_mean.view(shape)) * inv.view(shape) * weight.view(shape)
                 + bias.view(shape))
 
-    if mask is None:
+    mesh = pmesh.active()
+    if mesh is not None:
+        if mask is None:
+            mask = x.new_ones(x.shape[0])
+        mb = mask.to(x.dtype).view((x.shape[0],) + (1,) * (x.ndim - 1))
+        n = pmesh.row_count(mask).to(x.dtype) * per_sample
+        mean = pmesh.cross_sum((x * mb).sum(dims)) / n
+        var = pmesh.cross_sum(((x - mean.view(shape)).square() * mb).sum(dims)) / n
+        bessel = n / torch.clamp(n - 1.0, min=1.0)
+    elif mask is None:
         n = float(x.shape[0] * per_sample)
         mean = x.mean(dims)
         var = (x - mean.view(shape)).square().mean(dims)

@@ -27,6 +27,22 @@ raise on anything they do not take; for CPU tensors they run the plain
 versions. A CUDA tensor never takes the plain path. ``launches`` counts one
 per call of each entry point (each entry point issues a fixed sequence of
 CUDA launches).
+
+Data parallelism (parallel/mesh.py): under an active mesh the BatchNorm
+statistics of a block are the global batch's. The kernels take them through
+segmented entry points (``*_block_fwd_seg``, ``*_block_bwd_seg``), which
+stop at each statistic: a forward segment ends with this rank's merged
+moments (count, sum, M2) of a conv, which one ``all_reduce`` of a zeroed
+``[world, 3 NS, C]`` buffer gathers, and ``bn_stats_merge`` merges them in
+rank order (Chan's formula) into the statistics the next segment reads; a
+backward segment ends with a BatchNorm's dgamma and dbeta, which are summed
+over the ranks in place before the next one divides by the global count.
+The plain versions do the same with ``parallel.mesh.merge_moments`` and
+cross-rank sums. The dgamma and dbeta that come out are global, so
+``enc_block_apply`` / ``dec_block_apply`` mark those parameters
+(``mark_reduced``) and the gradient sum leaves them out. At one rank the
+segmented calls give the unsegmented calls' bits. ``seg_launches`` counts
+the segmented entry points' calls and the merges, apart from ``launches``.
 """
 
 from __future__ import annotations
@@ -38,16 +54,20 @@ import torch
 import torch.nn.functional as F
 
 from hippie_tpu_torch.ops import _build
+from hippie_tpu_torch.parallel import mesh as pmesh
 
 EPS = 1e-5
 SLOPE = 0.01  # the backbones' LeakyReLU slope
 
 launches = {"enc_block_fwd": 0, "enc_block_bwd": 0, "dec_block_fwd": 0, "dec_block_bwd": 0}
+seg_launches = {"enc_block_fwd_seg": 0, "enc_block_bwd_seg": 0, "dec_block_fwd_seg": 0,
+                "dec_block_bwd_seg": 0, "bn_stats_merge": 0}
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, seg_launches):
+        for k in d:
+            d[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -137,18 +157,36 @@ def _dw1x1_s2(x, dc):
 
 
 def _bn_stats(c, mb, n):
-    """Masked batch statistics over (L, B): mean first, then centred variance."""
+    """Masked batch statistics over (L, B): mean first, then centred variance.
+    Under an active mesh, this rank's (count, sum, M2) merged with every
+    rank's in rank order (the kernels' seam); ``n`` is then not read."""
+    if pmesh.active() is not None:
+        cnt = mb.sum() * c.shape[0]
+        s = (c * mb).sum((0, 1))
+        m2 = ((c - s / torch.clamp(cnt, min=1.0)).square() * mb).sum((0, 1))
+        mom = pmesh.merge_moments(pmesh.gather_rows(torch.stack([cnt.expand_as(s), s, m2])))
+        return pmesh.stats_of_moments(mom).unbind(0)
     mean = (c * mb).sum((0, 1)) / n
     var = ((c - mean).square() * mb).sum((0, 1)) / n
     return mean, var, torch.rsqrt(var + EPS)
 
 
+def _count(m):
+    """The count of real rows of the [B, 1] mask: the global one under an
+    active mesh."""
+    return m.sum() if pmesh.active() is None else pmesh.row_count(m)
+
+
 def _bn_bwd(dy, xh, gamma, inv, mb, n):
     """Masked BatchNorm backward -> (dc, dgamma, dbeta). The sums run over
-    every entry, padded rows included; only the m/n term is masked."""
+    every entry, padded rows included; only the m/n term is masked. Under an
+    active mesh dgamma and dbeta are summed over the ranks (``n`` is then the
+    global count) and come out global."""
     dy32, xh32 = dy.float(), xh.float()
     dgamma = (dy32 * xh32).sum((0, 1))
     dbeta = dy32.sum((0, 1))
+    if pmesh.active() is not None:
+        dgamma, dbeta = pmesh.all_sum(torch.stack([dgamma, dbeta])).unbind(0)
     dc = (gamma * inv) * (dy32 - (mb / n) * (dbeta + xh32 * dgamma))
     return dc, dgamma, dbeta
 
@@ -218,7 +256,7 @@ def enc_block_bwd_plain(stride, has_short, x, w1, g1, b1, w2, g2, b2, ws, gs, bs
     w1, w2, ws, g = _bf16(w1), _bf16(w2), _bf16(ws), _bf16(g)
     mb = m[None]
     lin = x.shape[0]
-    n = m.sum() * g.shape[0]
+    n = _count(m) * g.shape[0]
 
     mu1, inv1 = st1[0], st1[2]
     xh1 = _bf16((_conv3(x, w1, stride) - mu1) * inv1)
@@ -325,7 +363,7 @@ def dec_block_bwd_plain(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs,
     w2, w1, ws, g = _bf16(w2), _bf16(w1), _bf16(ws), _bf16(g)
     mb = m[None]
     lin = x.shape[0]
-    n2, n1 = m.sum() * lin, m.sum() * g.shape[0]
+    n2, n1 = _count(m) * lin, _count(m) * g.shape[0]
     zeros = lambda t: torch.zeros(t.shape, dtype=torch.float32, device=x.device)  # noqa: E731
 
     mu2, inv2 = st2[0], st2[2]
@@ -402,6 +440,11 @@ def _kernels(kind: str) -> ctypes.CDLL:
             scratch.argtypes, scratch.restype = [_I] * ints, ctypes.c_longlong
             fn = getattr(lib, f"{kind}_block_{d}")
             fn.argtypes, fn.restype = [_P] * n_in + [_I] * ints + [_P] * n_out, _I
+            seg = getattr(lib, f"{kind}_block_{d}_seg")  # + the moments or the count, and the segment
+            seg.argtypes, seg.restype = fn.argtypes + [_P, _I], _I
+        if kind == "enc":
+            lib.bn_stats_merge.argtypes = [_P, _I, _I, _I, _P, _P, _P]
+            lib.bn_stats_merge.restype = _I
         _libs[kind] = lib
     return lib
 
@@ -613,6 +656,161 @@ def dec_block_bwd_cuda(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, 
 
 
 # ---------------------------------------------------------------------------
+# Segmented launches under a mesh (data parallelism)
+# ---------------------------------------------------------------------------
+
+
+def bn_stats_merge_cuda(rows, st0, st1=None):
+    """Launch the merge of every rank's moments: rows float32 [world, 3 NS, C]
+    -> st0 (and st1 with NS = 2) [3, C] = (mean, var, inv), in place."""
+    world, q, C = rows.shape
+    if rows.dtype != torch.float32 or not rows.is_contiguous() or q not in (3, 6) or (q == 6) != (st1 is not None):
+        raise ValueError(f"rows must be contiguous float32 [world, 3 or 6, C], got {tuple(rows.shape)}")
+    with torch.cuda.device(rows.device):
+        err = _kernels("enc").bn_stats_merge(rows.data_ptr(), world, q // 3, C, st0.data_ptr(), _ptr(st1),
+                                             torch.cuda.current_stream(rows.device).cuda_stream)
+    _check_launch(err, "bn_stats_merge")
+    seg_launches["bn_stats_merge"] += 1
+
+
+def bn_stats_merge_plain(rows):
+    """The merge's plain version: [world, 3 NS, C] -> [3 NS, C] (mean, var, inv)."""
+    return pmesh.stats_of_moments(pmesh.merge_moments(rows))
+
+
+def _sum_in_place(mesh, t):
+    torch.distributed.all_reduce(t, group=mesh.group)
+
+
+def _gathered_stats(mesh, lib_seg, seg: int, buf, st0, st1):
+    """Run forward segment ``seg`` with this rank's row of ``buf`` as its
+    moments, gather every rank's (the zeroed buffer summed), merge them."""
+    _check_launch(lib_seg(buf[mesh.rank].data_ptr(), seg), "block forward segment")
+    _sum_in_place(mesh, buf)
+    bn_stats_merge_cuda(buf, st0, st1)
+
+
+def enc_block_fwd_mesh(mesh, stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m):
+    """enc_block_fwd_cuda with the global batch's statistics: the segmented
+    forward, each statistic gathered over the ranks and merged in rank order."""
+    check_block_inputs(stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m)
+    lib = _kernels("enc")
+    L, B, ci = x.shape
+    co = w2.shape[-1]
+    short = int(stride != 1)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        out = torch.empty((_out_len(L, stride), B, co), dtype=torch.bfloat16, device=x.device)
+        st = [torch.empty((3, co), **f32) for _ in range(3)]
+        scratch = _scratch(lib.enc_block_fwd_scratch(L, B, ci, co, stride, short), x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = (x.data_ptr(), w1.data_ptr(), g1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g2.data_ptr(),
+                b2.data_ptr(), _ptr(ws), _ptr(gs), _ptr(bs), m.data_ptr(), L, B, ci, co, stride, short,
+                out.data_ptr(), *(t.data_ptr() for t in st), scratch.data_ptr(), stream)
+        seg = lambda mom, k: lib.enc_block_fwd_seg(*args, mom, k)  # noqa: E731
+        _gathered_stats(mesh, seg, 1, torch.zeros((mesh.size, 3, co), **f32), st[0], None)
+        _gathered_stats(mesh, seg, 2, torch.zeros((mesh.size, 3 * (1 + short), co), **f32), st[1],
+                        st[2] if short else None)
+        _check_launch(seg(None, 3), "enc_block_fwd_seg")
+    seg_launches["enc_block_fwd_seg"] += 1
+    return (out, *st)
+
+
+def enc_block_bwd_mesh(mesh, stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m, st1, st2, sts, g):
+    """enc_block_bwd_cuda with the global batch's BatchNorm backward: the
+    segmented backward, dgamma and dbeta summed over the ranks between the
+    segments and the global count as n. Those come out global; the weight
+    gradients are this rank's."""
+    check_block_inputs(stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m, g)
+    lib = _kernels("enc")
+    L, B, ci = x.shape
+    co = w2.shape[-1]
+    short = stride != 1
+    f32 = dict(dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        n = (pmesh.row_count(m, mesh=mesh) * g.shape[0]).to(**f32).reshape(1)
+        dx = torch.empty_like(x)
+        dw1, dw2 = torch.empty(w1.shape, **f32), torch.empty(w2.shape, **f32)
+        dvec = torch.empty((6 if short else 4, co), **f32)  # dg1 db1 dg2 db2 (dgs dbs)
+        dws = torch.empty(ws.shape, **f32) if short else None
+        scratch = _scratch(lib.enc_block_bwd_scratch(L, B, ci, co, stride, int(short)), x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = (x.data_ptr(), w1.data_ptr(), g1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g2.data_ptr(),
+                b2.data_ptr(), _ptr(ws), _ptr(gs), _ptr(bs), m.data_ptr(), st1.data_ptr(), st2.data_ptr(),
+                sts.data_ptr(), g.data_ptr(), L, B, ci, co, stride, int(short),
+                dx.data_ptr(), dw1.data_ptr(), dvec[0].data_ptr(), dvec[1].data_ptr(), dw2.data_ptr(),
+                dvec[2].data_ptr(), dvec[3].data_ptr(), _ptr(dws), dvec[4].data_ptr() if short else None,
+                dvec[5].data_ptr() if short else None, scratch.data_ptr(), stream, n.data_ptr())
+        _check_launch(lib.enc_block_bwd_seg(*args, 1), "enc_block_bwd_seg")
+        _sum_in_place(mesh, dvec[2:])  # dg2 db2 (dgs dbs)
+        _check_launch(lib.enc_block_bwd_seg(*args, 2), "enc_block_bwd_seg")
+        _sum_in_place(mesh, dvec[:2])  # dg1 db1
+        _check_launch(lib.enc_block_bwd_seg(*args, 3), "enc_block_bwd_seg")
+    seg_launches["enc_block_bwd_seg"] += 1
+    dgs, dbs = (dvec[4], dvec[5]) if short else (None, None)
+    return dx, dw1, dvec[0], dvec[1], dw2, dvec[2], dvec[3], dws, dgs, dbs
+
+
+def dec_block_fwd_mesh(mesh, stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m):
+    """dec_block_fwd_cuda with the global batch's statistics (as
+    enc_block_fwd_mesh)."""
+    check_dec_block_inputs(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m)
+    lib = _kernels("dec")
+    L, B, ci = x.shape
+    co = w1.shape[-1]
+    short = int(stride != 1)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        out = torch.empty((L * stride, B, co), dtype=torch.bfloat16, device=x.device)
+        st2, st1, sts = torch.empty((3, ci), **f32), torch.empty((3, co), **f32), torch.empty((3, co), **f32)
+        scratch = _scratch(lib.dec_block_fwd_scratch(L, B, ci, co, stride), x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = (*(_ptr(t) for t in (x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m)), L, B, ci, co, stride,
+                out.data_ptr(), st2.data_ptr(), st1.data_ptr(), sts.data_ptr(), scratch.data_ptr(), stream)
+        seg = lambda mom, k: lib.dec_block_fwd_seg(*args, mom, k)  # noqa: E731
+        _gathered_stats(mesh, seg, 1, torch.zeros((mesh.size, 3, ci), **f32), st2, None)
+        _gathered_stats(mesh, seg, 2, torch.zeros((mesh.size, 3 * (1 + short), co), **f32), st1,
+                        sts if short else None)
+        _check_launch(seg(None, 3), "dec_block_fwd_seg")
+    seg_launches["dec_block_fwd_seg"] += 1
+    return out, st2, st1, sts
+
+
+def dec_block_bwd_mesh(mesh, stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m, st2, st1, sts, g):
+    """dec_block_bwd_cuda with the global batch's BatchNorm backward (as
+    enc_block_bwd_mesh); the conv biases' gradients stay this rank's."""
+    check_dec_block_inputs(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m, g)
+    lib = _kernels("dec")
+    L, B, ci = x.shape
+    co = w1.shape[-1]
+    short = stride != 1
+    f32 = dict(dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        cnt = pmesh.row_count(m, mesh=mesh)
+        n = torch.stack([cnt * g.shape[0], cnt * L]).to(**f32)  # n1 at Lo, n2 at Lin
+        dx = torch.empty_like(x)
+        dw2, dw1 = torch.empty(w2.shape, **f32), torch.empty(w1.shape, **f32)
+        dv2 = torch.empty((2, ci), **f32)                # dg2 db2
+        dv1 = torch.empty((6 if short else 2, co), **f32)  # dg1 db1 (dgs dbs dc1b dcsb)
+        dws = torch.empty(ws.shape, **f32) if short else None
+        d1 = [dv1[i] if short else None for i in range(2, 6)]
+        scratch = _scratch(lib.dec_block_bwd_scratch(L, B, ci, co, stride), x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = (*(_ptr(t) for t in (x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, m, st2, st1, sts, g)),
+                L, B, ci, co, stride,
+                *(_ptr(t) for t in (dx, dw2, dv2[0], dv2[1], dw1, d1[2], dv1[0], dv1[1], dws, d1[3], d1[0],
+                                    d1[1], scratch)),
+                stream, n.data_ptr())
+        _check_launch(lib.dec_block_bwd_seg(*args, 1), "dec_block_bwd_seg")
+        _sum_in_place(mesh, dv1[:4] if short else dv1)  # dg1 db1 (dgs dbs)
+        _check_launch(lib.dec_block_bwd_seg(*args, 2), "dec_block_bwd_seg")
+        _sum_in_place(mesh, dv2)  # dg2 db2
+        _check_launch(lib.dec_block_bwd_seg(*args, 3), "dec_block_bwd_seg")
+    seg_launches["dec_block_bwd_seg"] += 1
+    return dx, dw2, dv2[0], dv2[1], dw1, d1[2], dv1[0], dv1[1], dws, d1[3], d1[0], d1[1]
+
+
+# ---------------------------------------------------------------------------
 # Autograd and the block
 # ---------------------------------------------------------------------------
 
@@ -624,7 +822,8 @@ def _weights_bf16(*ws):
 
 
 class BlockOps(NamedTuple):
-    """One block kind's operands and versions, each taking (stride, *operands)."""
+    """One block kind's operands and versions, each taking (stride, *operands)
+    (the mesh ones (mesh, stride, *operands))."""
 
     weights: tuple   # positions of the conv weights among the operands
     absent: tuple    # positions of the operands a stride-1 block has none of
@@ -633,26 +832,35 @@ class BlockOps(NamedTuple):
     fwd_cuda: Callable
     bwd_plain: Callable
     bwd_cuda: Callable
+    fwd_mesh: Callable
+    bwd_mesh: Callable
 
 
 ENC_OPS = BlockOps((1, 4, 7), (7, 8, 9), check_block_inputs,
                    lambda s, *a: enc_block_fwd_plain(s, s != 1, *a), enc_block_fwd_cuda,
-                   lambda s, *a: enc_block_bwd_plain(s, s != 1, *a), enc_block_bwd_cuda)
+                   lambda s, *a: enc_block_bwd_plain(s, s != 1, *a), enc_block_bwd_cuda,
+                   enc_block_fwd_mesh, enc_block_bwd_mesh)
 DEC_OPS = BlockOps((1, 4, 8), (5, 8, 9, 10, 11), check_dec_block_inputs,
-                   dec_block_fwd_plain, dec_block_fwd_cuda, dec_block_bwd_plain, dec_block_bwd_cuda)
+                   dec_block_fwd_plain, dec_block_fwd_cuda, dec_block_bwd_plain, dec_block_bwd_cuda,
+                   dec_block_fwd_mesh, dec_block_bwd_mesh)
 
 
 def _block_forward(ctx, plain, kind, args, stride):
-    """args: the kind's operands, conv weights float32; stats are not differentiable."""
+    """args: the kind's operands, conv weights float32; stats are not
+    differentiable. Under an active mesh the kernels' segmented calls (the
+    plain versions read the mesh themselves)."""
     args = list(args)
     for i in kind.weights:
         args[i], = _weights_bf16(args[i])
+    mesh = pmesh.active()
     if plain:
         kind.check(stride, *args)
         outs = kind.fwd_plain(stride, *args)
+    elif mesh is not None:
+        outs = kind.fwd_mesh(mesh, stride, *args)
     else:
         outs = kind.fwd_cuda(stride, *args)
-    ctx.stride, ctx.kind = stride, kind
+    ctx.stride, ctx.kind, ctx.mesh = stride, kind, mesh
     ctx.save_for_backward(*args, *outs[1:])
     ctx.mark_non_differentiable(*outs[1:])
     return outs
@@ -662,9 +870,12 @@ def _block_backward(ctx, plain, g):
     kind, saved = ctx.kind, ctx.saved_tensors
     g = g.to(torch.bfloat16).contiguous()
     if plain:
-        grads = kind.bwd_plain(ctx.stride, *saved, g)
+        with pmesh.data_parallel(ctx.mesh):
+            grads = kind.bwd_plain(ctx.stride, *saved, g)
         if ctx.stride == 1:  # those operands did not come in
             grads = tuple(None if i in kind.absent else d for i, d in enumerate(grads))
+    elif ctx.mesh is not None:
+        grads = kind.bwd_mesh(ctx.mesh, ctx.stride, *saved, g)
     else:
         grads = kind.bwd_cuda(ctx.stride, *saved, g)
     return (*grads, None, None)
@@ -762,11 +973,14 @@ def enc_block_apply(fn, block, x, mask_col):
         x, w[0], block.bn1.weight, block.bn1.bias, w[1], block.bn2.weight, block.bn2.bias,
         w[2], gs, bs, mask_col, stride,
     )
-    n = mask_col.sum() * out.shape[0]
+    n = _count(mask_col) * out.shape[0]
     _ema(block.bn1, st1, n)
     _ema(block.bn2, st2, n)
     if bns:
         _ema(bns[0], sts, n)
+    if pmesh.active() is not None:  # their gradients come out of the seam global
+        pmesh.mark_reduced(block.bn1.weight, block.bn1.bias, block.bn2.weight, block.bn2.bias,
+                           *((bns[0].weight, bns[0].bias) if bns else ()))
     return out
 
 
@@ -794,12 +1008,15 @@ def dec_block_apply(fn, block, x, mask_col):
         x, perm(block.conv2.weight), block.bn2.weight, block.bn2.bias, w1, c1b,
         block.bn1.weight, block.bn1.bias, ws, csb, gs, bs, mask_col, stride,
     )
-    count = mask_col.sum()
+    count = _count(mask_col)
     n1 = count * out.shape[0]
     _ema(block.bn2, st2, count * x.shape[0])
     _ema(block.bn1, st1, n1)
     if stride != 1:
         _ema(bns, sts, n1)
+    if pmesh.active() is not None:  # their gradients come out of the seam global
+        pmesh.mark_reduced(block.bn2.weight, block.bn2.bias, block.bn1.weight, block.bn1.bias,
+                           *((bns.weight, bns.bias) if stride != 1 else ()))
     return out
 
 

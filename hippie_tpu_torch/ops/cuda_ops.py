@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from hippie_tpu_torch.ops import _build
+from hippie_tpu_torch.parallel import mesh as pmesh
 
 launches = {"vae_sums_fwd": 0, "vae_sums_bwd": 0, "masked_sse_fwd": 0}
 
@@ -296,11 +297,16 @@ def fused_masked_sse(data, dec, mask_col) -> torch.Tensor:
 
 
 def _mask_col_and_count(data, mask):
+    """The [B, 1] mask column and the count of real rows, the global count
+    under an active mesh (the kernels' sums stay this rank's)."""
     B = data.shape[0]
     if mask is None:
-        return torch.ones((B, 1), dtype=data.dtype, device=data.device), float(B)
-    mask_col = mask.to(data.dtype).reshape(B, 1).contiguous()
-    return mask_col, mask_col.sum()
+        mask_col = torch.ones((B, 1), dtype=data.dtype, device=data.device)
+    else:
+        mask_col = mask.to(data.dtype).reshape(B, 1).contiguous()
+    if pmesh.active() is not None:
+        return mask_col, pmesh.row_count(mask, B).to(data.device, data.dtype)
+    return mask_col, float(B) if mask is None else mask_col.sum()
 
 
 def vae_loss_pallas(

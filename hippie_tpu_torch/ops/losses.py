@@ -16,9 +16,16 @@ from typing import Optional, Tuple
 
 import torch
 
+from hippie_tpu_torch.parallel import mesh as pmesh
+
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], per_sample_elems: int):
-    """Mean of x over all elements, counting only rows with mask=1."""
+    """Mean of x over all elements, counting only rows with mask=1. Under an
+    active mesh, this rank's share of the global mean: its masked sum over
+    the global count of real rows (the ranks' shares sum to the mean)."""
+    if pmesh.active() is not None:
+        mb = 1.0 if mask is None else mask.to(x.dtype).view((x.shape[0],) + (1,) * (x.ndim - 1))
+        return (x * mb).sum() / (pmesh.row_count(mask, x.shape[0]).to(x.dtype) * per_sample_elems)
     if mask is None:
         return x.mean()
     m = mask.to(x.dtype)

@@ -9,9 +9,15 @@ scripts/train_model.py (pretraining_<ds>_*_embeddings.csv, <ds>_*_knn.csv,
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
 the kernels on the host). Differences: ``--fit-loop`` takes only ``host``
 (the port's one loop, trajectory-equal to the JAX host loop), ``--aot-dir``
-defaults to none, and the JAX options with no port (``--dp-devices``,
-``--fsdp``, ``--aot-dir``, ``--progress-every``, ``--log-every-step``)
-raise with the ROADMAP item that names them (``UNPORTED``). ``--resume``
+defaults to none, and the JAX options with no port (``--aot-dir``,
+``--progress-every``, ``--log-every-step``) raise with the ROADMAP item
+that names them (``UNPORTED``). ``--dp-devices N`` (N > 1) runs the
+pipeline on N data-parallel ranks (parallel/mesh.py:launch): N GPUs over
+NCCL, or with ``--device cpu`` N processes over gloo; more ranks than
+visible GPUs raise ValueError (the JAX ``make_mesh`` would take fewer).
+``--fsdp`` adds the sharding of the parameters and the optimizer state
+(parallel/fsdp.py) and needs ``--dp-devices`` > 1. Rank 0 writes every
+file and prints; its results are the command's. ``--resume``
 continues every stage fit of an interrupted run where it stopped
 (train/resume.py; the port's own format, not orbax), ``--profile-dir``
 writes a torch.profiler trace of the run, ``--discover-datasets`` registers
@@ -95,8 +101,12 @@ def build_parser():
     parser.add_argument("--loss-backend", choices=("xla", "pallas"), default="xla",
                         help="VAE loss inside every train/eval step: 'pallas' = the hand-written "
                              "CUDA loss kernels, 'xla' = eager torch ops")
-    parser.add_argument("--dp-devices", type=int, default=None, help="not ported (raises)")
-    parser.add_argument("--fsdp", action="store_true", help="not ported (raises)")
+    parser.add_argument("--dp-devices", type=int, default=None,
+                        help="data parallelism over N ranks: N GPUs over NCCL, or N CPU processes "
+                             "over gloo with --device cpu")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="with --dp-devices: shard the parameters and the optimizer state per "
+                             "leaf over the ranks")
     parser.add_argument("--aot-dir", type=str, default=None,
                         help="not ported (raises when given; the JAX CLI's compiled-program cache)")
     parser.add_argument("--stage1-wave-ckpt", type=str, default=None,
@@ -148,8 +158,6 @@ def jsonl_logger(path: Optional[str], also=()):
 
 # flags of the JAX CLI with no port: (dest, its default, the ROADMAP Queue 1 item that names it)
 UNPORTED = (
-    ("dp_devices", None, "item 12 (data parallelism)"),
-    ("fsdp", False, "item 12 (FSDP)"),
     ("aot_dir", None, "item 12 (the AOT program cache has no port target)"),
     ("progress_every", None, "item 3 (options of the JAX device fit loop, which has no port)"),
     ("log_every_step", False, "item 3 (options of the JAX device fit loop, which has no port)"),
@@ -173,6 +181,15 @@ def config_from_args(args, model_type: str = "unimodal", log_fn=None):
     check_backend(args.block_backend)
     opt_state_dtype = None if args.opt_state_dtype == "float32" else args.opt_state_dtype
     check_optimizer(args.optimizer, opt_state_dtype)  # schedule-free with bf16 moments raises
+    if args.dp_devices and args.dp_devices > 1:
+        from hippie_tpu_torch.parallel.mesh import check_devices
+
+        check_devices(args.dp_devices, args.device)
+    if args.fsdp and not (args.dp_devices and args.dp_devices > 1):
+        raise ValueError("--fsdp requires --dp-devices > 1 (a device mesh)")
+    if args.fsdp and args.optimizer != "adamw":
+        raise ValueError("--fsdp with --optimizer schedule-free is not ported yet: ROADMAP Queue 1 "
+                         "(the sharded schedule-free state)")
     return PipelineConfig(
         z_dim=args.z_dim,
         weight_decay=args.weight_decay,
@@ -208,6 +225,8 @@ def config_from_args(args, model_type: str = "unimodal", log_fn=None):
         block_backend=args.block_backend,
         opt_state_dtype=opt_state_dtype,
         optimizer=args.optimizer,
+        dp_devices=args.dp_devices,
+        fsdp=args.fsdp,
         device=args.device,
         stage1_wave_ckpt=args.stage1_wave_ckpt,
         stage1_time_ckpt=args.stage1_time_ckpt,
@@ -242,19 +261,37 @@ def run(args, model_type: str = "unimodal"):
     """Run the pipeline of the parsed flags; with ``--wandb`` (and the wandb
     package) log as the JAX CLI does: the run's init, every epoch's record,
     the confusion matrices, the final accuracies, the outputs as artifacts
-    (the supervised checkpoints too with ``--upload-model``) and the flags."""
+    (the supervised checkpoints too with ``--upload-model``) and the flags.
+    With ``--dp-devices N`` > 1 on N data-parallel ranks; rank 0's results."""
+    if args.dp_devices and args.dp_devices > 1:
+        config_from_args(args, model_type)  # the flags' refusals before any rank starts
+        from hippie_tpu_torch.parallel import mesh as pmesh
+
+        return pmesh.launch(_rank_run, args.dp_devices, args, model_type, device=args.device)[0]
+    return _run(args, model_type)
+
+
+def _rank_run(mesh, args, model_type: str):
+    """One data-parallel rank of ``run``: rank 0 alone prints, logs and
+    writes (the pipeline leaves the others' files and logs out itself)."""
+    return _run(args, model_type, lead=mesh.rank == 0)
+
+
+def _run(args, model_type: str, lead: bool = True):
     from hippie_tpu_torch.train.pipeline import run_pipeline
     from hippie_tpu_torch.utils import wandb_shim
 
-    if args.wandb:
+    if args.wandb and lead:
         wandb_shim.enable()
     wandb = wandb_shim.get()
-    on = wandb_shim.is_enabled()
+    on = lead and wandb_shim.is_enabled()
     if on:
         wandb.init(project=args.project, name=f"{args.wandb_tag}{args.dataset}_{model_type}_{args.z_dim}")
     log_fn = jsonl_logger(args.log_file, also=[wandb.log]) if on else None
 
     results = run_pipeline(config_from_args(args, model_type, log_fn=log_fn))
+    if not lead:
+        return results
     final_metrics = {}
     for kind, info in results["best"].items():
         final_metrics[f"best_balanced_accuracy_{kind}"] = info["balanced_accuracy"]

@@ -37,8 +37,13 @@ follow their own plans gain nothing from being stepped side by side, so
 and ``host_fit_ensemble`` take the JAX ``device_fit_ensemble``'s
 ``resume_dir`` (all K replicas' states, their best snapshots and the ``[K]``
 counters saved after every epoch in one payload, train/resume.py) and
-``progress_every``. ``shard_replicas`` belongs to ROADMAP Queue 1 item 12
-(parallelism) and raises.
+``progress_every``. ``shard_replicas`` splits the replicas over the ranks
+of a mesh (parallel/mesh.py), K/N contiguous replicas per rank, and
+``fit_ensemble(..., mesh=)`` (``host_fit_ensemble(..., mesh=)``) fits this
+rank's replicas with their global replica indices, gathers every epoch's
+``[K]`` losses on every rank (the joint stop decides the same everywhere)
+and gathers the best snapshots at the end; each replica's fit is the
+unsharded one's, so the per-replica results are the unsharded ensemble's.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch
 
 from hippie_tpu_torch.data.device_data import batch_plan
 from hippie_tpu_torch.models import cvae
+from hippie_tpu_torch.parallel import mesh as pmesh
 from hippie_tpu_torch.train import loop, optim, resume, step
 from hippie_tpu_torch.train.step import Metrics, TrainState
 
@@ -218,6 +224,7 @@ def fit_ensemble(
     verbose: bool = False,
     resume_dir: Optional[str] = None,
     progress_every: Optional[int] = None,
+    mesh: Optional[pmesh.Mesh] = None,
 ) -> EnsembleFitResult:
     """Per-replica best tracking and joint early stopping over K replicas.
 
@@ -242,9 +249,19 @@ def fit_ensemble(
     this call ran. ``progress_every=N`` prints one progress line every N
     epochs (the epoch, each replica's best validation loss, how many have
     waited out the patience, the seconds so far); the trajectory does not
-    change."""
-    k = n_replicas(states)
+    change.
+
+    ``mesh``: ``states`` are this rank's K/N replicas (``shard_replicas``)
+    and the epochs' metrics this rank's columns; the ``[K]`` losses are
+    gathered every epoch and the best snapshots at the end, so the result's
+    arrays and ``best_state_dict`` hold all K replicas on every rank, and
+    ``state`` this rank's."""
+    if mesh is not None and resume_dir is not None:
+        raise ValueError("resume_dir with sharded replicas is not ported yet: ROADMAP Queue 1 "
+                         "(the K-replica resume state across ranks)")
     states = list(states)
+    k = n_replicas(states) * (1 if mesh is None else mesh.size)
+    mine = slice(0, k) if mesh is None else pmesh.local_slice(k, mesh, "replicas")
     best_val = np.full((k,), np.inf)
     best_epoch = np.full((k,), -1, np.int64)
     wait = np.zeros((k,), np.int64)
@@ -273,6 +290,9 @@ def fit_ensemble(
         states, tms = run_train_epoch(states, tkey, epoch)
         vms = run_val_epoch(states, vkey, epoch)
         tl, vl = _epoch_means(tms), _epoch_means(vms)
+        if mesh is not None:  # every rank's replicas, in replica order (on the rank's device: NCCL)
+            tl, vl = (pmesh.gather_rows(torch.from_numpy(x).to(mesh.device), mesh).reshape(-1).cpu().numpy()
+                      for x in (tl, vl))
         if not np.all(np.isfinite(tl)):
             raise FloatingPointError(f"non-finite ensemble training loss at epoch {epoch}: {tl}")
         train_losses.append(tl)
@@ -281,7 +301,7 @@ def fit_ensemble(
         if best is None:  # the first epoch's states seed every replica's snapshot
             best = [loop.clone_tree(_eval_state_dict(ts)) for ts in states]
         else:
-            for r in np.flatnonzero(improved):
+            for r in np.flatnonzero(improved[mine]):
                 torch._foreach_copy_(list(best[r].values()), list(_eval_state_dict(states[r]).values()))
         best_epoch = np.where(improved, epoch, best_epoch)
         best_val = np.where(improved, vl, best_val)
@@ -302,6 +322,8 @@ def fit_ensemble(
             break
     if best is None:  # no epoch ran
         best = [loop.clone_tree(_eval_state_dict(ts)) for ts in states]
+    if mesh is not None:
+        best = _gather_replicas(best, mesh)
     return EnsembleFitResult(state=states, best_state_dict=best, best_val_loss=best_val,
                              best_epoch=best_epoch, epochs_run=epochs_run,
                              train_losses=train_losses, val_losses=val_losses)
@@ -334,6 +356,7 @@ def host_fit_ensemble(
     verbose: bool = False,
     resume_dir: Optional[str] = None,
     progress_every: Optional[int] = None,
+    mesh: Optional[pmesh.Mesh] = None,
 ) -> EnsembleFitResult:
     """The JAX ``device_fit_ensemble``'s fit on the host loop: K replicas over
     one shared plan per epoch (``batch_plan`` of ``train_stream``, shuffled
@@ -341,26 +364,29 @@ def host_fit_ensemble(
     through ``fit_ensemble`` with the joint stop. ``epoch_fns`` is a
     (train_epoch, eval_epoch) pair of ``make_*_ensemble_epoch_fns``;
     ``arrays`` holds (data,) or (wave, isi); ``resume_dir`` and
-    ``progress_every`` go to ``fit_ensemble``."""
+    ``progress_every`` go to ``fit_ensemble``; with ``mesh``, ``states``
+    are this rank's replicas (``shard_replicas``), each drawing from its
+    global replica index's generators."""
     train_epoch, eval_epoch = epoch_fns
     device = arrays[0].device
-    k = n_replicas(states)
+    first = 0 if mesh is None else mesh.rank * n_replicas(states)
+    replicas = range(first, first + n_replicas(states))
 
     def run_train(sts, key, epoch):
         idx, mask = batch_plan(train_stream, batch_size, shuffle=shuffle,
                                generator=loop.key_generator(key, 0) if shuffle else None)
         return train_epoch(sts, *arrays, source, class_, idx, mask,
-                           generators=[loop.key_generator(key, 1, r, device=device) for r in range(k)])
+                           generators=[loop.key_generator(key, 1, r, device=device) for r in replicas])
 
     def run_val(sts, key, epoch):
         with _at_x(sts):
             return eval_epoch([ts.model for ts in sts], *arrays, source, class_, val_idx, val_mask,
-                              generators=[loop.key_generator(key, r, device=device) for r in range(k)])
+                              generators=[loop.key_generator(key, r, device=device) for r in replicas])
 
     return fit_ensemble(states, run_train_epoch=run_train, run_val_epoch=run_val,
                         max_epochs=max_epochs, early_stopping_patience=early_stopping_patience,
                         seed=seed, verbose=verbose, resume_dir=resume_dir,
-                        progress_every=progress_every)
+                        progress_every=progress_every, mesh=mesh)
 
 
 def host_fit_replica_plans(
@@ -421,8 +447,43 @@ def host_fit_replica_plans(
         val_losses=list(np.asarray([column(f, f.val_losses) for f in fits]).T))
 
 
-def shard_replicas(tree, mesh, axis_name: str = "data"):
-    """The JAX package places the replica axis across a device mesh; the
-    port's parallelism is ROADMAP Queue 1 item 12."""
-    raise ValueError("shard_replicas: sharding replicas across devices is not ported yet "
-                     "(ROADMAP Queue 1 item 12, parallelism)")
+def shard_replicas(tree, mesh: pmesh.Mesh, axis_name: str = "data"):
+    """This rank's replicas of ``tree``: K/N contiguous replicas of a list (of
+    TrainStates, state_dicts, ...) or of the leading axis of a stacked tree
+    (``stack_trees``). K must divide over the mesh's ranks, GSPMD's tiling
+    rule; otherwise ValueError."""
+    if axis_name != pmesh.AXIS:
+        raise ValueError(f"the port's mesh has one axis, {pmesh.AXIS!r}, not {axis_name!r}")
+    k = len(tree) if isinstance(tree, (list, tuple)) else _leading(tree)
+    if k % mesh.size:
+        raise ValueError(f"shard_replicas: {k} replicas do not divide over the {mesh.size} ranks of the "
+                         "mesh (the replica axis must split evenly)")
+    sl = pmesh.local_slice(k, mesh, "replicas")
+    if isinstance(tree, (list, tuple)):
+        return list(tree[sl])
+    return _slice_tree(tree, sl)
+
+
+def _leading(tree) -> int:
+    if isinstance(tree, dict):
+        return _leading(next(iter(tree.values())))
+    if isinstance(tree, (list, tuple)):
+        return _leading(tree[0])
+    return tree.shape[0]
+
+
+def _slice_tree(tree, sl: slice):
+    if isinstance(tree, dict):
+        return type(tree)((key, _slice_tree(v, sl)) for key, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_slice_tree(v, sl) for v in tree)
+    return tree[sl]
+
+
+def _gather_replicas(local: List[dict], mesh: pmesh.Mesh) -> List[dict]:
+    """Every rank's replicas' state_dicts (this rank's ``local``), in replica
+    order, on every rank: one gather per key."""
+    gathered = {key: pmesh.gather_rows(torch.stack([sd[key] for sd in local]), mesh).flatten(0, 1)
+                for key in local[0]}
+    return [type(local[0])((key, v[r]) for key, v in gathered.items())
+            for r in range(mesh.size * len(local))]

@@ -17,6 +17,10 @@ the JAX host loop's (``--fit-loop host``). The JAX package's shape-bucketing
 helpers (``next_pow2``, ``pad_rows``, ``pad_plan``, ``epoch_shuffle_order``)
 exist to reuse compiled XLA programs and have no counterpart here.
 
+Under an active mesh (parallel/mesh.py) every rank runs this loop on the
+same all-reduced losses, so every rank decides the same; only rank 0 logs
+and writes the resume files.
+
 Random draws: each epoch's come from generators seeded from (seed, epoch)
 alone (``epoch_key``, ``key_generator``), as the JAX loop folds (seed, epoch)
 into its keys, so an epoch's draws do not depend on the epochs before it.
@@ -30,6 +34,8 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
+
+from hippie_tpu_torch.parallel import mesh as pmesh
 
 
 def limit_count(nb: int, limit) -> int:
@@ -200,7 +206,7 @@ def fit(
             # the reference's per-epoch prints (model.py:141-149)
             print(f"Average training loss is {train_loss:.2f}")
             print(f"Average validation loss is {val_loss:.2f}")
-        if log_fn is not None:
+        if log_fn is not None and pmesh.is_writer():
             rec = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss}
             for phase in ("train", "val"):
                 for name in ("mse", "kl"):

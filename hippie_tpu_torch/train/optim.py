@@ -191,6 +191,7 @@ def find_schedule_free_state(opt_state) -> Optional[ScheduleFreeState]:
     (one param group), else None."""
     if opt_state is None:
         return None
+    opt_state = getattr(opt_state, "inner", opt_state)  # an FSDP optimizer's shards (parallel/fsdp.py)
     sd = opt_state.state_dict() if isinstance(opt_state, torch.optim.Optimizer) else opt_state
     groups = sd.get("param_groups", [])
     if len(groups) != 1 or "weight_sum" not in groups[0]:

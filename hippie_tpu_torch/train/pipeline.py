@@ -59,13 +59,26 @@ it stopped, so an interrupted pipeline re-run with ``resume`` writes what an
 uninterrupted one writes. ``discover_datasets`` registers the unknown
 dataset directories of ``data_root`` first (data/registry.py), and
 ``profile_dir`` records the run with torch.profiler (utils/profiling.py:
-trace). The JAX pipeline's options with no port yet (data parallelism and
-FSDP, the device fit loop, the AOT cache) are not fields here; the CLI
-(scripts/train_model.py) raises on their flags.
+trace). The JAX pipeline's options with no port (the device fit loop, the
+AOT cache) are not fields here; the CLI (scripts/train_model.py) raises on
+their flags.
+
+Data parallelism (``dp_devices``, ``fsdp``): run inside each rank of a
+``parallel.mesh.launch`` (the CLI's ``--dp-devices N`` does), the pipeline
+takes the process group's mesh (``_dp_shardings``) and runs with it active:
+the data are whole on every rank, every train and val epoch runs on this
+rank's columns of its plan (train/step.py), the model starts from rank 0's
+bits (``_place_train_state``), with ``fsdp`` the optimizer shards the
+parameters and its state per leaf (parallel/fsdp.py), and every embedding
+and KNN call shards its rows over the ranks (``mesh=_eval_mesh(cfg)`` at the
+JAX sites). Every rank computes everything; rank 0 alone writes the files
+(CSVs, ``.ckpt`` files and sidecars, resume files, logs, the trace), and its
+results are every rank's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -85,6 +98,7 @@ from hippie_tpu_torch.evaluate import embeddings as emb
 from hippie_tpu_torch.evaluate import knn_eval, metrics
 from hippie_tpu_torch.models import cvae
 from hippie_tpu_torch.ops import preprocess
+from hippie_tpu_torch.parallel import mesh as pmesh
 from hippie_tpu_torch.train import checkpoint as ckpt_mod
 from hippie_tpu_torch.train import loop, optim, step
 from hippie_tpu_torch.utils.profiling import StageTimer, trace
@@ -131,6 +145,10 @@ class PipelineConfig:
     log_fn: Any = None  # optional callable(dict), one record per epoch
     drop_index_column: bool = False  # drop the CSV index feature (quirk Q4)
     honest_eval: bool = False  # stage-3 embeddings without class conditioning
+    # data parallelism over this many ranks of a parallel.mesh.launch (None or
+    # 1: one process); fsdp shards the parameters and the optimizer state
+    dp_devices: Optional[int] = None
+    fsdp: bool = False
     opt_state_dtype: Optional[str] = None  # "bfloat16": the AdamW moments stored in bf16
     optimizer: str = "adamw"  # or "schedule-free" (train/schedule_free.py)
     loss_backend: str = "xla"  # "pallas": the loss kernels of ops/cuda_ops.py
@@ -254,8 +272,10 @@ class BestTracker:
 
     def flush(self):
         """Write the best checkpoint if a new best is pending, after joining
-        any write in flight."""
+        any write in flight. Under a mesh only rank 0 writes."""
         self.wait()
+        if not pmesh.is_writer():
+            self._pending = None
         if self._pending is not None:
             t0 = time.perf_counter()
             self._write(self._pending)
@@ -266,6 +286,8 @@ class BestTracker:
         earlier one first). The host fetch waits on an event recorded here,
         on the stream that made the snapshot."""
         self.wait()
+        if not pmesh.is_writer():
+            self._pending = None
         if self._pending is None:
             return
         job = self._pending
@@ -400,9 +422,18 @@ def _finalize_fit(cfg: PipelineConfig, result: loop.FitResult) -> loop.FitResult
 
 
 def _optimizer(cfg: PipelineConfig, model: torch.nn.Module, lr: float, clip) -> torch.optim.Optimizer:
-    """A fresh optimizer of ``cfg.optimizer`` over ``model``'s parameters."""
-    return optim.make_optimizer(model.parameters(), lr, cfg.weight_decay, clip,
-                                state_dtype=cfg.opt_state_dtype, algorithm=cfg.optimizer)
+    """A fresh optimizer of ``cfg.optimizer`` over ``model``'s parameters;
+    with ``fsdp``, sharded over the active mesh (parallel/fsdp.py)."""
+    if not cfg.fsdp:
+        return optim.make_optimizer(model.parameters(), lr, cfg.weight_decay, clip,
+                                    state_dtype=cfg.opt_state_dtype, algorithm=cfg.optimizer)
+    if cfg.optimizer != "adamw":
+        raise ValueError("--fsdp with --optimizer schedule-free is not ported yet: ROADMAP Queue 1 "
+                         "(the sharded schedule-free state)")
+    from hippie_tpu_torch.parallel.fsdp import ShardedOptimizer
+
+    return ShardedOptimizer(model, _dp_shardings(cfg), lambda ps: optim.make_optimizer(
+        ps, lr, cfg.weight_decay, None, state_dtype=cfg.opt_state_dtype), clip)
 
 
 @torch.no_grad()
@@ -468,6 +499,33 @@ def fit_multimodal_stage(*, cfg: PipelineConfig, wave: torch.Tensor, isi: torch.
         block_backend=cfg.block_backend), **kw)
 
 
+def _dp_shardings(cfg: PipelineConfig) -> Optional[pmesh.Mesh]:
+    """The mesh of ``cfg.dp_devices`` ranks (the process group's), or None
+    for one process; ``fsdp`` without a mesh raises, as the JAX pipeline."""
+    if not cfg.dp_devices or cfg.dp_devices <= 1:
+        if cfg.fsdp:
+            raise ValueError("--fsdp requires --dp-devices > 1 (a device mesh)")
+        return None
+    return pmesh.make_mesh(cfg.dp_devices)
+
+
+def _eval_mesh(cfg: PipelineConfig) -> Optional[pmesh.Mesh]:
+    """The mesh the embeddings and the KNN sweep shard their rows over (None
+    for one process)."""
+    return _dp_shardings(cfg)
+
+
+def _place_train_state(cfg: PipelineConfig, ts: step.TrainState) -> step.TrainState:
+    """Under a mesh every rank starts a stage from rank 0's parameters and
+    buffers (a broadcast); the optimizer is fresh, or sharded with ``fsdp``
+    over those parameters, so it is built after."""
+    if _dp_shardings(cfg) is not None:
+        pmesh.replicated(ts.model)
+        if getattr(ts.optimizer, "is_sharded", False):
+            ts.optimizer.refresh_shards()
+    return ts
+
+
 def _stage_resume_dir(cfg: PipelineConfig, stage: str) -> Optional[str]:
     """``checkpoint_dir/resume/<dataset>/<stage>`` with ``cfg.resume``, else
     None. Keyed by dataset: every target's stage fits have the same shapes,
@@ -482,11 +540,16 @@ def _prepare(cfg: PipelineConfig):
     """The steps of both pipelines before stage 1: dataset discovery and the
     output directories."""
     if cfg.discover_datasets:
+        if not pmesh.is_writer():
+            pmesh.barrier()  # rank 0 persists the new IDs first; the rest read them
         new = registry.discover_datasets(cfg.data_root)
+        if pmesh.is_writer():
+            pmesh.barrier()
         if new and cfg.verbose:
             print(f"discovered datasets: {', '.join(new)}")
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    if pmesh.is_writer():
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
 
 
 def finetune_split_indices(cfg: PipelineConfig, n: int, generator: torch.Generator
@@ -511,15 +574,17 @@ def export_pretraining_embeddings(cfg: PipelineConfig, tagged: Dict[str, np.ndar
     paths = {}
     for kind, arr in tagged.items():
         path = os.path.join(cfg.output_dir, f"pretraining_{cfg.dataset}_{kind}_embeddings.csv")
-        write_csv(path, ["", "embeddings"], ([i, np.asarray(r)] for i, r in enumerate(arr)))
+        if pmesh.is_writer():
+            write_csv(path, ["", "embeddings"], ([i, np.asarray(r)] for i, r in enumerate(arr)))
         paths[kind] = path
     return paths
 
 
 def export_knn_csv(cfg: PipelineConfig, kind: str, pred, true, le) -> str:
     path = os.path.join(cfg.output_dir, f"{cfg.dataset}_{kind}_knn.csv")
-    rows = zip(range(len(pred)), le.inverse_transform(pred), le.inverse_transform(true))
-    write_csv(path, ["", "pred", "true"], rows)
+    if pmesh.is_writer():
+        rows = zip(range(len(pred)), le.inverse_transform(pred), le.inverse_transform(true))
+        write_csv(path, ["", "pred", "true"], rows)
     return path
 
 
@@ -527,7 +592,8 @@ def export_embeddings_csv(cfg: PipelineConfig, kind: str, embeddings, labels, le
     arr = np.asarray(embeddings)
     path = os.path.join(cfg.output_dir, f"{cfg.dataset}_{kind}_embeddings.csv")
     header = [""] + [str(j) for j in range(arr.shape[1])] + ["label"]
-    write_csv(path, header, ([i, *arr[i], lab] for i, lab in enumerate(le.inverse_transform(labels))))
+    if pmesh.is_writer():
+        write_csv(path, header, ([i, *arr[i], lab] for i, lab in enumerate(le.inverse_transform(labels))))
     return path
 
 
@@ -548,7 +614,7 @@ def model_config(cfg: PipelineConfig, modality: str, num_classes: int) -> cvae.C
 
 def _init_state(cfg: PipelineConfig, cfg_m, init_key: int, lr: float, clip) -> step.TrainState:
     model = cvae.unimodal_cvae_init(cfg_m, loop.key_generator(cfg.seed, init_key), device=cfg.device)
-    return step.TrainState(model, _optimizer(cfg, model, lr, clip))
+    return _place_train_state(cfg, step.TrainState(model, _optimizer(cfg, model, lr, clip)))
 
 
 def _seed_stage1(cfg: PipelineConfig, tracker: BestTracker, path: str, cfg_m, name: str
@@ -569,6 +635,21 @@ def _seed_stage1(cfg: PipelineConfig, tracker: BestTracker, path: str, cfg_m, na
     return step.TrainState(model, None)
 
 
+@contextlib.contextmanager
+def _dp_context(cfg: PipelineConfig):
+    """The config a rank runs (verbose, the trace and the log on rank 0
+    only), with the mesh of ``cfg.dp_devices`` active; ``cfg`` as it is for
+    one process."""
+    mesh = _dp_shardings(cfg)
+    if mesh is None:
+        yield cfg
+        return
+    if mesh.rank != 0:
+        cfg = dataclasses.replace(cfg, verbose=False, profile_dir=None, log_fn=None)
+    with pmesh.data_parallel(mesh):
+        yield cfg
+
+
 def run_unimodal_pipeline(cfg: PipelineConfig,
                           trackers: Optional[Dict[str, BestTracker]] = None) -> Dict[str, Any]:
     """The three stages for the waveform and the ISI model, then the KNN
@@ -578,8 +659,9 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
     ("wave", "time", "wave_supervised", "time_supervised"), so a caller can
     hold the written files to the snapshots they came from.
     """
-    with trace(cfg.profile_dir, cfg.device):
-        return _run_unimodal_pipeline(cfg, trackers)
+    with _dp_context(cfg) as cfg:
+        with trace(cfg.profile_dir, cfg.device):
+            return _run_unimodal_pipeline(cfg, trackers)
 
 
 def _run_unimodal_pipeline(cfg: PipelineConfig, trackers: Optional[Dict[str, BestTracker]]
@@ -668,7 +750,7 @@ def _run_unimodal_pipeline(cfg: PipelineConfig, trackers: Optional[Dict[str, Bes
     with timer.stage("embeddings"):
         ft_wave_emb, ft_isi_emb, ft_joint_emb = emb.get_embeddings(
             states["wave"].model, states["time"].model,
-            target.wave[emb_idx], target.isi[emb_idx], target.source[emb_idx])
+            target.wave[emb_idx], target.isi[emb_idx], target.source[emb_idx], mesh=_eval_mesh(cfg))
     pretrain_paths = export_pretraining_embeddings(
         cfg, {"waveform": ft_wave_emb, "isi": ft_isi_emb, "joint": ft_joint_emb})
 
@@ -737,10 +819,10 @@ def _run_unimodal_pipeline(cfg: PipelineConfig, trackers: Optional[Dict[str, Bes
     with timer.stage("embeddings"):
         wave_tr, isi_tr, joint_tr = emb.get_embeddings(
             sup_models["wave"], sup_models["time"], sup_wave[tr_dev], sup_isi_p[tr_dev],
-            source_dev[tr_dev], None if cfg.honest_eval else labels_dev[tr_dev])
+            source_dev[tr_dev], None if cfg.honest_eval else labels_dev[tr_dev], mesh=_eval_mesh(cfg))
         wave_va, isi_va, joint_va = emb.get_embeddings(
             sup_models["wave"], sup_models["time"], sup_wave[va_dev], sup_isi_p[va_dev],
-            source_dev[va_dev], None if cfg.honest_eval else labels_dev[va_dev])
+            source_dev[va_dev], None if cfg.honest_eval else labels_dev[va_dev], mesh=_eval_mesh(cfg))
 
     neighbor_options = list(range(5, 20))  # train_model.py:419
     accs: Dict[str, List[float]] = {}
@@ -749,7 +831,7 @@ def _run_unimodal_pipeline(cfg: PipelineConfig, trackers: Optional[Dict[str, Bes
         for kind, e_tr, e_va in (("joint", joint_tr, joint_va), ("waveform", wave_tr, wave_va),
                                  ("isi", isi_tr, isi_va)):
             preds = knn_eval.knn_predict_sweep(e_tr, label_train, e_va, neighbor_options,
-                                               device=cfg.device)
+                                               device=cfg.device, mesh=_eval_mesh(cfg))
             preds_by_kind[kind] = preds
             accs[kind] = [metrics.balanced_accuracy_score(label_val, preds[k]) for k in neighbor_options]
 
@@ -775,7 +857,7 @@ def _run_unimodal_pipeline(cfg: PipelineConfig, trackers: Optional[Dict[str, Bes
     with timer.stage("embeddings"):
         wave_all, isi_all, joint_all = emb.get_embeddings(
             sup_models["wave"], sup_models["time"], sup_wave, sup_isi_p, source_dev,
-            None if cfg.honest_eval else labels_dev)
+            None if cfg.honest_eval else labels_dev, mesh=_eval_mesh(cfg))
     for kind, arr in (("waveform", wave_all), ("isi", isi_all), ("joint", joint_all)):
         results["paths"][f"{kind}_embeddings"] = export_embeddings_csv(cfg, kind, arr, sup_labels, le)
 
@@ -805,7 +887,7 @@ def joint_model_config(cfg: PipelineConfig, num_classes: int) -> cvae.MultiModal
 
 def _init_joint(cfg: PipelineConfig, mm_cfg, init_key: int, lr: float) -> step.TrainState:
     model = cvae.multimodal_cvae_init(mm_cfg, loop.key_generator(cfg.seed, init_key), device=cfg.device)
-    return step.TrainState(model, _optimizer(cfg, model, lr, cfg.gradient_clip_val))
+    return _place_train_state(cfg, step.TrainState(model, _optimizer(cfg, model, lr, cfg.gradient_clip_val)))
 
 
 def run_multimodal_pipeline(cfg: PipelineConfig,
@@ -814,8 +896,9 @@ def run_multimodal_pipeline(cfg: PipelineConfig,
     its embeddings and the exports. Returns the JAX pipeline's ``results``
     keys; ``trackers``, when given, is filled with "joint" and
     "joint_supervised"."""
-    with trace(cfg.profile_dir, cfg.device):
-        return _run_multimodal_pipeline(cfg, trackers)
+    with _dp_context(cfg) as cfg:
+        with trace(cfg.profile_dir, cfg.device):
+            return _run_multimodal_pipeline(cfg, trackers)
 
 
 def _run_multimodal_pipeline(cfg: PipelineConfig, trackers: Optional[Dict[str, BestTracker]]
@@ -879,7 +962,7 @@ def _run_multimodal_pipeline(cfg: PipelineConfig, trackers: Optional[Dict[str, B
     else:
         emb_idx = torch.arange(len(target), device=cfg.device)
     ft_joint = emb.embed_multimodal(model, target.wave[emb_idx], target.isi[emb_idx],
-                                    target.source[emb_idx]).cpu().numpy()
+                                    target.source[emb_idx], mesh=_eval_mesh(cfg)).cpu().numpy()
     pretrain_paths = export_pretraining_embeddings(cfg, {"joint": ft_joint})
 
     # ---------------- Stage 3: supervised with class conditioning ----------
@@ -931,11 +1014,11 @@ def _run_multimodal_pipeline(cfg: PipelineConfig, trackers: Optional[Dict[str, B
         sel = slice(None) if rows is None else torch.as_tensor(rows, device=cfg.device).long()
         cls = None if cfg.honest_eval else labels_dev[sel]
         return emb.embed_multimodal(sup_model, sup_wave[sel], sup_isi_p[sel], source_dev[sel],
-                                    cls).cpu().numpy()
+                                    cls, mesh=_eval_mesh(cfg)).cpu().numpy()
 
     neighbor_options = list(range(5, 20))
     preds = knn_eval.knn_predict_sweep(embed(s_tr), label_train, embed(s_va), neighbor_options,
-                                       device=cfg.device)
+                                       device=cfg.device, mesh=_eval_mesh(cfg))
     accs = [metrics.balanced_accuracy_score(label_val, preds[k]) for k in neighbor_options]
     best_k = neighbor_options[int(np.argmax(accs))]
     pred = preds[best_k]

@@ -27,6 +27,9 @@ The port keeps its own on-disk format, since it reads no orbax:
     the live model's device, tensors saved on the host stay there (the
     AdamW ``step`` counters, which torch keeps on the host).
 
+Under an active mesh (parallel/mesh.py) every rank builds the payload and
+rank 0 alone writes it; every rank reads it back on resume.
+
 A directory of hippie_tpu's orbax entries (``epoch_NNNNNN`` directories)
 raises ValueError: neither package reads the other's resume state. The
 Lightning ``.ckpt`` files stay the contract the two share.
@@ -41,6 +44,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch.serialization import default_restore_location
+
+from hippie_tpu_torch.parallel import mesh as pmesh
 
 SUFFIX = ".pt"
 _TMP = ".tmp."
@@ -114,19 +119,21 @@ def save_fit_state(directory: str, epoch: int, state, extras: dict, best=None):
     ``best_val`` would return the resume point's weights under the earlier
     best's metrics (the pipeline's Lightning best checkpoint is written
     lazily, so it may not be on disk either)."""
-    os.makedirs(directory, exist_ok=True)
-    _refuse_orbax(directory)
-    if best is not None:
-        sd, opt, b_epoch = best
-        _atomic_save({"model": sd, "optimizer": opt},
-                     os.path.join(directory, f"best_{int(b_epoch):06d}{SUFFIX}"))
-        _keep_latest_two(directory, "best_")
-    _atomic_save({"epoch": int(epoch), "model": state.model.state_dict(),
-                  "optimizer": state.optimizer.state_dict(),
-                  "extras": {k: float(v) if k == "best_val" else int(v) for k, v in extras.items()}},
-                 os.path.join(directory, f"epoch_{int(epoch):06d}{SUFFIX}"))
-    _keep_latest_two(directory, "epoch_")
-    _reap_tmp(directory)
+    payload = {"epoch": int(epoch), "model": state.model.state_dict(),
+               "optimizer": state.optimizer.state_dict(),  # every rank: an FSDP state gathers
+               "extras": {k: float(v) if k == "best_val" else int(v) for k, v in extras.items()}}
+    if pmesh.is_writer():
+        os.makedirs(directory, exist_ok=True)
+        _refuse_orbax(directory)
+        if best is not None:
+            sd, opt, b_epoch = best
+            _atomic_save({"model": sd, "optimizer": opt},
+                         os.path.join(directory, f"best_{int(b_epoch):06d}{SUFFIX}"))
+            _keep_latest_two(directory, "best_")
+        _atomic_save(payload, os.path.join(directory, f"epoch_{int(epoch):06d}{SUFFIX}"))
+        _keep_latest_two(directory, "epoch_")
+        _reap_tmp(directory)
+    pmesh.barrier()  # no rank reads the directory before the write is whole
 
 
 def latest_fit_state(directory: str) -> Optional[str]:

@@ -28,6 +28,17 @@ A parameter the loss does not reach (the class embedding, trained without
 class labels) gets a zero gradient before the optimizer step, so torch's
 AdamW decays it by (1 - lr * wd) as optax's adamw does in the JAX step; its
 Adam moments stay 0, so the decay is its only update.
+
+Under an active mesh (parallel/mesh.py) every step runs on this rank's
+columns of the ``[nb, B]`` plan, the data-parallel step of the JAX package:
+the global batch's noise ``[B, z]`` is drawn from the epoch's generator on
+every rank, as the single process draws it, and sliced to this rank's rows;
+the BatchNorm statistics and the loss's count are the global batch's; the
+gradients are summed across ranks in one flat bucket before the optimizer
+step (an FSDP optimizer, parallel/fsdp.py, reduce-scatters them itself);
+and the epoch's metrics are summed across ranks, so every rank's fit loop
+sees the same losses and decides the same. An injected ``eps`` is the
+global batch's ``[nb, B, z]`` at the epoch and this rank's rows at a step.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import torch
 from hippie_tpu_torch.models.backbones import check_backend
 from hippie_tpu_torch.models.cvae import MultiModalCVAE, UnimodalCVAE
 from hippie_tpu_torch.ops import cuda_ops, losses
+from hippie_tpu_torch.parallel import mesh as pmesh
 
 
 class TrainState(NamedTuple):
@@ -70,12 +82,56 @@ def _require_noise(eps, generator):
 
 def _optimizer_step(opt: torch.optim.Optimizer):
     """opt.step() with a zero gradient for every parameter the backward pass
-    left without one (see the module note); no host sync."""
-    for group in opt.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    left without one (see the module note); no host sync. Under an active
+    mesh the gradients are summed across ranks first (a sharded optimizer
+    does its own reduction)."""
+    if getattr(opt, "is_sharded", False):
+        opt.step()
+        return
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if pmesh.active() is not None:
+        pmesh.sum_gradients(params)
     opt.step()
+
+
+def _materialize(opt):
+    """An FSDP optimizer's full parameters, gathered if the last step left
+    them sharded; nothing for any other optimizer."""
+    gather = getattr(opt, "materialize", None)
+    if gather is not None:
+        gather()
+
+
+def _rank_noise(model, eps, generator, like: torch.Tensor):
+    """Under an active mesh with a generator: this rank's rows of the global
+    batch's noise, drawn as the single process draws it. Else ``eps``."""
+    mesh = pmesh.active()
+    if mesh is None or eps is not None:
+        return eps
+    full = torch.randn((like.shape[0] * mesh.size, model.z_mean.out_features), generator=generator,
+                       dtype=like.dtype, device=like.device)
+    return pmesh.batch_sharded(mesh, full, batch_axis=0)
+
+
+def _rank_plan(idx, mask, eps):
+    """This rank's columns of the plan and of an injected ``[nb, B, z]`` eps
+    under an active mesh; the arguments as they are without one."""
+    mesh = pmesh.active()
+    if mesh is None:
+        return idx, mask, eps
+    idx, mask = pmesh.shard_epoch_inputs(mesh, idx, mask)
+    return idx, mask, None if eps is None else pmesh.batch_sharded(mesh, eps, batch_axis=1)
+
+
+def _global_metrics(ms: Metrics) -> Metrics:
+    """The epoch's per-batch metrics summed across ranks (each rank's are its
+    share of the global batch's) in one collective."""
+    if pmesh.active() is None:
+        return ms
+    return Metrics(*pmesh.all_sum(torch.stack(list(ms))).unbind(0))
 
 
 def make_unimodal_steps(*, beta: float = 1.0, loss_backend: str = "xla",
@@ -96,21 +152,26 @@ def make_unimodal_steps(*, beta: float = 1.0, loss_backend: str = "xla",
     def batch_step(ts: TrainState, bd, bs, bc, bmask, *, eps=None, generator=None):
         _require_noise(eps, generator)
         model, opt = ts
-        model.train()
-        opt.zero_grad(set_to_none=True)
-        enc, mu, logvar, dec = model(bd, bs, bc, eps=eps, generator=generator, mask=bmask,
-                                     backend=block_backend)
-        total, (mse, kl) = vae_loss(bd, dec, mu, logvar, beta=beta, mask=bmask)
-        total.backward()
-        _optimizer_step(opt)
+        with pmesh.step_scope():
+            _materialize(opt)
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            eps = _rank_noise(model, eps, generator, bd)
+            enc, mu, logvar, dec = model(bd, bs, bc, eps=eps, generator=generator, mask=bmask,
+                                         backend=block_backend)
+            total, (mse, kl) = vae_loss(bd, dec, mu, logvar, beta=beta, mask=bmask)
+            total.backward()
+            _optimizer_step(opt)
         return ts, Metrics(total.detach(), mse.detach(), kl.detach())
 
     @torch.no_grad()
     def eval_step(model, bd, bs, bc, bmask, *, eps=None, generator=None):
         _require_noise(eps, generator)
         model.eval()
-        enc, mu, logvar, dec = model(bd, bs, bc, eps=eps, generator=generator, mask=bmask)
-        total, (mse, kl) = vae_loss(bd, dec, mu, logvar, beta=beta, mask=bmask)
+        with pmesh.step_scope():
+            eps = _rank_noise(model, eps, generator, bd)
+            enc, mu, logvar, dec = model(bd, bs, bc, eps=eps, generator=generator, mask=bmask)
+            total, (mse, kl) = vae_loss(bd, dec, mu, logvar, beta=beta, mask=bmask)
         return Metrics(total, mse, kl)
 
     return batch_step, eval_step
@@ -157,23 +218,26 @@ def make_unimodal_epoch_fns(*, beta: float = 1.0, use_class_labels: bool = False
     def train_epoch(ts: TrainState, data, source, class_, idx, mask, *,
                     generator: Optional[torch.Generator] = None, eps=None):
         _require_noise(eps, generator)
+        idx, mask, eps = _rank_plan(idx, mask, eps)
         bd_all, bs_all, bc_all, mask = _batches(data, source, class_, idx, mask)
         ms = []
         for i in range(bd_all.shape[0]):
             ts, m = batch_step(ts, bd_all[i], bs_all[i], bc_all[i], mask[i],
                                eps=_noise(eps, i), generator=generator)
             ms.append(m)
-        return ts, _stack(ms)
+        _materialize(ts.optimizer)
+        return ts, _global_metrics(_stack(ms))
 
     def eval_epoch(model, data, source, class_, idx, mask, *,
                    generator: Optional[torch.Generator] = None, eps=None):
         _require_noise(eps, generator)
+        idx, mask, eps = _rank_plan(idx, mask, eps)
         bd_all, bs_all, bc_all, mask = _batches(data, source, class_, idx, mask)
-        return _stack([
+        return _global_metrics(_stack([
             eval_step(model, bd_all[i], bs_all[i], bc_all[i], mask[i],
                       eps=_noise(eps, i), generator=generator)
             for i in range(bd_all.shape[0])
-        ])
+        ]))
 
     return train_epoch, eval_epoch
 
@@ -204,21 +268,26 @@ def make_multimodal_steps(*, beta: float = 1.0, mod1_weight: float = 1.0,
     def batch_step(ts: TrainState, b1, b2, bs, bc, bmask, *, eps=None, generator=None):
         _require_noise(eps, generator)
         model, opt = ts
-        model.train()
-        opt.zero_grad(set_to_none=True)
-        outs = model(b1, b2, bs, bc, eps=eps, generator=generator, mask=bmask,
-                     backend=block_backend)
-        total, mse, kl = loss(b1, b2, outs, bmask)
-        total.backward()
-        _optimizer_step(opt)
+        with pmesh.step_scope():
+            _materialize(opt)
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            eps = _rank_noise(model, eps, generator, b1)
+            outs = model(b1, b2, bs, bc, eps=eps, generator=generator, mask=bmask,
+                         backend=block_backend)
+            total, mse, kl = loss(b1, b2, outs, bmask)
+            total.backward()
+            _optimizer_step(opt)
         return ts, Metrics(total.detach(), mse.detach(), kl.detach())
 
     @torch.no_grad()
     def eval_step(model, b1, b2, bs, bc, bmask, *, eps=None, generator=None):
         _require_noise(eps, generator)
         model.eval()
-        outs = model(b1, b2, bs, bc, eps=eps, generator=generator, mask=bmask)
-        return Metrics(*loss(b1, b2, outs, bmask))
+        with pmesh.step_scope():
+            eps = _rank_noise(model, eps, generator, b1)
+            outs = model(b1, b2, bs, bc, eps=eps, generator=generator, mask=bmask)
+            return Metrics(*loss(b1, b2, outs, bmask))
 
     return batch_step, eval_step
 
@@ -249,22 +318,25 @@ def make_multimodal_epoch_fns(*, beta: float = 1.0, mod1_weight: float = 1.0,
     def train_epoch(ts: TrainState, wave, isi, source, class_, idx, mask, *,
                     generator: Optional[torch.Generator] = None, eps=None):
         _require_noise(eps, generator)
+        idx, mask, eps = _rank_plan(idx, mask, eps)
         b1_all, b2_all, bs_all, bc_all, mask = _batches(wave, isi, source, class_, idx, mask)
         ms = []
         for i in range(b1_all.shape[0]):
             ts, m = batch_step(ts, b1_all[i], b2_all[i], bs_all[i], bc_all[i], mask[i],
                                eps=_noise(eps, i), generator=generator)
             ms.append(m)
-        return ts, _stack(ms)
+        _materialize(ts.optimizer)
+        return ts, _global_metrics(_stack(ms))
 
     def eval_epoch(model, wave, isi, source, class_, idx, mask, *,
                    generator: Optional[torch.Generator] = None, eps=None):
         _require_noise(eps, generator)
+        idx, mask, eps = _rank_plan(idx, mask, eps)
         b1_all, b2_all, bs_all, bc_all, mask = _batches(wave, isi, source, class_, idx, mask)
-        return _stack([
+        return _global_metrics(_stack([
             eval_step(model, b1_all[i], b2_all[i], bs_all[i], bc_all[i], mask[i],
                       eps=_noise(eps, i), generator=generator)
             for i in range(b1_all.shape[0])
-        ])
+        ]))
 
     return train_epoch, eval_epoch

@@ -1034,3 +1034,45 @@ def test_fused_and_bf16_steps_run_on_the_card(cuda_device, backend):
     assert all(v == 0 for v in cuda_blocks.launches.values())
     assert cuda_ops.launches["vae_sums_fwd"] == cuda_ops.launches["vae_sums_bwd"] == 1
     assert np.isfinite(losses[backend]) and abs(losses[backend] - losses["xla"]) <= 5e-2 * abs(losses["xla"])
+
+
+# ---------------------------------------------------------------------------
+# The segmented entry points of data parallelism (ops/cuda_blocks.py
+# *_block_fwd_mesh / *_block_bwd_mesh) at one rank over NCCL: a merge of one
+# rank's moments is those moments, so every output equals the unsegmented
+# call's bit for bit.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def one_rank_nccl(cuda_device, tmp_path):
+    import torch.distributed as dist
+
+    from hippie_tpu_torch.parallel import mesh as pmesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1, rank=0)
+    try:
+        yield pmesh.make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [("enc", s) for s in ENC_SHAPES[:4]] + [("dec", s) for s in DEC_SHAPES[:4]],
+                         ids=lambda v: v if isinstance(v, str) else "s{}-L{}-{}-{}".format(*v))
+def test_segmented_entries_equal_the_unsegmented_at_one_rank(one_rank_nccl, kind, shape):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    mesh = one_rank_nccl
+    ops = cb.ENC_OPS if kind == "enc" else cb.DEC_OPS
+    make = _block_inputs if kind == "enc" else _dec_inputs
+    args, g = make(torch.device("cuda"), *shape, n_real=415, seed=sum(shape))
+    cb.reset_launches()
+    got, ref = ops.fwd_mesh(mesh, shape[0], *args), ops.fwd_cuda(shape[0], *args)
+    dgot = ops.bwd_mesh(mesh, shape[0], *args, *got[1:], g)
+    dref = ops.bwd_cuda(shape[0], *args, *ref[1:], g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(dgot, dref))
+    assert cb.seg_launches[f"{kind}_block_fwd_seg"] == cb.seg_launches[f"{kind}_block_bwd_seg"] == 1
+    assert cb.seg_launches["bn_stats_merge"] == 2

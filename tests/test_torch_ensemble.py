@@ -33,6 +33,7 @@ from hippie_tpu.train import optim as joptim
 from hippie_tpu.train import step as jstep
 from hippie_tpu_torch.data.device_data import batch_plan
 from hippie_tpu_torch.models import cvae as tcvae
+from hippie_tpu_torch.parallel import mesh as pmesh
 from hippie_tpu_torch.train import ensemble as tens
 from hippie_tpu_torch.train import loop as tloop
 from hippie_tpu_torch.train import optim as toptim
@@ -92,8 +93,11 @@ def test_init_set_lr_take_and_stack():
         _equal_state(tens.take_replica(stacked, k), states[k].model.state_dict())
     nested = tens.stack_trees([{"a": (torch.ones(2) * k, [torch.zeros(1)])} for k in range(2)])
     assert torch.equal(tens.take_replica(nested, 1)["a"][0], torch.ones(2))
-    with pytest.raises(ValueError, match="item 12"):
-        tens.shard_replicas(stacked, None)
+    mesh = pmesh.Mesh(0, 2, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="3 replicas do not divide over the 2 ranks"):
+        tens.shard_replicas(stacked, mesh)
+    with pytest.raises(ValueError, match="3 replicas do not divide over the 2 ranks"):
+        tens.shard_replicas(states, mesh)
 
 
 def test_replicas_are_the_single_model_fits(data):

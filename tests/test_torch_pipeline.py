@@ -250,11 +250,19 @@ def test_cli_builds_the_pipeline_config():
     assert cfg.num_blocks == (2, 2, 2, 2)
 
 
-@pytest.mark.parametrize("argv", [["--dp-devices", "2"], ["--fsdp"], ["--aot-dir", "x"],
-                                  ["--dp-devices", "2", "--fsdp"], ["--progress-every", "0"],
-                                  ["--progress-every", "5"], ["--log-every-step"]])
-def test_cli_raises_on_options_not_ported(argv):
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item"):
+@pytest.mark.parametrize("argv,match", [
+    (["--dp-devices", "2"], "2 data-parallel ranks on cuda, but 0 GPUs are visible"),
+    (["--fsdp"], "--fsdp requires --dp-devices > 1"),
+    (["--aot-dir", "x"], "ROADMAP Queue 1 item"),
+    (["--dp-devices", "2", "--fsdp", "--device", "cpu", "--optimizer", "schedule-free"], "ROADMAP Queue 1"),
+    (["--progress-every", "0"], "ROADMAP Queue 1 item"),
+    (["--progress-every", "5"], "ROADMAP Queue 1 item"),
+    (["--log-every-step"], "ROADMAP Queue 1 item")])
+def test_cli_raises_on_options_not_ported(argv, match):
+    """The flags with no port raise naming their ROADMAP item; the parallel
+    ones raise where JAX would not run either or where the port refuses to
+    go on with fewer devices (no GPU here)."""
+    with pytest.raises(ValueError, match=match):
         tcli.config_from_args(tcli.build_parser().parse_args(argv))
 
 

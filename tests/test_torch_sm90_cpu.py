@@ -26,7 +26,10 @@ fixed-order sums, their launch counts, and their agreement with the plain
 versions at small shapes (B <= 20, 64 and 128 channels, both strides, and a
 415-row tail of B = 512), with padded rows at +-1e4; the loss kernels at B =
 3, 20 and 512 with padded rows at +-1e7 and +-inf, one launch per call, and
-a second call's bits equal to the first's (the ticket is reset). What it cannot check: the hardware's own reading of the
+a second call's bits equal to the first's (the ticket is reset); and the
+block kernels' segmented entry points of data parallelism with
+``bn_stats_merge``: at one emulated rank bit for bit the unsegmented calls,
+on two the whole batch's call within the limits below. What it cannot check: the hardware's own reading of the
 descriptors and of the PTX, memory ordering between blocks that run at once,
 and speed. chip_smoke.py and tests/test_torch_cuda_kernels.py check those on
 the card. Limits as on the card (chip_smoke.py phase 5b): bf16 outputs and
@@ -337,6 +340,10 @@ def libs(tmp_path_factory):
             fn = getattr(out[kind], f"{kind}_block_{direction}")
             fn.argtypes = [ctypes.c_void_p] * n_in + [ctypes.c_int] * ints + [ctypes.c_void_p] * n_out
             fn.restype = ctypes.c_int
+            seg = getattr(out[kind], f"{kind}_block_{direction}_seg")
+            seg.argtypes, seg.restype = fn.argtypes + [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    out["enc"].bn_stats_merge.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    out["enc"].bn_stats_merge.restype = ctypes.c_int
     loss = out["vae_sums"]
     for name, n_in, ints in (("vae_sums_fwd", 5, 3), ("masked_sse_fwd", 3, 2)):
         size = getattr(loss, f"{name}_workspace")
@@ -519,6 +526,191 @@ def test_block_kernels_match_plain_on_the_host(libs, case):
             assert torch.isfinite(a).all(), name
             assert _rel(a, b) < 1e-2, (name, _rel(a, b))
     assert _rel(dgot[0][:, :n_real], dref[0][:, :n_real]) < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# The segmented entry points of data parallelism, on emulated ranks: each
+# "rank" runs every segment on its columns of the batch; between segments the
+# ranks' moments are merged (bn_stats_merge) and their dgamma, dbeta summed,
+# as ops/cuda_blocks.py does with its collectives.
+# ---------------------------------------------------------------------------
+
+
+def _split(args, g, ranks):
+    """Each rank's columns of the batch: x, the mask and the cotangent."""
+    out = []
+    for r in range(ranks):
+        k = args[0].shape[1] // ranks
+        a = list(args)
+        a[0] = args[0][:, r * k:(r + 1) * k].contiguous()
+        a[-1] = args[-1][r * k:(r + 1) * k].contiguous()
+        out.append((a, g[:, r * k:(r + 1) * k].contiguous()))
+    return out
+
+
+def _seg_fwd(libs, kind, stride, parts):
+    """The segmented forward on every part -> per-rank (out, st...) and the
+    CUDA launches of one rank's call (merges included)."""
+    lib = libs[kind]
+    short = int(stride != 1)
+    runs = []
+    for args, _ in parts:
+        x = args[0]
+        L, B, ci = x.shape
+        co = (args[4] if kind == "enc" else args[4]).shape[-1]
+        if kind == "enc":
+            out = torch.full((cb._out_len(L, stride), B, co), float("nan"), dtype=torch.bfloat16)
+            st = [_nan(3, co) for _ in range(3)]
+            scratch = _scratch(lib.enc_block_fwd_scratch(L, B, ci, co, stride, short))
+            cargs = (*(_ptr(t) for t in args), L, B, ci, co, stride, short, *(_ptr(t) for t in (out, *st, scratch)),
+                     None)
+            chans = (co, co)
+        else:
+            out = torch.full((L * stride, B, co), float("nan"), dtype=torch.bfloat16)
+            st = [_nan(3, ci), _nan(3, co), _nan(3, co)]
+            scratch = _scratch(lib.dec_block_fwd_scratch(L, B, ci, co, stride))
+            cargs = (*(_ptr(t) for t in args), L, B, ci, co, stride, *(_ptr(t) for t in (out, *st, scratch)), None)
+            chans = (ci, co)
+        runs.append((cargs, out, st, scratch))  # scratch stays alive through every segment
+    name = f"{kind}_block_fwd_seg"
+    n = 0
+    for seg, ns, c, (a, b) in ((1, 1, chans[0], (0, None)), (2, 1 + short, chans[1], (1, 2 if short else None))):
+        rows = torch.zeros(len(parts), 3 * ns, c)
+        for r, (cargs, *_) in enumerate(runs):
+            k = _call(lib, name, *cargs, _ptr(rows[r]), seg)
+            n += k if r == 0 else 0
+        for r, (_, _, st, _) in enumerate(runs):
+            k = _call(libs["enc"], "bn_stats_merge", _ptr(rows), len(parts), ns, c, _ptr(st[a]),
+                      None if b is None else _ptr(st[b]), None)
+            n += k if r == 0 else 0
+    for r, (cargs, *_) in enumerate(runs):
+        k = _call(lib, name, *cargs, None, 3)
+        n += k if r == 0 else 0
+    return [(out, *st) for _, out, st, _ in runs], n
+
+
+def _seg_bwd(libs, kind, stride, parts, fwd_outs):
+    """The segmented backward on every part, dgamma and dbeta summed over the
+    parts between segments -> per-rank gradients (the names of enc_bwd /
+    dec_bwd) and one rank's CUDA launches."""
+    lib = libs[kind]
+    short = stride != 1
+    count = sum(float(a[-1].sum()) for a, _ in parts)
+    runs = []
+    for (args, g), outs in zip(parts, fwd_outs):
+        x = args[0]
+        L, B, ci = x.shape
+        if kind == "enc":
+            w1, w2, ws = args[1], args[4], args[7]
+            co = w2.shape[-1]
+            dx = torch.full_like(x, float("nan"))
+            dw1, dw2 = _nan(*w1.shape), _nan(*w2.shape)
+            dvec = _nan(6, co)
+            dws = _nan(*ws.shape) if short else None
+            scratch = _scratch(lib.enc_block_bwd_scratch(L, B, ci, co, stride, int(short)))
+            nt = torch.tensor([count * g.shape[0]])
+            cargs = (*(_ptr(t) for t in (*args, *outs[1:], g)), L, B, ci, co, stride, int(short),
+                     *(_ptr(t) for t in (dx, dw1, dvec[0], dvec[1], dw2, dvec[2], dvec[3], dws)),
+                     _ptr(dvec[4]) if short else None, _ptr(dvec[5]) if short else None, _ptr(scratch), None,
+                     _ptr(nt))
+            sums = (slice(2, 6 if short else 4), slice(0, 2))
+            grads = (dx, dw1, dvec[0], dvec[1], dw2, dvec[2], dvec[3], dws,
+                     dvec[4] if short else None, dvec[5] if short else None)
+            vec = dvec
+        else:
+            w2, w1, ws = args[1], args[4], args[8]
+            co = w1.shape[-1]
+            dx = torch.full_like(x, float("nan"))
+            dw2, dw1 = _nan(*w2.shape), _nan(*w1.shape)
+            dv2, dv1 = _nan(2, ci), _nan(6, co)  # dg2 db2; dg1 db1 dgs dbs dc1b dcsb
+            dws = _nan(*ws.shape) if short else None
+            d1 = [dv1[i] if short else None for i in range(2, 6)]
+            scratch = _scratch(lib.dec_block_bwd_scratch(L, B, ci, co, stride))
+            nt = torch.tensor([count * g.shape[0], count * L])
+            cargs = (*(_ptr(t) for t in (*args, *outs[1:], g)), L, B, ci, co, stride,
+                     *(_ptr(t) for t in (dx, dw2, dv2[0], dv2[1], dw1, d1[2], dv1[0], dv1[1], dws, d1[3], d1[0],
+                                         d1[1], scratch)), None, _ptr(nt))
+            grads = (dx, dw2, dv2[0], dv2[1], dw1, d1[2], dv1[0], dv1[1], dws, d1[3], d1[0], d1[1])
+            vec = (dv1, dv2)
+            sums = None
+        runs.append((cargs, grads, vec, sums, (scratch, nt)))  # alive through every segment
+    name = f"{kind}_block_bwd_seg"
+    n = 0
+    for seg in (1, 2, 3):
+        for r, (cargs, *_) in enumerate(runs):
+            k = _call(lib, name, *cargs, seg)
+            n += k if r == 0 else 0
+        if seg == 3:
+            break
+        # the dgamma, dbeta this segment finished, summed over the ranks in place
+        if kind == "enc":
+            views = [v[run_sums[seg - 1]] for (_, _, v, run_sums, _) in runs]
+        else:
+            views = [(v[0][:4] if short else v[0][:2]) if seg == 1 else v[1] for (_, _, v, _, _) in runs]
+        total = sum(v.clone() for v in views)
+        for v in views:
+            v.copy_(total)
+    return [grads for _, grads, *_ in runs], n
+
+
+SEG_CASES = [("enc", 1, 7, 64, 64, 20, 13), ("enc", 2, 7, 64, 128, 20, 13), ("dec", 1, 4, 64, 64, 20, 13),
+             ("dec", 2, 4, 128, 64, 20, 13)]
+
+
+@pytest.mark.parametrize("case", SEG_CASES, ids=lambda c: "{}-s{}-L{}-{}-{}-B{}".format(*c[:6]))
+def test_segmented_entries_equal_the_unsegmented_at_one_rank(libs, case):
+    """At one rank the segmented forward (its moments merged by
+    bn_stats_merge) and backward give the unsegmented calls' bits, in the
+    unsegmented launches plus the two merges."""
+    kind, stride, L, ci, co, batch, n_real = case
+    args, g = _inputs(kind, stride, L, ci, co, batch, n_real, seed=L + ci + co)
+    fwd, bwd = (enc_fwd, enc_bwd) if kind == "enc" else (dec_fwd, dec_bwd)
+    ref, n_ref = fwd(libs[kind], stride, *args)
+    (got,), n = _seg_fwd(libs, kind, stride, [(args, g)])
+    assert n == n_ref + 2
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    dref, nb_ref = bwd(libs[kind], stride, *args, *ref[1:], g)
+    (dgot,), nb = _seg_bwd(libs, kind, stride, [(args, g)], [got])
+    assert nb == nb_ref
+    for a, b in zip(dgot, dref):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", SEG_CASES, ids=lambda c: "{}-s{}-L{}-{}-{}-B{}".format(*c[:6]))
+def test_segmented_entries_on_two_ranks_match_the_whole_batch(libs, case):
+    """Two emulated ranks, each with 10 of the 20 columns (rank 1 with 3 real
+    rows): the merged statistics are the whole batch's (1e-4 of their scale),
+    the outputs and input gradients, joined, and the weight gradients, summed,
+    within the host test's 1e-2; the BatchNorm gamma and beta gradients are
+    global and bit-equal on both ranks."""
+    kind, stride, L, ci, co, batch, n_real = case
+    args, g = _inputs(kind, stride, L, ci, co, batch, n_real, seed=L + ci + co)
+    fwd, bwd = (enc_fwd, enc_bwd) if kind == "enc" else (dec_fwd, dec_bwd)
+    ref, _ = fwd(libs[kind], stride, *args)
+    parts = _split(args, g, 2)
+    got, _ = _seg_fwd(libs, kind, stride, parts)
+    assert _rel(torch.cat([got[0][0], got[1][0]], 1), ref[0]) < 1e-2
+    for i in range(1, 4):
+        assert torch.equal(got[0][i], got[1][i])
+        assert _stats_err(got[0][i], ref[i]) <= 1e-4
+    dref, _ = bwd(libs[kind], stride, *args, *ref[1:], g)
+    dgot, _ = _seg_bwd(libs, kind, stride, parts, got)
+    names = ("dx", "dw1", "dg1", "db1", "dw2", "dg2", "db2", "dws", "dgs", "dbs") if kind == "enc" else \
+        ("dx", "dw2", "dg2", "db2", "dw1", "dc1b", "dg1", "db1", "dws", "dcsb", "dgs", "dbs")
+    for i, name in enumerate(names):
+        a, b, ref_i = dgot[0][i], dgot[1][i], dref[i]
+        if ref_i is None:
+            assert a is None and b is None
+        elif name == "dx":
+            assert _rel(torch.cat([a, b], 1), ref_i) < 1e-2
+        elif name in ("dc1b", "dcsb"):  # rounding noise by construction (chip_smoke.py bias_grad_tol)
+            assert float((a + b - ref_i).double().norm()) <= 1e-2 * float(g.double().norm()) + 1e-3
+        elif name.startswith("dw"):
+            assert _rel(a + b, ref_i) < 1e-2, name
+        else:
+            assert torch.equal(a, b), name
+            assert _rel(a, ref_i) < 1e-2, name
 
 
 # ---------------------------------------------------------------------------
