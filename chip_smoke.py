@@ -55,19 +55,33 @@ fit with schedule-free AdamW and with bf16 moments; lr_sweep --resume-dir)
 and the rest of the CLI with the "fused" and "bf16" block backends (18:
 hippie-tpu-torch train with --profile-dir --discover-datasets --wandb,
 sweep_targets, profile_train_step with each backend, a stage-1 epoch with
-"fused" and "bf16"). Then data parallelism and FSDP (19, this slice's main
-path, whose segmented block entries' launches are the kernels line's): one
-rank over NCCL equal to the single process bit for bit, the segmented
-block entry points equal to the unsegmented ones and held to their plain
-versions, two gloo ranks sharing the card within the JAX envelope of one
-process, FSDP beside them, and the joint pipeline on the two ranks with
-rank 0 the only writer. Each block kernel is split by kernel
+"fused" and "bf16"). Then data parallelism and FSDP (19, whose segmented
+block entries' launches are the kernels line's): one rank over NCCL equal
+to the single process bit for bit, the segmented block entry points equal
+to the unsegmented ones and held to their plain versions, two gloo ranks
+sharing the card within the JAX envelope of one process, FSDP beside them,
+and the joint pipeline on the two ranks with rank 0 the only writer. Phases
+9-19 run the host fit loop (``fit_loop="host"``), whose launches the
+wrappers' counters count one by one. Last the device fit loop (20, this
+slice's main path: each stage fit's steps as CUDA graphs replayed, the
+default of both training CLIs): every kernel wrapper and the train and eval
+steps of both models on every block backend replayed bit-equal to their
+eager calls with no host sync in an epoch, the unimodal stage-1 fit equal
+to the host loop's bit for bit with each loop's ms/step and the replayed
+step's kernels and runtime calls (and with schedule-free, bf16 moments and
+the "xla" loss), both training CLIs writing the same bytes with either loop
+(the joint one's device-loop launches at 1 epoch per stage, counted by
+torch.profiler with the graphs' replays, are the kernels line's for the
+seven kernels; the wrappers count only the launches they make), a joint
+pipeline stopped with one loop and resumed with the other, and the device
+fit in one NCCL rank (run in 19a's rank). Each block kernel is split by kernel
 (device time and launches per call; at most 5 per enc_block_fwd and
 dec_block_fwd call and 8 per enc_block_bwd and dec_block_bwd call), and the
 block libraries' SASS is checked for wgmma (HGMMA).
 
-Every phase prints one line. The second-to-last line is the ``kernels`` JSON
-record, the last the device record. Exits non-zero, printing neither, when no
+Every phase prints one line, and the script its total seconds. The
+second-to-last line is the ``kernels`` JSON record, the last the device
+record. Exits non-zero, printing neither, when no
 CUDA device is present, outside the repository, or when any phase fails.
 
 To compare the pipelines of another checkout (a parent commit unpacked with
@@ -1438,7 +1452,7 @@ def phase_pipeline(card: str, workdir: str, device="cuda", optimizer: str = "ada
     cfg = pipeline.PipelineConfig(z_dim=Z, dataset=TARGET, data_root=DATA_ROOT,
                                   output_dir=f"{workdir}/{sub}out", checkpoint_dir=f"{workdir}/{sub}checkpoints",
                                   loss_backend="pallas", block_backend="pallas", device=device,
-                                  verbose=False, optimizer=optimizer)
+                                  verbose=False, optimizer=optimizer, fit_loop="host")
     trackers = {}
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     reset_all_launches()
@@ -1534,7 +1548,7 @@ def phase_joint_pipeline(card: str, workdir: str, device="cuda", opt_state_dtype
                                   data_root=DATA_ROOT, output_dir=f"{workdir}/{sub}joint_out",
                                   checkpoint_dir=f"{workdir}/{sub}joint_checkpoints", loss_backend="pallas",
                                   block_backend="pallas", device=device, verbose=False,
-                                  opt_state_dtype=opt_state_dtype)
+                                  opt_state_dtype=opt_state_dtype, fit_loop="host")
     with torch.device("meta"):
         n_params = cvae.param_count(cvae.MultiModalCVAE(pipeline.joint_model_config(cfg, 5)))
     check(n_params == FULL_MM_PARAMS, f"{n_params} stage-1 parameters, expected {FULL_MM_PARAMS}")
@@ -2442,11 +2456,14 @@ def crash_after_one_epoch(module, name: str, call: int):
         setattr(module, name, orig)
 
 
-def joint_resume_run(workdir: str, name: str, resume: bool, device="cuda", crash: bool = False) -> dict:
-    """One joint pipeline run for phase 17 at full width, 2 epochs per stage,
-    with the loss and block kernels; with ``crash``, its supervised stage fit
-    (the third) stops after one epoch. Returns its wall time, launches,
-    accuracies, output and checkpoint paths."""
+def joint_resume_run(workdir: str, name: str, resume: bool, device="cuda", crash: bool = False,
+                     fit_loop: str = "host", limits: bool = False, epochs=(2, 2, 2)) -> dict:
+    """One joint pipeline run for phases 17 and 20d at full width, ``epochs``
+    per stage (pretrain, fine-tune, supervised), with the loss and block
+    kernels and ``fit_loop``; with ``limits``, 2 train and 1 val batch per
+    epoch; with ``crash``, its supervised stage fit (the third) stops after
+    one epoch. Returns its wall time, launches, accuracies, output and
+    checkpoint paths."""
     import torch
 
     from hippie_tpu_torch.train import pipeline
@@ -2454,8 +2471,9 @@ def joint_resume_run(workdir: str, name: str, resume: bool, device="cuda", crash
     cfg = pipeline.PipelineConfig(model_type="multimodal", z_dim=Z, dataset=TARGET, data_root=DATA_ROOT,
                                   output_dir=f"{workdir}/{name}_out", checkpoint_dir=f"{workdir}/{name}_ck",
                                   loss_backend="pallas", block_backend="pallas", device=device, verbose=False,
-                                  pretrain_max_epochs=2, finetune_max_epochs=2, supervised_max_epochs=2,
-                                  resume=resume)
+                                  pretrain_max_epochs=epochs[0], finetune_max_epochs=epochs[1],
+                                  supervised_max_epochs=epochs[2], resume=resume, fit_loop=fit_loop,
+                                  limit_train_batches=2 if limits else None, limit_val_batches=1 if limits else None)
     trackers, writes = {}, []
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     reset_all_launches()
@@ -2499,16 +2517,20 @@ def joint_run_diff(a: dict, b: dict) -> dict:
     return {"ckpt": ck, "csv": csv, "acc": acc}
 
 
-def uni_resume_fit(pool, optimizer: str, state_dtype, max_epochs: int, resume_dir=None, device="cuda"):
+def uni_resume_fit(pool, optimizer: str, state_dtype, max_epochs: int, resume_dir=None, device="cuda",
+                   fit_loop: str = "host", **cfg):
     """A full-width unimodal stage-1 fit on the pool (pipeline.fit_unimodal_stage,
-    the loss and block kernels) for phase 17."""
+    the loss and block kernels unless ``cfg`` says otherwise) for phases 17
+    and 20, with ``fit_loop`` and the other PipelineConfig fields of
+    ``cfg``."""
     from hippie_tpu_torch.data.device_data import train_val_split
     from hippie_tpu_torch.models import cvae
     from hippie_tpu_torch.train import loop, pipeline, step
 
-    cfg = pipeline.PipelineConfig(z_dim=Z, dataset=TARGET, data_root=DATA_ROOT, loss_backend="pallas",
-                                  block_backend="pallas", device=device, verbose=False, optimizer=optimizer,
-                                  opt_state_dtype=state_dtype)
+    cfg = pipeline.PipelineConfig(**{**dict(z_dim=Z, dataset=TARGET, data_root=DATA_ROOT, loss_backend="pallas",
+                                            block_backend="pallas", device=device, verbose=False),
+                                     **cfg, "optimizer": optimizer, "opt_state_dtype": state_dtype,
+                                     "fit_loop": fit_loop})
     model = cvae.unimodal_cvae_init(full_config(), loop.key_generator(17, 0), device=device)
     ts = step.TrainState(model, pipeline._optimizer(cfg, model, LR, None))
     tr, va = train_val_split(len(pool), 0.8, loop.key_generator(17, 1))
@@ -2919,7 +2941,8 @@ def dp_rank_one(mesh, idx, mask, card: str) -> dict:
     and every tensor of the state), launching only the segmented entries;
     then the single-process references of 19b-c (the first DP_STEPS steps of
     each model, and the same with the waveforms moved by 1e-6: the path's own
-    spread) and dp_seg_checks."""
+    spread) and dp_seg_checks; then phase 20e: the unimodal stage-1 device
+    fit of 20b through the mesh against the same fit without it."""
     import torch
 
     from hippie_tpu_torch.ops import cuda_blocks as cb
@@ -2949,6 +2972,8 @@ def dp_rank_one(mesh, idx, mask, card: str) -> dict:
                                       [abs(a - b) / abs(b) for a, b in zip(moved, losses)])
     out["secs"] = time.perf_counter() - t0
     out["records"] = dp_seg_checks(mesh, card)
+    t0 = time.perf_counter()
+    out["device_fit"] = same_fit(dp_device_fit(pool, None), dp_device_fit(pool, mesh)), time.perf_counter() - t0
     return out
 
 
@@ -2996,7 +3021,7 @@ def dp_rank_two(mesh, idx, mask, workdir: str) -> dict:
     cfg = pipeline.PipelineConfig(model_type="multimodal", z_dim=Z, num_blocks=(2, 2, 2, 2), dataset=TARGET,
                                   data_root=DATA_ROOT, output_dir=f"{workdir}/dp_joint_out",
                                   checkpoint_dir=f"{workdir}/dp_joint_checkpoints", loss_backend="pallas",
-                                  block_backend="pallas", verbose=False, dp_devices=2)
+                                  block_backend="pallas", verbose=False, dp_devices=2, fit_loop="host")
     torch.cuda.synchronize()
     cb.reset_launches()
     cuda_ops.reset_launches()
@@ -3036,6 +3061,11 @@ def phase_data_parallel(card: str, workdir: str, idx, mask) -> list:
     l1, secs, seg = one["epoch"]
     print(f"[19a one rank, NCCL] the unimodal stage-1 epoch ({idx.shape[0]} steps, B={B}) through the mesh: "
           f"losses and state equal to the single process's bit for bit; {secs:.3f} s; launches {seg}")
+    diff, fit_s = one["device_fit"]
+    check(not diff, f"20e: the one-rank NCCL device fit differs from the single process's in {diff[:5]}")
+    print(f"[20e one NCCL rank] in 19a's rank: the unimodal stage-1 device fit (20b's) through the one-rank NCCL "
+          f"mesh (segmented block kernels, captured all-reduces) equals the same fit without the mesh bit for "
+          f"bit; both fits {fit_s:.1f} s")
     t0 = time.perf_counter()
     ranks = pmesh.launch(dp_rank_two, 2, idx, mask, workdir, devices=["cuda:0", "cuda:0"], backend="gloo")
     t_two = time.perf_counter() - t0
@@ -3123,7 +3153,8 @@ def dp_walls() -> int:
                       ["--dp-devices", str(n)]):
             out = f"{workdir}/out"
             cmd = [sys.executable, "-m", "hippie_tpu_torch.scripts.train_model_with_multimodal", "--model-type",
-                   "multimodal", "--loss-backend", "pallas", "--block-backend", "pallas", "--output-dir", out,
+                   "multimodal", "--fit-loop", "host", "--loss-backend", "pallas", "--block-backend", "pallas",
+                   "--output-dir", out,
                    "--checkpoint-dir", f"{out}/ck", "--data-root", DATA_ROOT, *flags]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=600)
@@ -3144,6 +3175,492 @@ def urllib_get(url: str) -> str:
 
     with urllib.request.urlopen(url, timeout=60) as r:
         return r.read().decode()
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the device fit loop (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+
+def _tensors(x) -> list:
+    """The tensors of a kernel wrapper's output, in order (None skipped)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def replay_equals_eager(fn, tag: str):
+    """``fn()``, a kernel wrapper's call on fixed inputs, run once eagerly on
+    a side stream (which makes its workspace there), then captured into a
+    CUDA graph on that stream and replayed: the replay's outputs (filled with
+    NaN before it) equal the eager call's bit for bit."""
+    import torch
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        want = [t.clone() for t in _tensors(fn())]
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s, capture_error_mode="thread_local"):
+            out = _tensors(fn())
+        for t in out:
+            t.fill_(float("nan"))
+        g.replay()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    check(len(out) == len(want) and all(torch.equal(a, b) for a, b in zip(out, want)),
+          f"{tag}: the graph's replay differs from the eager call")
+
+
+def kernel_replays():
+    """20a, per kernel: each of the seven wrappers replayed from a CUDA graph
+    equals its eager call, at the main path's shapes (B=512, a 415-row tail
+    for the losses; every distinct full-width block shape of both
+    backbones)."""
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+    from hippie_tpu_torch.ops import cuda_ops
+
+    x = loss_inputs(415)
+    g = loss_inputs(415)[0].new_tensor([1.0 / (415 * L), 1.0 / 415])
+    replay_equals_eager(lambda: cuda_ops.vae_sums_fwd_cuda(*x), "vae_sums_fwd")
+    replay_equals_eager(lambda: cuda_ops.vae_sums_bwd_cuda(*x, g), "vae_sums_bwd")
+    sse = sse_inputs(415, 1e4)
+    replay_equals_eager(lambda: cuda_ops.masked_sse_fwd_cuda(*sse), "masked_sse_fwd")
+    shapes = 0
+    for bb in (ENC, DEC):
+        ops = cb.ENC_OPS if bb.kind == "enc" else cb.DEC_OPS
+        for stride, length, ci, co in sorted(set(bb.blocks), key=bb.blocks.index):
+            args, gy = block_inputs(bb, stride, length, ci, co, 415, seed=length + co)
+            st = ops.fwd_cuda(stride, *args)[1:]
+            tag = f"{bb.kind} s{stride} L{length} {ci}->{co}"
+            replay_equals_eager(lambda: ops.fwd_cuda(stride, *args), f"{bb.kind}_block_fwd {tag}")
+            replay_equals_eager(lambda: ops.bwd_cuda(stride, *args, *st, gy), f"{bb.kind}_block_bwd {tag}")
+            shapes += 1
+    return shapes
+
+
+def api_profile(fn, n: int = 10) -> dict:
+    """Per call of ``fn``, from torch.profiler over ``n`` calls: the device
+    kernels and copies and their device µs, the host's CUDA runtime calls by
+    name, and each device kernel's (µs, count) by kernel_name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev, api = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            us, c = dev.get(kernel_name(e.key), (0.0, 0.0))
+            dev[kernel_name(e.key)] = (us + e.self_device_time_total / n, c + e.count / n)
+        elif e.key.startswith("cuda") and e.device_type == DeviceType.CPU:
+            api[e.key] = api.get(e.key, 0.0) + e.count / n
+    return {"device_us": sum(v[0] for v in dev.values()), "kernels": sum(v[1] for v in dev.values()),
+            "api": api, "split": dev}
+
+
+def step_replay(kind: str, backend: str, pool, card: str, profile: bool = False) -> dict:
+    """20a, per step: the full-width train and eval steps of ``kind``
+    ("unimodal" or "joint") with ``backend``'s blocks and the loss kernels,
+    as the device fit loop runs them (train/device_fit.py:StepGraph). After
+    a warm-up step, one eager step from a saved state, then the state
+    restored and the same step captured and replayed: losses, parameters,
+    BatchNorm buffers and AdamW's moments and steps equal bit for bit; the
+    same for the eval step. Then a whole epoch of replays (the plan's H2D
+    copy, the noise draws, 6 train and 6 eval replays) under
+    torch.cuda.set_sync_debug_mode("error"). With ``profile``: the device
+    time, kernels and runtime calls per eager and per replayed step."""
+    import torch
+
+    from hippie_tpu_torch.data import device_data
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import device_fit, loop, optim, step
+
+    joint = kind == "joint"
+    init = torch.Generator().manual_seed(20)
+    model = (cvae.multimodal_cvae_init(joint_config(), init, device="cuda") if joint
+             else cvae.unimodal_cvae_init(full_config(), init, device="cuda"))
+    opt = optim.make_optimizer(model.parameters(), LR, WD, clip_val=CLIP if joint else None)
+    ts = step.TrainState(model, opt)
+    make = step.make_multimodal_steps if joint else step.make_unimodal_steps
+    batch_step, eval_step = make(beta=1.0, loss_backend="pallas", block_backend=backend)
+    arrays = (pool.wave, pool.isi) if joint else (pool.wave,)
+
+    def gather(idx):
+        return [a[idx] for a in arrays] + [pool.source[idx], None]
+
+    def train_fn(idx, mask, eps):
+        return batch_step(ts, *gather(idx), mask, eps=eps)[1]
+
+    def eval_fn(idx, mask, eps):
+        return eval_step(ts.model, *gather(idx), mask, eps=eps)
+
+    idx, mask = device_data.batch_plan(np.arange(len(pool)), B, shuffle=True,
+                                       generator=torch.Generator().manual_seed(1))
+    nb = idx.shape[0]
+
+    def noise(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    common = dict(nb=nb, batch=B, noise_shape=(B, Z), dtype=torch.float32, device=torch.device("cuda"),
+                  stream=s, pool=torch.cuda.graph_pool_handle())
+    with torch.cuda.stream(s):
+        tg = device_fit.StepGraph(train_fn, before_capture=lambda: opt.zero_grad(set_to_none=True), **common)
+        vg = device_fit.StepGraph(eval_fn, **common)
+        tg.load_plan(idx, mask)
+        vg.load_plan(idx, mask)
+        tg(noise(0))  # the warm-up: row 0, eagerly
+        vg(noise(0))
+        start = loop.snapshot(ts)
+        tg.eps.normal_(0.0, 1.0, generator=noise(5))
+        tg._body()  # the eager step on row 1
+        eager = loop.snapshot(ts), tg.metrics[:, 1].clone()
+        ts.model.load_state_dict(start[0])
+        opt.load_state_dict(start[1])
+        tg.row.fill_(1)
+        tg.calls = 1  # captured and replayed on this call
+        tg(noise(5))
+        graphed = loop.snapshot(ts), tg.metrics[:, 1].clone()
+        vg.eps.normal_(0.0, 1.0, generator=noise(6))
+        vg.row.fill_(1)
+        vg._body()
+        eval_eager = vg.metrics[:, 1].clone()
+        vg.row.fill_(1)
+        vg.calls = 1
+        vg(noise(6))
+        eval_graphed = vg.metrics[:, 1].clone()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    tag = f"{kind} {backend}"
+    check(torch.equal(eager[1], graphed[1]), f"{tag}: replayed train losses {graphed[1]} != eager {eager[1]}")
+    want, got = flat_tensors(eager[0]), flat_tensors(graphed[0])
+    diff = [k for k, v in want.items() if not torch.equal(v, got[k])]
+    check(not diff, f"{tag}: the replayed train step differs from the eager one in {diff[:5]}")
+    check(torch.equal(eval_eager, eval_graphed), f"{tag}: replayed eval {eval_graphed} != eager {eval_eager}")
+
+    # a whole epoch of replays without a host sync
+    idx2, mask2 = device_data.batch_plan(np.arange(len(pool)), B, shuffle=True,
+                                         generator=torch.Generator().manual_seed(2))
+    with torch.cuda.stream(s):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tg.load_plan(idx2, mask2)
+            gen = noise(7)
+            for _ in range(nb):
+                tg(gen)
+            vg.row.zero_()
+            for _ in range(nb):
+                vg(gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.current_stream().wait_stream(s)
+    losses = tg.metrics[0].tolist()
+    check(all(np.isfinite(losses)), f"{tag}: non-finite losses in the replayed epoch {losses}")
+    out = {"losses": losses, "capture_s": tg.capture_s + vg.capture_s}
+    if profile:
+        gen = noise(8)
+        with torch.cuda.stream(s):
+            out["replay"] = api_profile(lambda: (tg.row.zero_(), tg(gen)))
+            out["eval_replay"] = api_profile(lambda: (vg.row.zero_(), vg(gen)))
+            out["eager"] = api_profile(lambda: (tg.row.zero_(), tg.eps.normal_(generator=gen), tg._body()), n=3)
+            # ms per replayed train step, the host's dispatch included (phase 7 times the eager one)
+            out["replay_ms"] = time_ms(lambda: (tg.row.zero_(), tg(gen)), n=30, warmup=3)
+        torch.cuda.current_stream().wait_stream(s)
+    opt.zero_grad(set_to_none=True)
+    tg.graph = vg.graph = None
+    print(f"  20a {tag}: the train step (loss {float(eager[1][0]):.5f}) and the eval step replayed from a "
+          f"CUDA graph equal the eager steps bit for bit ({len(want)} tensors); an "
+          f"epoch of {nb} + {nb} replays made no host sync; capture {out['capture_s']:.3f} s")
+    return out
+
+
+def dp_device_fit(pool, mesh) -> dict:
+    """Phase 20e: the unimodal stage-1 device fit of 20b (4 epochs, patience
+    1), through ``mesh`` (None: a single process); its results on the host."""
+    from hippie_tpu_torch.parallel import mesh as pmesh
+
+    with pmesh.data_parallel(mesh) if mesh is not None else contextlib.nullcontext():
+        return host_fit(uni_resume_fit(pool, "adamw", None, 4, fit_loop="device", early_stopping_patience=1))
+
+
+def host_fit(res) -> dict:
+    """A FitResult's numbers and tensors, on the host."""
+    return {"losses": (res.train_losses, res.val_losses, res.best_epoch, res.epochs_run, res.best_val_loss),
+            "tensors": {k: v.cpu() for k, v in {**flat_tensors(res.state.model.state_dict(), "model."),
+                                                **flat_tensors(res.state.optimizer.state_dict(), "opt."),
+                                                **flat_tensors(res.best_state_dict, "best."),
+                                                **flat_tensors(res.best_opt_state, "best_opt.")}.items()}}
+
+
+def same_fit(a: dict, b: dict) -> list:
+    """The keys where two host_fit results differ (losses first)."""
+    import torch
+
+    bad = [] if a["losses"] == b["losses"] else ["losses"]
+    return bad + [k for k, v in a["tensors"].items()
+                  if k not in b["tensors"] or not torch.equal(v, b["tensors"][k])]
+
+
+def cli_run(workdir: str, joint: bool, epochs: int, limit: bool, flags=()) -> tuple:
+    """One training CLI (train_model, or train_model_with_multimodal
+    --model-type multimodal) in this process, the loss and block kernels,
+    ``epochs`` per stage (with ``limit``: 2 train and 1 val batch), into
+    ``cli20_ck`` under ``workdir`` with ``flags``: (wall s, the .ckpt and CSV
+    bytes, the --log-file records, the printed epoch lines); its files are
+    removed."""
+    import io
+
+    import torch
+
+    from hippie_tpu_torch.scripts import train_model, train_model_with_multimodal
+
+    argv = ["--dataset", TARGET, "--data-root", DATA_ROOT, "--loss-backend", "pallas", "--block-backend", "pallas",
+            "--pretrain-max-epochs", str(epochs), "--finetune-max-epochs", str(epochs),
+            "--supervised-max-epochs", str(epochs)]
+    argv += ["--model-type", "multimodal"] if joint else ["--z_dim", str(Z)]
+    if limit:
+        argv += ["--limit-train-batches", "2", "--limit-val-batches", "1"]
+    out, ck = f"{workdir}/cli20_out", f"{workdir}/cli20_ck"
+    argv += ["--output-dir", out, "--checkpoint-dir", ck, "--log-file", f"{out}/log.jsonl", *flags]
+    said = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        if joint:
+            train_model_with_multimodal.main(argv)
+        else:
+            train_model.run(train_model.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    files = {p.name: p.read_bytes() for p in sorted(pathlib.Path(ck).glob("*.ckpt"))}
+    files.update({p.name: p.read_bytes() for p in sorted(pathlib.Path(out).glob("*.csv"))})
+    recs = [json.loads(x) for x in pathlib.Path(f"{out}/log.jsonl").read_text().splitlines()]
+    for r in recs:
+        r.pop("ts")
+    lines = [x for x in said.getvalue().splitlines() if x.startswith("Average")]
+    subprocess.run(["rm", "-rf", ck, out], check=True)
+    return wall, files, recs, lines
+
+
+def cli_pair(workdir: str, joint: bool, epochs: int, limit: bool, card: str, profile: bool = False) -> dict:
+    """20c: one training CLI (cli_run) with the default --fit-loop device
+    (plus --progress-every 1 --log-every-step at 3 epochs) and with
+    --fit-loop host, into the same checkpoint directory name in turn: the
+    .ckpt and CSV bytes, the epoch records of --log-file and the printed
+    epoch lines must be equal; returns both walls. With ``profile`` the
+    device run goes under torch.profiler, which counts every wrapper's
+    launches, the replays' too (profiled_launches): they must equal the
+    host run's, where every launch goes through a wrapper and is counted
+    there; returns them too."""
+    flags = ["--progress-every", "1", "--log-every-step"] if epochs > 1 else []
+    if profile:
+        (dw, dfiles, drecs, dlines), launches, eager = profiled_launches(
+            lambda: cli_run(workdir, joint, epochs, limit, flags))
+    else:
+        dw, dfiles, drecs, dlines = cli_run(workdir, joint, epochs, limit, flags)
+    reset_all_launches()
+    hw, hfiles, hrecs, hlines = cli_run(workdir, joint, epochs, limit, ["--fit-loop", "host"])
+    host_launches = all_launches()
+    tag = f"{'joint' if joint else 'unimodal'} CLI, {epochs} epoch(s) per stage{', 2+1 batches' if limit else ''}"
+    diff = sorted(k for k in set(dfiles) | set(hfiles) if dfiles.get(k) != hfiles.get(k))
+    check(not diff and len(dfiles) >= 5, f"{tag}: files differ between the loops: {diff}")
+    steps = [r for r in drecs if "train_loss_step" in r]
+    check([r for r in drecs if "train_loss_step" not in r] == hrecs and hrecs,
+          f"{tag}: the log's epoch records differ between the loops")
+    check(dlines == hlines and hlines, f"{tag}: the printed epoch lines differ between the loops")
+    check(epochs == 1 or steps, f"{tag}: --log-every-step wrote no step record")
+    print(f"  20c {tag}: --fit-loop device {dw:.3f} s{' under torch.profiler' if profile else ''}, host "
+          f"{hw:.3f} s wall; {len(dfiles)} files byte-equal, {len(hrecs)} epoch records and {len(hlines)} "
+          f"printed lines equal, {len(steps)} step records")
+    if not profile:
+        return {"device_s": dw, "host_s": hw}
+    check(launches == host_launches and all(v > 0 for v in launches.values()),
+          f"{tag}: the device loop's launches {launches} (profiler) differ from the host loop's {host_launches}")
+    print(f"[20c launches] {tag} on {card}: the device loop's launches, counted by torch.profiler (the "
+          f"replays' too), {launches}, equal to the host loop's counted by the wrappers; of them the wrappers "
+          f"launched {eager} eagerly (the warm-up steps; the graphs' replays launch the rest)")
+    return {"device_s": dw, "host_s": hw, "launches": launches}
+
+
+# Each kernel wrapper's device kernels (kernel_name) of which it launches
+# exactly one per call: the profiler's count of them is the wrapper's
+# launches, those a CUDA graph's replays make too. (enc_block.cu's
+# bwd_conv1_kernel and dec_block.cu's bwd_conv2_kernel are the two files'
+# only untemplated kernels of those names.)
+MARKER_KERNELS = {
+    "vae_sums_fwd": ("vae_sums_fwd_kernel",), "vae_sums_bwd": ("vae_sums_bwd_kernel",),
+    "masked_sse_fwd": ("masked_sse_kernel",), "enc_block_fwd": ("fwd_conv_kernel<false,false>",),
+    "enc_block_bwd": ("bwd_conv1_kernel",),
+    "dec_block_fwd": ("dec_fwd_conv1_kernel<false>", "dec_fwd_conv1_kernel<true>"),
+    "dec_block_bwd": ("bwd_conv2_kernel",),
+}
+
+
+def profiled_launches(fn) -> tuple:
+    """``fn()`` under torch.profiler (device activity only), with the
+    wrappers' counters set to 0 just before it: (its result, each wrapper's
+    launches counted by the profiler from its marker kernels, the wrappers'
+    own counts)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wrappers = all_launches()
+    seen = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            seen[kernel_name(e.key)] = seen.get(kernel_name(e.key), 0) + e.count
+    return out, {k: sum(seen.get(m, 0) for m in ms) for k, ms in MARKER_KERNELS.items()}, wrappers
+
+
+# 20b's fit again with the other optimizers and loss backend the pipelines
+# run: (optimizer, moment dtype, loss backend)
+VARIANTS_20B = (("schedule-free", None, "pallas"), ("adamw", "bfloat16", "pallas"), ("adamw", None, "xla"))
+
+
+def phase_device_loop(card: str, workdir: str, pool) -> dict:
+    """Phase 20, this slice's main path: the device fit loop
+    (train/device_fit.py), each stage fit's train and eval steps as CUDA
+    graphs replayed on the card.
+
+    (a) Capture safety: each of the seven kernel wrappers replayed from a
+    graph equals its eager call; the full-width train and eval steps of
+    both models with every block backend replay bit-equal to the eager
+    steps, and an epoch of replays makes no host sync. (b) The unimodal
+    stage-1 fit (8,056,639 parameters, B=512, phase 4's pool, 4 epochs,
+    patience 1) with --fit-loop device equals the host loop's FitResult bit
+    for bit; per epoch each loop's ms/step, and per step the device time,
+    kernels and runtime calls of an eager and a replayed step, vae_sums_bwd's
+    device µs inside the graph; then 3 epochs of the same fit with
+    schedule-free, bf16 moments and the "xla" loss backend, each loop equal
+    to the other. (c) Both training CLIs with each loop at 1 epoch per
+    stage, and the joint one at 3 (2 train and 1 val batch per epoch, with
+    --progress-every 1 --log-every-step): the same .ckpt and CSV bytes, log
+    records and prints; the joint CLI's device run at 1 epoch per stage
+    under torch.profiler, which counts every wrapper's launches, the
+    replays' too, equal to its host run's. (d) The joint pipeline at 2 epochs per stage (2 train, 1
+    val batch) stopped in its supervised fit with one loop and resumed with
+    the other equals the uninterrupted run. (e) The device fit of (b) in
+    one NCCL rank equals the single process's bit for bit: run in phase
+    19a's rank, which saves a rank's start (dp_rank_one). Returns the
+    kernels' launches in (c)'s profiled joint device CLI run, which runs
+    all seven."""
+    import torch
+
+    t_phase = time.perf_counter()
+    shapes = kernel_replays()
+    print(f"[20a capture] the seven kernel wrappers replayed from CUDA graphs equal their eager calls "
+          f"(the losses at B=415 of 512, the blocks at {shapes} shapes)")
+    prof = {}
+    for kind in ("unimodal", "joint"):
+        for backend in ("xla", "bf16", "fused", "pallas"):
+            prof[(kind, backend)] = step_replay(kind, backend, pool, card, profile=backend == "pallas")
+    for kind in ("unimodal", "joint"):
+        p = prof[(kind, "pallas")]
+        for what in ("eager", "replay", "eval_replay"):
+            r = p[what]
+            api = {k: round(v, 2) for k, v in sorted(r["api"].items(), key=lambda kv: -kv[1])[:6]}
+            print(f"  20a {kind} pallas {what} step: {r['device_us'] / 1e3:.3f} ms device, {r['kernels']:.1f} "
+                  f"kernels and copies, runtime calls {api} per step on {card}")
+        print(f"  20a {kind} pallas train step: {p['replay_ms']:.3f} ms replayed (CUDA events, the host's "
+              f"dispatch included; phase 7 times the eager step) on {card}")
+        bwd = p["replay"]["split"].get("vae_sums_bwd_kernel")
+        if bwd:
+            print(f"  20a {kind}: vae_sums_bwd inside the graph {bwd[0] / bwd[1]:.3f} us device per launch "
+                  f"(x{bwd[1]:g} per step)")
+
+    print(f"  20a {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) the unimodal stage-1 fit, device loop against host loop
+    fits, walls = {}, {}
+    for fit_loop in ("host", "device"):
+        stamps = []
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = uni_resume_fit(pool, "adamw", None, 4, fit_loop=fit_loop, early_stopping_patience=1,
+                             log_fn=lambda rec: stamps.append(time.perf_counter()), progress_every=1)
+        torch.cuda.synchronize()
+        walls[fit_loop] = (time.perf_counter() - t0, [b - a for a, b in zip([t0] + stamps, stamps)])
+        fits[fit_loop] = host_fit(res)
+        if fit_loop == "device":
+            eager_launches, stats = all_launches(), res.graphs
+    diff = same_fit(fits["device"], fits["host"])
+    check(not diff, f"20b: the device fit differs from the host fit in {diff[:5]}")
+    want = ("vae_sums_fwd", "vae_sums_bwd", "enc_block_fwd", "enc_block_bwd", "dec_block_fwd", "dec_block_bwd")
+    check(all(eager_launches[k] > 0 for k in want), f"20b: a kernel never launched eagerly: {eager_launches}")
+    check(stats.get("train_replays", 0) > 0 and stats.get("eval_replays", 0) > 0, f"20b: no replay: {stats}")
+    train_l, val_l, best_epoch, epochs_run, _ = fits["device"]["losses"]
+    n_tr, n_va = -(-int(0.8 * len(pool)) // B), -(-(len(pool) - int(0.8 * len(pool))) // B)
+    # both loops run the same kernels: the replays' device time (no launch
+    # gaps in it) is each epoch's device work
+    busy = (n_tr * prof[("unimodal", "pallas")]["replay"]["device_us"]
+            + n_va * prof[("unimodal", "pallas")]["eval_replay"]["device_us"]) / 1e3
+    for fit_loop in ("host", "device"):
+        per = [1e3 * e / (n_tr + n_va) for e in walls[fit_loop][1]]
+        print(f"  20b {fit_loop} loop: {walls[fit_loop][0]:.3f} s for {epochs_run} epochs; ms/step per epoch "
+              f"{[round(x, 3) for x in per]}; device busy {busy / (n_tr + n_va):.3f} ms/step; idle share per "
+              f"epoch {[round(1 - busy / (1e3 * e), 3) for e in walls[fit_loop][1]]}")
+    print(f"[20b device fit] the unimodal stage-1 fit at full width (B={B}, {n_tr} train + {n_va} val steps, "
+          f"4 epochs, patience 1) with --fit-loop device equals the host loop's bit for bit: epochs run "
+          f"{epochs_run}, best epoch {best_epoch}, losses {[round(x, 5) for x in train_l]}; captures "
+          f"{stats.get('capture_s', 0):.3f} s, {stats.get('train_replays')} train and "
+          f"{stats.get('eval_replays')} eval replays; the wrappers' eager launches (the warm-up steps) "
+          f"{eager_launches} on {card}")
+    # the optimizers and the loss backend the pipelines also run, both loops
+    t0 = time.perf_counter()
+    for optimizer, state_dtype, loss_backend in VARIANTS_20B:
+        got = {fl: host_fit(uni_resume_fit(pool, optimizer, state_dtype, 3, fit_loop=fl, early_stopping_patience=1,
+                                           loss_backend=loss_backend)) for fl in ("host", "device")}
+        diff = same_fit(got["device"], got["host"])
+        check(not diff, f"20b {optimizer} {state_dtype} {loss_backend}: the loops differ in {diff[:5]}")
+    print(f"[20b variants] the same fit, 3 epochs, with each of {VARIANTS_20B} (optimizer, moment dtype, "
+          f"loss backend): the device loop equals the host loop bit for bit; {time.perf_counter() - t0:.1f} s")
+
+    # (c) both training CLIs
+    t0 = time.perf_counter()
+    cli = {}
+    for joint, epochs, limit in ((False, 1, False), (True, 3, True), (True, 1, False)):
+        cli[(joint, epochs)] = cli_pair(workdir, joint, epochs, limit, card, profile=joint and epochs == 1)
+    launches = cli[(True, 1)]["launches"]
+    print(f"[20c CLIs] both training CLIs give the same files, records and prints with either loop; walls "
+          f"device / host: " + ", ".join(f"{'joint' if j else 'unimodal'} {e} ep {r['device_s']:.2f} / "
+                                         f"{r['host_s']:.2f} s" for (j, e), r in cli.items())
+          + f"; {time.perf_counter() - t0:.1f} s")
+
+    # (d) resume across the loops
+    t0 = time.perf_counter()
+    kw = dict(limits=True, epochs=(1, 1, 2))
+    ref = joint_resume_run(workdir, "x20_ref", resume=False, fit_loop="device", **kw)
+    for first, then in (("device", "host"), ("host", "device")):
+        name = f"x20_{first}_{then}"
+        joint_resume_run(workdir, name, resume=True, fit_loop=first, crash=True, **kw)
+        resumed = joint_resume_run(workdir, name, resume=True, fit_loop=then, **kw)
+        d = joint_run_diff(ref, resumed)
+        check(d == {"ckpt": 0.0, "csv": 0.0, "acc": 0.0},
+              f"20d: stopped with {first}, resumed with {then}: differs from the uninterrupted run {d}")
+    print(f"[20d resume] the joint pipeline stopped in its supervised fit with either loop and resumed with "
+          f"the other equals the uninterrupted run (checkpoints, CSVs, accuracies), {time.perf_counter() - t0:.1f} s")
+
+    # (e) one NCCL rank: run in phase 19a's rank (dp_rank_one), checked there
+    print(f"  phase 20 {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def phases_of(checkout: str):
@@ -3216,6 +3733,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     try:
         kind = torch.cuda.get_device_name(0)
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3283,6 +3801,13 @@ def main() -> int:
             # this slice's main path, the joint pipeline on two data-parallel
             # ranks: the segmented entries' launches, counted from 0 in it
             kernels += phase_data_parallel(card, workdir, idx, mask)
+            # this slice's main path, the device fit loop: its joint CLI run
+            # at 1 epoch per stage runs all seven kernels, counted from 0 by
+            # the profiler (a graph's replays launch them without the wrappers)
+            device_launches = phase_device_loop(card, workdir, pool)
+            for record in kernels:
+                if record["name"] in device_launches:
+                    record["launches"] = device_launches[record["name"]]
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback
@@ -3291,6 +3816,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
 
+    # the contract's limit is 1,200 s, the kernels' build included
+    print(f"[chip_smoke] all phases {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

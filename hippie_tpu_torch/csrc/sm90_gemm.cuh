@@ -29,6 +29,9 @@
 #pragma once
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "block_common.cuh"
 
@@ -832,12 +835,29 @@ __global__ void __launch_bounds__(kEwThreads) wgrad_sum3_kernel(WgradSum a, Wgra
 
 // --- launches --------------------------------------------------------------------
 
+// Raise `kernel`'s dynamic shared-memory limit on the current device to at
+// least `smem` bytes, once per kernel and device (the largest asked so far),
+// so a launch makes no host call beyond itself, inside a CUDA graph's
+// capture too.
+template <class K>
+inline void ensure_smem(K kernel, int smem) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> set;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  int& have = set[{reinterpret_cast<const void*>(kernel), dev}];
+  if (have >= smem) return;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) == cudaSuccess)
+    have = smem;
+}
+
 // A GEMM kernel of kThreads whose epilogue reads `ep_tiles` input tiles kept
 // in shared memory; its one argument is the entry point's argument struct.
 template <class K, class Args>
 int gemm_launch(K kernel, dim3 grid, int ep_tiles, const Args& args, cudaStream_t s) {
   const int smem = smem_bytes(ep_tiles);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  ensure_smem(kernel, smem);
   kernel<<<grid, kThreads, smem, s>>>(args);
   return static_cast<int>(cudaGetLastError());
 }

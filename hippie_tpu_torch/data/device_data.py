@@ -5,7 +5,12 @@ Counterpart of hippie_tpu/data/device_data.py (``ArrayDataset``,
 the device, and an epoch walks a ``[num_batches, B]`` index plan whose padded
 tail rows carry mask 0. Shuffles draw from an explicit ``torch.Generator``;
 its bits differ from jax.random's, so parity tests pass the plans built on the
-JAX side.
+JAX side. Both fit loops (train/loop.py, train/device_fit.py) shuffle with
+``batch_plan``: the JAX ``epoch_shuffle_order`` and ``host_epoch_plan`` draw
+jax.random bits the port cannot reproduce, and the JAX shape buckets
+(``next_pow2``, ``pad_plan``, ``plan_pad_duplicate``) serve XLA's compiled
+programs, where the device loop captures its CUDA graphs per stage at the
+stage's own plan shape.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ plain C interface, ``build/kernels/<name>-<hash>.so`` beside the package; the
 hash covers the sources and the flags, so an edited kernel is never shadowed
 by a stale build. Libraries load with ``ctypes``; the callers declare the
 argument types. Nothing here runs at import time, and nothing is fetched: the
-CUDA toolkit on the machine with the card is all it needs.
+CUDA toolkit on the machine with the card is all it needs. ``count_launch``
+is the wrappers' launch counter.
 """
 
 from __future__ import annotations
@@ -97,3 +98,14 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _loaded[name] = ctypes.CDLL(str(so_path(name)))
         return lib
+
+
+def count_launch(table: dict, name: str):
+    """One more launch of ``name``'s kernel in ``table``, unless the current
+    stream is being captured into a CUDA graph: a capture records the
+    kernel and launches nothing, and the graph's replays launch it without
+    the wrapper (torch.profiler counts those)."""
+    import torch
+
+    if not torch.cuda.is_current_stream_capturing():
+        table[name] += 1

@@ -25,8 +25,9 @@ against them on the card.
 ``EncBlockFn`` and ``DecBlockFn`` launch the kernels for CUDA tensors and
 raise on anything they do not take; for CPU tensors they run the plain
 versions. A CUDA tensor never takes the plain path. ``launches`` counts one
-per call of each entry point (each entry point issues a fixed sequence of
-CUDA launches).
+per call of each entry point that launches (not one a CUDA graph captures:
+_build.count_launch); each entry point issues a fixed sequence of CUDA
+launches.
 
 Data parallelism (parallel/mesh.py): under an active mesh the BatchNorm
 statistics of a block are the global batch's. The kernels take them through
@@ -533,7 +534,7 @@ def enc_block_fwd_cuda(stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m):
             out.data_ptr(), *(s.data_ptr() for s in st), scratch.data_ptr(), stream,
         )
     _check_launch(err, "enc_block_fwd")
-    launches["enc_block_fwd"] += 1
+    _build.count_launch(launches, "enc_block_fwd")
     return (out, *st)
 
 
@@ -568,7 +569,7 @@ def enc_block_bwd_cuda(stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m, st1, st
             scratch.data_ptr(), stream,
         )
     _check_launch(err, "enc_block_bwd")
-    launches["enc_block_bwd"] += 1
+    _build.count_launch(launches, "enc_block_bwd")
     dgs, dbs = (dvec[4], dvec[5]) if short else (None, None)
     return dx, dw1, dvec[0], dvec[1], dw2, dvec[2], dvec[3], dws, dgs, dbs
 
@@ -617,7 +618,7 @@ def dec_block_fwd_cuda(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, 
             out.data_ptr(), st2.data_ptr(), st1.data_ptr(), sts.data_ptr(), scratch.data_ptr(), stream,
         )
     _check_launch(err, "dec_block_fwd")
-    launches["dec_block_fwd"] += 1
+    _build.count_launch(launches, "dec_block_fwd")
     return out, st2, st1, sts
 
 
@@ -651,7 +652,7 @@ def dec_block_bwd_cuda(stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs, bs, 
             stream,
         )
     _check_launch(err, "dec_block_bwd")
-    launches["dec_block_bwd"] += 1
+    _build.count_launch(launches, "dec_block_bwd")
     return dx, dw2, dv2[0], dv2[1], dw1, d1[0], dv1[0], dv1[1], dws, d1[1], d1[2], d1[3]
 
 
@@ -670,7 +671,7 @@ def bn_stats_merge_cuda(rows, st0, st1=None):
         err = _kernels("enc").bn_stats_merge(rows.data_ptr(), world, q // 3, C, st0.data_ptr(), _ptr(st1),
                                              torch.cuda.current_stream(rows.device).cuda_stream)
     _check_launch(err, "bn_stats_merge")
-    seg_launches["bn_stats_merge"] += 1
+    _build.count_launch(seg_launches, "bn_stats_merge")
 
 
 def bn_stats_merge_plain(rows):
@@ -712,7 +713,7 @@ def enc_block_fwd_mesh(mesh, stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m):
         _gathered_stats(mesh, seg, 2, torch.zeros((mesh.size, 3 * (1 + short), co), **f32), st[1],
                         st[2] if short else None)
         _check_launch(seg(None, 3), "enc_block_fwd_seg")
-    seg_launches["enc_block_fwd_seg"] += 1
+    _build.count_launch(seg_launches, "enc_block_fwd_seg")
     return (out, *st)
 
 
@@ -746,7 +747,7 @@ def enc_block_bwd_mesh(mesh, stride, x, w1, g1, b1, w2, g2, b2, ws, gs, bs, m, s
         _check_launch(lib.enc_block_bwd_seg(*args, 2), "enc_block_bwd_seg")
         _sum_in_place(mesh, dvec[:2])  # dg1 db1
         _check_launch(lib.enc_block_bwd_seg(*args, 3), "enc_block_bwd_seg")
-    seg_launches["enc_block_bwd_seg"] += 1
+    _build.count_launch(seg_launches, "enc_block_bwd_seg")
     dgs, dbs = (dvec[4], dvec[5]) if short else (None, None)
     return dx, dw1, dvec[0], dvec[1], dw2, dvec[2], dvec[3], dws, dgs, dbs
 
@@ -772,7 +773,7 @@ def dec_block_fwd_mesh(mesh, stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs
         _gathered_stats(mesh, seg, 2, torch.zeros((mesh.size, 3 * (1 + short), co), **f32), st1,
                         sts if short else None)
         _check_launch(seg(None, 3), "dec_block_fwd_seg")
-    seg_launches["dec_block_fwd_seg"] += 1
+    _build.count_launch(seg_launches, "dec_block_fwd_seg")
     return out, st2, st1, sts
 
 
@@ -806,7 +807,7 @@ def dec_block_bwd_mesh(mesh, stride, x, w2, g2, b2, w1, c1b, g1, b1, ws, csb, gs
         _check_launch(lib.dec_block_bwd_seg(*args, 2), "dec_block_bwd_seg")
         _sum_in_place(mesh, dv2)  # dg2 db2
         _check_launch(lib.dec_block_bwd_seg(*args, 3), "dec_block_bwd_seg")
-    seg_launches["dec_block_bwd_seg"] += 1
+    _build.count_launch(seg_launches, "dec_block_bwd_seg")
     return dx, dw2, dv2[0], dv2[1], dw1, d1[2], dv1[0], dv1[1], dws, d1[3], d1[0], d1[1]
 
 

@@ -15,8 +15,9 @@ on the card. A CUDA tensor never takes the plain path. The masked SSE's
 backward is elementwise torch ops on either device (``masked_sse_bwd``), as
 ``_sse_bwd`` is plain JAX.
 
-``launches`` counts kernel launches per wrapper, one per call, and each call
-is one CUDA launch: ``vae_sums_fwd`` and ``masked_sse_fwd`` (whose last block
+``launches`` counts kernel launches per wrapper, one per call that
+launches (not a call a CUDA graph captures: _build.count_launch), and each
+call is one CUDA launch: ``vae_sums_fwd`` and ``masked_sse_fwd`` (whose last block
 sums the partials; each keeps a workspace per stream) and ``vae_sums_bwd``.
 """
 
@@ -170,11 +171,17 @@ def _workspace(lib, kernel: str, device: torch.device, stream: int, B: int) -> t
     """``kernel``'s workspace on ``stream``: an integer ticket, zero when made,
     then the kernel's partials, ``<kernel>_workspace(B)`` floats in all. The
     kernel leaves the ticket zero, so one workspace serves every later call
-    of that kernel on that stream with a batch no larger (and a CUDA graph).
-    Each kernel has its own, so no two kernels ever share a ticket."""
+    of that kernel on that stream with a batch no larger (and a CUDA graph,
+    which must find it made: a first call inside a capture raises). Each
+    kernel has its own, so no two kernels ever share a ticket."""
     key = (kernel, device.index, stream)
     held = _workspaces.get(key)
     if held is None or held[0] < B:
+        if torch.cuda.is_current_stream_capturing():
+            # made here, it would come from the graph's private pool and
+            # outlive the graph in this cache
+            raise RuntimeError(f"{kernel}: no workspace for a batch of {B} on the capturing stream; "
+                               "call the kernel once on that stream before the capture")
         n = getattr(lib, f"{kernel}_workspace")(B)
         held = _workspaces[key] = (B, torch.zeros(n, dtype=torch.float32, device=device))
     return held[1]
@@ -197,7 +204,7 @@ def vae_sums_fwd_cuda(data, dec, mu, logvar, mask_col) -> torch.Tensor:
             _workspace(lib, "vae_sums_fwd", device, stream, B).data_ptr(), out.data_ptr(), stream,
         )
     _check_launch(err, "vae_sums_fwd")
-    launches["vae_sums_fwd"] += 1
+    _build.count_launch(launches, "vae_sums_fwd")
     return out
 
 
@@ -218,7 +225,7 @@ def vae_sums_bwd_cuda(data, dec, mu, logvar, mask_col, g):
             mask_col.data_ptr(), g.data_ptr(), B, L, Z, *(t.data_ptr() for t in grads), stream,
         )
     _check_launch(err, "vae_sums_bwd")
-    launches["vae_sums_bwd"] += 1
+    _build.count_launch(launches, "vae_sums_bwd")
     return tuple(grads)
 
 
@@ -238,7 +245,7 @@ def masked_sse_fwd_cuda(data, dec, mask_col) -> torch.Tensor:
                                  _workspace(lib, "masked_sse_fwd", device, stream, B).data_ptr(), out.data_ptr(),
                                  stream)
     _check_launch(err, "masked_sse_fwd")
-    launches["masked_sse_fwd"] += 1
+    _build.count_launch(launches, "masked_sse_fwd")
     return out
 
 

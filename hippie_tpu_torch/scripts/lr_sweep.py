@@ -6,14 +6,14 @@ seeds) trained side by side (train/ensemble.py).
     python -m hippie_tpu_torch.scripts.lr_sweep --dataset X --mode seeds --n-seeds 4 --lr 1e-3
 
 Counterpart of the JAX package's scripts/lr_sweep.py, with its flags plus
-``--device`` (default ``cuda``). As in the port's train_model:
-``--fit-loop`` takes only ``host`` (the port's one loop), and ``--aot-dir``
-has no port target (default none; raises when given, naming ROADMAP Queue 1
+``--device`` (default ``cuda``). ``--fit-loop`` takes only ``host``: the
+K-replica device fit (the JAX ``device_fit_replica_plans``) is not ported
+yet, and ``--aot-dir`` has no port target (default none; raises when given, naming ROADMAP Queue 1
 item 12). ``--resume-dir DIR`` saves the K replicas' full state after every
 epoch and continues an interrupted sweep from there, and
 ``--progress-every N`` prints a progress line every N epochs
 (train/ensemble.py:fit_ensemble); the JAX CLI takes both only with its
-device fit loop, for which the port's one loop stands. ``--export-winner`` and ``--export-all`` write Lightning
+device fit loop, for which the port's host loop stands here. ``--export-winner`` and ``--export-all`` write Lightning
 ``.ckpt`` files (train/checkpoint.py:save_lightning_ckpt) that the stage-1
 seams of both training CLIs load (``--stage1-{wave,time,joint}-ckpt``);
 ``--export-all`` warns for a replica that never improved (its best epoch is
@@ -67,7 +67,8 @@ def build_parser():
     p.add_argument("--num-blocks", default="2,2,2,2",
                    help="backbone blocks per stage (tests use 1,1,1,1)")
     p.add_argument("--fit-loop", choices=("host",), default="host",
-                   help="the port's one fit loop: per-epoch on the host")
+                   help="per-epoch on the host: the K-replica device fit (the JAX "
+                        "device_fit_replica_plans) is not ported yet (ROADMAP Queue 1)")
     p.add_argument("--progress-every", type=int, default=None,
                    help="print a progress line every N epochs (the trajectory does not change)")
     p.add_argument("--aot-dir", default=None,

@@ -5,7 +5,10 @@
 
 Counterpart of the JAX package's scripts/profile_train_step.py: bench.py's
 step (the z=10 cVAE, 8,056,639 parameters, AdamW lr 1e-3 wd 0.01 without a
-clip) split into the full step (forward, loss, backward, AdamW), the loss
+clip) split into the full step (forward, loss, backward, AdamW), the same
+step as the device fit loop runs it (train/device_fit.py:StepGraph: a CUDA
+graph replayed per step on the card, the noise drawn before each replay;
+the eager step over the same buffers on the CPU), the loss
 forward (training mode, no gradient), the gradients alone, the optimizer
 alone (fixed gradients), the encoder's and the decoder's training forwards
 and forward + backward passes, and the dominant convolution shapes (the
@@ -25,6 +28,7 @@ not the benchmark: it writes no BENCHMARK.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -138,6 +142,24 @@ def main(argv=None):
         return ms
 
     record("full train step", lambda: batch_step(ts, data, source, None, None, generator=gen))
+    from hippie_tpu_torch.train import device_fit
+
+    # the device fit loop's step: warm-up and capture on a side stream, as the loop runs them
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    if side is not None:
+        side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+        graphed = device_fit.StepGraph(
+            lambda i, m, e: batch_step(ts, data[i], source[i], None, m, eps=e)[1], nb=1, batch=B,
+            noise_shape=(B, cfg.z_dim), dtype=data.dtype, device=device, stream=side,
+            pool=torch.cuda.graph_pool_handle() if side is not None else None,
+            before_capture=lambda: opt.zero_grad(set_to_none=True))
+        graphed.load_plan(np.arange(B)[None], np.ones((1, B), np.float32))
+        record("graphed train step (device fit loop)", lambda: (graphed.row.zero_(), graphed(gen)))
+    if side is not None:
+        torch.cuda.current_stream(device).wait_stream(side)
+    graphed.graph = None
+    opt.zero_grad(set_to_none=True)
     record("fwd+bwd (no optimizer)", grads)
     record("forward only (train mode)", forward)
     record("optimizer only", optimizer_only)

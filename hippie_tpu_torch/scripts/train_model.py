@@ -7,11 +7,14 @@ The flags, defaults and output files of the JAX package's
 scripts/train_model.py (pretraining_<ds>_*_embeddings.csv, <ds>_*_knn.csv,
 <ds>_*_embeddings.csv, Lightning .ckpt files, confusion-matrix PNGs), plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
-the kernels on the host). Differences: ``--fit-loop`` takes only ``host``
-(the port's one loop, trajectory-equal to the JAX host loop), ``--aot-dir``
-defaults to none, and the JAX options with no port (``--aot-dir``,
-``--progress-every``, ``--log-every-step``) raise with the ROADMAP item
-that names them (``UNPORTED``). ``--dp-devices N`` (N > 1) runs the
+the kernels on the host). ``--fit-loop device`` (the default, as in JAX)
+runs each stage fit's steps as CUDA graphs replayed on the card
+(train/device_fit.py), ``--fit-loop host`` the per-epoch loop of eager
+steps, on the same trajectory bit for bit; ``--progress-every`` and
+``--log-every-step`` are the device loop's, as in JAX. The JAX option with
+no port (``--aot-dir``) raises with the ROADMAP item that names it
+(``UNPORTED``). On CUDA the device loop needs NCCL ranks, and ``--fsdp``
+there runs the host loop (an FSDP step cannot be captured). ``--dp-devices N`` (N > 1) runs the
 pipeline on N data-parallel ranks (parallel/mesh.py:launch): N GPUs over
 NCCL, or with ``--device cpu`` N processes over gloo; more ranks than
 visible GPUs raise ValueError (the JAX ``make_mesh`` would take fewer).
@@ -106,7 +109,7 @@ def build_parser():
                              "over gloo with --device cpu")
     parser.add_argument("--fsdp", action="store_true",
                         help="with --dp-devices: shard the parameters and the optimizer state per "
-                             "leaf over the ranks")
+                             "leaf over the ranks (on CUDA the stage fits then run on the host loop)")
     parser.add_argument("--aot-dir", type=str, default=None,
                         help="not ported (raises when given; the JAX CLI's compiled-program cache)")
     parser.add_argument("--stage1-wave-ckpt", type=str, default=None,
@@ -114,13 +117,19 @@ def build_parser():
                              "pretrain fit; geometry must match --z_dim")
     parser.add_argument("--stage1-time-ckpt", type=str, default=None,
                         help="same for the time/ISI model")
-    parser.add_argument("--fit-loop", choices=("host",), default="host",
-                        help="the port's one fit loop: per-epoch on the host, the trajectory of "
-                             "the JAX CLI's --fit-loop host")
+    parser.add_argument("--fit-loop", choices=("device", "host"), default="device",
+                        help="stage fits with each train and eval step a CUDA graph replayed on "
+                             "the card (eager steps on the CPU; logs replayed after the stage) or "
+                             "the per-epoch loop of eager steps (live prints); the same "
+                             "trajectory bit for bit")
     parser.add_argument("--progress-every", type=int, default=None,
-                        help="device fit loop only: not ported (raises)")
+                        help="device fit loop: print and log every N epochs (the trajectory does "
+                             "not change). Default: auto = patience-sized chunks on watched "
+                             "stages of more than 10 epochs; 0 = after the stage")
     parser.add_argument("--log-every-step", action="store_true",
-                        help="device fit loop only: not ported (raises)")
+                        help="with --log-file/--wandb: also record per-train-batch "
+                             "{train_loss_step, train_mse_step, train_kl_step} (the reference's "
+                             "per-step self.log granularity); device fit loop only")
     parser.add_argument("--opt-state-dtype", choices=("float32", "bfloat16"), default="float32",
                         help="Adam moment storage dtype; bfloat16 stores the moments in bf16 "
                              "(the update stays float32)")
@@ -159,8 +168,6 @@ def jsonl_logger(path: Optional[str], also=()):
 # flags of the JAX CLI with no port: (dest, its default, the ROADMAP Queue 1 item that names it)
 UNPORTED = (
     ("aot_dir", None, "item 12 (the AOT program cache has no port target)"),
-    ("progress_every", None, "item 3 (options of the JAX device fit loop, which has no port)"),
-    ("log_every_step", False, "item 3 (options of the JAX device fit loop, which has no port)"),
 )
 
 
@@ -181,12 +188,12 @@ def config_from_args(args, model_type: str = "unimodal", log_fn=None):
     check_backend(args.block_backend)
     opt_state_dtype = None if args.opt_state_dtype == "float32" else args.opt_state_dtype
     check_optimizer(args.optimizer, opt_state_dtype)  # schedule-free with bf16 moments raises
+    if args.fsdp and not (args.dp_devices and args.dp_devices > 1):
+        raise ValueError("--fsdp requires --dp-devices > 1 (a device mesh)")
     if args.dp_devices and args.dp_devices > 1:
         from hippie_tpu_torch.parallel.mesh import check_devices
 
         check_devices(args.dp_devices, args.device)
-    if args.fsdp and not (args.dp_devices and args.dp_devices > 1):
-        raise ValueError("--fsdp requires --dp-devices > 1 (a device mesh)")
     if args.fsdp and args.optimizer != "adamw":
         raise ValueError("--fsdp with --optimizer schedule-free is not ported yet: ROADMAP Queue 1 "
                          "(the sharded schedule-free state)")
@@ -227,6 +234,9 @@ def config_from_args(args, model_type: str = "unimodal", log_fn=None):
         optimizer=args.optimizer,
         dp_devices=args.dp_devices,
         fsdp=args.fsdp,
+        fit_loop=args.fit_loop,
+        progress_every=args.progress_every,
+        log_every_step=args.log_every_step,
         device=args.device,
         stage1_wave_ckpt=args.stage1_wave_ckpt,
         stage1_time_ckpt=args.stage1_time_ckpt,

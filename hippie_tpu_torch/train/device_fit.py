@@ -1,0 +1,294 @@
+"""The device fit loop: a stage fit whose steps are CUDA graphs replayed on
+the card.
+
+Counterpart of hippie_tpu/train/device_fit.py (``device_fit``), the JAX
+default (``--fit-loop device``), which runs a whole stage fit as one XLA
+``lax.while_loop``. Eager torch has no compiled program per fit; its
+counterpart on the card is a CUDA graph: per stage, one train step and one
+eval step are each captured once and replayed for every later step, so a
+step costs the host a noise draw and one ``cudaGraphLaunch`` where the eager
+step makes 1,200-2,600 launches from Python.
+
+Each step of a graph reads static device buffers: the epoch's plan
+``[nb, 2B]`` (the batch's indices, then its mask as 0/1), a row counter the
+step advances, and the step's noise ``[B, z]``; the gathers from the
+device-resident arrays run inside the graph, and each step writes its
+(loss, mse, kl) into column ``row`` of a ``[3, nb]`` metric buffer. Per
+epoch the host builds the plan with ``batch_plan`` exactly as the host loop
+does (train/pipeline.py:fit_stage) and copies it in with one H2D copy from
+pinned memory; the noise is drawn with the generator calls the host loop's
+steps make, in the same order, into the static buffer before each replay,
+so the draws are the host loop's bit for bit. A stage's first train and
+eval steps run eagerly on the fit's stream (the warm-up: it builds kernels,
+the optimizer state, the loss kernels' workspaces and the library handles,
+and it is a real step of the trajectory); the second call captures and
+replays. Train and eval graphs share one memory pool. Gradients follow
+PyTorch's whole-network capture pattern: set to None before the capture,
+allocated by the captured backward from the graph's pool, so they keep
+their addresses across replays.
+
+The epochs are the host loop's own: ``device_fit`` hands graphed train and
+val epochs to ``loop.fit``, so the metric buffers come to the host in ONE
+fetch per epoch, the epoch losses are the same ``np.mean`` of the same
+float32 values, and the best snapshot, patience, the finite check, the
+resume files, the prints and the records are that loop's. So for the same
+seed, config and data the two loops give the same trajectory bit for bit:
+losses, best epoch, parameters, BatchNorm buffers, optimizer state,
+``.ckpt`` files; AdamW is ``fused`` on the card in both loops
+(train/optim.py), so they run the same kernels.
+
+The JAX semantics kept (hippie_tpu/train/device_fit.py:24-35): snapshot on
+a strict improvement, stop once ``wait >= patience``, a non-finite train
+loss raises FloatingPointError with its epoch, the epoch metric is the
+unweighted mean over the executed batches; ``log_steps`` records per
+executed train batch, the zero-epoch return, the "already early-stopped"
+resume no-op. Progress: with ``progress_every=k`` the epoch prints and
+``log_fn`` records come out every k epochs, without it after the stage (the
+JAX loop's replay); the trajectory is the same either way.
+
+Off the card there are no graphs: the same step functions over the same
+buffers run eagerly (the CPU tests). On the card the loop captures or
+raises; it never falls back to eager steps. Under an active mesh
+(parallel/mesh.py) the NCCL collectives of a step are stream operations and
+are captured with it; gloo carries CUDA tensors through the host, which a
+graph cannot capture, and an FSDP optimizer moves its parameters' storage
+every step, so on the card both raise ValueError (``--fit-loop host`` runs
+them; ``pipeline.fit_stage`` sends an FSDP stage there itself).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from hippie_tpu_torch.data.device_data import batch_plan
+from hippie_tpu_torch.parallel import mesh as pmesh
+from hippie_tpu_torch.train import loop
+from hippie_tpu_torch.train.loop import FitResult
+from hippie_tpu_torch.train.step import _materialize
+
+
+class StepGraph:
+    """One step kind (train or eval) of a stage over static device buffers,
+    and on the card its CUDA graph.
+
+    ``fn(idx, mask, eps) -> Metrics`` is the step on a batch's indices
+    ``[B]``, mask ``[B]`` and noise. ``load_plan(idx, mask)`` sets an epoch's
+    ``[nb, B]`` plan and rewinds the row counter; each call draws the step's
+    noise from ``generator`` and runs the next row: eagerly on its first
+    call (and always off the card), captured on its second, replayed after.
+    ``metrics`` ``[3, nb]`` holds each row's (loss, mse, kl).
+    ``before_capture`` runs just before the capture (the train step drops
+    its gradients there)."""
+
+    def __init__(self, fn: Callable, *, nb: int, batch: int, noise_shape: Sequence[int],
+                 dtype: torch.dtype, device: torch.device, stream=None, pool=None,
+                 noise_view: Callable = lambda eps: eps, before_capture: Callable = lambda: None):
+        self.fn, self.nb, self.batch, self.dtype = fn, nb, batch, dtype
+        self.device, self.stream, self.pool = device, stream, pool
+        self.before_capture = before_capture
+        self.plan = torch.zeros((nb, 2 * batch), dtype=torch.long, device=device)
+        self.row = torch.zeros((1,), dtype=torch.long, device=device)
+        self.eps = torch.zeros(tuple(noise_shape), dtype=dtype, device=device)
+        self.eps_local = noise_view(self.eps)
+        self.metrics = torch.zeros((3, nb), dtype=torch.float32, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.calls = self.replays = 0
+        self.capture_s = 0.0
+        self._pinned = (torch.empty((nb, 2 * batch), dtype=torch.long, pin_memory=True)
+                        if device.type == "cuda" else None)
+
+    def load_plan(self, idx: np.ndarray, mask: np.ndarray):
+        """The epoch's plan in one H2D copy (from pinned memory on the card:
+        no sync; the epoch's fetch orders the next write after it)."""
+        host = np.concatenate([np.asarray(idx, np.int64), np.asarray(mask).astype(np.int64)], axis=1)
+        if self._pinned is None:
+            self.plan.copy_(torch.from_numpy(host))
+        else:
+            self._pinned.numpy()[...] = host
+            self.plan.copy_(self._pinned, non_blocking=True)
+        self.row.zero_()
+
+    def _body(self):
+        r = self.plan.index_select(0, self.row)[0]
+        m = self.fn(r[:self.batch], r[self.batch:].to(self.dtype), self.eps_local)
+        self.metrics.index_copy_(1, self.row, torch.stack([m.loss, m.mse, m.kl]).float().reshape(3, 1))
+        self.row.add_(1)
+
+    def __call__(self, generator: torch.Generator):
+        # torch.randn(shape, generator=...) is normal_ on a fresh tensor: the
+        # same draw as the host loop's step makes
+        self.eps.normal_(0.0, 1.0, generator=generator)
+        self.calls += 1
+        if self.graph is None and (self.device.type != "cuda" or self.calls == 1):
+            self._body()
+            return
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        self.replays += 1
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        self.before_capture()
+        g = torch.cuda.CUDAGraph()
+        # thread_local: a checkpoint write in flight in another thread
+        # (pipeline.BestTracker.flush_async) may use the card meanwhile
+        with torch.cuda.graph(g, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"):
+            self._body()
+        self.graph = g
+        self.capture_s = time.perf_counter() - t0
+
+
+def _check_card(ts, mesh, device: torch.device):
+    """The device loop's refusals on the card."""
+    if device.type != "cuda":
+        return
+    if mesh is not None and mesh.backend != "nccl":
+        raise ValueError(
+            f"--fit-loop device on CUDA needs NCCL ranks: {mesh.backend} moves CUDA tensors through "
+            "the host, which a CUDA graph cannot capture; run --fit-loop host")
+    if getattr(ts.optimizer, "is_sharded", False):
+        raise ValueError(
+            "--fit-loop device on CUDA cannot capture an FSDP step (its parameters' storage is "
+            "released and gathered anew every step); run --fsdp with --fit-loop host")
+
+
+def device_fit(
+    ts,
+    *,
+    batch_step: Callable,
+    eval_step: Callable,
+    arrays: Sequence[torch.Tensor],
+    source: torch.Tensor,
+    class_: torch.Tensor,
+    train_stream: np.ndarray,
+    batch_size: int,
+    val_idx: np.ndarray,
+    val_mask: np.ndarray,
+    max_epochs: int,
+    early_stopping_patience: Optional[int],
+    seed: int,
+    use_class_labels: bool,
+    shuffle: bool,
+    limit_train_batches=None,
+    eval_params_fn: Optional[Callable] = None,
+    aot_dir: Optional[str] = None,
+    log_fn: Optional[Callable[[dict], None]] = None,
+    verbose: bool = True,
+    lr: Optional[float] = None,
+    progress_every: Optional[int] = None,
+    log_steps: bool = False,
+    resume_dir: Optional[str] = None,
+) -> FitResult:
+    """Fit a stage with graphed steps; returns the host loop's FitResult.
+
+    ``batch_step(ts, *batch, bs, bc, bmask, eps=...) -> (ts, Metrics)`` and
+    ``eval_step(model, *batch, bs, bc, bmask, eps=...) -> Metrics`` are
+    train/step.py's per-batch steps, ``*batch`` the rows of each of
+    ``arrays``. Each train epoch's plan is ``batch_plan`` over
+    ``train_stream`` (shuffled when ``shuffle``) cut by
+    ``limit_train_batches``; ``val_idx``/``val_mask`` is the fixed val plan.
+    ``eval_params_fn(ts)`` is a context manager inside which the model holds
+    the parameters to validate (schedule-free's x; None: the parameters).
+    ``progress_every`` (None or 0: after the stage; every epoch with
+    ``resume_dir``), ``log_steps`` and ``resume_dir`` are ``loop.fit``'s,
+    which runs the epochs, so each loop resumes the other's stage.
+    ``aot_dir`` raises: the JAX program cache has no counterpart."""
+    if aot_dir is not None:
+        raise ValueError("aot_dir is not ported: the JAX compiled-program cache has no counterpart "
+                         "(ROADMAP Queue 1 item 12)")
+    device = arrays[0].device
+    mesh = pmesh.active()
+    _check_card(ts, mesh, device)
+    stream_idx = np.asarray(train_stream)
+    nb = loop.limit_count(max(1, -(-len(stream_idx) // batch_size)), limit_train_batches)
+    val_idx, val_mask = np.asarray(val_idx), np.asarray(val_mask)
+    if mesh is not None:
+        val_idx, val_mask = pmesh.shard_epoch_inputs(mesh, val_idx, val_mask)
+    z = ts.model.z_mean.out_features
+    eval_ctx = eval_params_fn or (lambda _ts: contextlib.nullcontext())
+    if resume_dir is not None and not progress_every:
+        progress_every = 1  # per-epoch prints with per-epoch saves, as the JAX loop
+
+    def gather(idx):
+        bc = class_[idx] if use_class_labels else None
+        return [a[idx] for a in arrays] + [source[idx], bc]
+
+    def train_fn(idx, mask, eps):
+        return batch_step(ts, *gather(idx), mask, eps=eps)[1]
+
+    def eval_fn(idx, mask, eps):
+        return eval_step(ts.model, *gather(idx), mask, eps=eps)
+
+    on_card = device.type == "cuda"
+    outer = torch.cuda.current_stream(device) if on_card else None
+    stream = torch.cuda.Stream(device) if on_card else None
+    common = dict(batch=val_idx.shape[1], noise_shape=(batch_size, z), dtype=arrays[0].dtype, device=device,
+                  stream=stream, pool=torch.cuda.graph_pool_handle() if on_card else None,
+                  noise_view=((lambda eps: pmesh.batch_sharded(mesh, eps, batch_axis=0))
+                              if mesh is not None else (lambda eps: eps)))
+    with torch.cuda.stream(stream) if on_card else contextlib.nullcontext():
+        if on_card:
+            stream.wait_stream(outer)
+        train = StepGraph(train_fn, nb=nb, before_capture=lambda: ts.optimizer.zero_grad(set_to_none=True),
+                          **common)
+        val = StepGraph(eval_fn, nb=val_idx.shape[0], **common)
+        val.load_plan(val_idx, val_mask)
+
+        def run_train(state, key, epoch):
+            idx, mask = loop.limit_batches(batch_plan(stream_idx, batch_size, shuffle=shuffle,
+                                                      generator=loop.key_generator(key, 0)),
+                                           limit_train_batches)
+            if mesh is not None:
+                idx, mask = pmesh.shard_epoch_inputs(mesh, idx, mask)
+            train.load_plan(idx, mask)
+            gen = loop.key_generator(key, 1, device=device)
+            for _ in range(nb):
+                train(gen)
+            _materialize(state.optimizer)
+            return state, _metrics(train.metrics, mesh)
+
+        def run_val(state, key, epoch):
+            with eval_ctx(state):
+                val.row.zero_()
+                gen = loop.key_generator(key, device=device)
+                for _ in range(val.nb):
+                    val(gen)
+            return _metrics(val.metrics, mesh)
+
+        try:
+            result = loop.fit(ts, run_train_epoch=run_train, run_val_epoch=run_val, max_epochs=max_epochs,
+                              early_stopping_patience=early_stopping_patience, seed=seed, log_fn=log_fn,
+                              verbose=verbose, resume_dir=resume_dir, lr=lr,
+                              progress_every=progress_every, log_steps=log_steps)
+        finally:
+            graphs = {"captured": train.graph is not None, "capture_s": train.capture_s + val.capture_s,
+                      "train_replays": train.replays, "eval_replays": val.replays}
+            if on_card:
+                outer.wait_stream(stream)
+            if train.graph is not None:
+                ts.optimizer.zero_grad(set_to_none=True)  # the graph pool's gradients
+            train.graph = val.graph = None
+    return dataclasses.replace(result, graphs=graphs)
+
+
+class _Rows(NamedTuple):
+    """A ``[3, nb]`` metric buffer's rows, as the host loop's Metrics."""
+
+    loss: torch.Tensor
+    mse: torch.Tensor
+    kl: torch.Tensor
+
+
+def _metrics(m: torch.Tensor, mesh) -> _Rows:
+    """A StepGraph's ``[3, nb]`` metrics, summed over the ranks under a mesh
+    (the host loop's ``_global_metrics``), as ``loop._fetch`` reads them."""
+    if mesh is not None:
+        m = pmesh.all_sum(m, mesh)
+    return _Rows(*m)

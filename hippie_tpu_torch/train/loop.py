@@ -11,11 +11,14 @@ kept:
   - EarlyStopping(patience, mode="min", min_delta=0) (train_model.py:127-128);
   - limit_train_batches / limit_val_batches as fractions or counts.
 
-The JAX package also fits a whole stage in one device program
-(train/device_fit.py); the port has this host loop only, whose trajectory is
-the JAX host loop's (``--fit-loop host``). The JAX package's shape-bucketing
-helpers (``next_pow2``, ``pad_rows``, ``pad_plan``, ``epoch_shuffle_order``)
-exist to reuse compiled XLA programs and have no counterpart here.
+This is the ``--fit-loop host`` loop, whose trajectory is the JAX host
+loop's. ``--fit-loop device`` (train/device_fit.py, the default, as in JAX)
+replays each step as a CUDA graph and hands its graphed epochs to ``fit``
+here, so both loops share this one and give the same trajectory bit for
+bit. The JAX package's shape-bucketing helpers (``next_pow2``,
+``pad_rows``, ``pad_plan``, ``epoch_shuffle_order``) exist to reuse compiled
+XLA programs and have no counterpart here: a CUDA graph is captured per
+stage, at that stage's batch and plan shapes.
 
 Under an active mesh (parallel/mesh.py) every rank runs this loop on the
 same all-reduced losses, so every rank decides the same; only rank 0 logs
@@ -81,6 +84,9 @@ class FitResult:
     epochs_run: int
     train_losses: List[float] = field(default_factory=list)
     val_losses: List[float] = field(default_factory=list)
+    # the device loop's graphs (train/device_fit.py): whether it captured,
+    # the capture seconds and the replays of each step kind; empty otherwise
+    graphs: dict = field(default_factory=dict)
 
 
 def clone_tree(tree):
@@ -136,6 +142,8 @@ def fit(
     verbose: bool = True,
     resume_dir: Optional[str] = None,
     lr: Optional[float] = None,
+    progress_every: Optional[int] = 1,
+    log_steps: bool = False,
 ) -> FitResult:
     """The fit loop over a TrainState (model, optimizer).
 
@@ -156,6 +164,13 @@ def fit(
     is the uninterrupted one's continuation. ``train_losses`` and
     ``val_losses`` hold the epochs this call ran; ``epochs_run`` counts from
     epoch 0.
+
+    ``progress_every=k``: the epoch prints and ``log_fn`` records come out
+    every k epochs (and at the stop); None or 0: after the stage, as the JAX
+    device loop replays them. ``log_steps``: one ``{epoch, step,
+    train_loss_step, train_mse_step, train_kl_step}`` record per executed
+    train batch to ``log_fn``, after the stage's epoch records. A diverged
+    epoch still emits the epochs before it, then raises.
     """
     best_val = math.inf
     best_epoch = -1
@@ -187,6 +202,33 @@ def fit(
             print(f"Early stopping already triggered at epoch {start_epoch - 1}; nothing to resume")
         max_epochs = start_epoch
 
+    writer = log_fn is not None and pmesh.is_writer()
+    pending, step_rows = [], []  # what the next emit() prints and logs
+
+    def emit():
+        for epoch, host, train_loss, val_loss in pending:
+            if verbose:
+                # the reference's per-epoch prints (model.py:141-149)
+                print(f"Average training loss is {train_loss:.2f}")
+                print(f"Average validation loss is {val_loss:.2f}")
+            if writer:
+                rec = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss}
+                for phase in ("train", "val"):
+                    for name in ("mse", "kl"):
+                        if (phase, name) in host:
+                            rec[f"{phase}_{name}"] = float(np.mean(host[(phase, name)]))
+                if lr is not None:
+                    rec["lr"] = float(lr)
+                log_fn(rec)
+        pending.clear()
+        if writer and log_steps:
+            for epoch, rows in step_rows:
+                for i in range(rows.shape[1]):
+                    log_fn({"epoch": epoch, "step": epoch * rows.shape[1] + i,
+                            "train_loss_step": float(rows[0, i]), "train_mse_step": float(rows[1, i]),
+                            "train_kl_step": float(rows[2, i])})
+        step_rows.clear()
+
     epochs_run = start_epoch
     for epoch in range(start_epoch, max_epochs):
         state, tms = run_train_epoch(state, epoch_key(seed, 2 * epoch, 1), epoch)
@@ -195,6 +237,7 @@ def fit(
         train_loss = float(np.mean(host[("train", "loss")]))
         val_loss = float(np.mean(host[("val", "loss")]))
         if not math.isfinite(train_loss):
+            emit()  # the epochs before it
             raise FloatingPointError(
                 f"non-finite training loss at epoch {epoch}: {train_loss} "
                 f"(val={val_loss}); lower the learning rate or enable clipping"
@@ -202,19 +245,9 @@ def fit(
         train_losses.append(train_loss)
         val_losses.append(val_loss)
         epochs_run = epoch + 1
-        if verbose:
-            # the reference's per-epoch prints (model.py:141-149)
-            print(f"Average training loss is {train_loss:.2f}")
-            print(f"Average validation loss is {val_loss:.2f}")
-        if log_fn is not None and pmesh.is_writer():
-            rec = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss}
-            for phase in ("train", "val"):
-                for name in ("mse", "kl"):
-                    if (phase, name) in host:
-                        rec[f"{phase}_{name}"] = float(np.mean(host[(phase, name)]))
-            if lr is not None:
-                rec["lr"] = float(lr)
-            log_fn(rec)
+        pending.append((epoch, host, train_loss, val_loss))
+        if log_steps:
+            step_rows.append((epoch, np.stack([host[("train", n)] for n in _METRICS])))
 
         if val_loss < best_val:
             best_val = val_loss
@@ -232,8 +265,11 @@ def fit(
             resume.save_fit_state(resume_dir, epoch, state,
                                   {"best_val": best_val, "best_epoch": best_epoch, "wait": wait},
                                   best=(best_sd, best_opt, best_epoch) if best_epoch == epoch else None)
+        if progress_every and ((epoch + 1 - start_epoch) % progress_every == 0 or stop):
+            emit()
         if stop:
             break
+    emit()
 
     if best_epoch < 0:  # no validation ran (max_epochs=0)
         best_sd, best_opt = snapshot(state)

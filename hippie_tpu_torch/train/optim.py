@@ -47,14 +47,37 @@ def clip_by_global_norm_(grads: list, max_norm: float):
 _MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
+def _on_cuda(params: list) -> bool:
+    """True when every parameter (or every parameter of every group) is on CUDA."""
+    flat = [p for x in params for p in (x["params"] if isinstance(x, dict) else [x])]
+    return bool(flat) and all(p.device.type == "cuda" for p in flat)
+
+
 class AdamW(torch.optim.AdamW):
     """torch.optim.AdamW(b1=0.9, b2=0.999, eps=1e-8) with an optional clip of
     the gradients' global norm before each step, and the moments stored in
-    ``state_dtype`` (None: float32) with the update computed in float32."""
+    ``state_dtype`` (None: float32) with the update computed in float32.
+
+    On CUDA parameters it is built ``fused`` (torch's multi-tensor AdamW
+    kernel): the step counters live on the card and the bias corrections are
+    computed there, so a step can be captured in a CUDA graph
+    (train/device_fit.py), and the update is one kernel per chunk of
+    parameters where the foreach path launches one per operation. Both fit loops
+    use it, so they run the same kernels; the ``.ckpt`` layout does not
+    change (train/checkpoint.py writes its own param group and float32
+    steps)."""
 
     def __init__(self, params: Iterable, lr: float, weight_decay: float = 0.01,
                  clip_val: Optional[float] = None, state_dtype: Optional[torch.dtype] = None):
-        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+        params = list(params)
+        on_cuda = _on_cuda(params)
+        # torch refuses a capture of step() unless capturable is set, which
+        # the fused update ignores
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+                         capturable=on_cuda, fused=on_cuda or None)
+        # its warning that capturable slows uncaptured steps is the foreach
+        # path's: the fused kernel is the same captured or not
+        self._warned_capturable_if_run_uncaptured = True
         self.clip_val = clip_val
         self.state_dtype = state_dtype
 
@@ -74,7 +97,8 @@ class AdamW(torch.optim.AdamW):
             ps = [p for p in group["params"] if p.grad is not None]
             for p in ps:
                 if not self.state[p]:  # optax's fresh state: zero moments, step 0
-                    self.state[p].update(step=torch.tensor(0.0, dtype=torch.float32), **{
+                    at = p.device if group["fused"] else "cpu"  # where torch's AdamW keeps it
+                    self.state[p].update(step=torch.zeros((), dtype=torch.float32, device=at), **{
                         m: torch.zeros_like(p, dtype=self.state_dtype) for m in _MOMENTS})
             for bucket in _buckets(ps, UPCAST_BUCKET):
                 self._step_upcast(group, bucket)

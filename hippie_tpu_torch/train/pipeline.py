@@ -38,8 +38,10 @@ and then for the joint (wave + ISI) pipeline, which trains one model:
     then the KNN sweep on the joint embeddings only;
   - ``stage1_joint_ckpt`` is its stage-1 seam.
 
-The port runs one fit loop (train/loop.py), the JAX host loop's
-(``--fit-loop host``). Random draws: splits, shuffles and model inits come
+Every stage fit goes through ``fit_stage``, which runs the device fit loop
+(train/device_fit.py: the steps as CUDA graphs replayed on the card;
+``fit_loop="device"``, the JAX default) or the host loop (train/loop.py,
+``"host"``), on the same trajectory bit for bit. Random draws: splits, shuffles and model inits come
 from CPU ``torch.Generator``s and the reparameterization noise from a
 generator on the data's device, each seeded from ``seed`` and a fixed path
 (train/loop.py:epoch_key), where the JAX package folds the same integers into
@@ -59,9 +61,8 @@ it stopped, so an interrupted pipeline re-run with ``resume`` writes what an
 uninterrupted one writes. ``discover_datasets`` registers the unknown
 dataset directories of ``data_root`` first (data/registry.py), and
 ``profile_dir`` records the run with torch.profiler (utils/profiling.py:
-trace). The JAX pipeline's options with no port (the device fit loop, the
-AOT cache) are not fields here; the CLI (scripts/train_model.py) raises on
-their flags.
+trace). The JAX pipeline's option with no port (the AOT cache) is not a
+field here; the CLI (scripts/train_model.py) raises on its flag.
 
 Data parallelism (``dp_devices``, ``fsdp``): run inside each rank of a
 ``parallel.mesh.launch`` (the CLI's ``--dp-devices N`` does), the pipeline
@@ -143,6 +144,18 @@ class PipelineConfig:
     resume: bool = False  # mid-run resume of every stage fit (train/resume.py)
     verbose: bool = True
     log_fn: Any = None  # optional callable(dict), one record per epoch
+    # "device": each stage fit's steps as CUDA graphs replayed on the card
+    # (train/device_fit.py; eager steps off the card); "host": the per-epoch
+    # loop of eager steps (train/loop.py). The same trajectory bit for bit.
+    # With fsdp on CUDA the stage fits take the host loop (an FSDP step
+    # cannot be captured: ROADMAP Queue 1).
+    fit_loop: str = "device"
+    # device fit loop: print and log every N epochs (None: auto, chunks on
+    # watched stages of more than 10 epochs; 0: after the stage)
+    progress_every: Optional[int] = None
+    # device fit loop: one {train_loss_step, ...} record per executed train
+    # batch to log_fn (the reference's per-step self.log)
+    log_every_step: bool = False
     drop_index_column: bool = False  # drop the CSV index feature (quirk Q4)
     honest_eval: bool = False  # stage-3 embeddings without class conditioning
     # data parallelism over this many ranks of a parallel.mesh.launch (None or
@@ -345,6 +358,21 @@ def seed_from_best(model: torch.nn.Module, best_state_dict: Dict[str, torch.Tens
 # ---------------------------------------------------------------------------
 
 
+def _progress_chunk(cfg: PipelineConfig, max_epochs: int) -> Optional[int]:
+    """Epoch chunk size for the device fit's live progress (the JAX
+    ``_progress_chunk``): ``progress_every`` when given (0: none); in auto
+    mode only multi-epoch stages someone is watching (verbose prints or a
+    log_fn), in chunks of the patience clamped to 10-50."""
+    if cfg.progress_every is not None:
+        return cfg.progress_every if cfg.progress_every > 0 else None
+    if not cfg.verbose and cfg.log_fn is None:
+        return None
+    if max_epochs <= 10:
+        return None
+    patience = cfg.early_stopping_patience or 10
+    return max(10, min(patience, 50))
+
+
 def fit_stage(
     *,
     cfg: PipelineConfig,
@@ -357,30 +385,60 @@ def fit_stage(
     batch_size: int,
     max_epochs: int,
     shuffle_train: bool,
+    use_class_labels: bool,
+    make_steps,
     make_epoch_fns,
     fixed_train_stream: Optional[np.ndarray] = None,
     stage_seed: int = 0,
     lr: Optional[float] = None,
     resume_dir: Optional[str] = None,
 ) -> loop.FitResult:
-    """One Trainer.fit, shared by both model families (the JAX ``_fit_stage``
-    with ``--fit-loop host``).
+    """One Trainer.fit, shared by both model families (the JAX ``_fit_stage``).
 
     ``arrays`` holds the per-sample gather sources ((data,) unimodal, (wave,
-    isi) joint); the family enters only through ``make_epoch_fns``, which
-    builds its (train_epoch, eval_epoch). Each train epoch's plan is
-    ``batch_plan`` over the stream (shuffled when ``shuffle_train``), cut by
-    ``limit_train_batches``; the val plan is fixed and cut by
-    ``limit_val_batches``. The shuffle draws from a CPU generator split from
-    the epoch's key, the noise from a generator on the data's device
-    (``torch.randperm`` takes a CPU generator here, the model's
-    ``torch.randn`` one on its device). ``resume_dir`` goes to ``loop.fit``.
+    isi) joint); the family enters through ``make_steps``, which builds its
+    per-batch (batch_step, eval_step) for the device loop, and
+    ``make_epoch_fns``, its (train_epoch, eval_epoch) for the host loop
+    (``cfg.fit_loop``; with ``fsdp`` on CUDA the host loop). Each train
+    epoch's plan is ``batch_plan`` over the stream (shuffled when
+    ``shuffle_train``), cut by ``limit_train_batches``;
+    the val plan is fixed and cut by ``limit_val_batches``. The shuffle draws
+    from a CPU generator split from the epoch's key, the noise from a
+    generator on the data's device (``torch.randperm`` takes a CPU generator
+    here, the model's ``torch.randn`` one on its device). ``resume_dir`` goes
+    to the loop; either loop resumes the other's files.
     """
-    train_epoch, eval_epoch = make_epoch_fns()
     val_idx, val_mask = loop.limit_batches(batch_plan(val_indices, batch_size, shuffle=False),
                                            cfg.limit_val_batches)
     stream = np.asarray(fixed_train_stream if fixed_train_stream is not None else train_indices)
     device = arrays[0].device
+    fit_loop = cfg.fit_loop
+    if fit_loop == "device" and cfg.fsdp and device.type == "cuda":
+        # the sharded step gathers and releases its parameters' storage every
+        # step, which a CUDA graph cannot capture
+        if cfg.verbose:
+            print("--fsdp on CUDA: the stage fit runs on the host loop (ROADMAP Queue 1)")
+        fit_loop = "host"
+
+    if fit_loop == "device":
+        from hippie_tpu_torch.train import device_fit
+
+        batch_step, eval_step = make_steps()
+        return _finalize_fit(cfg, device_fit.device_fit(
+            ts, batch_step=batch_step, eval_step=eval_step, arrays=arrays, source=source,
+            class_=class_, train_stream=stream, batch_size=batch_size, val_idx=val_idx,
+            val_mask=val_mask, max_epochs=max_epochs,
+            early_stopping_patience=cfg.early_stopping_patience, seed=cfg.seed + stage_seed,
+            use_class_labels=use_class_labels, shuffle=shuffle_train,
+            limit_train_batches=cfg.limit_train_batches,
+            eval_params_fn=lambda state: optim.evaluated_at_x(state.optimizer),  # schedule-free's x
+            log_fn=cfg.log_fn, verbose=cfg.verbose, lr=lr,
+            progress_every=_progress_chunk(cfg, max_epochs), log_steps=cfg.log_every_step,
+            resume_dir=resume_dir))
+    if fit_loop != "host":
+        raise ValueError(f"fit_loop must be 'device' or 'host', got {fit_loop!r}")
+
+    train_epoch, eval_epoch = make_epoch_fns()
 
     def run_train(state, key, epoch):
         idx, mask = loop.limit_batches(
@@ -484,19 +542,25 @@ def fit_unimodal_stage(*, cfg: PipelineConfig, data: torch.Tensor, beta: float,
                        use_class_labels: bool, **kw) -> loop.FitResult:
     """One Trainer.fit of a unimodal model on ``data`` [N, L] (fit_stage's
     other keywords: ``ts``, ``source``, ``class_``, the indices, ...)."""
-    return fit_stage(cfg=cfg, arrays=(data,), make_epoch_fns=lambda: step.make_unimodal_epoch_fns(
-        beta=beta, use_class_labels=use_class_labels, loss_backend=cfg.loss_backend,
-        block_backend=cfg.block_backend), **kw)
+    backends = dict(loss_backend=cfg.loss_backend, block_backend=cfg.block_backend)
+    return fit_stage(
+        cfg=cfg, arrays=(data,), use_class_labels=use_class_labels,
+        make_steps=lambda: step.make_unimodal_steps(beta=beta, **backends),
+        make_epoch_fns=lambda: step.make_unimodal_epoch_fns(
+            beta=beta, use_class_labels=use_class_labels, **backends), **kw)
 
 
 def fit_multimodal_stage(*, cfg: PipelineConfig, wave: torch.Tensor, isi: torch.Tensor,
                          use_class_labels: bool, **kw) -> loop.FitResult:
     """One Trainer.fit of the joint model on (wave [N, 50], isi [N, 100]),
     with ``cfg.beta`` and the modality weights."""
-    return fit_stage(cfg=cfg, arrays=(wave, isi), make_epoch_fns=lambda: step.make_multimodal_epoch_fns(
-        beta=cfg.beta, mod1_weight=cfg.mod1_weight, mod2_weight=cfg.mod2_weight,
-        use_class_labels=use_class_labels, loss_backend=cfg.loss_backend,
-        block_backend=cfg.block_backend), **kw)
+    loss = dict(beta=cfg.beta, mod1_weight=cfg.mod1_weight, mod2_weight=cfg.mod2_weight,
+                loss_backend=cfg.loss_backend, block_backend=cfg.block_backend)
+    return fit_stage(
+        cfg=cfg, arrays=(wave, isi), use_class_labels=use_class_labels,
+        make_steps=lambda: step.make_multimodal_steps(**loss),
+        make_epoch_fns=lambda: step.make_multimodal_epoch_fns(use_class_labels=use_class_labels, **loss),
+        **kw)
 
 
 def _dp_shardings(cfg: PipelineConfig) -> Optional[pmesh.Mesh]:

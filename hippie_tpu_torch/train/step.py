@@ -22,7 +22,10 @@ train and eval step and epoch raises ``ValueError`` when given neither, as
 the JAX steps take their key as a required argument (a step without noise
 would decode ``mu`` and train a plain autoencoder). The models' forward keeps
 its deterministic ``mu`` path for the embeddings. Nothing in a step waits for
-the host.
+the host, so the device fit loop (train/device_fit.py) captures a step in a
+CUDA graph as it is: PyTorch's whole-network pattern, the gradients dropped
+before the capture and allocated by the captured backward (the zero
+gradients below too), so they keep their addresses across replays.
 
 A parameter the loss does not reach (the class embedding, trained without
 class labels) gets a zero gradient before the optimizer step, so torch's

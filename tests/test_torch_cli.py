@@ -126,7 +126,8 @@ def test_profile_train_step_on_the_cpu(capsys):
     assert {"full train step", "fwd+bwd (no optimizer)", "forward only (train mode)", "optimizer only",
             "encoder fwd (train mode)", "decoder fwd (train mode)", "encoder fwd+bwd", "decoder fwd+bwd",
             "enc l4 conv 512x512 L4 dw", "enc l1 conv 64x64 L25 [bf16]"} <= set(parts)
-    assert len(parts) == 8 + 8 + 10 and all(v > 0 for v in parts.values())
+    assert "graphed train step (device fit loop)" in parts
+    assert len(parts) == 9 + 8 + 10 and all(v > 0 for v in parts.values())
 
 
 @pytest.fixture(scope="module")
@@ -182,3 +183,48 @@ def test_discover_datasets_registers_the_jax_ids(cli_run, tmp_path):
     assert (tmp / "data" / "registry.json").read_bytes() == (jroot / "registry.json").read_bytes()
     csvs = [p for p in os.listdir(tmp / "out") if p.endswith(".csv")]
     assert len(csvs) == OUTPUTS and all(p.startswith(("pretraining_zz-rig_", "zz-rig_")) for p in csvs)
+
+
+@pytest.mark.parametrize("argv,fields", [
+    ([], {"fit_loop": "device", "progress_every": None, "log_every_step": False}),
+    (["--fit-loop", "host"], {"fit_loop": "host", "progress_every": None, "log_every_step": False}),
+    (["--progress-every", "0", "--log-every-step"], {"fit_loop": "device", "progress_every": 0,
+                                                      "log_every_step": True}),
+    (["--progress-every", "5"], {"fit_loop": "device", "progress_every": 5, "log_every_step": False})])
+def test_fit_loop_flags_reach_the_config(argv, fields):
+    """The device fit loop's flags parse as the JAX CLI's and reach the
+    config; only ``--aot-dir`` is left unported."""
+    cfg = tcli.config_from_args(tcli.build_parser().parse_args(["--device", "cpu", *argv]))
+    assert {k: getattr(cfg, k) for k in fields} == fields
+    assert [dest for dest, _, _ in tcli.UNPORTED] == ["aot_dir"]
+
+
+def test_both_fit_loops_write_the_same_files(tmp_path, monkeypatch):
+    """The training CLI with ``--fit-loop device --progress-every 1
+    --log-every-step`` and with ``--fit-loop host``: the same .ckpt and CSV
+    bytes, the same epoch records in the log file, and one step record per
+    executed train batch after them with the device loop."""
+    root = tmp_path / "data"
+    synth.make_dataset(str(root), "cellexplorer-celltype", n=48, num_classes=3, seed=0)
+    synth.make_dataset(str(root), "neonatal-mouse-brain-slice", n=40, num_classes=2, seed=1)  # the pool
+    _small(monkeypatch)
+    runs = {}
+    for name, flags in (("device", ["--progress-every", "1", "--log-every-step"]),
+                        ("host", ["--fit-loop", "host"])):
+        out = tmp_path / name
+        # the same directory name in both runs: torch.save writes the file's name into the zip
+        ck = tmp_path / "ck"
+        tcli.run(tcli.build_parser().parse_args([
+            "--dataset", "cellexplorer-celltype", "--data-root", str(root), "--output-dir", str(out),
+            "--checkpoint-dir", str(ck), "--log-file", str(out / "log.jsonl"), *SMALL, *flags]))
+        files = {p: (ck / p).read_bytes() for p in sorted(os.listdir(ck)) if p.endswith(".ckpt")}
+        files.update({p: (out / p).read_bytes() for p in sorted(os.listdir(out)) if p.endswith(".csv")})
+        recs = [json.loads(x) for x in (out / "log.jsonl").read_text().splitlines()]
+        for r in recs:
+            r.pop("ts")
+        runs[name] = files, recs
+        shutil.rmtree(ck)
+    (dev_files, dev_recs), (host_files, host_recs) = runs["device"], runs["host"]
+    assert len(dev_files) == 4 + OUTPUTS and dev_files == host_files
+    steps = [r for r in dev_recs if "train_loss_step" in r]
+    assert [r for r in dev_recs if "train_loss_step" not in r] == host_recs and steps

@@ -687,7 +687,8 @@ def test_stage_fit_on_the_card_runs_the_kernels_and_writes_a_ckpt(cuda_device, t
     from hippie_tpu_torch.train import optim, pipeline, step
 
     cfg = pipeline.PipelineConfig(device="cuda", loss_backend="pallas", block_backend="pallas",
-                                  verbose=False, batch_size=32, checkpoint_dir=str(tmp_path))
+                                  verbose=False, batch_size=32, checkpoint_dir=str(tmp_path),
+                                  fit_loop="host")  # the wrappers' counters count its every launch
     cfg_m = cvae.CVAEConfig(z_dim=4, num_sources=5, num_classes=5, num_blocks=(1, 1, 1, 1))
     model = cvae.unimodal_cvae_init(cfg_m, torch.Generator().manual_seed(0), device="cuda")
     ts = step.TrainState(model, optim.make_optimizer(model.parameters(), 1e-3, 0.01))
@@ -976,7 +977,8 @@ def test_resumed_stage_fit_on_the_card_equals_the_uninterrupted_one(cuda_device,
     from hippie_tpu_torch.train import optim, pipeline, step
 
     cfg = pipeline.PipelineConfig(device="cuda", loss_backend="pallas", block_backend="pallas",
-                                  verbose=False, batch_size=32)
+                                  verbose=False, batch_size=32,
+                                  fit_loop="host")  # the wrappers' counters count its every launch
     cfg_m = cvae.CVAEConfig(z_dim=4, num_sources=5, num_classes=5, num_blocks=(1, 1, 1, 1))
     r = np.random.default_rng(0)
     data = torch.from_numpy(r.normal(size=(90, 50)).astype(np.float32)).cuda()
@@ -1076,3 +1078,126 @@ def test_segmented_entries_equal_the_unsegmented_at_one_rank(one_rank_nccl, kind
     assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(dgot, dref))
     assert cb.seg_launches[f"{kind}_block_fwd_seg"] == cb.seg_launches[f"{kind}_block_bwd_seg"] == 1
     assert cb.seg_launches["bn_stats_merge"] == 2
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (train/device_fit.py): each kernel wrapper and a whole step
+# replayed from a graph equal their eager calls bit for bit; the device fit
+# loop equals the host loop on the card.
+# ---------------------------------------------------------------------------
+
+
+def _replay_equals_eager(fn):
+    """``fn()`` once eagerly on a side stream (its workspace is made there),
+    then captured on that stream and replayed into outputs filled with NaN:
+    the replay's outputs equal the eager call's bit for bit."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        want = [t.clone() for t in fn() if t is not None]
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            out = [t for t in fn() if t is not None]
+        for t in out:
+            t.fill_(float("nan"))
+        g.replay()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    assert len(out) == len(want) and all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["vae_sums_fwd", "vae_sums_bwd", "masked_sse_fwd", "enc_block_fwd",
+                                    "enc_block_bwd", "dec_block_fwd", "dec_block_bwd"])
+def test_kernel_wrappers_replay_from_a_cuda_graph(cuda_device, kernel):
+    from hippie_tpu_torch.ops import cuda_blocks as cb
+
+    if kernel.startswith("vae_sums"):
+        x = _inputs(cuda_device, 415, 1e4)
+        g = torch.tensor([1.0 / (415 * L), 1.0 / 415], device=cuda_device)
+        fn = ((lambda: [cuda_ops.vae_sums_fwd_cuda(*x)]) if kernel == "vae_sums_fwd"
+              else (lambda: cuda_ops.vae_sums_bwd_cuda(*x, g)))
+    elif kernel == "masked_sse_fwd":
+        x = _sse_inputs(cuda_device, 415, np.inf)
+        fn = lambda: [cuda_ops.masked_sse_fwd_cuda(*x)]  # noqa: E731
+    else:
+        enc = kernel.startswith("enc")
+        args, g = (_block_inputs(cuda_device, 2, 13, 128, 256, n_real=300, seed=2) if enc
+                   else _dec_inputs(cuda_device, 2, 8, 256, 128, n_real=300, seed=2))
+        fwd = cb.enc_block_fwd_cuda if enc else cb.dec_block_fwd_cuda
+        bwd = cb.enc_block_bwd_cuda if enc else cb.dec_block_bwd_cuda
+        st = fwd(2, *args)[1:]
+        fn = (lambda: fwd(2, *args)) if kernel.endswith("fwd") else (lambda: bwd(2, *args, *st, g))
+    cuda_ops.reset_launches()
+    cb.reset_launches()
+    _replay_equals_eager(fn)
+    # the eager call launched; the capture recorded and launched nothing
+    assert {**cuda_ops.launches, **cb.launches}[kernel] == 1
+
+
+@pytest.mark.cuda
+def test_a_first_call_inside_a_capture_raises(cuda_device):
+    """A loss kernel whose workspace does not exist on the capturing stream
+    raises instead of taking it from the graph's pool."""
+    x = _inputs(cuda_device, 100)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s), pytest.raises(RuntimeError, match="before the capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=s):
+            cuda_ops.vae_sums_fwd_cuda(*x)
+    torch.cuda.synchronize()
+
+
+def _small_fit(fit_loop: str, max_epochs: int = 3):
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import optim, pipeline, step
+
+    cfg = pipeline.PipelineConfig(device="cuda", loss_backend="pallas", block_backend="pallas", verbose=False,
+                                  fit_loop=fit_loop, early_stopping_patience=None)
+    cfg_m = cvae.CVAEConfig(z_dim=4, num_sources=5, num_classes=5, num_blocks=(1, 1, 1, 1))
+    model = cvae.unimodal_cvae_init(cfg_m, torch.Generator().manual_seed(0), device="cuda")
+    ts = step.TrainState(model, optim.make_optimizer(model.parameters(), 1e-3, 0.01, 1.0))
+    r = np.random.default_rng(0)
+    data = torch.from_numpy(r.normal(size=(150, 50)).astype(np.float32)).cuda()
+    source = torch.from_numpy(r.integers(0, 5, size=150)).cuda()
+    return pipeline.fit_unimodal_stage(
+        cfg=cfg, ts=ts, data=data, source=source, class_=source, train_indices=np.arange(120),
+        val_indices=np.arange(120, 150), batch_size=32, max_epochs=max_epochs, beta=1.0,
+        use_class_labels=False, shuffle_train=True)
+
+
+@pytest.mark.cuda
+def test_device_fit_on_the_card_equals_the_host_loop(cuda_device):
+    """A stage fit with the loss and block kernels (the small model, B=32, 4
+    train and 1 val step per epoch, 3 epochs): the device loop captured and
+    replayed both steps, and its FitResult equals the host loop's bit for
+    bit."""
+    host = _small_fit("host")
+    dev = _small_fit("device")
+    assert dev.graphs["captured"] and not host.graphs
+    assert (dev.graphs["train_replays"], dev.graphs["eval_replays"]) == (3 * 4 - 1, 3 - 1)
+    assert (dev.train_losses, dev.val_losses, dev.best_epoch) == (host.train_losses, host.val_losses,
+                                                                  host.best_epoch)
+    for a, b in ((dev.state.model.state_dict(), host.state.model.state_dict()),
+                 (dev.best_state_dict, host.best_state_dict)):
+        assert all(torch.equal(v, b[k]) for k, v in a.items())
+    for a, b in ((dev.state.optimizer.state_dict(), host.state.optimizer.state_dict()),
+                 (dev.best_opt_state, host.best_opt_state)):
+        for i, e in a["state"].items():
+            assert all(torch.equal(v, b["state"][i][m]) for m, v in e.items()), i
+
+
+@pytest.mark.cuda
+def test_device_fit_refuses_gloo_on_cuda(cuda_device, tmp_path):
+    """Gloo carries CUDA tensors through the host, which a graph cannot
+    capture: the device loop raises, it does not run eager steps instead."""
+    import torch.distributed as dist
+
+    from hippie_tpu_torch.parallel import mesh as pmesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv", rank=0, world_size=1)
+    try:
+        with pmesh.data_parallel(pmesh.make_mesh(1)), pytest.raises(ValueError, match="gloo moves CUDA"):
+            _small_fit("device", max_epochs=1)
+    finally:
+        dist.destroy_process_group()

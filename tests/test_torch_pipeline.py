@@ -230,13 +230,13 @@ def test_cli_options_are_the_jax_clis_plus_device():
     assert sorted(o for a in got.values() for o in a.option_strings) == sorted(
         [o for a in ref.values() for o in a.option_strings] + ["--device"])
     assert got["device"].default == "cuda"
-    # the same defaults and choices, but where the port has one fit loop and no AOT cache
+    # the same defaults and choices, but where the port has no AOT cache
     for dest, a in ref.items():
-        if dest in ("help", "aot_dir", "fit_loop"):
+        if dest in ("help", "aot_dir"):
             continue
         assert got[dest].default == a.default, dest
         assert got[dest].choices == a.choices, dest
-    assert got["fit_loop"].choices == ("host",) and got["fit_loop"].default == "host"
+    assert got["fit_loop"].choices == ("device", "host") and got["fit_loop"].default == "device"
     assert got["aot_dir"].default is None
 
 
@@ -255,9 +255,9 @@ def test_cli_builds_the_pipeline_config():
     (["--fsdp"], "--fsdp requires --dp-devices > 1"),
     (["--aot-dir", "x"], "ROADMAP Queue 1 item"),
     (["--dp-devices", "2", "--fsdp", "--device", "cpu", "--optimizer", "schedule-free"], "ROADMAP Queue 1"),
-    (["--progress-every", "0"], "ROADMAP Queue 1 item"),
-    (["--progress-every", "5"], "ROADMAP Queue 1 item"),
-    (["--log-every-step"], "ROADMAP Queue 1 item")])
+    (["--aot-dir", "x", "--fit-loop", "host", "--progress-every", "2"], "ROADMAP Queue 1 item"),
+    (["--dp-devices", "2", "--fsdp"], "0 GPUs are visible"),  # the default loop does not refuse
+    (["--dp-devices", "2", "--fsdp", "--fit-loop", "host"], "0 GPUs are visible")])
 def test_cli_raises_on_options_not_ported(argv, match):
     """The flags with no port raise naming their ROADMAP item; the parallel
     ones raise where JAX would not run either or where the port refuses to

@@ -228,6 +228,10 @@ inline cudaError_t cudaGetLastError() {
   shim::error = 0;
   return e;
 }
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return 0;
+}
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   if (bytes > (int)shim::kSmem) shim::error = 1;
