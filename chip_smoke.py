@@ -43,15 +43,21 @@ against the host and the optimizer's device memory with float32 and bf16
 moments, the embedding server on both pipelines'
 checkpoints with its load test (13), the deployable artifact (14: the
 three stage-3 checkpoints exported, loaded in a fresh process, held to the
-models called directly, timed with bench_artifact, served), K-replica
+models called directly, timed with bench_artifact, served; its exports run
+before 13, so that the four servers of 13-14 start at once), K-replica
 training (15: a K=4 ensemble epoch through the kernels, exactly 4x the
-launches, each replica its single-model epoch; the lr_sweep CLI with its
-winners through the stage-1 seams) and k-fold (16: kfold_eval embed-once,
+launches, each replica its single-model epoch; the K=4 fit on the device
+loop, ensemble.device_fit_ensemble, one CUDA graph per step kind for all
+four replicas, equal to the host loop bit for bit with 4x one model's
+launches counted by torch.profiler; the lr_sweep CLI on its default device
+loop with its winners through the stage-1 seams, and a K=2 sweep with each
+loop giving the same numbers and winner bytes) and k-fold (16: kfold_eval embed-once,
 refit, and --fold-parallel, which runs the sequential refits, against it).
 Then mid-run resume (17, the slice's main path, whose launches are the
 kernels line's: the joint pipeline at 2 epochs per stage stopped inside its
-supervised fit and resumed, against two uninterrupted runs; a unimodal stage
-fit with schedule-free AdamW and with bf16 moments; lr_sweep --resume-dir)
+supervised fit and resumed, against the uninterrupted run; a unimodal stage
+fit with schedule-free AdamW and with bf16 moments; lr_sweep --resume-dir
+on the device loop)
 and the rest of the CLI with the "fused" and "bf16" block backends (18:
 hippie-tpu-torch train with --profile-dir --discover-datasets --wandb,
 sweep_targets, profile_train_step with each backend, a stage-1 epoch with
@@ -73,8 +79,12 @@ the "xla" loss), both training CLIs writing the same bytes with either loop
 (the joint one's device-loop launches at 1 epoch per stage, counted by
 torch.profiler with the graphs' replays, are the kernels line's for the
 seven kernels; the wrappers count only the launches they make), a joint
-pipeline stopped with one loop and resumed with the other, and the device
-fit in one NCCL rank (run in 19a's rank). Each block kernel is split by kernel
+pipeline stopped with one loop and resumed with the other, the clip's
+launches before and after its repair, and in one NCCL rank (run in 19a's
+rank) the device fit (20e), an FSDP stage fit with AdamW and with
+schedule-free on the device loop equal to the host loop with each loop's
+ms/step and peak memory, and device_fit_ensemble(mesh=) at K=2 stopped and
+resumed equal to the uninterrupted fit (20f). Each block kernel is split by kernel
 (device time and launches per call; at most 5 per enc_block_fwd and
 dec_block_fwd call and 8 per enc_block_bwd and dec_block_bwd call), and the
 block libraries' SASS is checked for wgmma (HGMMA).
@@ -96,13 +106,16 @@ then warm) and its phase 10, and prints each run's wall times and
 ``ckpt_save`` and the medians. ``python3 chip_smoke.py --artifact-replies
 DIR [DEVICE]`` is phase 14's fresh process. ``python3 chip_smoke.py
 --dp-walls`` (2 or more GPUs of one host) times the joint training CLI on
-1, 2 and all the GPUs over NCCL, and with --fsdp.
+1, 2 and all the GPUs over NCCL, and with --fsdp; ``python3 chip_smoke.py
+--fsdp-nccl`` (2 or more GPUs) runs 20f's FSDP stage fits on two NCCL
+ranks, each loop against the other.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import pathlib
@@ -1867,33 +1880,83 @@ def phase_optimizers(card: str, workdir: str, device="cuda"):
     print(f"  phase 12 {time.perf_counter() - t0:.1f} s")
 
 
-def _free_server(argv: list, timeout: float = 300.0):
+def _spawn_server(argv: list) -> dict:
     """Start the port's server (python -m hippie_tpu_torch.scripts.serve_embeddings
-    ``argv`` --port 0) and return (process, url) once it says where it serves."""
+    ``argv`` --port 0) without waiting: its process, a queue of its lines
+    with their arrival times, and its start time."""
     import queue
     import threading
 
+    t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "hippie_tpu_torch.scripts.serve_embeddings", *argv,
                              "--host", "127.0.0.1", "--port", "0"], cwd=str(REPO), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     lines: "queue.Queue" = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put(None)],
+    threading.Thread(target=lambda: [lines.put((time.perf_counter(), x)) for x in proc.stdout] + [lines.put(None)],
                      daemon=True).start()
-    said, deadline = [], time.perf_counter() + timeout
+    return {"proc": proc, "lines": lines, "t0": t0}
+
+
+def _await_server(srv: dict, timeout: float = 300.0):
+    """Wait until a spawned server says where it serves: (process, url, its
+    lines, seconds from its start to that line)."""
+    import queue
+
+    proc, said, deadline = srv["proc"], [], time.perf_counter() + timeout
     while time.perf_counter() < deadline:
         try:
-            line = lines.get(timeout=max(0.1, deadline - time.perf_counter()))
+            item = srv["lines"].get(timeout=max(0.1, deadline - time.perf_counter()))
         except queue.Empty:
             break
-        if line is None:
+        if item is None:
             break
+        at, line = item
         said.append(line.rstrip())
         m = re.search(r"on (http://127\.0\.0\.1:\d+)", line)
         if m:
-            return proc, m.group(1), said
-    proc.kill()
-    proc.wait()
+            return proc, m.group(1), said, at - srv["t0"]
+    _stop(proc)
     raise PhaseError(f"the server did not start: {said[-10:]}")
+
+
+def _stop(proc):
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def start_servers(configs: dict, device="cuda") -> dict:
+    """Start every server of ``configs`` ({name: flags}, each warmed with
+    512,1024) at once and wait until all serve: {name: (process, url, its
+    lines, its start-up seconds)}. Prints the wall time of the joint start
+    against the sum of the start-ups, the seconds the overlap saved."""
+    t0 = time.perf_counter()
+    spawned = {name: _spawn_server(flags + ["--warmup-buckets", "512,1024", "--device", device])
+               for name, flags in configs.items()}
+    servers = {}
+    try:
+        for name, srv in spawned.items():
+            servers[name] = _await_server(srv)
+    except BaseException:
+        for srv in spawned.values():
+            if srv["proc"].poll() is None:
+                _stop(srv["proc"])
+        raise
+    wall = time.perf_counter() - t0
+    each = {name: round(v[3], 1) for name, v in servers.items()}
+    print(f"[13 serving] the {len(servers)} servers of phases 13-14 started together in {wall:.1f} s wall; their "
+          f"start-ups {each} s add up to {sum(each.values()):.1f} s: {sum(each.values()) - wall:.1f} s saved by "
+          f"starting them at once")
+    return servers
+
+
+def stop_servers(servers: dict):
+    for proc, *_ in servers.values():
+        if proc.poll() is None:
+            _stop(proc)
 
 
 def _post(url: str, body: dict) -> dict:
@@ -1905,11 +1968,12 @@ def _post(url: str, body: dict) -> dict:
         return json.loads(r.read())
 
 
-def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, device="cuda") -> dict:
+def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, servers: dict, device="cuda") -> dict:
     """Phase 13: the port's embedding server on the card, in a process of
     its own on 127.0.0.1 at a free port, warmed with the ladder 512,1024:
     with phase 9's stage-3 wave and time checkpoints (dual) and with phase
-    10's supervised joint one. The target's raw rows go in 7 requests of up
+    10's supervised joint one (``servers["dual"]``, ``servers["joint"]``,
+    started with phase 14's by start_servers). The target's raw rows go in 7 requests of up
     to 64 rows (source 0); every reply is within 1e-5 of the checkpoint's
     model called directly (export.load_model_from_ckpt, embed_unimodal /
     embed_multimodal) on preprocess_pair of the same rows. Then the port's
@@ -1928,8 +1992,7 @@ def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, device="cuda") ->
     wave, isi_p = preprocess.preprocess_pair(wf, isi, device=device)
     source = torch.zeros(len(wf), dtype=torch.long, device=device)
     replies = {}
-    for mode, flags in (("dual", ["--wave-checkpoint", uni_ckpts["wave"], "--time-checkpoint", uni_ckpts["time"]]),
-                        ("joint", ["--joint-checkpoint", joint_ckpt])):
+    for mode in ("dual", "joint"):
         if mode == "dual":
             mw, _ = export.load_model_from_ckpt(uni_ckpts["wave"], device=device)
             mt, _ = export.load_model_from_ckpt(uni_ckpts["time"], device=device)
@@ -1939,13 +2002,13 @@ def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, device="cuda") ->
             mj, _ = export.load_model_from_ckpt(joint_ckpt, device=device)
             direct = {"joint": embed_multimodal(mj, wave, isi_p, source)}
         direct = {k: v.cpu().numpy() for k, v in direct.items()}
-        got, res, stats, start_s, said = serve_and_load(flags, wf, isi, device)
+        got, res, stats, start_s, said = serve_and_load(servers[mode], wf, isi)
         check(all(got[kind].shape == ref.shape for kind, ref in direct.items()),
               f"{mode} replies of shapes {[v.shape for v in got.values()]}")
         worst = max(float(np.abs(got[kind] - ref).max()) for kind, ref in direct.items())
         check(worst <= 1e-5, f"serving {mode}: a reply {worst} from the model called directly")
         replies[mode] = got
-        print(f"[13 serving] {mode}: the server started and warmed (512, 1024) in {start_s:.1f} s "
+        print(f"[13 serving] {mode}: the server started and warmed (512, 1024) in {start_s:.1f} s, beside the others "
               f"({'; '.join(x for x in said if x.startswith('warmup'))}); {n_requests(wf)} requests of the "
               f"target's {len(wf)} raw rows, max |reply - direct| {worst:.3g} (limit 1e-5)")
         print(load_test_line(res, stats, card))
@@ -1965,20 +2028,18 @@ def n_requests(wf) -> int:
     return -(-len(wf) // 64)
 
 
-def serve_and_load(flags: list, wf, isi, device="cuda"):
-    """Start the port's server with ``flags`` (warmed with 512,1024), send
-    the raw rows in requests of up to 64 rows (source 0), run the load-test
-    client at its defaults, stop the server. Returns (replies {kind: [rows,
-    width]}, the load test's result, the server's /stats, start-up seconds,
-    the server's lines)."""
+def serve_and_load(server: tuple, wf, isi):
+    """With a running server of start_servers: send the raw rows in
+    requests of up to 64 rows (source 0), run the load-test client at its
+    defaults, stop the server. Returns (replies {kind: [rows, width]}, the
+    load test's result, the server's /stats, its start-up seconds, its
+    lines)."""
     import contextlib
     import io
 
     from hippie_tpu_torch.scripts import serving_load_test
 
-    t0 = time.perf_counter()
-    proc, url, said = _free_server(flags + ["--warmup-buckets", "512,1024", "--device", device])
-    start_s = time.perf_counter() - t0
+    proc, url, said, start_s = server
     try:
         parts = {}
         for lo in range(0, len(wf), 64):
@@ -1992,12 +2053,7 @@ def serve_and_load(flags: list, wf, isi, device="cuda"):
             res = serving_load_test.main(["--url", url])
         stats = json.loads(urllib_get(url + "/stats"))
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+        _stop(proc)
     check(res["requests"] == 16 * 20, f"load test: {res['requests']} requests")
     replies = {k: np.concatenate(v) for k, v in parts.items()}
     check(all(v.shape[0] == len(wf) for v in replies.values()),
@@ -2085,33 +2141,20 @@ def checkpoint_path_ms(model, arrays, embed, rows: int, iters: int = 20) -> floa
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def phase_artifacts(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, ckpt_replies: dict,
-                    device="cuda"):
-    """Phase 14: the deployable artifact. Exports phase 9's stage-3 wave and
-    time checkpoints and phase 10's supervised joint one with the
-    export_model CLI (precision "highest"), writes each one's "default"
-    (TF32) twin (the same program; torch applies the precision around each
-    call, export.py), and loads them in a fresh process on the card
-    (artifact_replies). Every "highest" reply at 1, 415 and 4,096 rows is
-    within 1e-5 of embed_unimodal / embed_multimodal of the checkpoint's
-    model (export.load_model_from_ckpt) on the same rows; the TF32 drift is
-    printed as the least row cosine and the max |difference|. Prints the
-    fresh process's bench_artifact records (rows 512, 4096, 16384) beside
-    the checkpoint path's warm ms measured the same way, and the export and
-    load seconds. Then the server on the artifacts (--wave-artifact
-    --time-artifact, and --joint-artifact) with phase 13's requests and load
-    test: every reply within 1e-5 of the checkpoint server's."""
+def export_artifacts(workdir: str, uni_ckpts: dict, joint_ckpt: str, device="cuda") -> dict:
+    """Phase 14's exports, run before phase 13 so that its artifact servers
+    start with phase 13's: phase 9's stage-3 wave and time checkpoints and
+    phase 10's supervised joint one through the export_model CLI (precision
+    "highest"), each with its "default" (TF32) twin (the same program;
+    torch applies the precision around each call, export.py). Returns
+    {"dir", "export_s", "sizes"}."""
     import contextlib
     import io
     import zipfile
 
-    import torch
-
     from hippie_tpu_torch import export
-    from hippie_tpu_torch.evaluate.embeddings import embed_multimodal, embed_unimodal
     from hippie_tpu_torch.scripts import export_model
 
-    t_phase = time.perf_counter()
     art_dir = f"{workdir}/artifacts"
     os.makedirs(art_dir, exist_ok=True)
     ckpts = {"wave": uni_ckpts["wave"], "time": uni_ckpts["time"], "joint": joint_ckpt}
@@ -2128,6 +2171,40 @@ def phase_artifacts(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, c
             check(sorted(zf.namelist()) == ["manifest.json", "model.pt2"], f"{name} artifact holds {zf.namelist()}")
             blob = zf.read("model.pt2")
         export.save_artifact(f"{art_dir}/{name}_tf32.hippie", blob, dict(manifest, precision="default"))
+    return {"dir": art_dir, "export_s": export_s, "sizes": sizes}
+
+
+def server_configs(uni_ckpts: dict, joint_ckpt: str, art_dir: str) -> dict:
+    """The four servers of phases 13-14: on the checkpoints (dual, joint) and
+    on the artifacts (art_dual, art_joint)."""
+    return {"dual": ["--wave-checkpoint", uni_ckpts["wave"], "--time-checkpoint", uni_ckpts["time"]],
+            "joint": ["--joint-checkpoint", joint_ckpt],
+            "art_dual": ["--wave-artifact", f"{art_dir}/wave.hippie", "--time-artifact", f"{art_dir}/time.hippie"],
+            "art_joint": ["--joint-artifact", f"{art_dir}/joint.hippie"]}
+
+
+def phase_artifacts(card: str, uni_ckpts: dict, joint_ckpt: str, ckpt_replies: dict, exported: dict,
+                    servers: dict, device="cuda"):
+    """Phase 14: the deployable artifact. The artifacts of export_artifacts
+    (``exported``) are loaded in a fresh process on the card
+    (artifact_replies). Every "highest" reply at 1, 415 and 4,096 rows is
+    within 1e-5 of embed_unimodal / embed_multimodal of the checkpoint's
+    model (export.load_model_from_ckpt) on the same rows; the TF32 drift is
+    printed as the least row cosine and the max |difference|. Prints the
+    fresh process's bench_artifact records (rows 512, 4096, 16384) beside
+    the checkpoint path's warm ms measured the same way, and the export and
+    load seconds. Then the servers on the artifacts (``servers["art_dual"]``
+    with --wave-artifact --time-artifact, ``servers["art_joint"]`` with
+    --joint-artifact, started with phase 13's) take phase 13's requests and
+    load test: every reply within 1e-5 of the checkpoint server's."""
+    import torch
+
+    from hippie_tpu_torch import export
+    from hippie_tpu_torch.evaluate.embeddings import embed_multimodal, embed_unimodal
+
+    t_phase = time.perf_counter()
+    art_dir, export_s, sizes = exported["dir"], exported["export_s"], exported["sizes"]
+    ckpts = {"wave": uni_ckpts["wave"], "time": uni_ckpts["time"], "joint": joint_ckpt}
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--artifact-replies", art_dir, device],
                           cwd=str(REPO), capture_output=True, text=True, timeout=600)
@@ -2170,18 +2247,18 @@ def phase_artifacts(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, c
     print(f"  the fresh process (6 loads, replies, 3 benches) {fresh_s:.1f} s on {card}")
 
     wf, isi = target_raw_rows()
-    for mode, flags in (("dual", ["--wave-artifact", f"{art_dir}/wave.hippie",
-                                  "--time-artifact", f"{art_dir}/time.hippie"]),
-                        ("joint", ["--joint-artifact", f"{art_dir}/joint.hippie"])):
-        got, res, stats, start_s, said = serve_and_load(flags, wf, isi, device)
+    for mode in ("dual", "joint"):
+        got, res, stats, start_s, said = serve_and_load(servers[f"art_{mode}"], wf, isi)
         ref = ckpt_replies[mode]
         check(sorted(got) == sorted(ref), f"artifact server {mode} replies {sorted(got)}")
         worst = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
         check(worst <= 1e-5, f"artifact server {mode}: a reply {worst} from the checkpoint server's")
-        print(f"[14 artifact server] {mode} on {card}: started and warmed (512, 1024) in {start_s:.1f} s; "
+        print(f"[14 artifact server] {mode} on {card}: started and warmed (512, 1024) in {start_s:.1f} s (with "
+              f"phase 13's); "
               f"{n_requests(wf)} requests, max |reply - checkpoint server's| {worst:.3g} (limit 1e-5)")
         print(load_test_line(res, stats, card))
-    print(f"  phase 14 {time.perf_counter() - t_phase:.1f} s on {card}")
+    print(f"  phase 14 {time.perf_counter() - t_phase:.1f} s on {card}, and its exports "
+          f"{sum(export_s.values()):.1f} s before phase 13")
 
 
 def max_abs_diff(a: dict, b: dict) -> float:
@@ -2194,6 +2271,102 @@ def max_abs_diff(a: dict, b: dict) -> float:
         elif not bool((v == b[k]).all()):
             return float("inf")
     return worst
+
+
+def ensemble_fit(pool, cfg_m, lrs, fit_loop: str, max_epochs: int = 2, device="cuda", mesh=None,
+                 resume_dir=None, key: int = 15):
+    """A K-replica stage-1 fit over phase 4's pool (every row trains, the
+    first 2B rows validate), the loss and block kernels, with fit_loop
+    "device" (ensemble.device_fit_ensemble) or "host" (host_fit_ensemble);
+    with ``mesh`` this rank's replicas (shard_replicas) and ``resume_dir``."""
+    from hippie_tpu_torch.data import device_data
+    from hippie_tpu_torch.train import ensemble, optim, step
+
+    states = ensemble.set_ensemble_lr(ensemble.init_unimodal_ensemble(
+        key, cfg_m, lambda ps: optim.make_optimizer(ps, LR, WD), len(lrs), device=device), lrs)
+    if mesh is not None:
+        states = ensemble.shard_replicas(states, mesh)
+    val = device_data.batch_plan(np.arange(2 * B), B, shuffle=False)
+    kw = dict(arrays=(pool.wave,), source=pool.source, class_=None, train_stream=np.arange(len(pool)),
+              batch_size=B, val_idx=val[0], val_mask=val[1], max_epochs=max_epochs, seed=15, mesh=mesh,
+              resume_dir=resume_dir)
+    backends = dict(loss_backend="pallas", block_backend="pallas")
+    if fit_loop == "device":
+        batch_step, eval_step = step.make_unimodal_steps(**backends)
+        return ensemble.device_fit_ensemble(states, batch_step=batch_step, eval_step=eval_step, **kw)
+    return ensemble.host_fit_ensemble(states, epoch_fns=ensemble.make_unimodal_ensemble_epoch_fns(**backends),
+                                      **kw)
+
+
+def single_device_fit(pool, cfg_m, max_epochs: int = 1, device="cuda"):
+    """One model's device fit over ensemble_fit's plans (device_fit.device_fit)."""
+    from hippie_tpu_torch.data import device_data
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import device_fit, loop, optim, step
+
+    model = cvae.unimodal_cvae_init(cfg_m, loop.key_generator(15, 0), device=device)
+    ts = step.TrainState(model, optim.make_optimizer(model.parameters(), LR, WD))
+    val = device_data.batch_plan(np.arange(2 * B), B, shuffle=False)
+    batch_step, eval_step = step.make_unimodal_steps(loss_backend="pallas", block_backend="pallas")
+    return device_fit.device_fit(ts, batch_step=batch_step, eval_step=eval_step, arrays=(pool.wave,),
+                                 source=pool.source, class_=pool.source, train_stream=np.arange(len(pool)),
+                                 batch_size=B, val_idx=val[0], val_mask=val[1], max_epochs=max_epochs,
+                                 early_stopping_patience=None, seed=15, use_class_labels=False, shuffle=True,
+                                 verbose=False)
+
+
+def ensemble_diff(a, b, losses: bool = True) -> list:
+    """Where two K-replica fits differ (empty: bit for bit): the [K] arrays,
+    the losses (with ``losses``), every replica's model and optimizer state,
+    the bests."""
+    import torch
+
+    names = ("best_val_loss", "best_epoch") + (("train_losses", "val_losses") if losses else ())
+    bad = [name for name in names if not np.array_equal(np.asarray(getattr(a, name)), np.asarray(getattr(b, name)))]
+    bad += ["epochs_run"] if a.epochs_run != b.epochs_run else []
+    for r, (x, y) in enumerate(zip(a.state, b.state)):
+        for tag, u, v in (("model", x.model.state_dict(), y.model.state_dict()),
+                          ("opt", flat_tensors(x.optimizer.state_dict()), flat_tensors(y.optimizer.state_dict())),
+                          ("best", a.best_state_dict[r], b.best_state_dict[r])):
+            bad += [f"{tag}{r}.{k}" for k, t in u.items() if not torch.equal(t, v[k])]
+    return bad
+
+
+def ensemble_step_calls(pool, cfg_m, lrs, idx, mask, device="cuda") -> tuple:
+    """The runtime calls and device work of ONE replayed train step of the K
+    replicas (train/device_fit.py:StepGraph over K step functions, as
+    device_fit_ensemble builds it), and its ms with the host's dispatch."""
+    import torch
+
+    from hippie_tpu_torch.train import device_fit, ensemble, optim, step
+
+    states = ensemble.set_ensemble_lr(ensemble.init_unimodal_ensemble(
+        15, cfg_m, lambda ps: optim.make_optimizer(ps, LR, WD), len(lrs), device=device), lrs)
+    batch_step, _ = step.make_unimodal_steps(loss_backend="pallas", block_backend="pallas")
+    fns = [lambda i, m, e, ts=ts: batch_step(ts, pool.wave[i], pool.source[i], None, m, eps=e)[1] for ts in states]
+
+    def zero():
+        for ts in states:
+            ts.optimizer.zero_grad(set_to_none=True)
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        g = device_fit.StepGraph(fns, nb=1, batch=B, noise_shape=(B, cfg_m.z_dim), dtype=torch.float32,
+                                 device=torch.device(device), stream=s, pool=torch.cuda.graph_pool_handle(),
+                                 before_capture=zero)
+        g.load_plan(idx[:1], mask[:1])
+        gens = [torch.Generator(device=device).manual_seed(k) for k in range(len(states))]
+        g(gens)  # each replica's eager step
+        g.row.zero_()
+        g(gens)  # captured, replayed
+        prof = api_profile(lambda: (g.row.zero_(), g(gens)), n=3)
+        ms = time_ms(lambda: (g.row.zero_(), g(gens)), n=20, warmup=2)
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    g.graph = None
+    zero()
+    return prof, ms
 
 
 def phase_ensemble(card: str, workdir: str, pool, cfg_m=None, device="cuda", k_replicas: int = 4):
@@ -2210,9 +2383,16 @@ def phase_ensemble(card: str, workdir: str, pool, cfg_m=None, device="cuda", k_r
     otherwise within twice their spread (weights, buffers and the per-step
     losses), measured here and printed. Then the lr_sweep CLI with
     --modality wave and --modality joint, K=4, one epoch, --export-winner,
-    at z=10 and the pipeline's stage-1 geometry; each winner is loaded
-    through its pipeline's stage-1 seam (pipeline._seed_stage1) and must
-    equal the file."""
+    at z=10 and the pipeline's stage-1 geometry, on the CLI's default
+    device loop; each winner is loaded through its pipeline's stage-1 seam
+    (pipeline._seed_stage1) and must equal the file. Between them the K=4
+    fit (2 epochs, 6 train and 2 val steps each) on the device loop
+    (ensemble.device_fit_ensemble) must equal the host loop's bit for bit,
+    its launches in one epoch, counted by torch.profiler's marker kernels,
+    must be 4x one model's device fit's, and one replayed K-step's runtime
+    calls are printed; after them a K=2 wave sweep with each loop must give
+    the same best losses, best epochs and winner bytes. Returns the device
+    ensemble's launches and each loop's ms per epoch."""
     import contextlib
     import io
     import math
@@ -2289,9 +2469,40 @@ def phase_ensemble(card: str, workdir: str, pool, cfg_m=None, device="cuda", k_r
           f"{[f'{d:.3g}' for d in diffs]}; two runs of the single model differ by {spread:.3g} "
           f"({'bit for bit' if spread == 0.0 else 'limit twice that'})")
 
+    # the K replicas on the device loop: one CUDA graph per step kind for all K
+    fits = {fl: ensemble_fit(pool, cfg_m, lrs, fl, device=device) for fl in ("host", "device")}
+    diff = ensemble_diff(fits["device"], fits["host"])
+    check(not diff, f"the K={k_replicas} device-loop fit differs from the host loop's in {diff[:5]}")
+    g = fits["device"].graphs
+    check(g.get("captured") and g["train_replays"] > 0 and g["eval_replays"] > 0, f"no replays: {g}")
+    _, ens_markers, _ = profiled_launches(lambda: ensemble_fit(pool, cfg_m, lrs, "device", 1, device))
+    _, one_markers, _ = profiled_launches(lambda: single_device_fit(pool, cfg_m, 1, device))
+    path_kernels = ("vae_sums_fwd", "vae_sums_bwd", "enc_block_fwd", "enc_block_bwd", "dec_block_fwd",
+                    "dec_block_bwd")
+    check(ens_markers == {k: k_replicas * v for k, v in one_markers.items()}
+          and all(ens_markers[k] > 0 for k in path_kernels),
+          f"device-loop ensemble launches {ens_markers}, expected {k_replicas} x {one_markers}")
+    calls, k_step_ms = ensemble_step_calls(pool, cfg_m, lrs, idx, mask, device)
+    api = {k: round(v, 2) for k, v in sorted(calls["api"].items(), key=lambda kv: -kv[1])[:5]}
+    n_steps = -(-len(pool) // B) + 2
+    ms_epoch = {fl: [round(1e3 * x, 1) for x in f.epoch_s] for fl, f in fits.items()}
+    print(f"[15 device ensemble] K={k_replicas}, the same replicas, {n_steps - 2} train + 2 val steps per epoch, 2 "
+          f"epochs, loss and block kernels: device_fit_ensemble equals host_fit_ensemble bit for bit (every "
+          f"replica's state, optimizer state, best snapshot, losses); ms per epoch device {ms_epoch['device']} "
+          f"(the first with the captures, {g['capture_s']:.3f} s), host {ms_epoch['host']} on {card}; "
+          f"{g['train_replays']} train and {g['eval_replays']} eval replays of the K-step graphs")
+    print(f"  one replayed K={k_replicas} train step: {k_step_ms:.3f} ms (CUDA events, dispatch included), "
+          f"{calls['device_us'] / 1e3:.3f} ms device in {calls['kernels']:.1f} kernels and copies, runtime calls "
+          f"{api}; launches of one device-loop epoch counted by torch.profiler: ensemble {ens_markers}, "
+          f"one model {one_markers} (x{k_replicas})")
+    out = {"launches": ens_markers, "ms_epoch": ms_epoch}
+
     for modality in ("wave", "joint"):
         path = f"{workdir}/sweep_{modality}_winner.ckpt"
         out = io.StringIO()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = lr_sweep.main(["--dataset", TARGET, "--data-root", DATA_ROOT, "--modality", modality,
@@ -2299,7 +2510,9 @@ def phase_ensemble(card: str, workdir: str, pool, cfg_m=None, device="cuda", k_r
                                 "--num-blocks", ",".join(map(str, cfg_m.num_blocks)), "--export-winner", path,
                                 "--device", device])
         sweep_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20 if device != "cpu" else float("nan")
         rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        check("device loop" in out.getvalue(), f"lr_sweep {modality} did not run its default device loop")
         check(rc == 0 and rec["exported"] == path and len(rec["best_val_loss"]) == 4
               and all(math.isfinite(v) for v in rec["best_val_loss"]), f"lr_sweep {modality}: {rec}")
         pcfg = pipeline.PipelineConfig(z_dim=cfg_m.z_dim, num_blocks=tuple(cfg_m.num_blocks), dataset=TARGET,
@@ -2313,11 +2526,32 @@ def phase_ensemble(card: str, workdir: str, pool, cfg_m=None, device="cuda", k_r
         want_sd = ckpt_mod.model_state_from_ckpt(ckpt_mod.load_lightning_ckpt(path))
         d = max_abs_diff({k: v.cpu() for k, v in seeded.model.state_dict().items()}, want_sd)
         check(d == 0.0, f"the {modality} stage-1 seam holds {d} from the sweep's winner")
-        print(f"[15 lr_sweep] --modality {modality}, K=4 (lrs {rec['lrs']}), 1 epoch: {sweep_s:.2f} s wall on "
+        print(f"[15 lr_sweep] --modality {modality}, K=4 (lrs {rec['lrs']}), 1 epoch on the device loop: "
+              f"{sweep_s:.2f} s wall, peak {peak:.1f} MiB on "
               f"{card}; best val {[round(v, 4) for v in rec['best_val_loss']]}, winner {rec['winner']}; the "
               f"winner loaded through the {'joint' if joint else 'wave'} stage-1 seam in {seam_s:.2f} s, "
               f"equal to the file ({cvae.param_count(seeded.model):,} params)")
+
+    # one K=2 sweep with each loop: the same JSON numbers and winner bytes
+    got = {}
+    for fit_loop in ("device", "host"):
+        path = f"{workdir}/sweep_k2_winner.ckpt"
+        out_s = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out_s):
+            rc = lr_sweep.main(["--dataset", TARGET, "--data-root", DATA_ROOT, "--modality", "wave", "--lrs",
+                                "1e-3,3e-3", "--max-epochs", "2", "--z-dim", str(cfg_m.z_dim), "--export-winner",
+                                path, "--fit-loop", fit_loop, "--device", device])
+        rec = json.loads(out_s.getvalue().strip().splitlines()[-1])
+        with open(path, "rb") as f:
+            got[fit_loop] = (rc, rec["best_val_loss"], rec["best_epoch"], f.read(), time.perf_counter() - t0)
+    check(got["device"][:4] == got["host"][:4],
+          f"lr_sweep K=2: device loop {got['device'][1:3]}, host loop {got['host'][1:3]} (or the exported bytes)")
+    print(f"[15 lr_sweep loops] --modality wave, K=2, 2 epochs: --fit-loop device and host give the same best val "
+          f"{got['device'][1]}, best epochs {got['device'][2]} and winner .ckpt bytes; "
+          f"{got['device'][4]:.2f} / {got['host'][4]:.2f} s wall on {card}")
     print(f"  phase 15 {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
 
 
 def phase_kfold(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, device="cuda"):
@@ -2399,12 +2633,6 @@ def csv_diff(a: str, b: str) -> float:
     if re.sub(num, "#", ta) != re.sub(num, "#", tb) or len(na) != len(nb):
         return float("inf")
     return float(np.max(np.abs(np.asarray(na, np.float64) - np.asarray(nb, np.float64))))
-
-
-def within_spread(d: float, spread: float) -> bool:
-    """Phase 15's rule: bit for bit where two uninterrupted runs agree bit for
-    bit, else within twice their spread."""
-    return d == 0.0 if spread == 0.0 else d <= 2 * spread
 
 
 @contextlib.contextmanager
@@ -2560,18 +2788,20 @@ def phase_resume(card: str, workdir: str, pool, device="cuda") -> dict:
     """Phase 17, the slice's main path: mid-run resume at full width.
 
     The joint pipeline (16,115,748 parameters in stage 1) with the loss and
-    block kernels at 2 epochs per stage, four times: uninterrupted twice (A,
-    B), then with ``resume=True`` stopped after one epoch of its third stage
-    fit (the supervised one; C), then with ``resume=True`` again (D). D's
-    .ckpt state dicts and optimizer states, CSVs and balanced accuracies must
-    equal A's under phase 15's rule (bit for bit where A and B agree bit for
-    bit, else within twice their spread); D launches exactly the kernels of
+    block kernels at 2 epochs per stage, three times: uninterrupted (A), then
+    with ``resume=True`` stopped after one epoch of its third stage fit (the
+    supervised one; C), then with ``resume=True`` again (D). D's .ckpt state
+    dicts and optimizer states, CSVs and balanced accuracies must equal A's
+    bit for bit (every run of the card's kernels repeats bit for bit; two
+    uninterrupted runs agreed exactly in every run that measured them, so
+    the second is not run); D launches exactly the kernels of
     the one epoch it ran, and C + D exactly A's. Then a unimodal full-width
     stage fit on the pool (2 epochs), cut after one and resumed, with
-    schedule-free AdamW and with bf16 Adam moments, each held to its
-    uninterrupted fit by the same rule; and the lr_sweep CLI with
+    schedule-free AdamW and with bf16 Adam moments, each equal to its
+    uninterrupted fit bit for bit; and the lr_sweep CLI with
     --resume-dir at K=2, cut after one of two epochs, whose winner and best
-    validation losses must be the uninterrupted sweep's. Prints the resume
+    validation losses must be the uninterrupted sweep's (on the device
+    loop, the CLI's default: replayed K-step graphs). Prints the resume
     writes' seconds per epoch and file sizes for both models. Returns D's
     launches, the main path's."""
     import io
@@ -2582,14 +2812,11 @@ def phase_resume(card: str, workdir: str, pool, device="cuda") -> dict:
 
     t_phase = time.perf_counter()
     a = joint_resume_run(workdir, "resume_a", False, device)
-    b = joint_resume_run(workdir, "resume_b", False, device)
     c = joint_resume_run(workdir, "resume_cd", True, device, crash=True)
     d = joint_resume_run(workdir, "resume_cd", True, device)
-    spread, got = joint_run_diff(a, b), joint_run_diff(a, d)
-    for kind in spread:
-        check(within_spread(got[kind], spread[kind]),
-              f"resumed joint pipeline: {kind} {got[kind]} from the uninterrupted run (two uninterrupted "
-              f"runs differ by {spread[kind]})")
+    got = joint_run_diff(a, d)
+    check(got == {"ckpt": 0.0, "csv": 0.0, "acc": 0.0},
+          f"resumed joint pipeline: {got} from the uninterrupted run")
     n_val = len(d["results"]["label_val"])
     n_stream = len(sampling.balanced_indices(d["results"]["label_train"], seed=d["cfg"].seed))
     train, val = n_batches(n_stream, d["cfg"].supervised_batch_size), n_batches(n_val, d["cfg"].supervised_batch_size)
@@ -2604,33 +2831,31 @@ def phase_resume(card: str, workdir: str, pool, device="cuda") -> dict:
     both = {k: c["launches"][k] + d["launches"][k] for k in want}
     check(both == a["launches"], f"crash + resume launches {both}, the uninterrupted run's {a['launches']}")
     print(f"[17 resume] joint pipeline, z={Z}, {FULL_MM_PARAMS:,} stage-1 params, 2 epochs per stage, "
-          f"loss_backend=pallas block_backend=pallas, on {card}: uninterrupted {a['wall']:.3f} and "
-          f"{b['wall']:.3f} s wall; with --resume, stopped after one epoch of the supervised fit "
+          f"loss_backend=pallas block_backend=pallas, on {card}: uninterrupted {a['wall']:.3f} "
+          f"s wall; with --resume, stopped after one epoch of the supervised fit "
           f"{c['wall']:.3f} s, resumed {d['wall']:.3f} s (launches {d['launches']}, exactly its one epoch; "
           f"the stopped run's and the resumed run's add up to the uninterrupted run's)")
-    print(f"  resumed against uninterrupted: {json.dumps(got)}; two uninterrupted runs: {json.dumps(spread)} "
-          f"(max |diff| of the .ckpt tensors, of the CSVs' numbers, of the 15 balanced accuracies)")
+    print(f"  resumed against uninterrupted, bit for bit: {json.dumps(got)} (max |diff| of the .ckpt tensors, "
+          f"of the CSVs' numbers, of the 15 balanced accuracies)")
     print(f"  joint model: {writes_line(c['writes'] + d['writes'])}")
 
     uni_writes = []
     for optimizer, state_dtype in (("schedule-free", None), ("adamw", "bfloat16")):
         full = uni_resume_fit(pool, optimizer, state_dtype, 2, device=device)
-        again = uni_resume_fit(pool, optimizer, state_dtype, 2, device=device)
         rdir = f"{workdir}/resume_uni_{optimizer}_{state_dtype}"
         with timed_resume_writes(uni_writes):
             uni_resume_fit(pool, optimizer, state_dtype, 1, rdir, device=device)
             resumed = uni_resume_fit(pool, optimizer, state_dtype, 2, rdir, device=device)
-        s, g = fit_diff(full, again), fit_diff(full, resumed)
-        check(within_spread(g, s) and resumed.epochs_run == 2 and len(resumed.val_losses) == 1,
-              f"resumed {optimizer} ({state_dtype}) stage fit {g} from the uninterrupted one (two runs: {s})")
+        g = fit_diff(full, resumed)
+        check(g == 0.0 and resumed.epochs_run == 2 and len(resumed.val_losses) == 1,
+              f"resumed {optimizer} ({state_dtype}) stage fit {g} from the uninterrupted one")
         print(f"[17 resume] unimodal stage-1 fit at full width ({FULL_PARAMS:,} params), optimizer={optimizer}, "
-              f"opt_state_dtype={state_dtype}, 2 epochs on the pool, cut after one and resumed: max |diff| {g:.3g} "
-              f"from the uninterrupted fit (two uninterrupted fits: {s:.3g}; "
-              f"{'bit for bit' if s == 0.0 else 'limit twice that'})")
+              f"opt_state_dtype={state_dtype}, 2 epochs on the pool, cut after one and resumed: equal to the "
+              f"uninterrupted fit bit for bit")
     print(f"  unimodal model: {writes_line(uni_writes)}")
 
     base = ["--dataset", TARGET, "--data-root", DATA_ROOT, "--modality", "wave", "--lrs", "1e-3,3e-3",
-            "--max-epochs", "2", "--z-dim", str(Z), "--device", device]
+            "--max-epochs", "2", "--z-dim", str(Z), "--fit-loop", "device", "--device", device]
 
     def sweep(extra):
         out = io.StringIO()
@@ -2638,7 +2863,7 @@ def phase_resume(card: str, workdir: str, pool, device="cuda") -> dict:
             rc = lr_sweep.main(base + extra)
         return rc, json.loads(out.getvalue().strip().splitlines()[-1]), out.getvalue()
 
-    (_, s1, _), (_, s2, _) = sweep([]), sweep([])
+    _, s1, _ = sweep([])
     rdir = f"{workdir}/resume_sweep"
     with crash_after_one_epoch(ensemble, "fit_ensemble", 1), contextlib.redirect_stdout(io.StringIO()):
         try:
@@ -2646,14 +2871,11 @@ def phase_resume(card: str, workdir: str, pool, device="cuda") -> dict:
         except KeyboardInterrupt:
             pass
     rc, s3, said = sweep(["--resume-dir", rdir, "--progress-every", "1"])
-    vspread = float(np.max(np.abs(np.subtract(s1["best_val_loss"], s2["best_val_loss"]))))
-    vd = float(np.max(np.abs(np.subtract(s1["best_val_loss"], s3["best_val_loss"]))))
-    check(rc == 0 and s3["winner"] == s1["winner"] and s3["best_epoch"] == s1["best_epoch"]
-          and within_spread(vd, vspread) and "Resumed ensemble" in said,
-          f"resumed sweep {s3} against the uninterrupted {s1} (two uninterrupted: {vspread})")
-    print(f"[17 resume] lr_sweep --resume-dir, K=2 (lrs {s3['lrs']}), cut after one of two epochs and resumed: "
-          f"winner {s3['winner']} = the uninterrupted sweep's, best val losses {vd:.3g} from it (two "
-          f"uninterrupted sweeps: {vspread:.3g}); "
+    check(rc == 0 and s3 == s1 and "Resumed ensemble" in said,
+          f"resumed sweep {s3} against the uninterrupted {s1}")
+    print(f"[17 resume] lr_sweep --resume-dir on the device loop (replayed K-step graphs), K=2 (lrs {s3['lrs']}), "
+          f"cut after one of two epochs and resumed: its JSON line (best val losses {s3['best_val_loss']}, "
+          f"best epochs {s3['best_epoch']}, winner {s3['winner']}) equals the uninterrupted sweep's bit for bit; "
           + "; ".join(x for x in said.splitlines() if x.startswith("ensemble progress")))
     print(f"  phase 17 {time.perf_counter() - t_phase:.1f} s on {card}")
     return d["launches"]
@@ -2935,14 +3157,92 @@ def dp_seg_checks(mesh, card: str) -> dict:
     return records
 
 
-def dp_rank_one(mesh, idx, mask, card: str) -> dict:
+def sf_layout(payload) -> dict:
+    """A .sfstate payload's layout: its keys, scalar types, and every leaf's
+    shape and dtype."""
+    if payload is None:
+        return {}
+    return {k: ({n: (v.shape, str(v.dtype)) for n, v in x.items()} if isinstance(x, dict) else type(x).__name__)
+            for k, x in payload.items()}
+
+
+def fsdp_fit(pool, mesh, optimizer: str, fit_loop: str, fsdp: bool = True, max_epochs: int = 2) -> tuple:
+    """20b's unimodal stage-1 fit (full width, B=512, the loss and block
+    kernels, no patience) under ``mesh``, its optimizer (AdamW clipped at
+    1.0, or schedule-free) sharded with ``fsdp`` (parallel/fsdp.py), on
+    ``fit_loop``: (host_fit of the result, {ms/step per epoch, peak MiB,
+    the .sfstate layout, the graphs})."""
+    import torch
+
+    from hippie_tpu_torch.data.device_data import train_val_split
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.parallel import mesh as pmesh
+    from hippie_tpu_torch.parallel.fsdp import ShardedOptimizer
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+    from hippie_tpu_torch.train import loop, optim, pipeline, step
+
+    cfg = pipeline.PipelineConfig(z_dim=Z, dataset=TARGET, data_root=DATA_ROOT, loss_backend="pallas",
+                                  block_backend="pallas", device="cuda", verbose=False, optimizer=optimizer,
+                                  fit_loop=fit_loop, early_stopping_patience=None)
+    model = cvae.unimodal_cvae_init(full_config(), loop.key_generator(17, 0), device="cuda")
+    clip = CLIP if optimizer == "adamw" else None
+
+    def make(ps, c=None):
+        return optim.make_optimizer(ps, LR, WD, c, algorithm=optimizer)
+
+    opt = ShardedOptimizer(model, mesh, make, clip) if fsdp else make(model.parameters(), clip)
+    tr, va = train_val_split(len(pool), 0.8, loop.key_generator(17, 1))
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with pmesh.data_parallel(mesh):
+        res = pipeline.fit_unimodal_stage(cfg=dataclasses.replace(cfg, log_fn=lambda rec: stamps.append(
+            time.perf_counter()), progress_every=1), ts=step.TrainState(model, opt), data=pool.wave,
+            source=pool.source, class_=pool.source, train_indices=tr, val_indices=va, batch_size=B,
+            max_epochs=max_epochs, beta=1.0, use_class_labels=False, shuffle_train=True, stage_seed=10, lr=LR)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        payload = (optim.schedule_free_payload(res.state.optimizer, ckpt_mod.parameter_key_order(model))
+                   if optimizer == "schedule-free" else None)
+    steps = -(-len(tr) // B) + -(-len(va) // B)
+    per = [round(1e3 * (b - a) / steps, 3) for a, b in zip([t0] + stamps, stamps)]
+    return host_fit(res), {"ms_step": per, "peak_mib": round(peak, 1), "layout": sf_layout(payload),
+                           "graphs": dict(res.graphs)}
+
+
+def fsdp_checks(pool, mesh, workdir: str) -> dict:
+    """In the NCCL rank: 20b's stage fit with FSDP on the device loop against
+    the host loop, with AdamW and with schedule-free, and the schedule-free
+    sidecar's layout against the replicated optimizer's; then
+    device_fit_ensemble(mesh=) at K=2 stopped after one of two epochs and
+    resumed from fresh replicas against the uninterrupted sharded fit."""
+    out = {}
+    for optimizer in ("adamw", "schedule-free"):
+        fits = {fl: fsdp_fit(pool, mesh, optimizer, fl) for fl in ("host", "device")}
+        out[optimizer] = {"diff": same_fit(fits["device"][0], fits["host"][0]),
+                          **{fl: fits[fl][1] for fl in fits}}
+    out["dp_layout"] = fsdp_fit(pool, mesh, "schedule-free", "device", fsdp=False, max_epochs=1)[1]["layout"]
+    cfg_m, lrs = full_config(), [1e-3, 3e-3]
+    rdir = f"{workdir}/sharded_ensemble_resume"
+    t0 = time.perf_counter()
+    full = ensemble_fit(pool, cfg_m, lrs, "device", 2, mesh=mesh)
+    ensemble_fit(pool, cfg_m, lrs, "device", 1, mesh=mesh, resume_dir=rdir)
+    resumed = ensemble_fit(pool, cfg_m, lrs, "device", 2, mesh=mesh, resume_dir=rdir, key=99)
+    out["ensemble"] = {"diff": ensemble_diff(resumed, full, losses=False), "secs": time.perf_counter() - t0,
+                       "graphs": dict(resumed.graphs), "epochs": (full.epochs_run, len(resumed.train_losses))}
+    return out
+
+
+def dp_rank_one(mesh, idx, mask, card: str, workdir: str) -> dict:
     """Phase 19a, in one rank over NCCL on cuda:0: the unimodal stage-1 epoch
     through parallel.mesh equals the single-process epoch bit for bit (losses
     and every tensor of the state), launching only the segmented entries;
     then the single-process references of 19b-c (the first DP_STEPS steps of
     each model, and the same with the waveforms moved by 1e-6: the path's own
     spread) and dp_seg_checks; then phase 20e: the unimodal stage-1 device
-    fit of 20b through the mesh against the same fit without it."""
+    fit of 20b through the mesh against the same fit without it; then
+    fsdp_checks (20f)."""
     import torch
 
     from hippie_tpu_torch.ops import cuda_blocks as cb
@@ -2974,6 +3274,9 @@ def dp_rank_one(mesh, idx, mask, card: str) -> dict:
     out["records"] = dp_seg_checks(mesh, card)
     t0 = time.perf_counter()
     out["device_fit"] = same_fit(dp_device_fit(pool, None), dp_device_fit(pool, mesh)), time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["fsdp"] = fsdp_checks(pool, mesh, workdir)
+    out["fsdp_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3056,7 +3359,7 @@ def phase_data_parallel(card: str, workdir: str, idx, mask) -> list:
     from hippie_tpu_torch.parallel import mesh as pmesh
 
     t_phase = time.perf_counter()
-    one = pmesh.launch(dp_rank_one, 1, idx, mask, card, device="cuda")[0]
+    one = pmesh.launch(dp_rank_one, 1, idx, mask, card, workdir, device="cuda")[0]
     t_one = time.perf_counter() - t_phase
     l1, secs, seg = one["epoch"]
     print(f"[19a one rank, NCCL] the unimodal stage-1 epoch ({idx.shape[0]} steps, B={B}) through the mesh: "
@@ -3066,6 +3369,26 @@ def phase_data_parallel(card: str, workdir: str, idx, mask) -> list:
     print(f"[20e one NCCL rank] in 19a's rank: the unimodal stage-1 device fit (20b's) through the one-rank NCCL "
           f"mesh (segmented block kernels, captured all-reduces) equals the same fit without the mesh bit for "
           f"bit; both fits {fit_s:.1f} s")
+    fs = one["fsdp"]
+    for optimizer in ("adamw", "schedule-free"):
+        r = fs[optimizer]
+        check(not r["diff"], f"20f: the FSDP {optimizer} device fit differs from the host fit in {r['diff'][:5]}")
+        check(r["device"]["graphs"].get("captured"), f"20f: the FSDP {optimizer} device fit did not capture")
+        print(f"[20f FSDP device loop, one NCCL rank] 20b's unimodal stage fit (2 epochs) with its {optimizer} "
+              f"state sharded (parallel/fsdp.py{', clip 1.0' if optimizer == 'adamw' else ''}): the device loop "
+              f"(the reduce-scatter, sharded update and in-place gather captured) equals the host loop bit for "
+              f"bit; ms/step per epoch device {r['device']['ms_step']}, host {r['host']['ms_step']}; peak "
+              f"{r['device']['peak_mib']} / {r['host']['peak_mib']} MiB per rank (device / host) on {card}")
+    check(fs["schedule-free"]["device"]["layout"] == fs["dp_layout"] and fs["dp_layout"],
+          "20f: the FSDP schedule-free sidecar's layout differs from the replicated optimizer's")
+    print("  20f: the FSDP schedule-free .sfstate payload has the replicated optimizer's keys, shapes and dtypes")
+    ens = fs["ensemble"]
+    check(not ens["diff"] and ens["epochs"] == (2, 1),
+          f"20f: the sharded K=2 fit resumed differs from the uninterrupted one in {ens['diff'][:5]} {ens['epochs']}")
+    print(f"[20f sharded replicas, one NCCL rank] device_fit_ensemble(mesh=) at K=2, stopped after one of two "
+          f"epochs (rank 0 writing the unsharded payload) and resumed from fresh replicas, equals the uninterrupted "
+          f"sharded fit bit for bit; {ens['secs']:.1f} s for the three fits; replays {ens['graphs']}; 20f in all "
+          f"{one['fsdp_s']:.1f} s")
     t0 = time.perf_counter()
     ranks = pmesh.launch(dp_rank_two, 2, idx, mask, workdir, devices=["cuda:0", "cuda:0"], backend="gloo")
     t_two = time.perf_counter() - t0
@@ -3128,6 +3451,68 @@ def phase_data_parallel(card: str, workdir: str, idx, mask) -> list:
     print(f"[19 data parallelism] phase {time.perf_counter() - t_phase:.1f} s on {card}: the NCCL rank's launch "
           f"{t_one:.1f} s ({one['secs']:.1f} s of epochs and references), the two gloo ranks' {t_two:.1f} s")
     return records
+
+
+def fsdp_nccl_rank(mesh) -> dict:
+    """One NCCL rank of ``--fsdp-nccl``: fsdp_fit with AdamW and with
+    schedule-free on each loop; each pair's differences, each fit's numbers
+    and a digest of the device fit's final model."""
+    from hippie_tpu_torch.train import pipeline
+
+    pool = pipeline.load_pretrain_pool(pipeline.PipelineConfig(dataset=TARGET, data_root=DATA_ROOT, verbose=False))
+    out = {}
+    for optimizer in ("adamw", "schedule-free"):
+        fits = {fl: fsdp_fit(pool, mesh, optimizer, fl) for fl in ("host", "device")}
+        digest_ = fit_digest(fits["device"][0]["tensors"])
+        out[optimizer] = {"diff": same_fit(fits["device"][0], fits["host"][0]), "digest": digest_,
+                          **{fl: {k: v for k, v in fits[fl][1].items() if k != "layout"} for fl in fits}}
+    return out
+
+
+def fit_digest(tensors: dict) -> str:
+    """A sha256 of a host_fit's final model tensors."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        if k.startswith("model."):
+            h.update(tensors[k].contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def fsdp_nccl() -> int:
+    """``python3 chip_smoke.py --fsdp-nccl`` (2 or more GPUs of one host; not
+    in the default run): 20f's FSDP stage fit (full width, B=512 over two
+    NCCL ranks on cuda:0 and cuda:1, 2 epochs) with AdamW clipped at 1.0 and
+    with schedule-free, each on the device loop against the host loop, bit
+    for bit, the two ranks' models equal; prints each loop's ms/step per
+    epoch and each rank's peak MiB. Returns 1 when a check fails."""
+    import torch
+
+    from hippie_tpu_torch.parallel import mesh as pmesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"chip_smoke --fsdp-nccl: {n} GPU(s); needs 2 or more", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    print(f"{n} x {card[0]}")
+    phase_build()
+    t0 = time.perf_counter()
+    ranks = pmesh.launch(fsdp_nccl_rank, 2, device="cuda")
+    ok = True
+    for optimizer in ("adamw", "schedule-free"):
+        rs = [r[optimizer] for r in ranks]
+        same = not rs[0]["diff"] and not rs[1]["diff"] and rs[0]["digest"] == rs[1]["digest"]
+        ok = ok and same and rs[0]["device"]["graphs"].get("captured", False)
+        print(f"[fsdp nccl] {optimizer}, 2 NCCL ranks on {card[0]}: device loop {'=' if same else '!='} host loop "
+              f"bit for bit (ranks equal: {rs[0]['digest'] == rs[1]['digest']}; diffs {rs[0]['diff'][:3]} "
+              f"{rs[1]['diff'][:3]}); ms/step per epoch device {rs[0]['device']['ms_step']}, host "
+              f"{rs[0]['host']['ms_step']}; peak MiB per rank device {[r['device']['peak_mib'] for r in rs]}, "
+              f"host {[r['host']['peak_mib'] for r in rs]}")
+    print(f"[fsdp nccl] {time.perf_counter() - t0:.1f} s")
+    return 0 if ok else 1
 
 
 def dp_walls() -> int:
@@ -3316,30 +3701,30 @@ def step_replay(kind: str, backend: str, pool, card: str, profile: bool = False)
     common = dict(nb=nb, batch=B, noise_shape=(B, Z), dtype=torch.float32, device=torch.device("cuda"),
                   stream=s, pool=torch.cuda.graph_pool_handle())
     with torch.cuda.stream(s):
-        tg = device_fit.StepGraph(train_fn, before_capture=lambda: opt.zero_grad(set_to_none=True), **common)
-        vg = device_fit.StepGraph(eval_fn, **common)
+        tg = device_fit.StepGraph([train_fn], before_capture=lambda: opt.zero_grad(set_to_none=True), **common)
+        vg = device_fit.StepGraph([eval_fn], **common)
         tg.load_plan(idx, mask)
         vg.load_plan(idx, mask)
-        tg(noise(0))  # the warm-up: row 0, eagerly
-        vg(noise(0))
+        tg([noise(0)])  # the warm-up: row 0, eagerly
+        vg([noise(0)])
         start = loop.snapshot(ts)
-        tg.eps.normal_(0.0, 1.0, generator=noise(5))
+        tg.eps[0].normal_(0.0, 1.0, generator=noise(5))
         tg._body()  # the eager step on row 1
-        eager = loop.snapshot(ts), tg.metrics[:, 1].clone()
+        eager = loop.snapshot(ts), tg.metrics[:, 0, 1].clone()
         ts.model.load_state_dict(start[0])
         opt.load_state_dict(start[1])
         tg.row.fill_(1)
         tg.calls = 1  # captured and replayed on this call
-        tg(noise(5))
-        graphed = loop.snapshot(ts), tg.metrics[:, 1].clone()
-        vg.eps.normal_(0.0, 1.0, generator=noise(6))
+        tg([noise(5)])
+        graphed = loop.snapshot(ts), tg.metrics[:, 0, 1].clone()
+        vg.eps[0].normal_(0.0, 1.0, generator=noise(6))
         vg.row.fill_(1)
         vg._body()
-        eval_eager = vg.metrics[:, 1].clone()
+        eval_eager = vg.metrics[:, 0, 1].clone()
         vg.row.fill_(1)
         vg.calls = 1
-        vg(noise(6))
-        eval_graphed = vg.metrics[:, 1].clone()
+        vg([noise(6)])
+        eval_graphed = vg.metrics[:, 0, 1].clone()
     torch.cuda.current_stream().wait_stream(s)
     torch.cuda.synchronize()
     tag = f"{kind} {backend}"
@@ -3356,7 +3741,7 @@ def step_replay(kind: str, backend: str, pool, card: str, profile: bool = False)
         torch.cuda.set_sync_debug_mode("error")
         try:
             tg.load_plan(idx2, mask2)
-            gen = noise(7)
+            gen = [noise(7)]
             for _ in range(nb):
                 tg(gen)
             vg.row.zero_()
@@ -3365,15 +3750,15 @@ def step_replay(kind: str, backend: str, pool, card: str, profile: bool = False)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.current_stream().wait_stream(s)
-    losses = tg.metrics[0].tolist()
+    losses = tg.metrics[0, 0].tolist()
     check(all(np.isfinite(losses)), f"{tag}: non-finite losses in the replayed epoch {losses}")
     out = {"losses": losses, "capture_s": tg.capture_s + vg.capture_s}
     if profile:
-        gen = noise(8)
+        gen = [noise(8)]
         with torch.cuda.stream(s):
             out["replay"] = api_profile(lambda: (tg.row.zero_(), tg(gen)))
             out["eval_replay"] = api_profile(lambda: (vg.row.zero_(), vg(gen)))
-            out["eager"] = api_profile(lambda: (tg.row.zero_(), tg.eps.normal_(generator=gen), tg._body()), n=3)
+            out["eager"] = api_profile(lambda: (tg.row.zero_(), tg.eps[0].normal_(generator=gen[0]), tg._body()), n=3)
             # ms per replayed train step, the host's dispatch included (phase 7 times the eager one)
             out["replay_ms"] = time_ms(lambda: (tg.row.zero_(), tg(gen)), n=30, warmup=3)
         torch.cuda.current_stream().wait_stream(s)
@@ -3534,6 +3919,32 @@ def profiled_launches(fn) -> tuple:
 VARIANTS_20B = (("schedule-free", None, "pallas"), ("adamw", "bfloat16", "pallas"), ("adamw", None, "xla"))
 
 
+def clip_launches(card: str) -> dict:
+    """The global-norm clip on gradients of the joint model's shapes (all
+    its leaves, 16,115,748 values): device kernels, µs and runtime calls per
+    call of the clip as it was (a vector norm per leaf, the norm of those,
+    one scale by ``clip / norm``) and of train/optim.py:clip_by_global_norm_
+    (one multi-tensor pass for the squares' sums, ``(g / n) * c``)."""
+    import torch
+
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import optim
+
+    model = cvae.multimodal_cvae_init(joint_config(), torch.Generator().manual_seed(0), device="cuda")
+    grads = [torch.randn_like(p) for p in model.parameters()]
+
+    def before():
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        torch._foreach_mul_(grads, torch.where(norm < CLIP, torch.ones_like(norm), CLIP / norm))
+
+    out = {"before": api_profile(before), "after": api_profile(lambda: optim.clip_by_global_norm_(grads, CLIP))}
+    print(f"[20a clip] the global-norm clip on the joint model's {len(grads)} gradient leaves, per call on {card}: "
+          + "; ".join(f"{k} {v['kernels']:.1f} kernels, {v['device_us']:.1f} us device, "
+                      f"{v['api'].get('cudaLaunchKernel', 0):.1f} cudaLaunchKernel" for k, v in out.items()))
+    del model, grads
+    return out
+
+
 def phase_device_loop(card: str, workdir: str, pool) -> dict:
     """Phase 20, this slice's main path: the device fit loop
     (train/device_fit.py), each stage fit's train and eval steps as CUDA
@@ -3585,6 +3996,7 @@ def phase_device_loop(card: str, workdir: str, pool) -> dict:
             print(f"  20a {kind}: vae_sums_bwd inside the graph {bwd[0] / bwd[1]:.3f} us device per launch "
                   f"(x{bwd[1]:g} per step)")
 
+    clip_launches(card)
     print(f"  20a {time.perf_counter() - t_phase:.1f} s")
 
     # (b) the unimodal stage-1 fit, device loop against host loop
@@ -3717,6 +4129,8 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--dp-walls"]:
         return dp_walls()
+    if sys.argv[1:2] == ["--fsdp-nccl"]:
+        return fsdp_nccl()
     if sys.argv[1:2] == ["--compare"]:
         pairs = int(sys.argv[4]) if sys.argv[3:4] == ["--pairs"] else 5
         return compare(sys.argv[2], pairs)
@@ -3789,8 +4203,14 @@ def main() -> int:
                 record["launches"] = pipeline_launches[record["name"]]
             phase_inference(card, workdir, uni_ckpts, joint_ckpt)
             phase_optimizers(card, workdir)
-            ckpt_replies = phase_serving(card, uni_ckpts, joint_ckpt)
-            phase_artifacts(card, workdir, uni_ckpts, joint_ckpt, ckpt_replies)
+            # phases 13-14: the four servers start at once, after phase 14's exports
+            exported = export_artifacts(workdir, uni_ckpts, joint_ckpt)
+            servers = start_servers(server_configs(uni_ckpts, joint_ckpt, exported["dir"]))
+            try:
+                ckpt_replies = phase_serving(card, uni_ckpts, joint_ckpt, servers)
+                phase_artifacts(card, uni_ckpts, joint_ckpt, ckpt_replies, exported, servers)
+            finally:
+                stop_servers(servers)
             phase_ensemble(card, workdir, pool)
             phase_kfold(card, workdir, uni_ckpts, joint_ckpt)
             # this slice's main path, the resumed joint pipeline: every kernel again, counted from 0

@@ -17,18 +17,25 @@ the gradients. Here the sharding is written on the collectives:
     which has no reduce-scatter of CUDA tensors) and the replicated leaves'
     in one all-reduce; a gradient a kernel seam already summed
     (``mesh.mark_reduced``) is only sliced. The global-norm clip sums the
-    shards' squares over the ranks and counts the replicated leaves once.
-    After the update the model's split leaves are released (their storage
-    freed), so between steps a rank holds its shards only;
-  - ``materialize`` all-gathers the shards into the model's parameters
-    before the next forward (train/step.py calls it at each step and at the
-    end of each train epoch, so every consumer outside the train loop sees
-    whole parameters);
-  - ``state_dict`` gathers the moments and returns the replicated
-    optimizer's layout, so the ``.ckpt``, the resume files and the best
-    snapshots hold the full state, byte-compatible with the replicated
-    run's; ``load_state_dict`` takes that layout and keeps this rank's
-    shards, re-reading the parameter shards from the model.
+    shards' squares over the ranks and counts the replicated leaves once,
+    then scales as optax does, ``(g / norm) * clip``;
+  - after the update ``gather`` all-gathers the shards into the model's
+    split leaves IN PLACE: each parameter keeps one full-size storage at a
+    fixed address for the whole fit, so a CUDA graph can capture the step
+    (reduce-scatter, sharded update, gather) and replay it
+    (train/device_fit.py), and both fit loops run the same step. The cost:
+    every rank holds the whole parameters (the joint model's 64.5 MB); the
+    moments, and schedule-free's ``z`` and ``exp_avg_sq``, stay sharded;
+  - the inner optimizer may be schedule-free AdamW (train/schedule_free.py)
+    over the shards: ``z`` and ``exp_avg_sq`` split as the AdamW moments,
+    the 0-d ``k``, ``weight_sum`` and ``lr_max`` replicated in the param
+    group;
+  - ``state_dict`` gathers the per-leaf state and returns the replicated
+    optimizer's layout, so the ``.ckpt``, the ``.sfstate`` sidecar, the
+    resume files and the best snapshots hold the full state,
+    byte-compatible with the replicated run's; ``load_state_dict`` takes
+    that layout and keeps this rank's shards, re-reading the parameter
+    shards from the model.
 
 Every rank runs every collective in the same order; ``state_dict`` is one of
 them, so every rank calls it (the fit loop's snapshots do).
@@ -41,6 +48,11 @@ from typing import Callable, List, Optional
 import torch
 
 from hippie_tpu_torch.parallel import mesh as pmesh
+from hippie_tpu_torch.train.optim import leaf_square_sums, scale_to_norm_
+
+# the per-leaf state split as its parameter: AdamW's moments, schedule-free's
+# z and second moment
+SPLIT_STATE = ("exp_avg", "exp_avg_sq", "z")
 
 
 class ShardedOptimizer(torch.optim.Optimizer):
@@ -63,7 +75,6 @@ class ShardedOptimizer(torch.optim.Optimizer):
             self.shards = [p if d is None else placed[k][1].clone() for (k, p), d in zip(named, self.dims)]
         self.inner = make_inner(self.shards)
         self.clip_val = clip_val
-        self._released = False
         super().__init__(self.shards, {})
         self.param_groups = self.inner.param_groups
         self.state = self.inner.state
@@ -103,7 +114,7 @@ class ShardedOptimizer(torch.optim.Optimizer):
         for i in split:
             self.shards[i].grad = None
             self.params[i].grad = None
-        self.release()
+        self.gather()
 
     def _sum_whole(self, whole: List[int], grads: List[torch.Tensor]):
         """The replicated leaves' gradients, summed over the ranks in one bucket."""
@@ -114,49 +125,49 @@ class ShardedOptimizer(torch.optim.Optimizer):
     def _clip(self, split: List[int], whole: List[int]):
         """optax's clip_by_global_norm on the whole gradient: the shards'
         squares summed over the ranks, the replicated leaves' counted once."""
-        sq = sum((self.shards[i].grad.square().sum() for i in split), self.params[0].new_zeros(()))
+        shard_grads = [self.shards[i].grad for i in split]
+        whole_grads = [self.params[i].grad for i in whole]
+        sq = self.params[0].new_zeros(())
+        if shard_grads:
+            sq = torch.stack(leaf_square_sums(shard_grads)).sum()
         sq = pmesh.all_sum(sq, self.mesh)
-        sq = sq + sum((self.params[i].grad.square().sum() for i in whole), sq.new_zeros(()))
-        norm = torch.sqrt(sq)
-        scale = torch.where(norm < self.clip_val, torch.ones_like(norm), self.clip_val / norm)
-        torch._foreach_mul_([self.shards[i].grad for i in split] + [self.params[i].grad for i in whole], scale)
+        if whole_grads:
+            sq = sq + torch.stack(leaf_square_sums(whole_grads)).sum()
+        scale_to_norm_(shard_grads + whole_grads, torch.sqrt(sq), self.clip_val)
 
     # --- parameters ----------------------------------------------------------
 
     @torch.no_grad()
-    def release(self):
-        """Free the model's split leaves; this rank keeps its shards."""
-        for i in self._split():
-            self.params[i].data = self.params[i].data.new_empty(0)
-        self._released = True
-
-    @torch.no_grad()
-    def materialize(self):
-        """All-gather the shards into the model's parameters (a no-op when
-        they are whole)."""
-        if not self._released:
-            return
+    def gather(self):
+        """All-gather the shards into the model's split leaves, in place:
+        one collective, then each rank's chunk copied into its place."""
         split = self._split()
-        if split:
-            rows = pmesh.gather_rows(torch.cat([self.shards[i].reshape(-1) for i in split]), self.mesh)
-            sizes = [self.shards[i].numel() for i in split]
-            parts = [torch.split(rows[r], sizes) for r in range(self.mesh.size)]
-            for k, i in enumerate(split):
-                shard_shape = self.shards[i].shape
-                self.params[i].data = torch.cat([parts[r][k].view(shard_shape) for r in range(self.mesh.size)],
-                                                dim=self.dims[i])
-        self._released = False
+        if not split:
+            return
+        rows = pmesh.gather_rows(torch.cat([self.shards[i].reshape(-1) for i in split]), self.mesh)
+        sizes = [self.shards[i].numel() for i in split]
+        parts = [torch.split(rows[r], sizes) for r in range(self.mesh.size)]
+        dst, src = [], []
+        for k, i in enumerate(split):
+            for r, chunk in enumerate(self.params[i].chunk(self.mesh.size, self.dims[i])):
+                dst.append(chunk)
+                src.append(parts[r][k].view(self.shards[i].shape))
+        torch._foreach_copy_(dst, src)
+
+    def local(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's part of whole per-leaf tensors in parameter order (a
+        split leaf's chunk, a replicated leaf whole): views."""
+        return [t if d is None else t.chunk(self.mesh.size, d)[self.mesh.rank] for t, d in zip(leaves, self.dims)]
 
     @torch.no_grad()
     def refresh_shards(self):
         """Re-read this rank's shards from the model's (whole) parameters."""
-        self.materialize()
         for i in self._split():
             self.shards[i].copy_(self.params[i].chunk(self.mesh.size, self.dims[i])[self.mesh.rank])
 
     def state_bytes(self) -> int:
         """Bytes this rank holds of the parameters and the optimizer state:
-        the model's parameters as they are now, the shards and the moments."""
+        the model's (whole) parameters, the shards and the per-leaf state."""
         total = sum(p.numel() * p.element_size() for p in self.params)
         total += sum(self.shards[i].numel() * self.shards[i].element_size() for i in self._split())
         for st in self.inner.state.values():
@@ -167,11 +178,11 @@ class ShardedOptimizer(torch.optim.Optimizer):
     # --- state ---------------------------------------------------------------
 
     def state_dict(self):
-        """The inner optimizer's state_dict with every split leaf's moments
-        gathered whole: the replicated optimizer's layout (collective)."""
+        """The inner optimizer's state_dict with every split leaf's per-leaf
+        state gathered whole: the replicated optimizer's layout (collective)."""
         sd = self.inner.state_dict()
         split = [i for i in self._split() if i in sd["state"]]
-        for name in ("exp_avg", "exp_avg_sq"):
+        for name in SPLIT_STATE:
             have = [i for i in split if name in sd["state"][i]]
             by_dtype = {}
             for i in have:
@@ -189,12 +200,12 @@ class ShardedOptimizer(torch.optim.Optimizer):
 
     def load_state_dict(self, state_dict):
         """Take the replicated layout: this rank's chunk of every split leaf's
-        moments; the parameter shards re-read from the model."""
+        per-leaf state; the parameter shards re-read from the model."""
         sd = {"param_groups": state_dict["param_groups"], "state": {}}
         for i, st in state_dict["state"].items():
             d = self.dims[int(i)]
             sd["state"][i] = {k: (v.chunk(self.mesh.size, d)[self.mesh.rank].clone()
-                                  if d is not None and k in ("exp_avg", "exp_avg_sq") else v)
+                                  if d is not None and k in SPLIT_STATE else v)
                               for k, v in st.items()}
         self.inner.load_state_dict(sd)
         self.param_groups = self.inner.param_groups

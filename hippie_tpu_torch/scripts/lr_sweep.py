@@ -6,14 +6,21 @@ seeds) trained side by side (train/ensemble.py).
     python -m hippie_tpu_torch.scripts.lr_sweep --dataset X --mode seeds --n-seeds 4 --lr 1e-3
 
 Counterpart of the JAX package's scripts/lr_sweep.py, with its flags plus
-``--device`` (default ``cuda``). ``--fit-loop`` takes only ``host``: the
-K-replica device fit (the JAX ``device_fit_replica_plans``) is not ported
-yet, and ``--aot-dir`` has no port target (default none; raises when given, naming ROADMAP Queue 1
-item 12). ``--resume-dir DIR`` saves the K replicas' full state after every
-epoch and continues an interrupted sweep from there, and
+``--device`` (default ``cuda``). ``--fit-loop device`` (the default, as in
+JAX) runs the K-replica fit as replayed CUDA graphs, one per step kind for
+all K replicas (train/ensemble.py:device_fit_ensemble, the JAX
+``device_fit_ensemble``); ``--fit-loop host`` steps them eagerly
+(``host_fit_ensemble``); both give the same sweep bit for bit. The JAX
+``device_fit_replica_plans`` (the k-fold refit's per-replica plans) stays
+unported by design: ``host_fit_replica_plans`` fits such replicas one after
+another, since they share no plan to step side by side.
+``--aot-dir`` has no port target (default none; raises when given, naming
+ROADMAP Queue 1 item 12). ``--resume-dir DIR`` saves the K replicas' full
+state after every epoch and continues an interrupted sweep from there, and
 ``--progress-every N`` prints a progress line every N epochs
-(train/ensemble.py:fit_ensemble); the JAX CLI takes both only with its
-device fit loop, for which the port's host loop stands here. ``--export-winner`` and ``--export-all`` write Lightning
+(train/ensemble.py:fit_ensemble); the JAX CLI takes both, and ``--modality
+joint``, only with its device loop, the port with either loop.
+``--export-winner`` and ``--export-all`` write Lightning
 ``.ckpt`` files (train/checkpoint.py:save_lightning_ckpt) that the stage-1
 seams of both training CLIs load (``--stage1-{wave,time,joint}-ckpt``);
 ``--export-all`` warns for a replica that never improved (its best epoch is
@@ -66,9 +73,9 @@ def build_parser():
     p.add_argument("--train-frac", type=float, default=0.8)
     p.add_argument("--num-blocks", default="2,2,2,2",
                    help="backbone blocks per stage (tests use 1,1,1,1)")
-    p.add_argument("--fit-loop", choices=("host",), default="host",
-                   help="per-epoch on the host: the K-replica device fit (the JAX "
-                        "device_fit_replica_plans) is not ported yet (ROADMAP Queue 1)")
+    p.add_argument("--fit-loop", choices=("device", "host"), default="device",
+                   help="device: every step of the K replicas is one replayed CUDA graph (eager steps "
+                        "off the card); host: the replicas' eager steps; the same sweep bit for bit")
     p.add_argument("--progress-every", type=int, default=None,
                    help="print a progress line every N epochs (the trajectory does not change)")
     p.add_argument("--aot-dir", default=None,
@@ -106,7 +113,7 @@ def main(argv=None):
     from hippie_tpu_torch.data.device_data import batch_plan
     from hippie_tpu_torch.models import cvae
     from hippie_tpu_torch.train import checkpoint as ckpt_mod
-    from hippie_tpu_torch.train import ensemble, loop, optim, pipeline
+    from hippie_tpu_torch.train import ensemble, loop, optim, pipeline, step
 
     clip_val = args.clip_val
     if clip_val is None and args.modality in ("time", "joint"):
@@ -139,13 +146,14 @@ def main(argv=None):
                                       output_size_isi=int(arrays[1].shape[1]),
                                       num_sources=registry.NUM_SOURCES, num_classes=5, num_blocks=nb_cfg)
         init_one, init_ens = cvae.multimodal_cvae_init, ensemble.init_multimodal_ensemble
-        epoch_fns = ensemble.make_multimodal_ensemble_epoch_fns(
-            beta=args.beta, mod1_weight=args.mod1_weight, mod2_weight=args.mod2_weight)
+        loss = dict(beta=args.beta, mod1_weight=args.mod1_weight, mod2_weight=args.mod2_weight)
+        make_steps, make_epoch_fns = step.make_multimodal_steps, ensemble.make_multimodal_ensemble_epoch_fns
     else:
         cfg_m = cvae.CVAEConfig(z_dim=args.z_dim, output_size=int(arrays[0].shape[1]),
                                 num_sources=registry.NUM_SOURCES, num_classes=5, num_blocks=nb_cfg)
         init_one, init_ens = cvae.unimodal_cvae_init, ensemble.init_unimodal_ensemble
-        epoch_fns = ensemble.make_unimodal_ensemble_epoch_fns(beta=args.beta)
+        loss = dict(beta=args.beta)
+        make_steps, make_epoch_fns = step.make_unimodal_steps, ensemble.make_unimodal_ensemble_epoch_fns
 
     def make_opt(lr):
         return lambda params: optim.make_optimizer(params, lr, args.weight_decay, clip_val)
@@ -169,11 +177,15 @@ def main(argv=None):
     va_plan = batch_plan(va_idx, args.batch_size, shuffle=False)
     print(f"sweeping {K} configs on {args.dataset} ({args.pool} pool, {args.modality}, {n} rows, "
           f"{args.device}, {args.fit_loop} loop)")
-    res = ensemble.host_fit_ensemble(
-        states, epoch_fns=epoch_fns, arrays=arrays, source=ds.source, class_=None,
-        train_stream=tr_idx, batch_size=args.batch_size, val_idx=va_plan[0], val_mask=va_plan[1],
-        max_epochs=args.max_epochs, early_stopping_patience=args.patience, seed=args.seed,
-        shuffle=True, verbose=True, resume_dir=args.resume_dir, progress_every=args.progress_every)
+    fit = dict(arrays=arrays, source=ds.source, class_=None, train_stream=tr_idx, batch_size=args.batch_size,
+               val_idx=va_plan[0], val_mask=va_plan[1], max_epochs=args.max_epochs,
+               early_stopping_patience=args.patience, seed=args.seed, shuffle=True, verbose=True,
+               resume_dir=args.resume_dir, progress_every=args.progress_every)
+    if args.fit_loop == "device":
+        batch_step, eval_step = make_steps(**loss)
+        res = ensemble.device_fit_ensemble(states, batch_step=batch_step, eval_step=eval_step, **fit)
+    else:
+        res = ensemble.host_fit_ensemble(states, epoch_fns=make_epoch_fns(**loss), **fit)
 
     # a replica that never logged a finite best must not win: np.argmin would
     # return the first nan

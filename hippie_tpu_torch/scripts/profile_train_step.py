@@ -150,12 +150,12 @@ def main(argv=None):
         side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
         graphed = device_fit.StepGraph(
-            lambda i, m, e: batch_step(ts, data[i], source[i], None, m, eps=e)[1], nb=1, batch=B,
+            [lambda i, m, e: batch_step(ts, data[i], source[i], None, m, eps=e)[1]], nb=1, batch=B,
             noise_shape=(B, cfg.z_dim), dtype=data.dtype, device=device, stream=side,
             pool=torch.cuda.graph_pool_handle() if side is not None else None,
             before_capture=lambda: opt.zero_grad(set_to_none=True))
         graphed.load_plan(np.arange(B)[None], np.ones((1, B), np.float32))
-        record("graphed train step (device fit loop)", lambda: (graphed.row.zero_(), graphed(gen)))
+        record("graphed train step (device fit loop)", lambda: (graphed.row.zero_(), graphed([gen])))
     if side is not None:
         torch.cuda.current_stream(device).wait_stream(side)
     graphed.graph = None

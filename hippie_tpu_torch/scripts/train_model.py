@@ -13,13 +13,14 @@ runs each stage fit's steps as CUDA graphs replayed on the card
 steps, on the same trajectory bit for bit; ``--progress-every`` and
 ``--log-every-step`` are the device loop's, as in JAX. The JAX option with
 no port (``--aot-dir``) raises with the ROADMAP item that names it
-(``UNPORTED``). On CUDA the device loop needs NCCL ranks, and ``--fsdp``
-there runs the host loop (an FSDP step cannot be captured). ``--dp-devices N`` (N > 1) runs the
+(``UNPORTED``). On CUDA the device loop needs NCCL ranks; it captures the
+``--fsdp`` step too. ``--dp-devices N`` (N > 1) runs the
 pipeline on N data-parallel ranks (parallel/mesh.py:launch): N GPUs over
 NCCL, or with ``--device cpu`` N processes over gloo; more ranks than
 visible GPUs raise ValueError (the JAX ``make_mesh`` would take fewer).
 ``--fsdp`` adds the sharding of the parameters and the optimizer state
-(parallel/fsdp.py) and needs ``--dp-devices`` > 1. Rank 0 writes every
+(parallel/fsdp.py; AdamW's moments or schedule-free's state) and needs
+``--dp-devices`` > 1. Rank 0 writes every
 file and prints; its results are the command's. ``--resume``
 continues every stage fit of an interrupted run where it stopped
 (train/resume.py; the port's own format, not orbax), ``--profile-dir``
@@ -194,9 +195,6 @@ def config_from_args(args, model_type: str = "unimodal", log_fn=None):
         from hippie_tpu_torch.parallel.mesh import check_devices
 
         check_devices(args.dp_devices, args.device)
-    if args.fsdp and args.optimizer != "adamw":
-        raise ValueError("--fsdp with --optimizer schedule-free is not ported yet: ROADMAP Queue 1 "
-                         "(the sharded schedule-free state)")
     return PipelineConfig(
         z_dim=args.z_dim,
         weight_decay=args.weight_decay,

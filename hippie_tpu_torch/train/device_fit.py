@@ -13,7 +13,11 @@ Each step of a graph reads static device buffers: the epoch's plan
 ``[nb, 2B]`` (the batch's indices, then its mask as 0/1), a row counter the
 step advances, and the step's noise ``[B, z]``; the gathers from the
 device-resident arrays run inside the graph, and each step writes its
-(loss, mse, kl) into column ``row`` of a ``[3, nb]`` metric buffer. Per
+(loss, mse, kl) into column ``row`` of a ``[3, 1, nb]`` metric buffer. The
+same ``StepGraph`` runs the K replicas of a sweep or seed ensemble
+(train/ensemble.py:device_fit_ensemble): one graph per step kind steps the
+local replicas in turn over each row, with one noise slot and one metric
+row per replica. Per
 epoch the host builds the plan with ``batch_plan`` exactly as the host loop
 does (train/pipeline.py:fit_stage) and copies it in with one H2D copy from
 pinned memory; the noise is drawn with the generator calls the host loop's
@@ -50,10 +54,10 @@ Off the card there are no graphs: the same step functions over the same
 buffers run eagerly (the CPU tests). On the card the loop captures or
 raises; it never falls back to eager steps. Under an active mesh
 (parallel/mesh.py) the NCCL collectives of a step are stream operations and
-are captured with it; gloo carries CUDA tensors through the host, which a
-graph cannot capture, and an FSDP optimizer moves its parameters' storage
-every step, so on the card both raise ValueError (``--fit-loop host`` runs
-them; ``pipeline.fit_stage`` sends an FSDP stage there itself).
+are captured with it, the FSDP step's too (parallel/fsdp.py keeps every
+parameter in one fixed storage, gathered into in place); gloo carries CUDA
+tensors through the host, which a graph cannot capture, so on the card it
+raises ValueError (``--fit-loop host`` runs it).
 """
 
 from __future__ import annotations
@@ -70,33 +74,37 @@ from hippie_tpu_torch.data.device_data import batch_plan
 from hippie_tpu_torch.parallel import mesh as pmesh
 from hippie_tpu_torch.train import loop
 from hippie_tpu_torch.train.loop import FitResult
-from hippie_tpu_torch.train.step import _materialize
 
 
 class StepGraph:
     """One step kind (train or eval) of a stage over static device buffers,
-    and on the card its CUDA graph.
+    for R models stepped in turn over each row of one shared plan, and on
+    the card its CUDA graph.
 
-    ``fn(idx, mask, eps) -> Metrics`` is the step on a batch's indices
-    ``[B]``, mask ``[B]`` and noise. ``load_plan(idx, mask)`` sets an epoch's
-    ``[nb, B]`` plan and rewinds the row counter; each call draws the step's
-    noise from ``generator`` and runs the next row: eagerly on its first
-    call (and always off the card), captured on its second, replayed after.
-    ``metrics`` ``[3, nb]`` holds each row's (loss, mse, kl).
+    ``fns[r](idx, mask, eps) -> Metrics`` is model r's step on a batch's
+    indices ``[B]``, mask ``[B]`` and noise (a single model: one step
+    function; the K replicas of train/ensemble.py:device_fit_ensemble: one
+    per local replica). ``load_plan(idx, mask)`` sets an epoch's ``[nb, B]``
+    plan and rewinds the row counter; each call draws every model's noise
+    into its slot of ``eps`` ``[R, *noise_shape]`` from its generator and
+    runs the next row, the models in order: eagerly on its first call (and
+    always off the card), captured on its second, replayed after.
+    ``metrics`` ``[3, R, nb]`` holds each row's (loss, mse, kl) per model.
     ``before_capture`` runs just before the capture (the train step drops
     its gradients there)."""
 
-    def __init__(self, fn: Callable, *, nb: int, batch: int, noise_shape: Sequence[int],
+    def __init__(self, fns: Sequence[Callable], *, nb: int, batch: int, noise_shape: Sequence[int],
                  dtype: torch.dtype, device: torch.device, stream=None, pool=None,
                  noise_view: Callable = lambda eps: eps, before_capture: Callable = lambda: None):
-        self.fn, self.nb, self.batch, self.dtype = fn, nb, batch, dtype
+        self.fns, self.nb, self.batch, self.dtype = list(fns), nb, batch, dtype
         self.device, self.stream, self.pool = device, stream, pool
         self.before_capture = before_capture
+        n = len(self.fns)
         self.plan = torch.zeros((nb, 2 * batch), dtype=torch.long, device=device)
         self.row = torch.zeros((1,), dtype=torch.long, device=device)
-        self.eps = torch.zeros(tuple(noise_shape), dtype=dtype, device=device)
-        self.eps_local = noise_view(self.eps)
-        self.metrics = torch.zeros((3, nb), dtype=torch.float32, device=device)
+        self.eps = torch.zeros((n, *noise_shape), dtype=dtype, device=device)
+        self.eps_local = [noise_view(e) for e in self.eps]
+        self.metrics = torch.zeros((3, n, nb), dtype=torch.float32, device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.calls = self.replays = 0
         self.capture_s = 0.0
@@ -116,14 +124,17 @@ class StepGraph:
 
     def _body(self):
         r = self.plan.index_select(0, self.row)[0]
-        m = self.fn(r[:self.batch], r[self.batch:].to(self.dtype), self.eps_local)
-        self.metrics.index_copy_(1, self.row, torch.stack([m.loss, m.mse, m.kl]).float().reshape(3, 1))
+        idx, mask = r[:self.batch], r[self.batch:].to(self.dtype)
+        ms = [fn(idx, mask, eps) for fn, eps in zip(self.fns, self.eps_local)]
+        rows = torch.stack([m.loss for m in ms] + [m.mse for m in ms] + [m.kl for m in ms])
+        self.metrics.index_copy_(2, self.row, rows.float().reshape(3, len(ms), 1))
         self.row.add_(1)
 
-    def __call__(self, generator: torch.Generator):
+    def __call__(self, generators: Sequence[torch.Generator]):
         # torch.randn(shape, generator=...) is normal_ on a fresh tensor: the
         # same draw as the host loop's step makes
-        self.eps.normal_(0.0, 1.0, generator=generator)
+        for e, gen in zip(self.eps, generators):
+            e.normal_(0.0, 1.0, generator=gen)
         self.calls += 1
         if self.graph is None and (self.device.type != "cuda" or self.calls == 1):
             self._body()
@@ -145,18 +156,41 @@ class StepGraph:
         self.capture_s = time.perf_counter() - t0
 
 
-def _check_card(ts, mesh, device: torch.device):
-    """The device loop's refusals on the card."""
+@contextlib.contextmanager
+def graph_stream(device: torch.device):
+    """Where a fit's step graphs run: on the card a side stream, current
+    inside and started after the caller's stream's work (the caller's stream
+    waits for it on leaving), and one graph memory pool for both step kinds;
+    off the card (None, None)."""
     if device.type != "cuda":
+        yield None, None
         return
-    if mesh is not None and mesh.backend != "nccl":
+    outer, stream = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+    stream.wait_stream(outer)
+    try:
+        with torch.cuda.stream(stream):
+            yield stream, torch.cuda.graph_pool_handle()
+    finally:
+        outer.wait_stream(stream)
+
+
+def release(train: StepGraph, val: StepGraph, zero_grads: Callable) -> dict:
+    """Drop a fit's two graphs, and with ``zero_grads`` the gradients the
+    train graph's pool holds; returns the result's ``graphs`` record."""
+    graphs = {"captured": train.graph is not None, "capture_s": train.capture_s + val.capture_s,
+              "train_replays": train.replays, "eval_replays": val.replays}
+    if train.graph is not None:
+        zero_grads()
+    train.graph = val.graph = None
+    return graphs
+
+
+def check_card(mesh, device: torch.device):
+    """The device loop's refusal on the card: a gloo mesh."""
+    if device.type == "cuda" and mesh is not None and mesh.backend != "nccl":
         raise ValueError(
             f"--fit-loop device on CUDA needs NCCL ranks: {mesh.backend} moves CUDA tensors through "
             "the host, which a CUDA graph cannot capture; run --fit-loop host")
-    if getattr(ts.optimizer, "is_sharded", False):
-        raise ValueError(
-            "--fit-loop device on CUDA cannot capture an FSDP step (its parameters' storage is "
-            "released and gathered anew every step); run --fsdp with --fit-loop host")
 
 
 def device_fit(
@@ -205,7 +239,7 @@ def device_fit(
                          "(ROADMAP Queue 1 item 12)")
     device = arrays[0].device
     mesh = pmesh.active()
-    _check_card(ts, mesh, device)
+    check_card(mesh, device)
     stream_idx = np.asarray(train_stream)
     nb = loop.limit_count(max(1, -(-len(stream_idx) // batch_size)), limit_train_batches)
     val_idx, val_mask = np.asarray(val_idx), np.asarray(val_mask)
@@ -226,19 +260,14 @@ def device_fit(
     def eval_fn(idx, mask, eps):
         return eval_step(ts.model, *gather(idx), mask, eps=eps)
 
-    on_card = device.type == "cuda"
-    outer = torch.cuda.current_stream(device) if on_card else None
-    stream = torch.cuda.Stream(device) if on_card else None
-    common = dict(batch=val_idx.shape[1], noise_shape=(batch_size, z), dtype=arrays[0].dtype, device=device,
-                  stream=stream, pool=torch.cuda.graph_pool_handle() if on_card else None,
-                  noise_view=((lambda eps: pmesh.batch_sharded(mesh, eps, batch_axis=0))
-                              if mesh is not None else (lambda eps: eps)))
-    with torch.cuda.stream(stream) if on_card else contextlib.nullcontext():
-        if on_card:
-            stream.wait_stream(outer)
-        train = StepGraph(train_fn, nb=nb, before_capture=lambda: ts.optimizer.zero_grad(set_to_none=True),
-                          **common)
-        val = StepGraph(eval_fn, nb=val_idx.shape[0], **common)
+    with graph_stream(device) as (stream, pool):
+        common = dict(batch=val_idx.shape[1], noise_shape=(batch_size, z), dtype=arrays[0].dtype, device=device,
+                      stream=stream, pool=pool,
+                      noise_view=((lambda eps: pmesh.batch_sharded(mesh, eps, batch_axis=0))
+                                  if mesh is not None else (lambda eps: eps)))
+        zero_grads = lambda: ts.optimizer.zero_grad(set_to_none=True)  # noqa: E731
+        train = StepGraph([train_fn], nb=nb, before_capture=zero_grads, **common)
+        val = StepGraph([eval_fn], nb=val_idx.shape[0], **common)
         val.load_plan(val_idx, val_mask)
 
         def run_train(state, key, epoch):
@@ -248,19 +277,18 @@ def device_fit(
             if mesh is not None:
                 idx, mask = pmesh.shard_epoch_inputs(mesh, idx, mask)
             train.load_plan(idx, mask)
-            gen = loop.key_generator(key, 1, device=device)
+            gens = [loop.key_generator(key, 1, device=device)]
             for _ in range(nb):
-                train(gen)
-            _materialize(state.optimizer)
-            return state, _metrics(train.metrics, mesh)
+                train(gens)
+            return state, _metrics(train.metrics[:, 0], mesh)
 
         def run_val(state, key, epoch):
             with eval_ctx(state):
                 val.row.zero_()
-                gen = loop.key_generator(key, device=device)
+                gens = [loop.key_generator(key, device=device)]
                 for _ in range(val.nb):
-                    val(gen)
-            return _metrics(val.metrics, mesh)
+                    val(gens)
+            return _metrics(val.metrics[:, 0], mesh)
 
         try:
             result = loop.fit(ts, run_train_epoch=run_train, run_val_epoch=run_val, max_epochs=max_epochs,
@@ -268,13 +296,7 @@ def device_fit(
                               verbose=verbose, resume_dir=resume_dir, lr=lr,
                               progress_every=progress_every, log_steps=log_steps)
         finally:
-            graphs = {"captured": train.graph is not None, "capture_s": train.capture_s + val.capture_s,
-                      "train_replays": train.replays, "eval_replays": val.replays}
-            if on_card:
-                outer.wait_stream(stream)
-            if train.graph is not None:
-                ts.optimizer.zero_grad(set_to_none=True)  # the graph pool's gradients
-            train.graph = val.graph = None
+            graphs = release(train, val, zero_grads)
     return dataclasses.replace(result, graphs=graphs)
 
 

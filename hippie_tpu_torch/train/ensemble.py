@@ -15,10 +15,11 @@ noise generator, and steps the replicas in turn over each batch:
     generator path; the JAX package promises only "equivalent, not
     bit-equal" (its vmap reorders the backward's reductions).
 
-The price: a step of K replicas is K steps, K times the host dispatch of one
-model, and the step is host-bound (PERF.md section 5: idle share 0.87-0.89
-on the card). A step that runs the K replicas in one launch per kernel is
-ROADMAP Queue 2 work, for a benchmark cell.
+The price: a step of K replicas is K steps' device work. Eagerly
+(``host_fit_ensemble``) it is also K times one model's host dispatch; the
+device fit (``device_fit_ensemble``) replays the K steps as one CUDA graph.
+A step that runs the K replicas in one launch per kernel is work for a
+benchmark cell (ROADMAP).
 
 Replicas share the data, the epoch plan and the batch masks (the lr sweep
 and seed ensembles). Per-replica learning rates are each optimizer's
@@ -28,22 +29,29 @@ k trains with ``key_generator(key, 1, k)`` and validates with
 ``key_generator(key, k)``, the counterpart of the JAX ``_step_keys``
 split of the epoch's key into K streams.
 
-The JAX package's whole-fit device programs (``device_fit_ensemble``,
-``device_fit_replica_plans``) have host-loop counterparts here,
-``host_fit_ensemble`` and ``host_fit_replica_plans``: the port's one fit
-loop is the host loop (ROADMAP Queue 1, item 3's note). Replicas that
-follow their own plans gain nothing from being stepped side by side, so
-``host_fit_replica_plans`` fits them one after another. ``fit_ensemble``
-and ``host_fit_ensemble`` take the JAX ``device_fit_ensemble``'s
-``resume_dir`` (all K replicas' states, their best snapshots and the ``[K]``
-counters saved after every epoch in one payload, train/resume.py) and
+The JAX package's whole-fit device programs have these counterparts:
+``device_fit_ensemble`` (the JAX default of ``lr_sweep``) replays one CUDA
+graph per step kind for all local replicas (train/device_fit.py:StepGraph:
+each replica's first step eager on the capture stream, then one
+``cudaGraphLaunch`` per step of the whole local ensemble) and
+``host_fit_ensemble`` steps them eagerly; both hand their epochs to
+``fit_ensemble``, so they give the same trajectory bit for bit. The JAX
+``device_fit_replica_plans`` has the host-loop counterpart
+``host_fit_replica_plans`` only: replicas that follow their own plans gain
+nothing from being stepped side by side, so it fits them one after another.
+``fit_ensemble`` takes the JAX ``device_fit_ensemble``'s ``resume_dir``
+(all K replicas' states, their best snapshots and the ``[K]`` counters
+saved after every epoch in one payload, train/resume.py) and
 ``progress_every``. ``shard_replicas`` splits the replicas over the ranks
 of a mesh (parallel/mesh.py), K/N contiguous replicas per rank, and
-``fit_ensemble(..., mesh=)`` (``host_fit_ensemble(..., mesh=)``) fits this
-rank's replicas with their global replica indices, gathers every epoch's
-``[K]`` losses on every rank (the joint stop decides the same everywhere)
-and gathers the best snapshots at the end; each replica's fit is the
+``fit_ensemble(..., mesh=)`` (either fit with ``mesh=``) fits this rank's
+replicas with their global replica indices, gathers every epoch's ``[K]``
+losses on every rank (the joint stop decides the same everywhere) and
+gathers the best snapshots at the end; each replica's fit is the
 unsharded one's, so the per-replica results are the unsharded ensemble's.
+With ``resume_dir`` as well, rank 0 writes the unsharded sweep's payload
+(every replica, gathered) and each rank restores its own replicas from it,
+so sharded and unsharded sweeps resume each other's files.
 """
 
 from __future__ import annotations
@@ -193,6 +201,10 @@ class EnsembleFitResult:
     epochs_run: int
     train_losses: List[np.ndarray] = field(default_factory=list)  # per epoch [K]
     val_losses: List[np.ndarray] = field(default_factory=list)
+    epoch_s: List[float] = field(default_factory=list)  # wall seconds of each epoch this call ran
+    # device_fit_ensemble's graphs: whether it captured, the capture seconds
+    # and the replays of each step kind; empty otherwise
+    graphs: dict = field(default_factory=dict)
 
 
 def _eval_state_dict(ts: TrainState) -> dict:
@@ -255,10 +267,9 @@ def fit_ensemble(
     and the epochs' metrics this rank's columns; the ``[K]`` losses are
     gathered every epoch and the best snapshots at the end, so the result's
     arrays and ``best_state_dict`` hold all K replicas on every rank, and
-    ``state`` this rank's."""
-    if mesh is not None and resume_dir is not None:
-        raise ValueError("resume_dir with sharded replicas is not ported yet: ROADMAP Queue 1 "
-                         "(the K-replica resume state across ranks)")
+    ``state`` this rank's. With ``resume_dir`` the payload is gathered to
+    rank 0, which writes the unsharded layout; each rank restores its own
+    replicas from it."""
     states = list(states)
     k = n_replicas(states) * (1 if mesh is None else mesh.size)
     mine = slice(0, k) if mesh is None else pmesh.local_slice(k, mesh, "replicas")
@@ -266,10 +277,10 @@ def fit_ensemble(
     best_epoch = np.full((k,), -1, np.int64)
     wait = np.zeros((k,), np.int64)
     best = None
-    train_losses, val_losses = [], []
+    train_losses, val_losses, epoch_s = [], [], []
     start_epoch = 0
     if resume_dir is not None:
-        resumed = resume.resume_ensemble_fit_state(resume_dir, states)
+        resumed = resume.resume_ensemble_fit_state(resume_dir, states, mesh)
         if resumed is not None:
             last_epoch, states, extras, best = resumed
             start_epoch = last_epoch + 1
@@ -286,6 +297,7 @@ def fit_ensemble(
     epochs_run = start_epoch
     t0 = time.perf_counter()
     for epoch in range(start_epoch, max_epochs):
+        t_epoch = time.perf_counter()
         tkey, vkey = loop.epoch_key(seed, 2 * epoch, 1), loop.epoch_key(seed, 2 * epoch, 2)
         states, tms = run_train_epoch(states, tkey, epoch)
         vms = run_val_epoch(states, vkey, epoch)
@@ -297,6 +309,7 @@ def fit_ensemble(
             raise FloatingPointError(f"non-finite ensemble training loss at epoch {epoch}: {tl}")
         train_losses.append(tl)
         val_losses.append(vl)
+        epoch_s.append(time.perf_counter() - t_epoch)
         improved = vl < best_val
         if best is None:  # the first epoch's states seed every replica's snapshot
             best = [loop.clone_tree(_eval_state_dict(ts)) for ts in states]
@@ -317,7 +330,7 @@ def fit_ensemble(
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
         if resume_dir is not None:
             resume.save_ensemble_fit_state(resume_dir, epoch, states, {
-                "best_val": best_val, "best_epoch": best_epoch, "wait": wait}, best)
+                "best_val": best_val, "best_epoch": best_epoch, "wait": wait}, best, mesh)
         if stop:
             break
     if best is None:  # no epoch ran
@@ -326,7 +339,7 @@ def fit_ensemble(
         best = _gather_replicas(best, mesh)
     return EnsembleFitResult(state=states, best_state_dict=best, best_val_loss=best_val,
                              best_epoch=best_epoch, epochs_run=epochs_run,
-                             train_losses=train_losses, val_losses=val_losses)
+                             train_losses=train_losses, val_losses=val_losses, epoch_s=epoch_s)
 
 
 @contextlib.contextmanager
@@ -387,6 +400,118 @@ def host_fit_ensemble(
                         max_epochs=max_epochs, early_stopping_patience=early_stopping_patience,
                         seed=seed, verbose=verbose, resume_dir=resume_dir,
                         progress_every=progress_every, mesh=mesh)
+
+
+def device_fit_ensemble(
+    states: Sequence[TrainState],
+    *,
+    batch_step: Callable,
+    eval_step: Callable,
+    arrays,
+    source: torch.Tensor,
+    class_: Optional[torch.Tensor],
+    train_stream: np.ndarray,
+    batch_size: int,
+    val_idx: np.ndarray,
+    val_mask: np.ndarray,
+    max_epochs: int,
+    early_stopping_patience: Optional[int] = None,
+    seed: int = 42,
+    use_class_labels: bool = False,
+    shuffle: bool = True,
+    verbose: bool = False,
+    resume_dir: Optional[str] = None,
+    progress_every: Optional[int] = None,
+    mesh: Optional[pmesh.Mesh] = None,
+    aot_dir: Optional[str] = None,
+) -> EnsembleFitResult:
+    """The JAX ``device_fit_ensemble`` (hippie_tpu/train/ensemble.py): the K
+    local replicas' train steps as ONE CUDA graph replayed per batch of the
+    shared plan, and their eval steps as another (train/device_fit.py:
+    StepGraph), on the card; off it the same steps run eagerly over the
+    same buffers.
+
+    ``batch_step`` / ``eval_step`` are train/step.py's per-batch steps
+    (``make_unimodal_steps`` / ``make_multimodal_steps``); the other
+    arguments are ``host_fit_ensemble``'s, whose plans, noise (replica r
+    trains with ``key_generator(key, 1, r)`` and validates at its x iterate
+    with ``key_generator(key, r)``, r its global index) and epochs
+    (``fit_ensemble``: the joint stop, the per-replica bests, ``resume_dir``,
+    ``progress_every``, the ``mesh=`` gathers) it shares, so the two loops
+    give the same result bit for bit and resume each other's files. Each
+    replica's first train and eval steps run eagerly on the capture stream
+    (a loss kernel's first call inside a capture raises; fused AdamW builds
+    its state there), the second call captures, every later step is one
+    ``cudaGraphLaunch`` for the whole local ensemble. ``aot_dir`` raises:
+    the JAX program cache has no counterpart."""
+    from hippie_tpu_torch.train import device_fit as dfit
+
+    if aot_dir is not None:
+        raise ValueError("aot_dir is not ported: the JAX compiled-program cache has no counterpart "
+                         "(ROADMAP Queue 1 item 12)")
+    states = list(states)
+    device = arrays[0].device
+    dfit.check_card(pmesh.active(), device)
+    first = 0 if mesh is None else mesh.rank * n_replicas(states)
+    replicas = range(first, first + n_replicas(states))
+    stream_idx = np.asarray(train_stream)
+    nb = max(1, -(-len(stream_idx) // batch_size))
+    val_idx, val_mask = np.asarray(val_idx), np.asarray(val_mask)
+
+    def gather(idx):
+        bc = class_[idx] if use_class_labels else None
+        return [a[idx] for a in arrays] + [source[idx], bc]
+
+    def train_fn(ts):
+        return lambda idx, mask, eps: batch_step(ts, *gather(idx), mask, eps=eps)[1]
+
+    def eval_fn(ts):
+        return lambda idx, mask, eps: eval_step(ts.model, *gather(idx), mask, eps=eps)
+
+    def zero_grads():
+        for ts in states:
+            ts.optimizer.zero_grad(set_to_none=True)
+
+    z = states[0].model.z_mean.out_features
+    with dfit.graph_stream(device) as (stream, pool):
+        common = dict(dtype=arrays[0].dtype, device=device, stream=stream, pool=pool)
+        train = dfit.StepGraph([train_fn(ts) for ts in states], nb=nb, batch=batch_size,
+                               noise_shape=(batch_size, z), before_capture=zero_grads, **common)
+        val = dfit.StepGraph([eval_fn(ts) for ts in states], nb=val_idx.shape[0], batch=val_idx.shape[1],
+                             noise_shape=(val_idx.shape[1], z), **common)
+        val.load_plan(val_idx, val_mask)
+
+        def run_train(sts, key, epoch):
+            train.load_plan(*batch_plan(stream_idx, batch_size, shuffle=shuffle,
+                                        generator=loop.key_generator(key, 0) if shuffle else None))
+            gens = [loop.key_generator(key, 1, r, device=device) for r in replicas]
+            for _ in range(nb):
+                train(gens)
+            return sts, _replica_rows(train.metrics)
+
+        def run_val(sts, key, epoch):
+            with _at_x(sts):
+                val.row.zero_()
+                gens = [loop.key_generator(key, r, device=device) for r in replicas]
+                for _ in range(val.nb):
+                    val(gens)
+            return _replica_rows(val.metrics)
+
+        try:
+            result = fit_ensemble(states, run_train_epoch=run_train, run_val_epoch=run_val,
+                                  max_epochs=max_epochs, early_stopping_patience=early_stopping_patience,
+                                  seed=seed, verbose=verbose, resume_dir=resume_dir,
+                                  progress_every=progress_every, mesh=mesh)
+        finally:
+            graphs = dfit.release(train, val, zero_grads)
+    result.graphs = graphs
+    return result
+
+
+def _replica_rows(m: torch.Tensor) -> Metrics:
+    """A StepGraph's ``[3, K, nb]`` metrics as ``fit_ensemble`` reads an
+    epoch's: Metrics of ``[nb, K]``."""
+    return Metrics(*(x.T for x in m))
 
 
 def host_fit_replica_plans(

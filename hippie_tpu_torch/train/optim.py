@@ -7,8 +7,10 @@ Counterpart of hippie_tpu/train/optim.py (``make_optimizer``,
 reference uses plain ``optim.AdamW(lr, weight_decay)`` (model.py:93,262)
 with b1=0.9, b2=0.999, eps=1e-8 and decoupled weight decay, and Lightning's
 global-norm gradient clipping on some trainers (quirk Q7). The clip here is
-optax.clip_by_global_norm's: grads scale by clip/norm when norm > clip, with
-no epsilon, computed on the device without a host sync.
+optax.clip_by_global_norm's arithmetic: the norm is the square root of the
+leaves' sums of squares added up, and each gradient becomes
+``(g / norm) * clip`` when the norm is not below the clip, with no epsilon,
+on the device without a host sync (so a CUDA graph captures it).
 
 ``state_dtype="bfloat16"`` stores the Adam moments in bf16: each step
 upcasts them to float32, runs torch's AdamW update in float32 (the new
@@ -34,14 +36,36 @@ from torch.optim.adamw import adamw
 from hippie_tpu_torch.train import checkpoint as ckpt_mod
 
 
+def leaf_square_sums(grads: list) -> List[torch.Tensor]:
+    """Each leaf's sum of squares, a 0-d float32 tensor per leaf (optax's
+    ``jnp.sum(abs_sq(x))``). On CUDA one multi-tensor reduction over the
+    squares (``_foreach_norm`` with ord 1: the squares are non-negative) in
+    place of one reduction launch per leaf; on the CPU ``_foreach_norm`` is
+    a loop over the leaves anyway, of a less exact reduction, so each leaf
+    is summed by ``sum``."""
+    sq = torch._foreach_mul(grads, grads)
+    if grads[0].is_cuda:
+        return list(torch._foreach_norm(sq, 1))
+    return [s.sum() for s in sq]
+
+
+def scale_to_norm_(grads: list, norm: torch.Tensor, max_norm: float):
+    """optax's ``select(norm < max_norm, g, (g / norm) * max_norm)`` on every
+    leaf, in place: below the clip each leaf is divided and multiplied by 1,
+    which leaves it bit for bit; no host sync."""
+    below = norm < max_norm
+    torch._foreach_div_(grads, torch.where(below, torch.ones_like(norm), norm))
+    torch._foreach_mul_(grads, torch.where(below, torch.ones_like(norm), torch.full_like(norm, max_norm)))
+
+
 @torch.no_grad()
 def clip_by_global_norm_(grads: list, max_norm: float):
-    """Scale ``grads`` in place so their joint L2 norm is at most ``max_norm``."""
+    """optax.clip_by_global_norm in place: the norm is ``sqrt`` of the
+    per-leaf sums of squares added up, then ``(g / norm) * max_norm`` where
+    the norm is at least ``max_norm``."""
     if not grads:
         return
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    scale_to_norm_(grads, torch.sqrt(torch.stack(leaf_square_sums(grads)).sum()), max_norm)
 
 
 _MOMENTS = ("exp_avg", "exp_avg_sq")
@@ -210,18 +234,31 @@ class ScheduleFreeState(NamedTuple):
     b1: float
 
 
+def is_schedule_free(opt_state) -> bool:
+    """Whether an optimizer (read from its param groups, no gather) or a
+    ``state_dict()`` is schedule-free."""
+    if isinstance(opt_state, torch.optim.Optimizer):
+        groups = opt_state.param_groups
+        return len(groups) == 1 and "weight_sum" in groups[0]
+    return find_schedule_free_state(opt_state) is not None
+
+
 def find_schedule_free_state(opt_state) -> Optional[ScheduleFreeState]:
     """The schedule-free state of an optimizer or of its ``state_dict()``
-    (one param group), else None."""
+    (one param group), else None. An FSDP optimizer's is its gathered
+    ``state_dict()``: whole ``z`` and ``exp_avg_sq`` (a collective, so every
+    rank calls it)."""
     if opt_state is None:
         return None
-    opt_state = getattr(opt_state, "inner", opt_state)  # an FSDP optimizer's shards (parallel/fsdp.py)
-    sd = opt_state.state_dict() if isinstance(opt_state, torch.optim.Optimizer) else opt_state
-    groups = sd.get("param_groups", [])
+    if isinstance(opt_state, torch.optim.Optimizer):
+        if not is_schedule_free(opt_state):
+            return None
+        opt_state = opt_state.state_dict()
+    groups = opt_state.get("param_groups", [])
     if len(groups) != 1 or "weight_sum" not in groups[0]:
         return None
     g = groups[0]
-    st = [sd["state"][i] for i in g["params"]]
+    st = [opt_state["state"][i] for i in g["params"]]
     return ScheduleFreeState(g["k"], g["weight_sum"], g["lr_max"], [e["z"] for e in st],
                              [e["exp_avg_sq"] for e in st], g["betas"][0])
 
@@ -240,14 +277,19 @@ def maybe_eval_params(opt_state, params: List[torch.Tensor]) -> List[torch.Tenso
 
 @contextlib.contextmanager
 def evaluated_at_x(optimizer: torch.optim.Optimizer):
-    """Inside, the optimizer's parameters hold the x iterate when it is
-    schedule-free (once per validation epoch, the role of the JAX
+    """Inside, the model's parameters hold the x iterate when the optimizer
+    is schedule-free (once per validation epoch, the role of the JAX
     ``eval_params_jit``); on leaving, the training iterate y again, bit for
-    bit. A no-op for AdamW."""
-    if find_schedule_free_state(optimizer) is None:
+    bit. Copied in place, so a CUDA graph that reads them sees x. Under FSDP
+    the whole parameters take the whole x on every rank. A no-op for
+    AdamW."""
+    if not is_schedule_free(optimizer):
         yield
         return
-    ps = [p for g in optimizer.param_groups for p in g["params"]]
+    # an FSDP optimizer's param groups hold its shards; its model's whole
+    # parameters are ``params`` (parallel/fsdp.py)
+    ps = (list(optimizer.params) if getattr(optimizer, "is_sharded", False)
+          else [p for g in optimizer.param_groups for p in g["params"]])
     with torch.no_grad():
         y = torch._foreach_mul(ps, 1.0)
         torch._foreach_copy_(ps, maybe_eval_params(optimizer, ps))
@@ -312,7 +354,7 @@ def write_sidecar(ckpt_path: str, payload: dict) -> str:
 def save_schedule_free_sidecar(ckpt_path: str, opt_state, param_keys: Sequence[str]) -> Optional[str]:
     """Write the schedule-free state beside ``ckpt_path``; returns the
     sidecar's path, or None when the optimizer is not schedule-free."""
-    if find_schedule_free_state(opt_state) is None:
+    if not is_schedule_free(opt_state):
         return None
     return write_sidecar(ckpt_path, schedule_free_payload(opt_state, param_keys))
 
@@ -325,8 +367,7 @@ def load_schedule_free_sidecar(ckpt_path: str, optimizer: torch.optim.Optimizer,
     Parameters whose name starts with a ``drop_keys`` prefix keep their fresh
     state (the class-embedding surgery, quirk Q10); every other name must be
     in the sidecar with its parameter's shape."""
-    sf = find_schedule_free_state(optimizer)
-    if sf is None:
+    if not is_schedule_free(optimizer):
         raise ValueError("optimizer has no schedule-free component")
     with open(ckpt_path + SF_SIDECAR_SUFFIX, "rb") as f:
         payload = pickle.load(f)

@@ -69,8 +69,9 @@ Data parallelism (``dp_devices``, ``fsdp``): run inside each rank of a
 takes the process group's mesh (``_dp_shardings``) and runs with it active:
 the data are whole on every rank, every train and val epoch runs on this
 rank's columns of its plan (train/step.py), the model starts from rank 0's
-bits (``_place_train_state``), with ``fsdp`` the optimizer shards the
-parameters and its state per leaf (parallel/fsdp.py), and every embedding
+bits (``_place_train_state``), with ``fsdp`` the optimizer (AdamW or
+schedule-free) shards its state per leaf (parallel/fsdp.py; either fit
+loop), and every embedding
 and KNN call shards its rows over the ranks (``mesh=_eval_mesh(cfg)`` at the
 JAX sites). Every rank computes everything; rank 0 alone writes the files
 (CSVs, ``.ckpt`` files and sidecars, resume files, logs, the trace), and its
@@ -147,8 +148,6 @@ class PipelineConfig:
     # "device": each stage fit's steps as CUDA graphs replayed on the card
     # (train/device_fit.py; eager steps off the card); "host": the per-epoch
     # loop of eager steps (train/loop.py). The same trajectory bit for bit.
-    # With fsdp on CUDA the stage fits take the host loop (an FSDP step
-    # cannot be captured: ROADMAP Queue 1).
     fit_loop: str = "device"
     # device fit loop: print and log every N epochs (None: auto, chunks on
     # watched stages of more than 10 epochs; 0: after the stage)
@@ -399,7 +398,7 @@ def fit_stage(
     isi) joint); the family enters through ``make_steps``, which builds its
     per-batch (batch_step, eval_step) for the device loop, and
     ``make_epoch_fns``, its (train_epoch, eval_epoch) for the host loop
-    (``cfg.fit_loop``; with ``fsdp`` on CUDA the host loop). Each train
+    (``cfg.fit_loop``). Each train
     epoch's plan is ``batch_plan`` over the stream (shuffled when
     ``shuffle_train``), cut by ``limit_train_batches``;
     the val plan is fixed and cut by ``limit_val_batches``. The shuffle draws
@@ -413,13 +412,6 @@ def fit_stage(
     stream = np.asarray(fixed_train_stream if fixed_train_stream is not None else train_indices)
     device = arrays[0].device
     fit_loop = cfg.fit_loop
-    if fit_loop == "device" and cfg.fsdp and device.type == "cuda":
-        # the sharded step gathers and releases its parameters' storage every
-        # step, which a CUDA graph cannot capture
-        if cfg.verbose:
-            print("--fsdp on CUDA: the stage fit runs on the host loop (ROADMAP Queue 1)")
-        fit_loop = "host"
-
     if fit_loop == "device":
         from hippie_tpu_torch.train import device_fit
 
@@ -485,13 +477,10 @@ def _optimizer(cfg: PipelineConfig, model: torch.nn.Module, lr: float, clip) -> 
     if not cfg.fsdp:
         return optim.make_optimizer(model.parameters(), lr, cfg.weight_decay, clip,
                                     state_dtype=cfg.opt_state_dtype, algorithm=cfg.optimizer)
-    if cfg.optimizer != "adamw":
-        raise ValueError("--fsdp with --optimizer schedule-free is not ported yet: ROADMAP Queue 1 "
-                         "(the sharded schedule-free state)")
     from hippie_tpu_torch.parallel.fsdp import ShardedOptimizer
 
     return ShardedOptimizer(model, _dp_shardings(cfg), lambda ps: optim.make_optimizer(
-        ps, lr, cfg.weight_decay, None, state_dtype=cfg.opt_state_dtype), clip)
+        ps, lr, cfg.weight_decay, None, state_dtype=cfg.opt_state_dtype, algorithm=cfg.optimizer), clip)
 
 
 @torch.no_grad()
@@ -506,7 +495,9 @@ def _sf_fork_state(cfg: PipelineConfig, model: torch.nn.Module, lr: float, clip,
     embedding, quirk Q10), which keep their fresh z (their own value) and
     zero exp_avg_sq; training resumes at y = train_params(x). ``model`` must
     hold the x iterate, which is what ``_finalize_fit`` hands every
-    consumer of a schedule-free fit."""
+    consumer of a schedule-free fit. Under FSDP the fork runs over this
+    rank's shards (the previous state's whole leaves cut to them), and the
+    model's parameters are gathered from them after."""
     opt = _optimizer(cfg, model, lr, clip)
     prev = optim.find_schedule_free_state(prev_opt)
     if prev is None:  # an AdamW or unfitted predecessor: a plain fork
@@ -515,15 +506,18 @@ def _sf_fork_state(cfg: PipelineConfig, model: torch.nn.Module, lr: float, clip,
 
     group = opt.param_groups[0]
     ps = group["params"]
+    local = getattr(opt, "local", lambda leaves: leaves)  # this rank's parts of whole leaves
     keys = ckpt_mod.parameter_key_order(model)
     if len(prev.z) != len(ps):
         raise ValueError(f"schedule-free state of {len(prev.z)} parameters for {len(ps)}")
     for name in ("k", "weight_sum", "lr_max"):
         group[name].copy_(getattr(prev, name))
     keep = [i for i, k in enumerate(keys) if k.split(".")[0] not in drop]
-    for name, src in (("z", prev.z), ("exp_avg_sq", prev.exp_avg_sq)):
+    for name, src in (("z", local(prev.z)), ("exp_avg_sq", local(prev.exp_avg_sq))):
         torch._foreach_copy_([opt.state[ps[i]][name] for i in keep], [src[i] for i in keep])
     torch._foreach_copy_(ps, train_params(ps, [opt.state[p]["z"] for p in ps], prev.b1))
+    if getattr(opt, "is_sharded", False):
+        opt.gather()
     return step.TrainState(model, opt)
 
 

@@ -28,7 +28,9 @@ The port keeps its own on-disk format, since it reads no orbax:
     AdamW ``step`` counters, which torch keeps on the host).
 
 Under an active mesh (parallel/mesh.py) every rank builds the payload and
-rank 0 alone writes it; every rank reads it back on resume.
+rank 0 alone writes it; every rank reads it back on resume. A K-replica fit
+sharded over a mesh gathers its replicas' parts to one payload in the
+unsharded layout, which rank 0 writes; each rank restores its own replicas.
 
 A directory of hippie_tpu's orbax entries (``epoch_NNNNNN`` directories)
 raises ValueError: neither package reads the other's resume state. The
@@ -43,6 +45,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.serialization import default_restore_location
 
 from hippie_tpu_torch.parallel import mesh as pmesh
@@ -169,41 +172,70 @@ def resume_fit_state(directory: str, state) -> Optional[Tuple[int, Any, dict, An
     return int(payload["epoch"]), state, extras, best
 
 
+def _on_host(tree):
+    """``tree`` with every tensor leaf copied to the host."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return type(tree)((k, _on_host(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_host(v) for v in tree)
+    return tree
+
+
 def save_ensemble_fit_state(directory: str, epoch: int, states: Sequence, extras: dict,
-                            best: Sequence[dict]):
+                            best: Sequence[dict], mesh: Optional[pmesh.Mesh] = None):
     """The K-replica twin of ``save_fit_state``: every replica's model and
     optimizer state, the ``[K]`` counters of ``extras`` and every replica's
     best snapshot ``best[k]`` (a state_dict), in ONE atomic payload. Per-
     replica bests advance on most epochs, so a separate best file would save
     nothing, and one payload can never hold a best its counters do not
-    match."""
-    os.makedirs(directory, exist_ok=True)
-    _refuse_orbax(directory)
-    _atomic_save({"epoch": int(epoch),
-                  "models": [ts.model.state_dict() for ts in states],
-                  "optimizers": [ts.optimizer.state_dict() for ts in states],
-                  "best": list(best),
-                  "extras": {k: np.asarray(v).tolist() for k, v in extras.items()}},
-                 os.path.join(directory, f"epoch_{int(epoch):06d}{SUFFIX}"))
-    _keep_latest_two(directory, "epoch_")
-    _reap_tmp(directory)
+    match.
+
+    ``mesh``: ``states`` and ``best`` are this rank's replicas
+    (ensemble.shard_replicas); every rank calls this, the parts are
+    gathered in replica order (on the host) and rank 0 writes the unsharded
+    payload."""
+    parts = {"models": [ts.model.state_dict() for ts in states],
+             "optimizers": [ts.optimizer.state_dict() for ts in states], "best": list(best)}
+    if mesh is not None:
+        gathered = [None] * mesh.size
+        dist.all_gather_object(gathered, _on_host(parts), group=mesh.group)
+        parts = {k: [x for part in gathered for x in part[k]] for k in parts}
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(directory, exist_ok=True)
+        _refuse_orbax(directory)
+        _atomic_save({"epoch": int(epoch), **parts,
+                      "extras": {k: np.asarray(v).tolist() for k, v in extras.items()}},
+                     os.path.join(directory, f"epoch_{int(epoch):06d}{SUFFIX}"))
+        _keep_latest_two(directory, "epoch_")
+        _reap_tmp(directory)
+    if mesh is not None:
+        dist.barrier(group=mesh.group)  # no rank reads the directory before the write is whole
 
 
-def resume_ensemble_fit_state(directory: str, states: Sequence
+def resume_ensemble_fit_state(directory: str, states: Sequence, mesh: Optional[pmesh.Mesh] = None
                               ) -> Optional[Tuple[int, List, dict, List[dict]]]:
     """Restore an interrupted K-replica fit into ``states`` (in place); returns
     ``(epoch, states, extras, best)`` with ``extras``' counters as numpy
     arrays (``best_val`` float64, ``best_epoch`` and ``wait`` int64) and
-    ``best`` the K best snapshots, or None when nothing is saved."""
+    ``best`` the replicas' best snapshots on their models' device, or None
+    when nothing is saved. ``mesh``: ``states`` are this rank's replicas,
+    restored from their slice of the payload (``best`` likewise)."""
     path = latest_fit_state(directory)
     if path is None:
         return None
-    payload = _load(path, _device(states[0].model))
-    if len(payload["models"]) != len(states):
-        raise ValueError(f"{path} holds {len(payload['models'])} replicas, the fit has {len(states)}")
-    for ts, sd, opt in zip(states, payload["models"], payload["optimizers"]):
+    device = _device(states[0].model)
+    payload = _load(path, device)
+    k = len(payload["models"])
+    want = len(states) * (1 if mesh is None else mesh.size)
+    if k != want:
+        raise ValueError(f"{path} holds {k} replicas, the fit has {want}")
+    mine = slice(0, k) if mesh is None else pmesh.local_slice(k, mesh, "replicas")
+    for ts, sd, opt in zip(states, payload["models"][mine], payload["optimizers"][mine]):
         ts.model.load_state_dict(sd)
         ts.optimizer.load_state_dict(opt)
     extras = {k: np.asarray(v, np.float64 if k == "best_val" else np.int64)
               for k, v in payload["extras"].items()}
-    return int(payload["epoch"]), list(states), extras, list(payload["best"])
+    best = [type(b)((name, v.to(device)) for name, v in b.items()) for b in payload["best"][mine]]
+    return int(payload["epoch"]), list(states), extras, best

@@ -100,14 +100,6 @@ def _optimizer_step(opt: torch.optim.Optimizer):
     opt.step()
 
 
-def _materialize(opt):
-    """An FSDP optimizer's full parameters, gathered if the last step left
-    them sharded; nothing for any other optimizer."""
-    gather = getattr(opt, "materialize", None)
-    if gather is not None:
-        gather()
-
-
 def _rank_noise(model, eps, generator, like: torch.Tensor):
     """Under an active mesh with a generator: this rank's rows of the global
     batch's noise, drawn as the single process draws it. Else ``eps``."""
@@ -156,7 +148,6 @@ def make_unimodal_steps(*, beta: float = 1.0, loss_backend: str = "xla",
         _require_noise(eps, generator)
         model, opt = ts
         with pmesh.step_scope():
-            _materialize(opt)
             model.train()
             opt.zero_grad(set_to_none=True)
             eps = _rank_noise(model, eps, generator, bd)
@@ -228,7 +219,6 @@ def make_unimodal_epoch_fns(*, beta: float = 1.0, use_class_labels: bool = False
             ts, m = batch_step(ts, bd_all[i], bs_all[i], bc_all[i], mask[i],
                                eps=_noise(eps, i), generator=generator)
             ms.append(m)
-        _materialize(ts.optimizer)
         return ts, _global_metrics(_stack(ms))
 
     def eval_epoch(model, data, source, class_, idx, mask, *,
@@ -272,7 +262,6 @@ def make_multimodal_steps(*, beta: float = 1.0, mod1_weight: float = 1.0,
         _require_noise(eps, generator)
         model, opt = ts
         with pmesh.step_scope():
-            _materialize(opt)
             model.train()
             opt.zero_grad(set_to_none=True)
             eps = _rank_noise(model, eps, generator, b1)
@@ -328,7 +317,6 @@ def make_multimodal_epoch_fns(*, beta: float = 1.0, mod1_weight: float = 1.0,
             ts, m = batch_step(ts, b1_all[i], b2_all[i], bs_all[i], bc_all[i], mask[i],
                                eps=_noise(eps, i), generator=generator)
             ms.append(m)
-        _materialize(ts.optimizer)
         return ts, _global_metrics(_stack(ms))
 
     def eval_epoch(model, wave, isi, source, class_, idx, mask, *,

@@ -149,8 +149,8 @@ def epoch(mesh, kind, block, sd, data, source, idx, mask, eps, fsdp=False, clip=
                        torch.from_numpy(np.asarray(m0[0])), eps=e0[0])
             out["bytes"] = opt.state_bytes()
             out["replicated_bytes"] = 3 * 4 * sum(int(np.prod(s)) for s in opt.shapes)
+            out["param_bytes"] = 4 * sum(int(np.prod(s)) for s in opt.shapes)
             out["whole_bytes"] = 3 * 4 * sum(int(np.prod(s)) for s, d in zip(opt.shapes, opt.dims) if d is None)
-            opt.materialize()
             idx, mask, eps = idx[1:], mask[1:], eps[1:]
         ts, ms = train_epoch(ts, *arrays, torch.from_numpy(source), None, idx, mask,
                              eps=torch.from_numpy(eps))
@@ -227,3 +227,128 @@ def ensemble(mesh, data, source, idx, mask, k):
                                  max_epochs=2, seed=11, shuffle=True, mesh=mesh)
     return (np.asarray(res.best_val_loss), np.asarray(res.best_epoch),
             [{k: v.numpy().copy() for k, v in sd.items()} for sd in res.best_state_dict])
+
+
+def _np_tree(tree):
+    """A nested dict / list of tensors with every tensor as a numpy copy."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().float().numpy().copy() if tree.is_floating_point() else tree.numpy().copy()
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np_tree(v) for v in tree]
+    return tree
+
+
+def fsdp_stage(mesh, sd, data, source, fit_loop, optimizer, clip=None):
+    """A 2-epoch unimodal stage fit with FSDP through
+    pipeline.fit_unimodal_stage on ``fit_loop`` -> its losses, final state,
+    gathered optimizer state and best snapshot, as numpy."""
+    from hippie_tpu_torch.train import pipeline as tpipe
+
+    torch.set_num_threads(1)
+    model = build("unimodal", sd)
+    cfg = tpipe.PipelineConfig(device="cpu", fit_loop=fit_loop, fsdp=True, dp_devices=mesh.size,
+                               optimizer=optimizer, verbose=False, seed=5)
+    d, src = torch.from_numpy(data), torch.from_numpy(source)
+    with pmesh.data_parallel(mesh):
+        ts = tpipe._place_train_state(cfg, step.TrainState(model, tpipe._optimizer(cfg, model, LR, clip)))
+        res = tpipe.fit_unimodal_stage(cfg=cfg, ts=ts, data=d, source=src, class_=src,
+                                       train_indices=np.arange(32), val_indices=np.arange(32, len(data)),
+                                       batch_size=16, max_epochs=2, beta=1.0, use_class_labels=False,
+                                       shuffle_train=True, stage_seed=0, lr=LR)
+        opt = res.state.optimizer.state_dict()
+    return {"losses": (res.train_losses, res.val_losses, res.best_epoch, res.epochs_run),
+            "state": numpy_state(model), "opt": _np_tree(opt), "best": _np_tree(res.best_state_dict),
+            "best_opt": _np_tree(res.best_opt_state), "graphs": dict(res.graphs)}
+
+
+def sf_epoch(mesh, sd, data, source, idx, mask, eps, fsdp, sidecar):
+    """One train epoch with schedule-free AdamW, replicated (data-parallel) or
+    with FSDP -> the losses, the state, the x iterate from maybe_eval_params
+    and from evaluated_at_x, the gathered optimizer state; rank 0 writes the
+    .sfstate sidecar to ``sidecar``. With FSDP also the stage fork over the
+    shards (pipeline._sf_fork_state) beside the unsharded fork from the same
+    gathered state."""
+    import dataclasses
+
+    from hippie_tpu_torch.train import pipeline as tpipe
+
+    torch.set_num_threads(1)
+    model = build("unimodal", sd)
+
+    def make(ps):
+        return optim.make_optimizer(ps, LR, WD, None, algorithm="schedule-free")
+
+    opt = ShardedOptimizer(model, mesh, make, None) if fsdp else make(model.parameters())
+    train_epoch, _ = step.make_unimodal_epoch_fns()
+    names = [k for k, _ in model.named_parameters()]
+    out = {}
+    with pmesh.data_parallel(mesh):
+        ts, ms = train_epoch(step.TrainState(model, opt), torch.from_numpy(data), torch.from_numpy(source), None,
+                             idx, mask, eps=torch.from_numpy(eps))
+        payload = optim.schedule_free_payload(opt, ckpt_mod.parameter_key_order(model))
+        if pmesh.is_writer():
+            optim.write_sidecar(sidecar, payload)
+        x = optim.maybe_eval_params(opt, [p.detach() for p in model.parameters()])
+        out["x"] = {k: v.numpy().copy() for k, v in zip(names, x)}
+        with optim.evaluated_at_x(opt):
+            out["x_model"] = numpy_state(model)
+        out["state"] = numpy_state(model)
+        out["opt"] = _np_tree(opt.state_dict())
+        if fsdp:
+            cfg = tpipe.PipelineConfig(device="cpu", fsdp=True, dp_devices=mesh.size, optimizer="schedule-free",
+                                       verbose=False)
+            prev = opt.state_dict()
+            x_sd = {**out["state"], **out["x"]}
+            forks = {}
+            for name, c, prev_opt in (("sharded", cfg, opt), ("unsharded", dataclasses.replace(
+                    cfg, fsdp=False, dp_devices=None), prev)):
+                m = build("unimodal", x_sd)
+                fork = tpipe._sf_fork_state(c, m, LR / 10, None, prev_opt, drop=("class_embedding",))
+                forks[name] = (numpy_state(m), _np_tree(fork.optimizer.state_dict()))
+            out["forks"] = forks
+    out["loss"] = ms.loss.numpy().copy()
+    return out
+
+
+def _ensemble_fit(mesh, data, source, idx, mask, k, max_epochs, resume_dir=None, init_key=3):
+    """A K-replica device fit (eager off the card), sharded over the mesh
+    (None: unsharded) -> its result."""
+    from hippie_tpu_torch.train import ensemble as tens
+
+    torch.set_num_threads(1)
+    cfg = cvae.CVAEConfig(output_size=50, **CFG)
+    states = tens.init_unimodal_ensemble(init_key, cfg, lambda ps: optim.make_optimizer(ps, LR, WD), k,
+                                         device="cpu")
+    states = tens.set_ensemble_lr(states, [LR * (r + 1) for r in range(k)])
+    if mesh is not None:
+        states = tens.shard_replicas(states, mesh)
+    batch_step, eval_step = step.make_unimodal_steps()
+    return tens.device_fit_ensemble(states, batch_step=batch_step, eval_step=eval_step,
+                                    arrays=(torch.from_numpy(data),), source=torch.from_numpy(source),
+                                    class_=None, train_stream=np.arange(len(data)), batch_size=16,
+                                    val_idx=idx, val_mask=mask, max_epochs=max_epochs, seed=11, shuffle=True,
+                                    resume_dir=resume_dir, mesh=mesh)
+
+
+def ensemble_summary(res) -> dict:
+    """A K-replica fit's result as numpy: the [K] arrays, every replica's
+    best snapshot and this process's replicas' model and optimizer states."""
+    return {"best_val": np.asarray(res.best_val_loss), "best_epoch": np.asarray(res.best_epoch),
+            "epochs_run": res.epochs_run, "best": _np_tree(res.best_state_dict),
+            "models": [numpy_state(ts.model) for ts in res.state],
+            "opts": [_np_tree(ts.optimizer.state_dict()) for ts in res.state]}
+
+
+def ensemble_resume(mesh, data, source, idx, mask, k, sharded_dir, unsharded_dir):
+    """The sharded K-replica fit of 2 epochs: uninterrupted; stopped after
+    one epoch (resume files in ``sharded_dir``) and resumed from fresh
+    replicas; and resumed from ``unsharded_dir``, an unsharded fit's file
+    after its first epoch -> their summaries."""
+    full = _ensemble_fit(mesh, data, source, idx, mask, k, 2)
+    _ensemble_fit(mesh, data, source, idx, mask, k, 1, sharded_dir)
+    resumed = _ensemble_fit(mesh, data, source, idx, mask, k, 2, sharded_dir, init_key=99)
+    from_unsharded = _ensemble_fit(mesh, data, source, idx, mask, k, 2, unsharded_dir, init_key=99)
+    return {name: ensemble_summary(r) for name, r in
+            (("full", full), ("resumed", resumed), ("from_unsharded", from_unsharded))}

@@ -1148,22 +1148,48 @@ def test_a_first_call_inside_a_capture_raises(cuda_device):
     torch.cuda.synchronize()
 
 
-def _small_fit(fit_loop: str, max_epochs: int = 3):
+def _small_fit(fit_loop: str, max_epochs: int = 3, optimizer: str = "adamw", mesh=None):
+    """``mesh``: the optimizer sharded over it (parallel/fsdp.py), the fit
+    under it."""
+    import contextlib
+
     from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.parallel import mesh as pmesh
+    from hippie_tpu_torch.parallel.fsdp import ShardedOptimizer
     from hippie_tpu_torch.train import optim, pipeline, step
 
     cfg = pipeline.PipelineConfig(device="cuda", loss_backend="pallas", block_backend="pallas", verbose=False,
-                                  fit_loop=fit_loop, early_stopping_patience=None)
+                                  fit_loop=fit_loop, early_stopping_patience=None, optimizer=optimizer)
     cfg_m = cvae.CVAEConfig(z_dim=4, num_sources=5, num_classes=5, num_blocks=(1, 1, 1, 1))
     model = cvae.unimodal_cvae_init(cfg_m, torch.Generator().manual_seed(0), device="cuda")
-    ts = step.TrainState(model, optim.make_optimizer(model.parameters(), 1e-3, 0.01, 1.0))
+    clip = 1.0 if optimizer == "adamw" else None
+    if mesh is None:
+        opt = optim.make_optimizer(model.parameters(), 1e-3, 0.01, clip, algorithm=optimizer)
+    else:
+        opt = ShardedOptimizer(model, mesh, lambda ps: optim.make_optimizer(ps, 1e-3, 0.01, algorithm=optimizer),
+                               clip)
+    ts = step.TrainState(model, opt)
     r = np.random.default_rng(0)
     data = torch.from_numpy(r.normal(size=(150, 50)).astype(np.float32)).cuda()
     source = torch.from_numpy(r.integers(0, 5, size=150)).cuda()
-    return pipeline.fit_unimodal_stage(
-        cfg=cfg, ts=ts, data=data, source=source, class_=source, train_indices=np.arange(120),
-        val_indices=np.arange(120, 150), batch_size=32, max_epochs=max_epochs, beta=1.0,
-        use_class_labels=False, shuffle_train=True)
+    with pmesh.data_parallel(mesh) if mesh is not None else contextlib.nullcontext():
+        return pipeline.fit_unimodal_stage(
+            cfg=cfg, ts=ts, data=data, source=source, class_=source, train_indices=np.arange(120),
+            val_indices=np.arange(120, 150), batch_size=32, max_epochs=max_epochs, beta=1.0,
+            use_class_labels=False, shuffle_train=True)
+
+
+def _assert_same_fit(dev, host):
+    assert dev.graphs["captured"] and not host.graphs
+    assert (dev.train_losses, dev.val_losses, dev.best_epoch) == (host.train_losses, host.val_losses,
+                                                                  host.best_epoch)
+    for a, b in ((dev.state.model.state_dict(), host.state.model.state_dict()),
+                 (dev.best_state_dict, host.best_state_dict)):
+        assert all(torch.equal(v, b[k]) for k, v in a.items())
+    for a, b in ((dev.state.optimizer.state_dict(), host.state.optimizer.state_dict()),
+                 (dev.best_opt_state, host.best_opt_state)):
+        for i, e in a["state"].items():
+            assert all(torch.equal(v, b["state"][i][m]) for m, v in e.items()), i
 
 
 @pytest.mark.cuda
@@ -1174,17 +1200,104 @@ def test_device_fit_on_the_card_equals_the_host_loop(cuda_device):
     bit."""
     host = _small_fit("host")
     dev = _small_fit("device")
-    assert dev.graphs["captured"] and not host.graphs
     assert (dev.graphs["train_replays"], dev.graphs["eval_replays"]) == (3 * 4 - 1, 3 - 1)
-    assert (dev.train_losses, dev.val_losses, dev.best_epoch) == (host.train_losses, host.val_losses,
-                                                                  host.best_epoch)
-    for a, b in ((dev.state.model.state_dict(), host.state.model.state_dict()),
-                 (dev.best_state_dict, host.best_state_dict)):
+    _assert_same_fit(dev, host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamw", "schedule-free"])
+def test_fsdp_device_fit_on_one_nccl_rank_equals_the_host_loop(cuda_device, tmp_path, optimizer):
+    """An FSDP stage fit (AdamW clipped at 1.0, or schedule-free) through a
+    one-rank NCCL mesh: the device loop captures the sharded step (its
+    reduce-scatter, update and in-place gather) and equals the host loop
+    bit for bit."""
+    import torch.distributed as dist
+
+    from hippie_tpu_torch.parallel import mesh as pmesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv", rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(1)
+        host = _small_fit("host", optimizer=optimizer, mesh=mesh)
+        dev = _small_fit("device", optimizer=optimizer, mesh=mesh)
+        _assert_same_fit(dev, host)  # the sharded optimizers' state_dict gathers: inside the group
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_device_ensemble_on_the_card_equals_the_host_ensemble(cuda_device):
+    """K=2 replicas (the small model, the loss and block kernels, B=32, 4
+    train and 1 val step per epoch, 2 epochs): device_fit_ensemble captured
+    one graph per step kind for both replicas and replayed it, and equals
+    host_fit_ensemble bit for bit."""
+    from hippie_tpu_torch.data.device_data import batch_plan
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import ensemble, optim, step
+
+    cfg_m = cvae.CVAEConfig(z_dim=4, num_sources=5, num_classes=5, num_blocks=(1, 1, 1, 1))
+    r = np.random.default_rng(0)
+    data = torch.from_numpy(r.normal(size=(150, 50)).astype(np.float32)).cuda()
+    source = torch.from_numpy(r.integers(0, 5, size=150)).cuda()
+    val = batch_plan(np.arange(120, 150), 32, shuffle=False)
+    kw = dict(arrays=(data,), source=source, class_=None, train_stream=np.arange(120), batch_size=32,
+              val_idx=val[0], val_mask=val[1], max_epochs=2, seed=3)
+    backends = dict(loss_backend="pallas", block_backend="pallas")
+    res = {}
+    for fit_loop in ("host", "device"):
+        states = ensemble.init_unimodal_ensemble(
+            4, cfg_m, lambda ps: optim.make_optimizer(ps, 1e-3, 0.01, 1.0), 2, device="cuda")
+        states = ensemble.set_ensemble_lr(states, [1e-3, 3e-3])
+        if fit_loop == "device":
+            batch_step, eval_step = step.make_unimodal_steps(**backends)
+            res[fit_loop] = ensemble.device_fit_ensemble(states, batch_step=batch_step, eval_step=eval_step, **kw)
+        else:
+            res[fit_loop] = ensemble.host_fit_ensemble(
+                states, epoch_fns=ensemble.make_unimodal_ensemble_epoch_fns(**backends), **kw)
+    dev, host = res["device"], res["host"]
+    assert dev.graphs["captured"] and (dev.graphs["train_replays"], dev.graphs["eval_replays"]) == (2 * 4 - 1, 1)
+    assert np.array_equal(dev.best_val_loss, host.best_val_loss) and np.array_equal(dev.best_epoch, host.best_epoch)
+    assert all(np.array_equal(a, b) for a, b in zip(dev.train_losses, host.train_losses))
+    for a, b in zip(dev.state, host.state):
+        assert all(torch.equal(v, b.model.state_dict()[k]) for k, v in a.model.state_dict().items())
+        for i, e in a.optimizer.state_dict()["state"].items():
+            assert all(torch.equal(v, b.optimizer.state_dict()["state"][i][m]) for m, v in e.items()), i
+    for a, b in zip(dev.best_state_dict, host.best_state_dict):
         assert all(torch.equal(v, b[k]) for k, v in a.items())
-    for a, b in ((dev.state.optimizer.state_dict(), host.state.optimizer.state_dict()),
-                 (dev.best_opt_state, host.best_opt_state)):
-        for i, e in a["state"].items():
-            assert all(torch.equal(v, b["state"][i][m]) for m, v in e.items()), i
+
+
+@pytest.mark.cuda
+def test_clip_inside_a_captured_step(cuda_device):
+    """clip_by_global_norm_ on 8 ResNet-shaped leaves, above and below the
+    clip: its norm within 2e-7 of float64 on the card, each leaf
+    ``(g / n) * c`` (or ``g``) bit for bit, and a CUDA graph's replay equal
+    to the eager call."""
+    from hippie_tpu_torch.train import optim
+
+    shapes = [(512, 512, 3), (512, 256, 3), (256, 256, 3), (128, 64, 3), (64, 1, 7), (512,), (10, 512), (5, 5)]
+    r = np.random.default_rng(0)
+    g0 = [torch.from_numpy((r.normal(size=s) * r.uniform(1e-3, 3.0)).astype(np.float32)).cuda() for s in shapes]
+    n = torch.sqrt(torch.stack(optim.leaf_square_sums(g0)).sum())
+    want = np.sqrt(sum(float((x.double() ** 2).sum()) for x in g0))
+    assert abs(float(n) - want) / want < 2e-7
+    for c in (0.25 * float(n), 4.0 * float(n)):
+        eager = [x.clone() for x in g0]
+        optim.clip_by_global_norm_(eager, c)
+        for x, y in zip(g0, eager):
+            assert torch.equal(y, torch.where(n < c, x, (x / n) * c))
+        graphed = [x.clone() for x in g0]
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            optim.clip_by_global_norm_([x.clone() for x in g0], c)  # warm-up on the capture stream
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=s):
+                optim.clip_by_global_norm_(graphed, c)
+            torch._foreach_copy_(graphed, g0)
+            g.replay()
+        torch.cuda.current_stream().wait_stream(s)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(graphed, eager))
 
 
 @pytest.mark.cuda

@@ -54,12 +54,15 @@ def test_fsdp_matches_data_parallel(runs, case):
 
 
 def test_fsdp_rank_holds_about_half(runs):
-    """Between steps a rank holds its shards of the parameters and of both
-    moments: at most 0.55x the replicated bytes plus the replicated leaves."""
+    """Between steps a rank holds the whole parameters (one fixed storage
+    each, which a CUDA graph can replay through) and its shards of the
+    parameters and of both moments: at most the parameters plus 0.55x the
+    replicated parameters and moments, plus the replicated leaves."""
     _, ranks = runs
     for rank in ranks:
         fs = rank[(0, True)]
-        assert fs["bytes"] <= 0.55 * fs["replicated_bytes"] + fs["whole_bytes"], fs["bytes"]
+        assert fs["param_bytes"] <= fs["bytes"], fs["bytes"]
+        assert fs["bytes"] <= fs["param_bytes"] + 0.55 * fs["replicated_bytes"] + fs["whole_bytes"], fs["bytes"]
         assert fs["whole_bytes"] < 0.01 * fs["replicated_bytes"]
 
 

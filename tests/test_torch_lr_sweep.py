@@ -145,5 +145,7 @@ def test_options_are_jax_plus_device():
         return {o for a in parser._actions for o in a.option_strings if o.startswith("--")} - {"--help"}
 
     assert options(lr_sweep.build_parser()) == options(mod.build_parser()) | {"--device"}
-    with pytest.raises(SystemExit):
-        lr_sweep.build_parser().parse_args(["--dataset", DS, "--fit-loop", "device"])
+    # the JAX default, the device loop, and the host loop
+    got = {a.dest: a for a in lr_sweep.build_parser()._actions}["fit_loop"]
+    assert (got.choices, got.default) == (("device", "host"), "device")
+    assert lr_sweep.build_parser().parse_args(["--dataset", DS, "--fit-loop", "device"]).fit_loop == "device"

@@ -254,7 +254,6 @@ def test_cli_builds_the_pipeline_config():
     (["--dp-devices", "2"], "2 data-parallel ranks on cuda, but 0 GPUs are visible"),
     (["--fsdp"], "--fsdp requires --dp-devices > 1"),
     (["--aot-dir", "x"], "ROADMAP Queue 1 item"),
-    (["--dp-devices", "2", "--fsdp", "--device", "cpu", "--optimizer", "schedule-free"], "ROADMAP Queue 1"),
     (["--aot-dir", "x", "--fit-loop", "host", "--progress-every", "2"], "ROADMAP Queue 1 item"),
     (["--dp-devices", "2", "--fsdp"], "0 GPUs are visible"),  # the default loop does not refuse
     (["--dp-devices", "2", "--fsdp", "--fit-loop", "host"], "0 GPUs are visible")])
@@ -274,7 +273,9 @@ def test_cli_raises_on_options_not_ported(argv, match):
     (["--discover-datasets"], {"discover_datasets": True, "resume": False}),
     (["--wandb"], {"log_fn": None, "resume": False}),  # without the wandb package: no logger
     (["--block-backend", "fused"], {"block_backend": "fused"}),
-    (["--block-backend", "bf16"], {"block_backend": "bf16"})])
+    (["--block-backend", "bf16"], {"block_backend": "bf16"}),
+    (["--dp-devices", "2", "--fsdp", "--device", "cpu", "--optimizer", "schedule-free"],
+     {"dp_devices": 2, "fsdp": True, "optimizer": "schedule-free"})])
 def test_cli_takes_the_ported_options(argv, fields):
     """The flags that raised until the port had them now set their fields."""
     args = tcli.build_parser().parse_args(argv)
