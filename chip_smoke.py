@@ -5,9 +5,12 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port from hippie_tpu_torch/csrc/, holds
-the fused VAE-loss and masked-SSE kernels against their plain PyTorch
-versions at the train steps' shapes, and trains the full-width waveform cVAE
+It builds every CUDA kernel of the port from hippie_tpu_torch/csrc/, loads
+them in a fresh process without nvcc from a filled kernel-library cache
+(2b, the ``--aot-dir`` of every CLI it runs, which it points at its own
+build root), holds the fused VAE-loss and masked-SSE kernels against their
+plain PyTorch versions at the train steps' shapes (the loss backward for
+every pattern of gradients asked for), and trains the full-width waveform cVAE
 (z=10, ResNet18 encoder and decoder, 8,056,639 parameters) for one epoch on
 the cellexplorer-celltype pretraining pool from datasets/ twice from the same
 weights: with the loss kernel and cuDNN blocks (block_backend="xla"), then
@@ -22,8 +25,10 @@ blocks and float32, and embeds the target dataset. Then the same for the
 joint wave + ISI cVAE (16,115,748 parameters, four backbones, both loss
 kernels): a stage-1 epoch with each block backend, one step against the
 plain versions, the joint embeddings. Then it times the train steps with
-both block backends and each kernel (vae_sums_bwd beside the device time of
-a one-element torch op, the launch floor). Last it runs the port's unimodal
+both block backends and each kernel (vae_sums_bwd with the train step's
+gradients and with all four, alone and in a CUDA graph behind the kernel
+that writes its g, beside the device time of a one-element torch op, the
+launch floor). Last it runs the port's unimodal
 3-stage pipeline (run_unimodal_pipeline, the user's main path) at full width
 on cellexplorer-celltype, one epoch per stage through the loss and block
 kernels, and checks its 13 outputs, its checkpoints against the best
@@ -116,10 +121,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -129,6 +136,11 @@ from typing import NamedTuple
 import numpy as np
 
 REPO = pathlib.Path(__file__).resolve().parent
+# every CLI run gets the script's build root as its kernel-library cache: its
+# kernels load from build/kernels (the second directory looked in; see
+# hippie_tpu_torch/ops/_build.py), so no CLI builds them again and none
+# writes under the home directory
+AOT_DIR = ["--aot-dir", str(REPO / "build")]
 DATA_ROOT = str(REPO / "datasets")
 TARGET = "cellexplorer-celltype"
 B, L, Z = 512, 50, 10  # the train step's batch, waveform length, latent width
@@ -288,15 +300,21 @@ def masked_sse_bound(b: int, l: int):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def vae_sums_bounds(b: int, l: int, z: int):
-    """Least time (ms) on the card for the forward and the backward: each input
-    read once, each output written once, against the float32 operations."""
+STEP_GRADS = (False, True, True, True)  # the train step's backward: ddec, dmu, dlogvar (its data needs none)
+
+
+def vae_sums_bounds(b: int, l: int, z: int, want=STEP_GRADS):
+    """Least time (ms) on the card for the forward and for the backward that
+    writes the gradients ``want`` flags (ddata, ddec, dmu, dlogvar): each
+    input read once, each output written once, against the float32
+    operations."""
     f4 = 4
     in_bytes = f4 * (2 * b * l + 2 * b * z + b)
     fwd_bytes = in_bytes + f4 * 2
-    bwd_bytes = in_bytes + f4 * 2 + f4 * (2 * b * l + 2 * b * z)
+    bwd_bytes = in_bytes + f4 * 2 + f4 * sum(n for n, w in zip((b * l, b * l, b * z, b * z), want) if w)
     fwd_ops = 4 * b * l + 9 * b * z  # sub, square, mask, add; the KL's 8 ops and an exp
-    bwd_ops = 4 * b * l + 8 * b * z
+    bwd_ops = (3 * b * l if want[0] or want[1] else 0) + b * l * (want[0] + want[1]) \
+        + 3 * b * z * want[2] + 5 * b * z * want[3]  # d = (dec - data) * m, one product per output
     out = {}
     for name, nbytes, ops in (("vae_sums_fwd", fwd_bytes, fwd_ops), ("vae_sums_bwd", bwd_bytes, bwd_ops)):
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -531,7 +549,8 @@ def phase_build():
         for line in _build.build_logs.get(name, "").splitlines():
             if any(w in line.lower() for w in ("registers", "spill", "warning")):
                 print(f"  ptxas {name}: {line.strip()}")
-    print(f"[2 build] {len(secs)} source(s) {sorted(secs)} built with nvcc in {wall:.2f} s")
+    print(f"[2 build] {len(secs)} source(s) {sorted(secs)} built with nvcc in {wall:.2f} s "
+          f"(seconds each, 0.0 where already built: {json.dumps({k: round(v, 2) for k, v in secs.items()})})")
     # the block kernels on the wgmma core: HGMMA in each GEMM kernel's SASS
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     for lib, names in WGMMA_KERNELS.items():
@@ -542,6 +561,73 @@ def phase_build():
         print(f"  {lib} SASS: HGMMA instructions in {len(with_hgmma)} of {len(fns)} kernels: {with_hgmma}")
         for name in names:
             check(any(name in k for k in with_hgmma), f"no HGMMA instruction in {lib}'s {name}")
+
+
+def phase_aot_cache(card: str):
+    """The kernel-library cache (``--aot-dir``; hippie_tpu_torch/ops/_build.py):
+    the libraries phase 2 built are copied into a fresh cache directory's
+    torch_kernels/, as onto a card without the CUDA toolkit, and a fresh
+    process (``--aot-load DIR``) with nvcc out of reach and the package's
+    build/kernels hidden loads every one from there, builds nothing (0.0 s
+    each), and holds vae_sums_fwd and vae_sums_bwd against their plain
+    versions (phase 3's limits)."""
+    from hippie_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hippie_aot_") as root:
+        kdir = pathlib.Path(root) / _build.SUBDIR
+        kdir.mkdir()
+        for name in _build.sources():
+            shutil.copy(_build.so_path(name), kdir)
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--aot-load", root],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n")
+        check(proc.returncode == 0, f"the fresh process on the filled cache failed (rc {proc.returncode})")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(sorted(rec["build_s"]) == _build.sources() and not any(rec["build_s"].values()),
+              f"the fresh process built: {rec['build_s']}")
+        check(all(pathlib.Path(p).parent == kdir for p in rec["libs"].values()),
+              f"libraries loaded from elsewhere than {kdir}: {rec['libs']}")
+    print(f"[2b aot cache] a fresh process without nvcc loaded {len(rec['libs'])} libraries "
+          f"{sorted(rec['libs'])} from a filled --aot-dir in {rec['load_s']:.3f} s, built nothing "
+          f"(build s {rec['build_s']}); vae_sums_fwd |kernel - plain| {rec['fwd_err']:.3g}, vae_sums_bwd "
+          f"{rec['bwd_err']:.3g}; {time.perf_counter() - t0:.1f} s with the process on {card}")
+
+
+def aot_load(root: str) -> int:
+    """Phase 2b's fresh process: the cache root ``root`` only, no nvcc."""
+    import torch
+
+    from hippie_tpu_torch.ops import _build, cuda_ops
+
+    def no_nvcc():
+        raise RuntimeError("nvcc is out of reach in this check")
+
+    _build._nvcc = no_nvcc
+    _build.BUILD_DIR = pathlib.Path(root) / "package_build_hidden"
+    _build.set_default_dir(root)
+    t0 = time.perf_counter()
+    secs = _build.build()
+    for name in _build.sources():
+        _build.load(name)
+    load_s = time.perf_counter() - t0
+    x = loss_inputs(415, 1e4)
+    got, ref = cuda_ops.vae_sums_fwd_cuda(*x), cuda_ops.vae_sums_plain(*x)
+    torch.testing.assert_close(got, ref, rtol=4e-6, atol=0)
+    g = torch.tensor([1.0 / (415 * L), 1.0 / 415], device="cuda")
+    bwd_err = 0.0
+    for want in (STEP_GRADS, cuda_ops.ALL_GRADS):
+        grads = cuda_ops.vae_sums_bwd_cuda(*x, g, want=want)
+        for a, b in zip(grads, cuda_ops.vae_sums_bwd_plain(*x, g, want=want)):
+            if a is not None:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+                bwd_err = max(bwd_err, float((a - b).abs().max()))
+    torch.cuda.synchronize()
+    check(not _build.BUILD_DIR.exists(), "the hidden package directory was made")
+    print(json.dumps({"build_s": secs, "libs": {n: str(_build.so_path(n)) for n in _build.sources()},
+                      "load_s": load_s, "fwd_err": float((got - ref).abs().max()), "bwd_err": bwd_err}))
+    return 0
 
 
 def phase_kernel_vs_plain(device="cuda"):
@@ -573,27 +659,44 @@ def phase_kernel_vs_plain(device="cuda"):
         torch.testing.assert_close(got, ref, rtol=4e-6, atol=0)
         runs = [cuda_ops.vae_sums_fwd_cuda(*x) for _ in range(3)]
         check(all(torch.equal(r, got) for r in runs), f"{case}: repeat runs differ")
-        n = float(n_real)
-        g = torch.tensor([1.0 / (n * L), 1.0 / n], device=device)
-        grads = cuda_ops.vae_sums_bwd_cuda(*x, g)
-        ref_grads = cuda_ops.vae_sums_bwd_plain(*x, g)
-        for name, a, b in zip(("ddata", "ddec", "dmu", "dlogvar"), grads, ref_grads):
-            check(bool(torch.isfinite(a).all()), f"{case}: {name} not finite")
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7, msg=lambda m: f"{case} {name}: {m}")
-        torch.cuda.synchronize()
         fwd_err = float((got - ref).abs().max())
-        bwd_err = max(float((a - b).abs().max()) for a, b in zip(grads, ref_grads))
         err["vae_sums_fwd"] = max(err["vae_sums_fwd"], fwd_err)
-        err["vae_sums_bwd"] = max(err["vae_sums_bwd"], bwd_err)
         rel64 = float(((got.double() - exact).abs() / exact.abs()).max())
         print(f"  {case}: sums {got.tolist()} |kernel - plain| {fwd_err:.3g} "
-              f"(kernel vs float64 rel {rel64:.3g}), grads |kernel - plain| {bwd_err:.3g}")
+              f"(kernel vs float64 rel {rel64:.3g})")
+    # the backward for each of the 15 patterns of gradients asked for, on the
+    # cases above and on the first 100 rows and the first row of the full batch
+    full = loss_inputs(B, device=device)
+    bwd_cases = {case: (loss_inputs(n_real, pad, device=device), n_real) for case, (n_real, pad) in cases.items()}
+    bwd_cases.update({"B100": (tuple(t[:100] for t in full), 100), "B1": (tuple(t[:1] for t in full), 1)})
+    for case, (x, n_real) in bwd_cases.items():
+        g = torch.tensor([1.0 / (n_real * L), 1.0 / n_real], device=device)
+        worst = 0.0
+        for want in itertools.product((False, True), repeat=4):
+            if not any(want):
+                continue
+            grads = cuda_ops.vae_sums_bwd_cuda(*x, g, want=want)
+            again = cuda_ops.vae_sums_bwd_cuda(*x, g, want=want)
+            ref_grads = cuda_ops.vae_sums_bwd_plain(*x, g, want=want)
+            for name, a, b, c, w in zip(("ddata", "ddec", "dmu", "dlogvar"), grads, ref_grads, again, want):
+                check((a is None) == (b is None) == (c is None) == (not w), f"{case} {want}: {name} slot")
+                if not w:
+                    continue
+                check(bool(torch.isfinite(a).all()), f"{case}: {name} not finite")
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7, msg=lambda m: f"{case} {name}: {m}")
+                check(torch.equal(a, c), f"{case} {want}: {name} differs on a repeat")
+                worst = max(worst, float((a - b).abs().max()))
+        torch.cuda.synchronize()
+        err["vae_sums_bwd"] = max(err["vae_sums_bwd"], worst)
+        print(f"  vae_sums_bwd {case}: 15 patterns of gradients asked for, |kernel - plain| {worst:.3g}, "
+              f"repeats bit-equal")
     x = loss_inputs(415, device=device)
     _, n_fwd, split = device_profile(lambda: cuda_ops.vae_sums_fwd_cuda(*x), n=50)
     print(f"  vae_sums_fwd: {n_fwd:g} CUDA launches per call ({split_line(split)})")
     check(n_fwd <= 1, f"vae_sums_fwd makes {n_fwd:g} CUDA launches per call, over 1")
-    print(f"[3 kernel vs plain] vae_sums_fwd and vae_sums_bwd agree with the plain version on "
-          f"{len(cases)} cases at B={B} L={L} z={Z}")
+    print(f"[3 kernel vs plain] vae_sums_fwd agrees with the plain version on {len(cases)} cases at "
+          f"B={B} L={L} z={Z}, vae_sums_bwd on {len(bwd_cases)} (B={B}, 100, 1) for every pattern of "
+          f"gradients asked for")
     err["masked_sse_fwd"] = masked_sse_vs_plain(device)
     return err
 
@@ -1301,8 +1404,8 @@ def phase_timings(ts, pool, idx, mask, joint_ts, joint_plan, card: str, errs: di
     data_all, dec_all, _ = sse_inputs(B, device="cuda")
     fns = {
         "vae_sums_fwd": (lambda: cuda_ops.vae_sums_fwd_cuda(*x), lambda: cuda_ops.vae_sums_plain(*x), None),
-        "vae_sums_bwd": (lambda: cuda_ops.vae_sums_bwd_cuda(*x, g),
-                         lambda: cuda_ops.vae_sums_bwd_plain(*x, g), None),
+        "vae_sums_bwd": (lambda: cuda_ops.vae_sums_bwd_cuda(*x, g, want=STEP_GRADS),
+                         lambda: cuda_ops.vae_sums_bwd_plain(*x, g, want=STEP_GRADS), None),
         "masked_sse_fwd": (lambda: cuda_ops.masked_sse_fwd_cuda(*sse), lambda: cuda_ops.masked_sse_plain(*sse),
                            lambda: F.mse_loss(dec_all, data_all, reduction="sum")),
     }
@@ -1325,12 +1428,7 @@ def phase_timings(ts, pool, idx, mask, joint_ts, joint_plan, card: str, errs: di
                 print(f"    {name} {what}: {dev_us:.2f} us device in {n_dev:g} launches per call "
                       f"({split_line(split)})")
         if name == "vae_sums_bwd":  # one launch: held to the device time of the smallest launch
-            one = torch.zeros(1, device="cuda")
-            for what, fn in (("kernel", kernel), ("one-element torch op (add_), the launch floor",
-                                                  lambda: one.add_(1.0))):
-                dev_us, n_dev, split = device_profile(fn, n=50)
-                print(f"    {name} {what}: {dev_us:.2f} us device in {n_dev:g} launches per call "
-                      f"({split_line(split)})")
+            bwd_report(x, g, card)
         kernels.append({
             "name": name, "route": "cuda", "source": "hippie_tpu_torch/csrc/vae_sums.cu",
             "replaces": sources[name], "launches": launches[name], "max_abs_err": errs[name],
@@ -1338,6 +1436,65 @@ def phase_timings(ts, pool, idx, mask, joint_ts, joint_plan, card: str, errs: di
             "library_ms": library_ms,
         })
     return kernels
+
+
+def bwd_in_graph(bwd, g, pairs: int = 20) -> dict:
+    """``bwd(g2)`` behind the kernel that writes its g2 (``g * 1.0``, as a
+    step's backward feeds the loss backward), ``pairs`` times in one CUDA
+    graph, and the predecessors alone in another: µs per pair and per
+    predecessor (CUDA events over 50 replays), their difference (what the
+    backward adds to a replayed step), and the backward's device µs per
+    launch in the replays (torch.profiler)."""
+    import torch
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    graphs = {}
+    with torch.cuda.stream(s):
+        for what, body in (("pair", lambda: bwd(g * 1.0)), ("predecessor", lambda: g * 1.0)):
+            body()  # made on this stream before the capture
+            graphs[what] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[what], stream=s):
+                for _ in range(pairs):
+                    body()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    us = {what: time_ms(graph.replay, n=50, warmup=5) * 1e3 / pairs for what, graph in graphs.items()}
+    _, _, split = device_profile(graphs["pair"].replay, n=5)
+    mine = [v for k, v in split.items() if k.startswith("vae_sums_bwd_kernel")]
+    kernel_us = sum(t for t, _ in mine) / max(sum(c for _, c in mine), 1e-9) if mine else float("nan")
+    return {"pair_us": us["pair"], "predecessor_us": us["predecessor"],
+            "added_us": us["pair"] - us["predecessor"], "kernel_device_us": kernel_us}
+
+
+def bwd_report(x, g, card: str, label: str = "vae_sums_bwd") -> dict:
+    """vae_sums_bwd's times at the step's shapes: the work the train step
+    asks for (STEP_GRADS) and all four gradients, each alone (device µs,
+    torch.profiler) and in a CUDA graph behind its predecessor
+    (bwd_in_graph), beside the launch floor (the device time of a
+    one-element add_) and the byte bounds."""
+    import torch
+
+    from hippie_tpu_torch.ops import cuda_ops
+
+    one = torch.zeros(1, device="cuda")
+    floor_us, n_floor, _ = device_profile(lambda: one.add_(1.0), n=50)
+    floor_us /= max(n_floor, 1e-9)
+    out = {"floor_us": floor_us}
+    for tag, want in (("step", STEP_GRADS), ("all", cuda_ops.ALL_GRADS)):
+        dev_us, n_dev, split = device_profile(lambda: cuda_ops.vae_sums_bwd_cuda(*x, g, want=want), n=50)
+        dev_us /= max(n_dev, 1e-9)  # per launch: the tracer may have dropped some calls' events
+        graph = bwd_in_graph(lambda g2: cuda_ops.vae_sums_bwd_cuda(*x, g2, want=want), g)
+        bound_ms, by = vae_sums_bounds(*x[0].shape, x[2].shape[1], want)["vae_sums_bwd"]
+        out[tag] = {"device_us": dev_us, **graph, "bound_us": bound_ms * 1e3}
+        print(f"    {label} ({tag}: {'ddata, ' if want[0] else ''}ddec, dmu, dlogvar): {dev_us:.3f} us device "
+              f"alone per launch ({n_dev:g} launches seen per call: {split_line(split)}); in a graph behind "
+              f"its predecessor "
+              f"{graph['kernel_device_us']:.3f} us device per launch, {graph['added_us']:.3f} us added per "
+              f"pair ({graph['pair_us']:.3f} us per pair, {graph['predecessor_us']:.3f} per predecessor "
+              f"alone); bound {bound_ms * 1e3:.4f} us ({by}); launch floor {floor_us:.3f} us device "
+              f"(one-element add_) on {card}")
+    return out
 
 
 def n_batches(n: int, batch_size: int) -> int:
@@ -1934,7 +2091,7 @@ def start_servers(configs: dict, device="cuda") -> dict:
     lines, its start-up seconds)}. Prints the wall time of the joint start
     against the sum of the start-ups, the seconds the overlap saved."""
     t0 = time.perf_counter()
-    spawned = {name: _spawn_server(flags + ["--warmup-buckets", "512,1024", "--device", device])
+    spawned = {name: _spawn_server(flags + ["--warmup-buckets", "512,1024", "--device", device, *AOT_DIR])
                for name, flags in configs.items()}
     servers = {}
     try:
@@ -2508,7 +2665,7 @@ def phase_ensemble(card: str, workdir: str, pool, cfg_m=None, device="cuda", k_r
             rc = lr_sweep.main(["--dataset", TARGET, "--data-root", DATA_ROOT, "--modality", modality,
                                 "--lrs", "1e-3,3e-3,1e-4,3e-4", "--max-epochs", "1", "--z-dim", str(cfg_m.z_dim),
                                 "--num-blocks", ",".join(map(str, cfg_m.num_blocks)), "--export-winner", path,
-                                "--device", device])
+                                "--device", device, *AOT_DIR])
         sweep_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**20 if device != "cpu" else float("nan")
         rec = json.loads(out.getvalue().strip().splitlines()[-1])
@@ -2541,7 +2698,7 @@ def phase_ensemble(card: str, workdir: str, pool, cfg_m=None, device="cuda", k_r
         with contextlib.redirect_stdout(out_s):
             rc = lr_sweep.main(["--dataset", TARGET, "--data-root", DATA_ROOT, "--modality", "wave", "--lrs",
                                 "1e-3,3e-3", "--max-epochs", "2", "--z-dim", str(cfg_m.z_dim), "--export-winner",
-                                path, "--fit-loop", fit_loop, "--device", device])
+                                path, "--fit-loop", fit_loop, "--device", device, *AOT_DIR])
         rec = json.loads(out_s.getvalue().strip().splitlines()[-1])
         with open(path, "rb") as f:
             got[fit_loop] = (rc, rec["best_val_loss"], rec["best_epoch"], f.read(), time.perf_counter() - t0)
@@ -2570,7 +2727,7 @@ def phase_kfold(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, devic
     t_phase = time.perf_counter()
     for mode, flags in (("dual", ["--wave-checkpoint", uni_ckpts["wave"], "--time-checkpoint", uni_ckpts["time"]]),
                         ("joint", ["--joint-checkpoint", joint_ckpt])):
-        base = ["--dataset", TARGET, "--data-root", DATA_ROOT, "--folds", "5", "--device", device, *flags]
+        base = ["--dataset", TARGET, "--data-root", DATA_ROOT, "--folds", "5", "--device", device, *flags, *AOT_DIR]
         runs, walls, said = {}, {}, {}
         for name, extra in (("embed_once", []), ("sequential", ["--refit", "--refit-epochs", "1"]),
                             ("fold_parallel", ["--refit", "--refit-epochs", "1", "--fold-parallel"])):
@@ -2855,7 +3012,7 @@ def phase_resume(card: str, workdir: str, pool, device="cuda") -> dict:
     print(f"  unimodal model: {writes_line(uni_writes)}")
 
     base = ["--dataset", TARGET, "--data-root", DATA_ROOT, "--modality", "wave", "--lrs", "1e-3,3e-3",
-            "--max-epochs", "2", "--z-dim", str(Z), "--fit-loop", "device", "--device", device]
+            "--max-epochs", "2", "--z-dim", str(Z), "--fit-loop", "device", "--device", device, *AOT_DIR]
 
     def sweep(extra):
         out = io.StringIO()
@@ -2919,7 +3076,7 @@ def phase_cli_backends(card: str, workdir: str, pool, xla_losses: list, device="
                            "--profile-dir", pdir, "--discover-datasets", "--wandb", "--loss-backend", "pallas",
                            "--block-backend", "pallas", "--limit-train-batches", "1", "--limit-val-batches",
                            "1", "--output-dir", f"{workdir}/cli_out", "--checkpoint-dir", f"{workdir}/cli_ck",
-                           "--device", device])
+                           "--device", device, *AOT_DIR])
     finally:
         if saved_wandb is None:
             sys.modules.pop("wandb", None)
@@ -2947,7 +3104,7 @@ def phase_cli_backends(card: str, workdir: str, pool, xla_losses: list, device="
         rc = sweep_targets.main(["--datasets", "cellexplorer-celltype,cellexplorer-area", "--data-root", DATA_ROOT,
                                  "--z_dim", str(Z), "--loss-backend", "pallas", "--block-backend", "pallas",
                                  "--output-dir", f"{workdir}/sweep_out", "--checkpoint-dir",
-                                 f"{workdir}/sweep_ck", "--device", device])
+                                 f"{workdir}/sweep_ck", "--device", device, *AOT_DIR])
     recs = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
     check(rc == 0 and [r.get("ok") for r in recs[:2]] == [True, True] and recs[-1].get("ok") == 2,
           f"sweep_targets: rc {rc}, {recs}")
@@ -3540,7 +3697,7 @@ def dp_walls() -> int:
             cmd = [sys.executable, "-m", "hippie_tpu_torch.scripts.train_model_with_multimodal", "--model-type",
                    "multimodal", "--fit-loop", "host", "--loss-backend", "pallas", "--block-backend", "pallas",
                    "--output-dir", out,
-                   "--checkpoint-dir", f"{out}/ck", "--data-root", DATA_ROOT, *flags]
+                   "--checkpoint-dir", f"{out}/ck", "--data-root", DATA_ROOT, *flags, *AOT_DIR]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=600)
             wall = time.perf_counter() - t0
@@ -3812,7 +3969,7 @@ def cli_run(workdir: str, joint: bool, epochs: int, limit: bool, flags=()) -> tu
 
     argv = ["--dataset", TARGET, "--data-root", DATA_ROOT, "--loss-backend", "pallas", "--block-backend", "pallas",
             "--pretrain-max-epochs", str(epochs), "--finetune-max-epochs", str(epochs),
-            "--supervised-max-epochs", str(epochs)]
+            "--supervised-max-epochs", str(epochs), *AOT_DIR]
     argv += ["--model-type", "multimodal"] if joint else ["--z_dim", str(Z)]
     if limit:
         argv += ["--limit-train-batches", "2", "--limit-val-batches", "1"]
@@ -3884,7 +4041,8 @@ def cli_pair(workdir: str, joint: bool, epochs: int, limit: bool, card: str, pro
 # bwd_conv1_kernel and dec_block.cu's bwd_conv2_kernel are the two files'
 # only untemplated kernels of those names.)
 MARKER_KERNELS = {
-    "vae_sums_fwd": ("vae_sums_fwd_kernel",), "vae_sums_bwd": ("vae_sums_bwd_kernel",),
+    "vae_sums_fwd": ("vae_sums_fwd_kernel",),
+    "vae_sums_bwd": tuple(f"vae_sums_bwd_kernel<{a},{b}>" for a in (4, 2, 1) for b in (4, 2, 1)),
     "masked_sse_fwd": ("masked_sse_kernel",), "enc_block_fwd": ("fwd_conv_kernel<false,false>",),
     "enc_block_bwd": ("bwd_conv1_kernel",),
     "dec_block_fwd": ("dec_fwd_conv1_kernel<false>", "dec_fwd_conv1_kernel<true>"),
@@ -3991,10 +4149,11 @@ def phase_device_loop(card: str, workdir: str, pool) -> dict:
                   f"kernels and copies, runtime calls {api} per step on {card}")
         print(f"  20a {kind} pallas train step: {p['replay_ms']:.3f} ms replayed (CUDA events, the host's "
               f"dispatch included; phase 7 times the eager step) on {card}")
-        bwd = p["replay"]["split"].get("vae_sums_bwd_kernel")
+        bwd = [v for k, v in p["replay"]["split"].items() if k.startswith("vae_sums_bwd_kernel")]
         if bwd:
-            print(f"  20a {kind}: vae_sums_bwd inside the graph {bwd[0] / bwd[1]:.3f} us device per launch "
-                  f"(x{bwd[1]:g} per step)")
+            us, count = sum(t for t, _ in bwd), sum(c for _, c in bwd)
+            print(f"  20a {kind}: vae_sums_bwd inside the graph {us / count:.3f} us device per launch "
+                  f"(x{count:g} per step)")
 
     clip_launches(card)
     print(f"  20a {time.perf_counter() - t_phase:.1f} s")
@@ -4121,6 +4280,8 @@ def compare(other: str, pairs: int) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--aot-load"]:
+        return aot_load(sys.argv[2])
     if sys.argv[1:2] == ["--artifact-replies"]:
         artifact_replies(*sys.argv[2:4])
         return 0
@@ -4157,6 +4318,7 @@ def main() -> int:
               f"{torch.cuda.device_count()} device(s)")
         print(card)
         phase_build()
+        phase_aot_cache(card)
         errs = phase_kernel_vs_plain()
         ts, pool, idx, mask, _, losses = phase_slice(full_config())
         # the unimodal main path: both backbones' blocks on the fused block kernels

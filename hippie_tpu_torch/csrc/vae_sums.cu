@@ -9,9 +9,12 @@
 //                                          mu, lv = where(m > 0, ., 0)
 // The where() guard comes before the square and the exp: padded rows of a
 // tail batch can hold +-1e7 or inf, and inf * 0 would be NaN.
-// Backward, one elementwise pass given g = (g_mse, g_kl) in device memory:
+// Backward (_fused_bwd's _bwd_kernel), one elementwise pass given
+// g = (g_mse, g_kl) in device memory:
 //   ddec = 2 g_mse d m,  ddata = -ddec,  dmu = g_kl mu m,
 //   dlogvar = -0.5 g_kl (1 - exp(lv)) m
+// writing only the gradients autograd asks for (not ddata in the train step:
+// the data never needs one).
 //
 // masked_sse is the forward's first sum alone, sse = sum_r m_r * sum_l d_rl^2,
 // on the second modality (L=100); its backward (-2 g d m, 2 g d m) is
@@ -19,12 +22,12 @@
 //
 // What bounds it on an H100 at the main path's shapes (B=512, L=50, z=10):
 // the forward reads (2*B*L + 2*B*z + B) * 4 = 247,808 B, about 0.07 us at
-// 3.35 TB/s; the backward reads that and writes 245,760 B. Both are far
-// below a launch's latency (a few us), so the kernel is bound by launches:
-// 2 per train step (forward, backward). masked_sse at B=512, L=100 reads
-// (2*B*L + B) * 4 = 411,648 B, 0.12 us: one more launch per joint step,
-// bound the same way.
-//
+// 3.35 TB/s; the backward reads that and writes 143,360 B (ddec, dmu,
+// dlogvar; 245,760 B with ddata), 0.117 us (0.147). All are far below a
+// launch's latency (a one-element kernel takes about 1.2 us of device time),
+// so the kernels are bound by launches: 2 per train step (forward,
+// backward). masked_sse at B=512, L=100 reads (2*B*L + B) * 4 = 411,648 B,
+// 0.12 us: one more launch per joint step, bound the same way.
 // Design: the TPU kernel ran as one program over the whole batch in VMEM and
 // summed in one go. Here blocks run in parallel and in no fixed order, so
 // each forward is one launch whose blocks reduce their rows into a partial
@@ -41,9 +44,20 @@
 // shuffles, then one warp over the warp sums), and there are no float
 // atomics, so repeated runs give the same bits. The backward reads
 // (g_mse, g_kl) from device memory, so the train step never syncs the host.
+// The backward's time is a launch's and one round trip to memory, about
+// 0.3 us over a one-element kernel's: no layout measured moved it
+// (kernel_split.py --variants; PERF.md). It writes only the gradients
+// asked for (no ddata in the train step), with a thread per 16- or 8-byte
+// vector where L, z and the pointers allow (8 at L=50, z=10) and all of its
+// loads issued before any arithmetic. Measured and not kept: a warp per
+// row, which reads the row's mask once and divides no index but runs
+// slower, and Hopper's programmatic dependent launch, which gained nothing
+// alone or in a CUDA graph.
 // All launchers take PyTorch's current stream and return cudaGetLastError().
 
 #include <cuda_runtime.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -163,30 +177,91 @@ vae_sums_fwd_kernel(const float* __restrict__ data, const float* __restrict__ de
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The backward's outputs, bits of its `want` argument: only those autograd
+// asks for are written (the train step never asks for ddata).
+constexpr unsigned kDData = 1u, kDDec = 2u, kDMu = 4u, kDLogvar = 8u;
+constexpr int kBwdThreads = 256;  // a vector per thread: B=512, L=50, z=10 gives 60 blocks
+
+// V consecutive floats as one access (16, 8 or 4 bytes).
+__device__ __forceinline__ void ldv(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void ldv(const float* p, float (&v)[2]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  v[0] = t.x; v[1] = t.y;
+}
+__device__ __forceinline__ void ldv(const float* p, float (&v)[1]) { v[0] = *p; }
+__device__ __forceinline__ void stv(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void stv(float* p, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void stv(float* p, const float (&v)[1]) { *p = v[0]; }
+
+// Thread t takes slot t of the batch's B * (nl + nz) vectors. Slot k of a
+// row is the k-th VL-float vector of its L columns (data, dec and their
+// gradients) for k < nl, else the (k - nl)-th VZ-float vector of its z
+// columns (mu, logvar and theirs); a part whose gradients are not asked
+// for has no slots. Every load (the thread's vectors, its row's mask, g)
+// is issued before any arithmetic: one round trip to memory. Each gradient
+// repeats the plain version's arithmetic in its order, so the bits are the
+// first version's.
+template <int VL, int VZ>
+__global__ void __launch_bounds__(kBwdThreads)
 vae_sums_bwd_kernel(const float* __restrict__ data, const float* __restrict__ dec,
                     const float* __restrict__ mu, const float* __restrict__ logvar,
-                    const float* __restrict__ mask, const float* __restrict__ g,
-                    int B, int L, int Z, float* __restrict__ ddata, float* __restrict__ ddec,
+                    const float* __restrict__ mask, const float* __restrict__ g, int B, int L, int Z,
+                    unsigned want, float* __restrict__ ddata, float* __restrict__ ddec,
                     float* __restrict__ dmu, float* __restrict__ dlogvar) {
-  const int nl = B * L;
-  const int n = nl + B * Z;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  if (i < nl) {
-    const float g_mse = g[0];
-    const float m = mask[i / L];
-    const float d = (m > 0.f ? dec[i] - data[i] : 0.f) * m;
-    ddec[i] = 2.f * g_mse * d;
-    ddata[i] = -2.f * g_mse * d;
-  } else {
-    const float g_kl = g[1];
-    const int j = i - nl;
-    const float m = mask[j / Z];
-    const float u = m > 0.f ? mu[j] : 0.f;
-    const float lv = m > 0.f ? logvar[j] : 0.f;
-    dmu[j] = g_kl * u * m;
-    dlogvar[j] = g_kl * -0.5f * (1.f - expf(lv)) * m;
+  const int nl = (want & (kDData | kDDec)) ? L / VL : 0;
+  const int nz = (want & (kDMu | kDLogvar)) ? Z / VZ : 0;
+  const int t = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (t >= B * (nl + nz)) return;
+  const int r = t / (nl + nz), k = t - r * (nl + nz);
+  const bool has_l = k < nl;
+  const bool has_mu = !has_l && (want & kDMu);
+  const bool has_lv = !has_l && (want & kDLogvar);
+  const size_t i = (size_t)r * L + k * VL, j = (size_t)r * Z + (k - nl) * VZ;
+  float x[VL] = {}, y[VL] = {}, u[VZ] = {}, v[VZ] = {};
+  if (has_l) {
+    ldv(data + i, x);
+    ldv(dec + i, y);
+  }
+  if (has_mu) ldv(mu + j, u);
+  if (has_lv) ldv(logvar + j, v);
+  const float m = mask[r];
+  const float g_mse = g[0], g_kl = g[1];
+  const bool keep = m > 0.f;  // where(m > 0, ., 0) before the product and the exp
+  if (has_l) {
+    const float two_g = 2.f * g_mse, neg_two_g = -2.f * g_mse;
+    float d[VL], o[VL];
+#pragma unroll
+    for (int e = 0; e < VL; ++e) d[e] = (keep ? y[e] - x[e] : 0.f) * m;
+    if (want & kDDec) {
+#pragma unroll
+      for (int e = 0; e < VL; ++e) o[e] = two_g * d[e];
+      stv(ddec + i, o);
+    }
+    if (want & kDData) {
+#pragma unroll
+      for (int e = 0; e < VL; ++e) o[e] = neg_two_g * d[e];
+      stv(ddata + i, o);
+    }
+  }
+  if (has_mu) {
+    float o[VZ];
+#pragma unroll
+    for (int e = 0; e < VZ; ++e) o[e] = g_kl * (keep ? u[e] : 0.f) * m;
+    stv(dmu + j, o);
+  }
+  if (has_lv) {
+    const float h = g_kl * -0.5f;
+    float o[VZ];
+#pragma unroll
+    for (int e = 0; e < VZ; ++e) o[e] = h * (1.f - expf(keep ? v[e] : 0.f)) * m;
+    stv(dlogvar + j, o);
   }
 }
 
@@ -273,15 +348,39 @@ int vae_sums_fwd(const float* data, const float* dec, const float* mu, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
-// g = (g_mse, g_kl) in device memory; the four gradients have the inputs' shapes.
+// g = (g_mse, g_kl) in device memory. want: the gradients to write, bits
+// 1 ddata, 2 ddec, 4 dmu, 8 dlogvar, at least one; a gradient not asked
+// for may be null. Each written gradient has its input's shape. One launch.
 int vae_sums_bwd(const float* data, const float* dec, const float* mu, const float* logvar,
-                 const float* mask, const float* g, int B, int L, int Z, float* ddata,
+                 const float* mask, const float* g, int B, int L, int Z, unsigned want, float* ddata,
                  float* ddec, float* dmu, float* dlogvar, void* stream) {
+  // the widest access that every array of each part allows
+  auto width = [](int n, std::initializer_list<const void*> ptrs) {
+    for (int v : {4, 2}) {
+      bool ok = n % v == 0;
+      for (const void* p : ptrs) ok = ok && (reinterpret_cast<size_t>(p) % (4 * v)) == 0;
+      if (ok) return v;
+    }
+    return 1;
+  };
+  const int vl = width(L, {data, dec, ddata, ddec});  // a null pointer is aligned
+  const int vz = width(Z, {mu, logvar, dmu, dlogvar});
+  const int slots = B * (((want & (kDData | kDDec)) ? L / vl : 0) + ((want & (kDMu | kDLogvar)) ? Z / vz : 0));
+  const dim3 grid((slots + kBwdThreads - 1) / kBwdThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = B * (L + Z);
-  const int nblocks = (n + kThreads - 1) / kThreads;
-  vae_sums_bwd_kernel<<<nblocks, kThreads, 0, s>>>(data, dec, mu, logvar, mask, g, B, L, Z,
-                                                   ddata, ddec, dmu, dlogvar);
+#define HIPPIE_BWD_LAUNCH(VL, VZ) \
+  vae_sums_bwd_kernel<VL, VZ><<<grid, kBwdThreads, 0, s>>>(data, dec, mu, logvar, mask, g, B, L, Z, want, \
+                                                           ddata, ddec, dmu, dlogvar)
+  if (vl == 4 && vz == 4) HIPPIE_BWD_LAUNCH(4, 4);
+  else if (vl == 4 && vz == 2) HIPPIE_BWD_LAUNCH(4, 2);
+  else if (vl == 4) HIPPIE_BWD_LAUNCH(4, 1);
+  else if (vl == 2 && vz == 4) HIPPIE_BWD_LAUNCH(2, 4);
+  else if (vl == 2 && vz == 2) HIPPIE_BWD_LAUNCH(2, 2);
+  else if (vl == 2) HIPPIE_BWD_LAUNCH(2, 1);
+  else if (vz == 4) HIPPIE_BWD_LAUNCH(1, 4);
+  else if (vz == 2) HIPPIE_BWD_LAUNCH(1, 2);
+  else HIPPIE_BWD_LAUNCH(1, 1);
+#undef HIPPIE_BWD_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

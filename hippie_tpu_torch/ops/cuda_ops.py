@@ -18,7 +18,10 @@ backward is elementwise torch ops on either device (``masked_sse_bwd``), as
 ``launches`` counts kernel launches per wrapper, one per call that
 launches (not a call a CUDA graph captures: _build.count_launch), and each
 call is one CUDA launch: ``vae_sums_fwd`` and ``masked_sse_fwd`` (whose last block
-sums the partials; each keeps a workspace per stream) and ``vae_sums_bwd``.
+sums the partials; each keeps a workspace per stream) and ``vae_sums_bwd``
+(which writes only the gradients autograd asks for: ``FusedVaeSums``
+passes ``ctx.needs_input_grad``, so the train step's backward writes no
+ddata).
 """
 
 from __future__ import annotations
@@ -56,17 +59,25 @@ def vae_sums_plain(data, dec, mu, logvar, mask_col) -> torch.Tensor:
     return torch.stack([(d * d * mask_col).sum(), (kl * mask_col).sum()])
 
 
-def vae_sums_bwd_plain(data, dec, mu, logvar, mask_col, g):
+ALL_GRADS = (True, True, True, True)
+
+
+def vae_sums_bwd_plain(data, dec, mu, logvar, mask_col, g, want=ALL_GRADS):
     """(ddata, ddec, dmu, dlogvar) for g = [g_mse, g_kl]
-    (hippie_tpu pallas_ops._bwd_kernel)."""
+    (hippie_tpu pallas_ops._bwd_kernel); a gradient whose flag in ``want``
+    is False is None, as autograd takes it for an input that needs none."""
     g_mse, g_kl = g[0], g[1]
     keep = mask_col > 0
-    d = torch.where(keep, dec - data, 0.0) * mask_col
-    ddec = 2.0 * g_mse * d
-    ddata = -2.0 * g_mse * d
-    dmu = g_kl * torch.where(keep, mu, 0.0) * mask_col
-    lv = torch.where(keep, logvar, 0.0)
-    dlogvar = g_kl * -0.5 * (1.0 - torch.exp(lv)) * mask_col
+    ddata = ddec = dmu = dlogvar = None
+    if want[0] or want[1]:
+        d = torch.where(keep, dec - data, 0.0) * mask_col
+        ddata = -2.0 * g_mse * d if want[0] else None
+        ddec = 2.0 * g_mse * d if want[1] else None
+    if want[2]:
+        dmu = g_kl * torch.where(keep, mu, 0.0) * mask_col
+    if want[3]:
+        lv = torch.where(keep, logvar, 0.0)
+        dlogvar = g_kl * -0.5 * (1.0 - torch.exp(lv)) * mask_col
     return ddata, ddec, dmu, dlogvar
 
 
@@ -102,7 +113,7 @@ def _kernels() -> ctypes.CDLL:
             size.argtypes, size.restype = [_I], _I
         lib.vae_sums_fwd.argtypes = [_P] * 5 + [_I] * 3 + [_P] * 3
         lib.vae_sums_fwd.restype = _I
-        lib.vae_sums_bwd.argtypes = [_P] * 6 + [_I] * 3 + [_P] * 5
+        lib.vae_sums_bwd.argtypes = [_P] * 6 + [_I] * 3 + [ctypes.c_uint] + [_P] * 5
         lib.vae_sums_bwd.restype = _I
         lib.masked_sse_fwd.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 3
         lib.masked_sse_fwd.restype = _I
@@ -208,21 +219,29 @@ def vae_sums_fwd_cuda(data, dec, mu, logvar, mask_col) -> torch.Tensor:
     return out
 
 
-def vae_sums_bwd_cuda(data, dec, mu, logvar, mask_col, g):
-    """Launch the backward kernel; ``g`` = [g_mse, g_kl] stays on the device."""
+def vae_sums_bwd_cuda(data, dec, mu, logvar, mask_col, g, want=ALL_GRADS):
+    """Launch the backward kernel; ``g`` = [g_mse, g_kl] stays on the device.
+    Writes the gradients ``want`` flags (ddata, ddec, dmu, dlogvar) and
+    returns None for the others; one CUDA launch."""
     if g.shape != (2,) or g.dtype != torch.float32 or g.device != data.device:
         raise ValueError(f"g must be float32 [2] on {data.device}, got {g.dtype} {tuple(g.shape)} "
                          f"on {g.device}")
+    if data.device.type != "cuda":
+        raise ValueError(f"vae_sums_bwd_cuda takes CUDA tensors, got {data.device}")
+    if not any(want):
+        raise ValueError("want asks for no gradient")
     lib = _kernels()
     B, L = data.shape
     Z = mu.shape[1]
     g = g.contiguous()
-    grads = [torch.empty_like(t) for t in (data, dec, mu, logvar)]
-    with torch.cuda.device(data.device):
+    grads = [torch.empty_like(t) if w else None for t, w in zip((data, dec, mu, logvar), want)]
+    bits = sum(1 << i for i, w in enumerate(want) if w)
+    with _device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = lib.vae_sums_bwd(
             data.data_ptr(), dec.data_ptr(), mu.data_ptr(), logvar.data_ptr(),
-            mask_col.data_ptr(), g.data_ptr(), B, L, Z, *(t.data_ptr() for t in grads), stream,
+            mask_col.data_ptr(), g.data_ptr(), B, L, Z, bits,
+            *(None if t is None else t.data_ptr() for t in grads), stream,
         )
     _check_launch(err, "vae_sums_bwd")
     _build.count_launch(launches, "vae_sums_bwd")
@@ -266,10 +285,11 @@ class FusedVaeSums(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         data, dec, mu, logvar, mask_col = ctx.saved_tensors
+        want = tuple(ctx.needs_input_grad[:4])  # the train step's data needs none
         if data.device.type == "cpu":
-            grads = vae_sums_bwd_plain(data, dec, mu, logvar, mask_col, g)
+            grads = vae_sums_bwd_plain(data, dec, mu, logvar, mask_col, g, want)
         else:
-            grads = vae_sums_bwd_cuda(data, dec, mu, logvar, mask_col, g)
+            grads = vae_sums_bwd_cuda(data, dec, mu, logvar, mask_col, g, want)
         return (*grads, None)
 
 

@@ -28,8 +28,9 @@ port keeps the sequential protocol.
 
 The dataset's source id is resolved as the JAX CLI resolves it
 (``registry.discover_datasets``: ``registry.json`` pins, then the data
-root's unknown directories). ``--aot-dir`` has no port target and raises
-when given.
+root's unknown directories). ``--aot-dir`` (default
+``~/.cache/hippie_tpu_aot``, as JAX; ``''``: none) is where the refits' CUDA
+kernel libraries load from or are built (ops/_build.py).
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ import copy
 import os
 
 import numpy as np
+
+from hippie_tpu_torch.ops import _build
 
 KS = tuple(range(5, 20, 2))  # the reference's sweep grid
 
@@ -78,8 +81,10 @@ def build_parser():
     parser.add_argument("--fold-parallel-max-replicas", type=int, default=None, metavar="G",
                         help="the JAX CLI's replica groups of --fold-parallel; accepted, the port's "
                              "refits run one fold at a time")
-    parser.add_argument("--aot-dir", type=str, default=None,
-                        help="not ported (raises when given; the JAX CLI's compiled-program cache)")
+    parser.add_argument("--aot-dir", type=str,
+                        default=_build.CLI_DEFAULT_DIR,
+                        help="kernel-library cache shared with the pipeline: the CUDA kernels load "
+                             "from DIR/torch_kernels, or are built there once; '' disables")
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the embeddings, the refits and the KNN sweep run (default cuda)")
     return parser
@@ -217,15 +222,14 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.joint_checkpoint is None and (args.wave_checkpoint is None or args.time_checkpoint is None):
         build_parser().error("provide --wave-checkpoint and --time-checkpoint, or --joint-checkpoint")
-    if args.aot_dir is not None:
-        raise ValueError(f"--aot-dir {args.aot_dir!r} is not ported yet: ROADMAP Queue 1 item 12 "
-                         "(the AOT program cache has no port target)")
     import torch
 
     from hippie_tpu_torch import export
     from hippie_tpu_torch.data import registry
     from hippie_tpu_torch.evaluate.kfolds import stratified_kfold_indices
     from hippie_tpu_torch.ops import preprocess
+
+    _build.set_default_dir(args.aot_dir or None)
 
     os.makedirs(args.output_dir, exist_ok=True)
     wf, isi = registry.load_raw(args.data_root, args.dataset, drop_index_column=args.drop_index_column)

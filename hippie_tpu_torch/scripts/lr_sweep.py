@@ -14,8 +14,9 @@ all K replicas (train/ensemble.py:device_fit_ensemble, the JAX
 ``device_fit_replica_plans`` (the k-fold refit's per-replica plans) stays
 unported by design: ``host_fit_replica_plans`` fits such replicas one after
 another, since they share no plan to step side by side.
-``--aot-dir`` has no port target (default none; raises when given, naming
-ROADMAP Queue 1 item 12). ``--resume-dir DIR`` saves the K replicas' full
+``--aot-dir`` (default ``~/.cache/hippie_tpu_aot``, as JAX; ``''``: none)
+is where the CUDA kernel libraries load from or are built
+(ops/_build.py). ``--resume-dir DIR`` saves the K replicas' full
 state after every epoch and continues an interrupted sweep from there, and
 ``--progress-every N`` prints a progress line every N epochs
 (train/ensemble.py:fit_ensemble); the JAX CLI takes both, and ``--modality
@@ -34,6 +35,8 @@ import argparse
 import json
 
 import numpy as np
+
+from hippie_tpu_torch.ops import _build
 
 
 def build_parser():
@@ -78,8 +81,9 @@ def build_parser():
                         "off the card); host: the replicas' eager steps; the same sweep bit for bit")
     p.add_argument("--progress-every", type=int, default=None,
                    help="print a progress line every N epochs (the trajectory does not change)")
-    p.add_argument("--aot-dir", default=None,
-                   help="not ported (raises when given; the JAX CLI's compiled-program cache)")
+    p.add_argument("--aot-dir", default=_build.CLI_DEFAULT_DIR,
+                   help="kernel-library cache: the CUDA kernels load from DIR/torch_kernels, or are "
+                        "built there once; '' disables (build/kernels beside the package)")
     p.add_argument("--resume-dir", default=None, metavar="DIR",
                    help="save every replica's full state each epoch here and continue an "
                         "interrupted sweep from it")
@@ -95,18 +99,8 @@ def build_parser():
     return p
 
 
-# flags of the JAX CLI with no port: (dest, its default, the ROADMAP Queue 1 item)
-UNPORTED = (
-    ("aot_dir", None, "item 12 (the AOT program cache has no port target)"),
-)
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for dest, default, item in UNPORTED:
-        if getattr(args, dest) != default:
-            raise ValueError(f"--{dest.replace('_', '-')} {getattr(args, dest)!r} is not ported yet: "
-                             f"ROADMAP Queue 1 {item}")
     import torch
 
     from hippie_tpu_torch.data import registry
@@ -114,6 +108,8 @@ def main(argv=None):
     from hippie_tpu_torch.models import cvae
     from hippie_tpu_torch.train import checkpoint as ckpt_mod
     from hippie_tpu_torch.train import ensemble, loop, optim, pipeline, step
+
+    _build.set_default_dir(args.aot_dir or None)
 
     clip_val = args.clip_val
     if clip_val is None and args.modality in ("time", "joint"):

@@ -39,9 +39,11 @@ coefficients a device tensor per width; ops/preprocess.py).
 
 An artifact is called on the same padded row buckets as a checkpoint
 (``_bucketed_artifact_call``). A JAX StableHLO artifact (``model.shlo``)
-raises: it needs JAX. ``--aot-dir`` (the JAX compiled-program cache) has no
-port target and raises. The server runs on ``cuda`` unless ``--device cpu``
-is given.
+raises: it needs JAX. ``--aot-dir`` takes the JAX flag's default and
+meaning (``''``: none) and only sets where the port's CUDA kernel libraries
+would be found (ops/_build.py): the server's eval path launches no
+hand-written kernel. The server runs on ``cuda`` unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from hippie_tpu_torch.ops import _build
 
 
 def build_parser():
@@ -74,9 +78,11 @@ def build_parser():
                         help="exported multimodal artifact")
     parser.add_argument("--num-sources", type=int, default=5)
     parser.add_argument("--num-classes", type=int, default=5)
-    parser.add_argument("--aot-dir", type=str, default=None,
-                        help="the JAX server's compiled-program cache: no port target (raises "
-                             "when given)")
+    parser.add_argument("--aot-dir", type=str,
+                        default=_build.CLI_DEFAULT_DIR,
+                        help="kernel-library cache shared with the training CLIs ('' disables); "
+                             "it only sets where the CUDA kernels would be found: the server's "
+                             "eval path launches no hand-written kernel")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8477, help="0 binds a free port")
     parser.add_argument("--warmup-buckets", type=str, default="512,1024,2048,4096",
@@ -452,9 +458,7 @@ class EmbeddingHTTPServer(ThreadingHTTPServer):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.aot_dir is not None:
-        raise ValueError("--aot-dir: the JAX server's compiled-program cache has no port target "
-                         "(eager torch compiles nothing)")
+    _build.set_default_dir(args.aot_dir or None)
     service = EmbeddingService(
         args.wave_checkpoint, args.time_checkpoint, z_dim=args.z_dim, num_sources=args.num_sources,
         num_classes=args.num_classes, wave_artifact=args.wave_artifact,

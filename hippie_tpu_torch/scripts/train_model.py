@@ -11,9 +11,11 @@ the kernels on the host). ``--fit-loop device`` (the default, as in JAX)
 runs each stage fit's steps as CUDA graphs replayed on the card
 (train/device_fit.py), ``--fit-loop host`` the per-epoch loop of eager
 steps, on the same trajectory bit for bit; ``--progress-every`` and
-``--log-every-step`` are the device loop's, as in JAX. The JAX option with
-no port (``--aot-dir``) raises with the ROADMAP item that names it
-(``UNPORTED``). On CUDA the device loop needs NCCL ranks; it captures the
+``--log-every-step`` are the device loop's, as in JAX. ``--aot-dir``
+(default ``~/.cache/hippie_tpu_aot``, as JAX; ``''``: none) is where the
+CUDA kernel libraries load from, or are built once (ops/_build.py), so a
+second process, and a card without the CUDA toolkit, builds nothing. On
+CUDA the device loop needs NCCL ranks; it captures the
 ``--fsdp`` step too. ``--dp-devices N`` (N > 1) runs the
 pipeline on N data-parallel ranks (parallel/mesh.py:launch): N GPUs over
 NCCL, or with ``--device cpu`` N processes over gloo; more ranks than
@@ -45,6 +47,8 @@ import json
 import os
 import time
 from typing import Optional
+
+from hippie_tpu_torch.ops import _build
 
 
 def str2bool(v):
@@ -111,8 +115,13 @@ def build_parser():
     parser.add_argument("--fsdp", action="store_true",
                         help="with --dp-devices: shard the parameters and the optimizer state per "
                              "leaf over the ranks (on CUDA the stage fits then run on the host loop)")
-    parser.add_argument("--aot-dir", type=str, default=None,
-                        help="not ported (raises when given; the JAX CLI's compiled-program cache)")
+    parser.add_argument("--aot-dir", type=str,
+                        default=_build.CLI_DEFAULT_DIR,
+                        help="kernel-library cache: the CUDA kernels load from DIR/torch_kernels, "
+                             "or are built there once (later processes, and --dp-devices ranks, "
+                             "load them); keys hash the sources and flags, so an edited kernel "
+                             "is never loaded stale. Pass '' to disable (build/kernels beside "
+                             "the package)")
     parser.add_argument("--stage1-wave-ckpt", type=str, default=None,
                         help="seed the wave model from this Lightning stage-1 ckpt and skip its "
                              "pretrain fit; geometry must match --z_dim")
@@ -166,15 +175,9 @@ def jsonl_logger(path: Optional[str], also=()):
     return log
 
 
-# flags of the JAX CLI with no port: (dest, its default, the ROADMAP Queue 1 item that names it)
-UNPORTED = (
-    ("aot_dir", None, "item 12 (the AOT program cache has no port target)"),
-)
-
-
 def config_from_args(args, model_type: str = "unimodal", log_fn=None):
     """The pipeline's config from the parsed flags; raises ValueError for a
-    flag set to what the port has not. The multimodal CLI's flags
+    combination the JAX CLI refuses too. The multimodal CLI's flags
     (``--mod1-weight``, ``--mod2-weight``, ``--stage1-joint-ckpt``) keep
     their defaults when the parser has none. ``log_fn`` defaults to the
     ``--log-file`` logger."""
@@ -182,10 +185,6 @@ def config_from_args(args, model_type: str = "unimodal", log_fn=None):
     from hippie_tpu_torch.train.optim import check_optimizer
     from hippie_tpu_torch.train.pipeline import PipelineConfig
 
-    for dest, default, item in UNPORTED:
-        if getattr(args, dest) != default:
-            raise ValueError(f"--{dest.replace('_', '-')} {getattr(args, dest)!r} is not ported yet: "
-                             f"ROADMAP Queue 1 {item}")
     check_backend(args.block_backend)
     opt_state_dtype = None if args.opt_state_dtype == "float32" else args.opt_state_dtype
     check_optimizer(args.optimizer, opt_state_dtype)  # schedule-free with bf16 moments raises
@@ -239,6 +238,7 @@ def config_from_args(args, model_type: str = "unimodal", log_fn=None):
         stage1_wave_ckpt=args.stage1_wave_ckpt,
         stage1_time_ckpt=args.stage1_time_ckpt,
         stage1_joint_ckpt=getattr(args, "stage1_joint_ckpt", None),
+        aot_dir=args.aot_dir or None,
         log_fn=log_fn if log_fn is not None else (jsonl_logger(args.log_file) if args.log_file else None),
     )
 

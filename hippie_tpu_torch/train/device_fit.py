@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from hippie_tpu_torch.data.device_data import batch_plan
+from hippie_tpu_torch.ops import _build
 from hippie_tpu_torch.parallel import mesh as pmesh
 from hippie_tpu_torch.train import loop
 from hippie_tpu_torch.train.loop import FitResult
@@ -213,6 +214,7 @@ def device_fit(
     limit_train_batches=None,
     eval_params_fn: Optional[Callable] = None,
     aot_dir: Optional[str] = None,
+    aot_desc: str = "",
     log_fn: Optional[Callable[[dict], None]] = None,
     verbose: bool = True,
     lr: Optional[float] = None,
@@ -233,10 +235,11 @@ def device_fit(
     ``progress_every`` (None or 0: after the stage; every epoch with
     ``resume_dir``), ``log_steps`` and ``resume_dir`` are ``loop.fit``'s,
     which runs the epochs, so each loop resumes the other's stage.
-    ``aot_dir`` raises: the JAX program cache has no counterpart."""
+    ``aot_dir``, the JAX program cache, sets where the kernel libraries load
+    from or are built (ops/_build.py:set_default_dir); ``aot_desc`` (JAX's
+    part of a program's key) is ignored: a library's key is its sources'."""
     if aot_dir is not None:
-        raise ValueError("aot_dir is not ported: the JAX compiled-program cache has no counterpart "
-                         "(ROADMAP Queue 1 item 12)")
+        _build.set_default_dir(aot_dir)
     device = arrays[0].device
     mesh = pmesh.active()
     check_card(mesh, device)

@@ -424,6 +424,7 @@ def device_fit_ensemble(
     progress_every: Optional[int] = None,
     mesh: Optional[pmesh.Mesh] = None,
     aot_dir: Optional[str] = None,
+    aot_desc: str = "",
 ) -> EnsembleFitResult:
     """The JAX ``device_fit_ensemble`` (hippie_tpu/train/ensemble.py): the K
     local replicas' train steps as ONE CUDA graph replayed per batch of the
@@ -442,13 +443,14 @@ def device_fit_ensemble(
     replica's first train and eval steps run eagerly on the capture stream
     (a loss kernel's first call inside a capture raises; fused AdamW builds
     its state there), the second call captures, every later step is one
-    ``cudaGraphLaunch`` for the whole local ensemble. ``aot_dir`` raises:
-    the JAX program cache has no counterpart."""
+    ``cudaGraphLaunch`` for the whole local ensemble. ``aot_dir`` sets where
+    the kernel libraries load from or are built (ops/_build.py); ``aot_desc``
+    is ignored, as in ``device_fit``."""
+    from hippie_tpu_torch.ops import _build
     from hippie_tpu_torch.train import device_fit as dfit
 
     if aot_dir is not None:
-        raise ValueError("aot_dir is not ported: the JAX compiled-program cache has no counterpart "
-                         "(ROADMAP Queue 1 item 12)")
+        _build.set_default_dir(aot_dir)
     states = list(states)
     device = arrays[0].device
     dfit.check_card(pmesh.active(), device)

@@ -61,8 +61,9 @@ it stopped, so an interrupted pipeline re-run with ``resume`` writes what an
 uninterrupted one writes. ``discover_datasets`` registers the unknown
 dataset directories of ``data_root`` first (data/registry.py), and
 ``profile_dir`` records the run with torch.profiler (utils/profiling.py:
-trace). The JAX pipeline's option with no port (the AOT cache) is not a
-field here; the CLI (scripts/train_model.py) raises on its flag.
+trace). ``aot_dir`` is the JAX pipeline's AOT cache: the CUDA kernel
+libraries load from, or are built into, its ``torch_kernels/``
+(ops/_build.py), set before the first kernel loads in every rank.
 
 Data parallelism (``dp_devices``, ``fsdp``): run inside each rank of a
 ``parallel.mesh.launch`` (the CLI's ``--dp-devices N`` does), the pipeline
@@ -99,7 +100,7 @@ from hippie_tpu_torch.data.device_data import ArrayDataset, batch_plan, train_va
 from hippie_tpu_torch.evaluate import embeddings as emb
 from hippie_tpu_torch.evaluate import knn_eval, metrics
 from hippie_tpu_torch.models import cvae
-from hippie_tpu_torch.ops import preprocess
+from hippie_tpu_torch.ops import _build, preprocess
 from hippie_tpu_torch.parallel import mesh as pmesh
 from hippie_tpu_torch.train import checkpoint as ckpt_mod
 from hippie_tpu_torch.train import loop, optim, step
@@ -173,6 +174,11 @@ class PipelineConfig:
     stage1_wave_ckpt: Optional[str] = None
     stage1_time_ckpt: Optional[str] = None
     stage1_joint_ckpt: Optional[str] = None
+    # the kernel-library cache (hippie_tpu's AOT program cache): the CUDA
+    # libraries load from, or are built into, aot_dir/torch_kernels
+    # (ops/_build.py); None: build/kernels beside the package. The CLIs
+    # default it to ~/.cache/hippie_tpu_aot, as JAX.
+    aot_dir: Optional[str] = None
 
 
 # ---------------------------------------------------------------------------
@@ -717,6 +723,7 @@ def run_unimodal_pipeline(cfg: PipelineConfig,
     ("wave", "time", "wave_supervised", "time_supervised"), so a caller can
     hold the written files to the snapshots they came from.
     """
+    _build.set_default_dir(cfg.aot_dir)  # before the first kernel loads, in every rank
     with _dp_context(cfg) as cfg:
         with trace(cfg.profile_dir, cfg.device):
             return _run_unimodal_pipeline(cfg, trackers)
@@ -954,6 +961,7 @@ def run_multimodal_pipeline(cfg: PipelineConfig,
     its embeddings and the exports. Returns the JAX pipeline's ``results``
     keys; ``trackers``, when given, is filled with "joint" and
     "joint_supervised"."""
+    _build.set_default_dir(cfg.aot_dir)  # before the first kernel loads, in every rank
     with _dp_context(cfg) as cfg:
         with trace(cfg.profile_dir, cfg.device):
             return _run_multimodal_pipeline(cfg, trackers)

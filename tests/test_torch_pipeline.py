@@ -230,14 +230,14 @@ def test_cli_options_are_the_jax_clis_plus_device():
     assert sorted(o for a in got.values() for o in a.option_strings) == sorted(
         [o for a in ref.values() for o in a.option_strings] + ["--device"])
     assert got["device"].default == "cuda"
-    # the same defaults and choices, but where the port has no AOT cache
+    # the same defaults and choices, the AOT cache's (the kernel libraries') too
     for dest, a in ref.items():
-        if dest in ("help", "aot_dir"):
+        if dest == "help":
             continue
         assert got[dest].default == a.default, dest
         assert got[dest].choices == a.choices, dest
     assert got["fit_loop"].choices == ("device", "host") and got["fit_loop"].default == "device"
-    assert got["aot_dir"].default is None
+    assert got["aot_dir"].default.endswith(os.path.join(".cache", "hippie_tpu_aot"))
 
 
 def test_cli_builds_the_pipeline_config():
@@ -253,8 +253,6 @@ def test_cli_builds_the_pipeline_config():
 @pytest.mark.parametrize("argv,match", [
     (["--dp-devices", "2"], "2 data-parallel ranks on cuda, but 0 GPUs are visible"),
     (["--fsdp"], "--fsdp requires --dp-devices > 1"),
-    (["--aot-dir", "x"], "ROADMAP Queue 1 item"),
-    (["--aot-dir", "x", "--fit-loop", "host", "--progress-every", "2"], "ROADMAP Queue 1 item"),
     (["--dp-devices", "2", "--fsdp"], "0 GPUs are visible"),  # the default loop does not refuse
     (["--dp-devices", "2", "--fsdp", "--fit-loop", "host"], "0 GPUs are visible")])
 def test_cli_raises_on_options_not_ported(argv, match):
@@ -266,6 +264,9 @@ def test_cli_raises_on_options_not_ported(argv, match):
 
 
 @pytest.mark.parametrize("argv,fields", [
+    (["--aot-dir", "x"], {"aot_dir": "x"}),
+    (["--aot-dir", "", "--fit-loop", "host", "--progress-every", "2"],
+     {"aot_dir": None, "fit_loop": "host", "progress_every": 2}),
     (["--resume"], {"resume": True}),
     (["--wandb", "--resume"], {"resume": True, "log_fn": None}),
     (["--profile-dir", "x"], {"profile_dir": "x", "discover_datasets": False}),

@@ -319,7 +319,7 @@ def test_multimodal_cli_options_are_the_jax_clis_plus_device():
         [o for a in ref.values() for o in a.option_strings] + ["--device"])
     assert got["device"].default == "cuda"
     for dest, a in ref.items():
-        if dest in ("help", "aot_dir"):  # no AOT cache
+        if dest == "help":
             continue
         assert got[dest].default == a.default, dest
         assert got[dest].choices == a.choices, dest

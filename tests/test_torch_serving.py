@@ -14,6 +14,7 @@ Coalesced and concurrent replies equal serial ones at rtol 1e-5 / atol 1e-6
 import http.client
 import io
 import json
+import os
 import contextlib
 import shutil
 import sys
@@ -361,9 +362,17 @@ def test_artifact_flags_raise_naming_the_roadmap_item(argv, tmp_path, ckpts):
         tse.main(wave + [argv[0], str(path), "--device", "cpu"])
 
 
-def test_aot_dir_raises():
-    with pytest.raises(ValueError, match="--aot-dir.*no port target"):
+def test_aot_dir_raises(monkeypatch):
+    """``--aot-dir`` has the JAX default and sets the kernel-library
+    directory; main raises here only for the missing checkpoints."""
+    from hippie_tpu_torch.ops import _build
+
+    assert tse.build_parser().get_default("aot_dir") == os.path.join(
+        os.path.expanduser("~"), ".cache", "hippie_tpu_aot")
+    monkeypatch.setattr(_build, "_default_dir", None)
+    with pytest.raises(ValueError, match="provide --wave-checkpoint or --wave-artifact"):
         tse.main(["--aot-dir", "x", "--device", "cpu"])
+    assert _build.default_dir() == "x"
 
 
 # ---------------------------------------------------------------------------

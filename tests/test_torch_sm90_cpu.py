@@ -354,6 +354,8 @@ def libs(tmp_path_factory):
         size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
         fn = getattr(loss, name)
         fn.argtypes, fn.restype = [ctypes.c_void_p] * n_in + [ctypes.c_int] * ints + [ctypes.c_void_p] * 3, ctypes.c_int
+    loss.vae_sums_bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_uint] + [ctypes.c_void_p] * 5
+    loss.vae_sums_bwd.restype = ctypes.c_int
     return out
 
 
@@ -770,3 +772,48 @@ def test_masked_sse_fwd_matches_plain_on_the_host(libs, case):
     data = data.clamp(-10, 10)
     got = _twice(libs["vae_sums"], "masked_sse_fwd", [*(_ptr(t) for t in (data, dec, mask)), batch, 100], 1, batch)
     torch.testing.assert_close(got[0], cuda_ops.masked_sse_plain(data, dec, mask), rtol=4e-6, atol=0)
+
+
+# The backward (vae_sums_bwd), one launch per call, for each pattern of the
+# gradients asked for: those asked for equal the plain version's bits (the
+# same arithmetic in the same order), dlogvar within phase 3's limits (the
+# host's expf against torch's vectorised exp), the others are left as they
+# were (NaN). L=50 and z=10 take 8-byte accesses, L=52 and z=12 16-byte
+# ones, L=51 and z=5 single floats, L=130 and z=66 more than 32 vectors a
+# row (several passes of a warp), and an input one float off a 16-byte
+# boundary drops to the width it allows.
+WANTS = [(False, True, True, True), (True, True, True, True), (False, False, True, False),
+         (True, False, False, True)]
+BWD_CASES = [(b, n, pad, cols) for b, n in ((3, 2), (20, 13), (512, 415)) for pad in (1e4, np.inf)
+             for cols in ((50, 10),)] + [(20, 13, np.inf, cols)
+                                         for cols in ((52, 12), (51, 5), (130, 66), (50, "offset"))]
+
+
+@pytest.mark.parametrize("want", WANTS, ids=lambda w: "".join("1" if x else "0" for x in w))
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "B{}-{}-pad{:g}-{}x{}".format(*c[:3], *c[3]))
+def test_vae_sums_bwd_matches_plain_on_the_host(libs, case, want):
+    batch, n_real, pad, (L, Z) = case
+    offset = Z == "offset"
+    Z = 10 if offset else Z
+    (data, dec, mu, logvar), mask = _loss_inputs(batch, n_real, pad, (L, L, Z, Z), seed=batch + 2)
+    data = data.clamp(-10, 10)
+    if offset:  # one float past an aligned start: each array keeps its values, at 4 bytes further on
+        data, dec, mu, logvar = (torch.cat([torch.zeros(1), t.flatten()])[1:].view(t.shape)
+                                 for t in (data, dec, mu, logvar))
+    g = torch.tensor([1.0 / (n_real * L), 1.0 / n_real])
+    ins = (data, dec, mu, logvar)
+    outs = [_nan(*t.shape) if w else None for t, w in zip(ins, want)]
+    bits = sum(1 << i for i, w in enumerate(want) if w)
+    before = libs["vae_sums"].shim_launches()
+    err = libs["vae_sums"].vae_sums_bwd(*(_ptr(t) for t in (*ins, mask, g)), batch, L, Z, bits,
+                                        *(None if o is None else _ptr(o) for o in outs), None)
+    assert err == 0 and libs["vae_sums"].shim_launches() - before == 1
+    ref = cuda_ops.vae_sums_bwd_plain(*ins, mask, g, want)
+    for name, o, r, w in zip(("ddata", "ddec", "dmu", "dlogvar"), outs, ref, want):
+        assert (o is None) == (r is None) == (not w), name
+        if w:
+            assert torch.isfinite(o).all(), name
+            if name == "dlogvar":
+                torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-7)
+            else:
+                assert torch.equal(o, r), name
