@@ -84,12 +84,21 @@ the "xla" loss), both training CLIs writing the same bytes with either loop
 (the joint one's device-loop launches at 1 epoch per stage, counted by
 torch.profiler with the graphs' replays, are the kernels line's for the
 seven kernels; the wrappers count only the launches they make), a joint
-pipeline stopped with one loop and resumed with the other, the clip's
+pipeline stopped with the device loop, resumed and stopped again with the
+host loop and finished with the device loop, the clip's
 launches before and after its repair, and in one NCCL rank (run in 19a's
 rank) the device fit (20e), an FSDP stage fit with AdamW and with
 schedule-free on the device loop equal to the host loop with each loop's
 ms/step and peak memory, and device_fit_ensemble(mesh=) at K=2 stopped and
-resumed equal to the uninterrupted fit (20f). Each block kernel is split by kernel
+resumed equal to the uninterrupted fit (20f). Then the benchmark (21,
+``hippie-tpu-torch bench``, the root bench.py's stage-1 throughput on the
+device loop's replayed train epoch): the CLI in a fresh process with its
+default "pallas" backends and with "xla", each JSON line checked (keys,
+finite values, the FLOPs of utils/flops.py, busy time within the step's)
+and its profiled epoch's kernel launches counted by torch.profiler; and in
+this process the bench's graphed epochs equal to train/step.py's eager
+epochs on the same data, plan, noise and weights bit for bit, with their
+launches counted by the profiler. Each block kernel is split by kernel
 (device time and launches per call; at most 5 per enc_block_fwd and
 dec_block_fwd call and 8 per enc_block_bwd and dec_block_bwd call), and the
 block libraries' SASS is checked for wgmma (HGMMA).
@@ -135,6 +144,11 @@ from typing import NamedTuple
 
 import numpy as np
 
+# H100 SXM peaks (NVIDIA's data sheet) and the profiler's readings, the
+# port's (neither module imports torch on import)
+from hippie_tpu_torch.utils.flops import PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, PEAK_F32_FLOPS, step_flops
+from hippie_tpu_torch.utils.kernel_profile import device_events, device_profile, kernel_name, marker_launches
+
 REPO = pathlib.Path(__file__).resolve().parent
 # every CLI run gets the script's build root as its kernel-library cache: its
 # kernels load from build/kernels (the second directory looked in; see
@@ -149,11 +163,6 @@ LR, WD = 1e-3, 0.01  # stage-1 AdamW (the JAX pipeline's defaults)
 CLIP = 1.0  # the joint pipeline always clips the gradients' global norm (quirk Q7)
 FULL_PARAMS = 8_056_639
 FULL_MM_PARAMS = 16_115_748
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores, bf16 dense tensor-core FLOP/s.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
 # The full-width encoder's 8 BasicBlocks: (stride, L_in, C_in, C_out).
 ENC_BLOCKS = ((1, 25, 64, 64), (1, 25, 64, 64), (2, 25, 64, 128), (1, 13, 128, 128),
               (2, 13, 128, 256), (1, 7, 256, 256), (2, 7, 256, 512), (1, 4, 512, 512))
@@ -471,40 +480,6 @@ def reset_all_launches():
 
     cuda_ops.reset_launches()
     cuda_blocks.reset_launches()
-
-
-def kernel_name(key: str) -> str:
-    """A device kernel's profiler key without its return type, namespace and arguments."""
-    name = key.replace("(anonymous namespace)::", "").split("(", 1)[0]
-    return re.sub(r"^blocks::|^sm90::", "", name.removeprefix("void ").replace(", ", ","))
-
-
-def device_profile(fn, n: int = 10):
-    """(device us, device kernels and copies, split) per call of ``fn``, from
-    torch.profiler over ``n`` calls; ``split`` maps each kernel's name
-    (kernel_name) to its (device us, launches) per call. (0.0, 0.0, {}) if
-    the profiler records no device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(5):  # the tracer sometimes drops whole calls' device events: take a full trace
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-                and e.self_device_time_total > 0]
-        if rows and all(r[1] % n == 0 for r in rows):
-            break
-    split = {}
-    for us, count, key in sorted(rows, reverse=True):
-        us0, c0 = split.get(kernel_name(key), (0.0, 0.0))
-        split[kernel_name(key)] = (us0 + us / n, c0 + count / n)
-    return sum(r[0] for r in rows) / n, sum(r[1] for r in rows) / n, split
 
 
 def split_line(split: dict) -> str:
@@ -2821,16 +2796,17 @@ def writes_line(writes: list) -> str:
 
 
 @contextlib.contextmanager
-def crash_after_one_epoch(module, name: str, call: int):
+def crash_after(module, name: str, call: int, epochs: int = 1):
     """Within it, the ``call``-th call of ``module.name`` (a stage fit or an
-    ensemble fit) runs one epoch, then raises KeyboardInterrupt, as a killed
-    job would stop (tests/test_resume.py:162-175)."""
+    ensemble fit) runs to its epoch ``epochs`` (resumed or not), then raises
+    KeyboardInterrupt, as a killed job would stop
+    (tests/test_resume.py:162-175)."""
     orig, calls = getattr(module, name), []
 
     def crashing(*a, **kw):
         calls.append(1)
         if len(calls) == call:
-            orig(*a, **{**kw, "max_epochs": 1})
+            orig(*a, **{**kw, "max_epochs": epochs})
             raise KeyboardInterrupt
         return orig(*a, **kw)
 
@@ -2841,14 +2817,14 @@ def crash_after_one_epoch(module, name: str, call: int):
         setattr(module, name, orig)
 
 
-def joint_resume_run(workdir: str, name: str, resume: bool, device="cuda", crash: bool = False,
+def joint_resume_run(workdir: str, name: str, resume: bool, device="cuda", crash: int = 0,
                      fit_loop: str = "host", limits: bool = False, epochs=(2, 2, 2)) -> dict:
     """One joint pipeline run for phases 17 and 20d at full width, ``epochs``
     per stage (pretrain, fine-tune, supervised), with the loss and block
     kernels and ``fit_loop``; with ``limits``, 2 train and 1 val batch per
-    epoch; with ``crash``, its supervised stage fit (the third) stops after
-    one epoch. Returns its wall time, launches, accuracies, output and
-    checkpoint paths."""
+    epoch; with ``crash`` (> 0), its supervised stage fit (the third) stops
+    after its epoch ``crash``. Returns its wall time, launches, accuracies,
+    output and checkpoint paths."""
     import torch
 
     from hippie_tpu_torch.train import pipeline
@@ -2867,7 +2843,7 @@ def joint_resume_run(workdir: str, name: str, resume: bool, device="cuda", crash
     results = None
     with timed_resume_writes(writes):
         if crash:
-            with crash_after_one_epoch(pipeline, "fit_multimodal_stage", 3):
+            with crash_after(pipeline, "fit_multimodal_stage", 3, epochs=crash):
                 try:
                     pipeline.run_pipeline(cfg, trackers=trackers)
                 except KeyboardInterrupt:
@@ -2969,7 +2945,7 @@ def phase_resume(card: str, workdir: str, pool, device="cuda") -> dict:
 
     t_phase = time.perf_counter()
     a = joint_resume_run(workdir, "resume_a", False, device)
-    c = joint_resume_run(workdir, "resume_cd", True, device, crash=True)
+    c = joint_resume_run(workdir, "resume_cd", True, device, crash=1)
     d = joint_resume_run(workdir, "resume_cd", True, device)
     got = joint_run_diff(a, d)
     check(got == {"ckpt": 0.0, "csv": 0.0, "acc": 0.0},
@@ -3022,7 +2998,7 @@ def phase_resume(card: str, workdir: str, pool, device="cuda") -> dict:
 
     _, s1, _ = sweep([])
     rdir = f"{workdir}/resume_sweep"
-    with crash_after_one_epoch(ensemble, "fit_ensemble", 1), contextlib.redirect_stdout(io.StringIO()):
+    with crash_after(ensemble, "fit_ensemble", 1), contextlib.redirect_stdout(io.StringIO()):
         try:
             lr_sweep.main(base + ["--resume-dir", rdir])
         except KeyboardInterrupt:
@@ -3997,7 +3973,7 @@ def cli_run(workdir: str, joint: bool, epochs: int, limit: bool, flags=()) -> tu
 
 def cli_pair(workdir: str, joint: bool, epochs: int, limit: bool, card: str, profile: bool = False) -> dict:
     """20c: one training CLI (cli_run) with the default --fit-loop device
-    (plus --progress-every 1 --log-every-step at 3 epochs) and with
+    (plus --progress-every 1 --log-every-step above 1 epoch) and with
     --fit-loop host, into the same checkpoint directory name in turn: the
     .ckpt and CSV bytes, the epoch records of --log-file and the printed
     epoch lines must be equal; returns both walls. With ``profile`` the
@@ -4035,28 +4011,12 @@ def cli_pair(workdir: str, joint: bool, epochs: int, limit: bool, card: str, pro
     return {"device_s": dw, "host_s": hw, "launches": launches}
 
 
-# Each kernel wrapper's device kernels (kernel_name) of which it launches
-# exactly one per call: the profiler's count of them is the wrapper's
-# launches, those a CUDA graph's replays make too. (enc_block.cu's
-# bwd_conv1_kernel and dec_block.cu's bwd_conv2_kernel are the two files'
-# only untemplated kernels of those names.)
-MARKER_KERNELS = {
-    "vae_sums_fwd": ("vae_sums_fwd_kernel",),
-    "vae_sums_bwd": tuple(f"vae_sums_bwd_kernel<{a},{b}>" for a in (4, 2, 1) for b in (4, 2, 1)),
-    "masked_sse_fwd": ("masked_sse_kernel",), "enc_block_fwd": ("fwd_conv_kernel<false,false>",),
-    "enc_block_bwd": ("bwd_conv1_kernel",),
-    "dec_block_fwd": ("dec_fwd_conv1_kernel<false>", "dec_fwd_conv1_kernel<true>"),
-    "dec_block_bwd": ("bwd_conv2_kernel",),
-}
-
-
 def profiled_launches(fn) -> tuple:
     """``fn()`` under torch.profiler (device activity only), with the
     wrappers' counters set to 0 just before it: (its result, each wrapper's
     launches counted by the profiler from its marker kernels, the wrappers'
     own counts)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -4065,11 +4025,7 @@ def profiled_launches(fn) -> tuple:
         out = fn()
         torch.cuda.synchronize()
     wrappers = all_launches()
-    seen = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            seen[kernel_name(e.key)] = seen.get(kernel_name(e.key), 0) + e.count
-    return out, {k: sum(seen.get(m, 0) for m in ms) for k, ms in MARKER_KERNELS.items()}, wrappers
+    return out, marker_launches(device_events(prof)), wrappers
 
 
 # 20b's fit again with the other optimizers and loss backend the pipelines
@@ -4118,14 +4074,16 @@ def phase_device_loop(card: str, workdir: str, pool) -> dict:
     kernels and runtime calls of an eager and a replayed step, vae_sums_bwd's
     device µs inside the graph; then 3 epochs of the same fit with
     schedule-free, bf16 moments and the "xla" loss backend, each loop equal
-    to the other. (c) Both training CLIs with each loop at 1 epoch per
-    stage, and the joint one at 3 (2 train and 1 val batch per epoch, with
-    --progress-every 1 --log-every-step): the same .ckpt and CSV bytes, log
-    records and prints; the joint CLI's device run at 1 epoch per stage
-    under torch.profiler, which counts every wrapper's launches, the
-    replays' too, equal to its host run's. (d) The joint pipeline at 2 epochs per stage (2 train, 1
-    val batch) stopped in its supervised fit with one loop and resumed with
-    the other equals the uninterrupted run. (e) The device fit of (b) in
+    to the other. (c) Both training CLIs with each loop: the unimodal one at
+    2 epochs per stage (2 train and 1 val batch per epoch, with
+    --progress-every 1 --log-every-step), the joint one at 1 epoch per
+    stage: the same .ckpt and CSV bytes, log records and prints; the joint
+    CLI's device run under torch.profiler, which counts every wrapper's
+    launches, the replays' too, equal to its host run's. (d) The joint
+    pipeline at (1, 1, 3) epochs per stage (2 train, 1 val batch) stopped
+    in its supervised fit with the device loop, resumed with the host loop
+    and stopped again, then resumed with the device loop, equals the
+    uninterrupted run. (e) The device fit of (b) in
     one NCCL rank equals the single process's bit for bit: run in phase
     19a's rank, which saves a rank's start (dp_rank_one). Returns the
     kernels' launches in (c)'s profiled joint device CLI run, which runs
@@ -4207,31 +4165,179 @@ def phase_device_loop(card: str, workdir: str, pool) -> dict:
     # (c) both training CLIs
     t0 = time.perf_counter()
     cli = {}
-    for joint, epochs, limit in ((False, 1, False), (True, 3, True), (True, 1, False)):
-        cli[(joint, epochs)] = cli_pair(workdir, joint, epochs, limit, card, profile=joint and epochs == 1)
+    for joint, epochs, limit in ((False, 2, True), (True, 1, False)):
+        cli[(joint, epochs)] = cli_pair(workdir, joint, epochs, limit, card, profile=joint)
     launches = cli[(True, 1)]["launches"]
     print(f"[20c CLIs] both training CLIs give the same files, records and prints with either loop; walls "
           f"device / host: " + ", ".join(f"{'joint' if j else 'unimodal'} {e} ep {r['device_s']:.2f} / "
                                          f"{r['host_s']:.2f} s" for (j, e), r in cli.items())
           + f"; {time.perf_counter() - t0:.1f} s")
 
-    # (d) resume across the loops
+    # (d) resume across the loops, both ways in one run: stopped with the
+    # device loop after the supervised fit's first epoch, resumed with the
+    # host loop and stopped after its second, resumed with the device loop
     t0 = time.perf_counter()
-    kw = dict(limits=True, epochs=(1, 1, 2))
+    kw = dict(limits=True, epochs=(1, 1, 3))
     ref = joint_resume_run(workdir, "x20_ref", resume=False, fit_loop="device", **kw)
-    for first, then in (("device", "host"), ("host", "device")):
-        name = f"x20_{first}_{then}"
-        joint_resume_run(workdir, name, resume=True, fit_loop=first, crash=True, **kw)
-        resumed = joint_resume_run(workdir, name, resume=True, fit_loop=then, **kw)
-        d = joint_run_diff(ref, resumed)
-        check(d == {"ckpt": 0.0, "csv": 0.0, "acc": 0.0},
-              f"20d: stopped with {first}, resumed with {then}: differs from the uninterrupted run {d}")
-    print(f"[20d resume] the joint pipeline stopped in its supervised fit with either loop and resumed with "
-          f"the other equals the uninterrupted run (checkpoints, CSVs, accuracies), {time.perf_counter() - t0:.1f} s")
+    for fit_loop, crash in (("device", 1), ("host", 2), ("device", 0)):
+        resumed = joint_resume_run(workdir, "x20_chain", resume=True, fit_loop=fit_loop, crash=crash, **kw)
+    d = joint_run_diff(ref, resumed)
+    check(d == {"ckpt": 0.0, "csv": 0.0, "acc": 0.0},
+          f"20d: stopped with the device loop, resumed with the host loop, stopped, resumed with the device "
+          f"loop: differs from the uninterrupted run {d}")
+    print(f"[20d resume] the joint pipeline stopped in its supervised fit with the device loop, resumed with the "
+          f"host loop and stopped again, then resumed with the device loop, equals the uninterrupted run "
+          f"(checkpoints, CSVs, accuracies), {time.perf_counter() - t0:.1f} s")
 
     # (e) one NCCL rank: run in phase 19a's rank (dp_rank_one), checked there
     print(f"  phase 20 {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: hippie-tpu-torch bench
+# ---------------------------------------------------------------------------
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "ms_per_batch", "mfu_vs_bf16_peak", "flops_per_batch",
+              "device_busy_ms_per_batch", "idle_share", "block_backend", "loss_backend", "device")
+BENCH_LAUNCHES = re.compile(r"kernel launches in the profiled epoch \(torch\.profiler\) (\{.*\})")
+
+
+def bench_step_launches(backend: str) -> dict:
+    """Each kernel wrapper's launches in one of the bench's train steps: with
+    the "pallas" backends the loss kernels once and each block kernel once
+    per BasicBlock of its backbone (8 at full width); with "xla" none."""
+    blocks = sum(full_config().num_blocks) if backend == "pallas" else 0
+    loss = int(backend == "pallas")
+    return {"vae_sums_fwd": loss, "vae_sums_bwd": loss, "masked_sse_fwd": 0, "enc_block_fwd": blocks,
+            "enc_block_bwd": blocks, "dec_block_fwd": blocks, "dec_block_bwd": blocks}
+
+
+def bench_cli(card: str, backend=None) -> dict:
+    """21: ``python -m hippie_tpu_torch.cli bench --aot-dir build`` in a
+    fresh process, with its defaults (``backend`` None: "pallas" blocks and
+    loss) or with ``--block-backend backend --loss-backend backend``. It
+    must exit 0; its last line must hold every key of the bench's JSON
+    line, finite positive numbers (the idle share at least 0: the busy time
+    within its profiled window), bench.py's metric and unit, the backends,
+    the FLOPs of utils/flops.py:step_flops at its shapes, a device busy
+    time within 1.05 x the ms per batch (the profiler stretches the step)
+    and this card; the kernel launches of its profiled epoch
+    (torch.profiler, the wrappers' marker kernels) must be one step's per
+    batch. Returns the line, the launches and the wall time."""
+    from hippie_tpu_torch.scripts import bench
+
+    flags = [] if backend is None else ["--block-backend", backend, "--loss-backend", backend]
+    backend = backend or "pallas"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "hippie_tpu_torch.cli", "bench", *AOT_DIR, *flags],
+                          capture_output=True, text=True, cwd=REPO, timeout=300)
+    wall = time.perf_counter() - t0
+    tag = f"bench {' '.join(flags) or '(defaults)'}"
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n", file=sys.stderr)
+    check(proc.returncode == 0, f"{tag}: exit {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(tuple(line) == BENCH_KEYS, f"{tag}: keys {tuple(line)}, not {BENCH_KEYS}")
+    check((line["metric"], line["unit"]) == ("cvae_pretrain_waveforms_per_sec", "waveforms/s/chip"),
+          f"{tag}: metric and unit {line['metric']!r} {line['unit']!r}")
+    check((line["block_backend"], line["loss_backend"], line["device"]) == (backend, backend, card),
+          f"{tag}: backends and device {line['block_backend']}, {line['loss_backend']}, {line['device']!r}")
+    numbers = {k: v for k, v in line.items() if isinstance(v, (int, float))}
+    check(len(numbers) == 7 and all(np.isfinite(v) and (v > 0 or k == "idle_share" and v >= 0)
+                                    for k, v in numbers.items()), f"{tag}: numbers {numbers}")
+    want_flops = step_flops(bench.bench_config(), bench.BATCH_SIZE, bench.LENGTH)
+    check(line["flops_per_batch"] == want_flops, f"{tag}: flops_per_batch {line['flops_per_batch']} != {want_flops}")
+    # the busy time is read under the profiler, whose tracing stretches a
+    # device-bound step: 4.257 ms against 4.223 unprofiled (NVIDIA H100 80GB HBM3, 700 W);
+    # within its own window it is checked exactly (idle_share >= 0, above)
+    check(line["device_busy_ms_per_batch"] <= 1.05 * line["ms_per_batch"],
+          f"{tag}: busy {line['device_busy_ms_per_batch']} ms over 1.05 x the step's {line['ms_per_batch']} ms")
+    found = BENCH_LAUNCHES.search(proc.stderr)
+    check(found is not None, f"{tag}: no profiled launches on stderr")
+    launches = json.loads(found.group(1))
+    nb = n_batches(bench.REFERENCE_EPOCH_SAMPLES, bench.BATCH_SIZE)
+    want = {k: v * nb for k, v in bench_step_launches(backend).items()}
+    check(launches == want, f"{tag}: the profiled epoch's launches {launches}, not {want}")
+    said = [x for x in proc.stderr.splitlines() if x.startswith("bench:")]
+    print(f"[21 bench] {tag} on {card}: {json.dumps(line)}; {wall:.1f} s wall with the process's start")
+    print(f"  21 {tag}: {said[-1] if said else '(no bench: line on stderr)'}")
+    print(f"  21 {tag}: launches in its profiled epoch of {nb} batches, counted by torch.profiler from the "
+          f"wrappers' marker kernels: {launches}")
+    return {"line": line, "launches": launches, "wall": wall}
+
+
+def bench_epoch(card: str) -> dict:
+    """21, in this process: the bench's timed program (its data, plan, seeded
+    weights, noise generator and StepGraph, train/device_fit.py:
+    run_graphed_epoch) for its warm-up epoch (the first step eager, the
+    second captured, the rest replayed) against train/step.py's eager epoch
+    with the same data, plan, generator and weights: the per-batch losses,
+    parameters, BatchNorm buffers and AdamW state equal bit for bit. The
+    graphed epoch goes under torch.profiler with the wrappers' counters set
+    to 0 just before it (run again from the same weights, up to 3 times,
+    while the profiler counts fewer launches than the epoch makes and more
+    of none: the tracer dropped events); returns its launches (the
+    replays' too)."""
+    import torch
+
+    from hippie_tpu_torch.scripts import bench
+    from hippie_tpu_torch.train import device_fit, step
+
+    cfg, n, b = bench.bench_config(), bench.REFERENCE_EPOCH_SAMPLES, bench.BATCH_SIZE
+    data, source = bench.make_data(n, "cuda")
+    idx, mask = bench.make_plan(n, b)
+    nb = idx.shape[0]
+
+    def graphed():
+        ts = bench.make_state(cfg, "cuda")
+        with device_fit.graph_stream(torch.device("cuda")) as (stream, pool):
+            train = bench.make_train_graph(ts, data, source, nb=nb, batch_size=b, stream=stream, pool=pool,
+                                           block_backend="pallas", loss_backend="pallas")
+            losses = device_fit.run_graphed_epoch(train, idx, mask, [bench.noise_generator(0, "cuda")])[0, 0].clone()
+        train.graph = None
+        ts.optimizer.zero_grad(set_to_none=True)
+        return ts, losses, train.replays
+
+    per = {k: v * nb for k, v in bench_step_launches("pallas").items()}
+    t0 = time.perf_counter()
+    for traces in range(1, 4):  # the tracer sometimes drops a replay's events: run the epoch again
+        (ts_g, losses_g, replays), launches, eager_launches = profiled_launches(graphed)
+        if launches == per or any(launches[k] > v for k, v in per.items()):
+            break
+    t_graphed = time.perf_counter() - t0
+    train_epoch, _ = step.make_unimodal_epoch_fns(beta=1.0, loss_backend="pallas", block_backend="pallas")
+    ts_e, ms = train_epoch(bench.make_state(cfg, "cuda"), data, source, None, idx, mask,
+                           generator=bench.noise_generator(0, "cuda"))
+    torch.cuda.synchronize()
+    check(torch.equal(losses_g, ms.loss), f"21: the bench's graphed losses differ from the eager epoch's by "
+                                          f"{(losses_g - ms.loss).abs().max().item()}")
+    got = {**flat_tensors(ts_g.model.state_dict(), "model."), **flat_tensors(ts_g.optimizer.state_dict(), "opt.")}
+    want = {**flat_tensors(ts_e.model.state_dict(), "model."), **flat_tensors(ts_e.optimizer.state_dict(), "opt.")}
+    diff = sorted(k for k in set(got) | set(want) if k not in got or k not in want or not torch.equal(got[k], want[k]))
+    check(not diff and len(got) > 100, f"21: the bench's graphed epoch differs from the eager epoch in {diff[:5]}")
+    check(launches == per, f"21: the graphed epoch's launches {launches} (profiler, {traces} traces), not {per}")
+    print(f"[21 bench epoch] the bench's timed program at its shapes ({n} samples, B={b}, {nb} batches, the "
+          f"last with {int(mask[-1].sum())} real rows), its warm-up epoch from its seeded weights ({replays} "
+          f"replays), equals train/step.py's eager epoch bit for bit: {nb} losses, {len(got)} parameter, "
+          f"BatchNorm and AdamW tensors; launches counted by torch.profiler {launches}, of them the wrappers "
+          f"launched {eager_launches} eagerly (the first step), on {card}; {time.perf_counter() - t0:.1f} s "
+          f"({t_graphed:.1f} s the graphed epoch under the profiler, {traces} trace(s))")
+    return launches
+
+
+def phase_bench(card: str) -> dict:
+    """Phase 21, this slice's main path: ``hippie-tpu-torch bench``, the root
+    bench.py's stage-1 throughput measurement (scripts/bench.py), as a user
+    runs it: a fresh process with its defaults ("pallas" blocks and loss)
+    and one with the JAX bench's backends ("xla", "xla"), each checked by
+    bench_cli; then the bench's program in this process against the eager
+    epoch (bench_epoch). Returns both runs and the in-process launches."""
+    t0 = time.perf_counter()
+    runs = {"pallas": bench_cli(card), "xla": bench_cli(card, "xla")}
+    launches = bench_epoch(card)
+    print(f"  phase 21 {time.perf_counter() - t0:.1f} s on {card}")
+    return {"runs": runs, "epochs_launches": launches}
 
 
 def phases_of(checkout: str):
@@ -4390,6 +4496,9 @@ def main() -> int:
             for record in kernels:
                 if record["name"] in device_launches:
                     record["launches"] = device_launches[record["name"]]
+            # this slice's main path, the benchmark: its launches on earlier
+            # lines (counted by the profiler), no record of its own
+            phase_bench(card)
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback

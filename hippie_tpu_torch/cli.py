@@ -3,8 +3,10 @@
 Counterpart of hippie_tpu/cli.py: the same subcommands, each delegating to
 the port's script of the same role (hippie_tpu_torch/scripts/), with their
 flags, ``--device`` (default ``cuda``) among them. ``synth`` writes a
-synthetic dataset with the port's data/synth.py. ``bench`` has no port yet
-(ROADMAP Queue 1 item 1) and exits 2, as does an unknown command.
+synthetic dataset with the port's data/synth.py. ``bench`` runs
+scripts/bench.py (the root bench.py's stage-1 throughput, timing the device
+loop's replayed train epoch) and returns its exit code: 1 without a CUDA
+device unless ``--device cpu`` is given. An unknown command exits 2.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ USAGE = """usage: hippie-tpu-torch {train,train-multimodal,sweep,lr-sweep,infer,
   serve            HTTP embedding microservice (POST /embed)
   export           checkpoint -> deployable torch.export artifact
   synth            generate a synthetic dataset in the CSV contract
-  bench            the throughput benchmark (not ported yet)"""
+  bench            stage-1 train throughput on the card (scripts/bench.py): one JSON line"""
 
 
 def _synth(argv):
@@ -86,9 +88,9 @@ def main(argv=None) -> int:
     elif cmd == "synth":
         return _synth(rest)
     elif cmd == "bench":
-        print("hippie-tpu-torch bench: the benchmark is not ported yet (ROADMAP Queue 1 item 1); "
-              "chip_smoke.py drives the port on the card meanwhile", file=sys.stderr)
-        return 2
+        from hippie_tpu_torch.scripts import bench
+
+        return bench.main(rest)
     else:
         print(f"unknown command: {cmd}", file=sys.stderr)
         return 2

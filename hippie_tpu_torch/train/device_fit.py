@@ -157,6 +157,20 @@ class StepGraph:
         self.capture_s = time.perf_counter() - t0
 
 
+def run_graphed_epoch(train: StepGraph, idx: np.ndarray, mask: np.ndarray,
+                      generators: Sequence[torch.Generator]) -> torch.Tensor:
+    """One train epoch of ``train``: the ``[nb, B]`` plan loaded in one H2D
+    copy, then ``nb`` calls, each drawing its noise from ``generators`` (one
+    per model) before its row runs (eager, captured or replayed: see
+    StepGraph). Returns ``train.metrics`` ``[3, R, nb]``, on the device and
+    not waited for. The device fit loop's train epoch, and the epoch
+    ``hippie-tpu-torch bench`` times (scripts/bench.py)."""
+    train.load_plan(idx, mask)
+    for _ in range(train.nb):
+        train(generators)
+    return train.metrics
+
+
 @contextlib.contextmanager
 def graph_stream(device: torch.device):
     """Where a fit's step graphs run: on the card a side stream, current
@@ -279,11 +293,8 @@ def device_fit(
                                            limit_train_batches)
             if mesh is not None:
                 idx, mask = pmesh.shard_epoch_inputs(mesh, idx, mask)
-            train.load_plan(idx, mask)
-            gens = [loop.key_generator(key, 1, device=device)]
-            for _ in range(nb):
-                train(gens)
-            return state, _metrics(train.metrics[:, 0], mesh)
+            metrics = run_graphed_epoch(train, idx, mask, [loop.key_generator(key, 1, device=device)])
+            return state, _metrics(metrics[:, 0], mesh)
 
         def run_val(state, key, epoch):
             with eval_ctx(state):

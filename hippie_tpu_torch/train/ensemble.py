@@ -484,12 +484,10 @@ def device_fit_ensemble(
         val.load_plan(val_idx, val_mask)
 
         def run_train(sts, key, epoch):
-            train.load_plan(*batch_plan(stream_idx, batch_size, shuffle=shuffle,
-                                        generator=loop.key_generator(key, 0) if shuffle else None))
+            idx, mask = batch_plan(stream_idx, batch_size, shuffle=shuffle,
+                                   generator=loop.key_generator(key, 0) if shuffle else None)
             gens = [loop.key_generator(key, 1, r, device=device) for r in replicas]
-            for _ in range(nb):
-                train(gens)
-            return sts, _replica_rows(train.metrics)
+            return sts, _replica_rows(dfit.run_graphed_epoch(train, idx, mask, gens))
 
         def run_val(sts, key, epoch):
             with _at_x(sts):

@@ -4,8 +4,9 @@ training CLI's ``--profile-dir``, ``--wandb`` and ``--discover-datasets``,
 on the CPU at a small size (num_blocks=(1, 1, 1, 1), z=4, one batch per
 stage, synthetic datasets).
 
-The dispatcher exits 0 on help, 2 on ``bench`` (not ported) and on an
-unknown command; its ``synth`` writes the JAX package's bytes.
+The dispatcher exits 0 on help, 1 on ``bench`` without a CUDA device (no
+fallback to the CPU) and 2 on an unknown command; its ``synth`` writes the
+JAX package's bytes.
 sweep_targets prints one record per target and the aggregate, and returns 1
 when a target fails. profile_train_step prints its JSON line. One training
 run with ``--discover-datasets --profile-dir D --wandb`` on a custom target
@@ -74,9 +75,10 @@ def _small(mp):
 
 
 @pytest.mark.parametrize("argv,rc,said", [([], 0, "usage: hippie-tpu-torch"), (["--help"], 0, "lr-sweep"),
-                                          (["bench"], 2, "ROADMAP Queue 1 item 1"),
+                                          (["bench"], 1, "no CUDA device"),
                                           (["nope"], 2, "unknown command: nope")])
-def test_dispatcher_exit_codes(argv, rc, said, capsys):
+def test_dispatcher_exit_codes(argv, rc, said, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)  # bench without a card
     assert cli.main(argv) == rc
     out = capsys.readouterr()
     assert said in out.out + out.err

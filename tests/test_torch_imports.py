@@ -20,7 +20,7 @@ def test_the_scripts_are_covered():
     """Every CLI of the port is among FILES (its scripts/ are globbed)."""
     scripts = {p.name for p in FILES if p.parent.name == "scripts"}
     assert {"export_model.py", "bench_artifact.py", "lr_sweep.py", "kfold_eval.py", "serve_embeddings.py",
-            "train_model.py", "sweep_targets.py", "profile_train_step.py"} <= scripts
+            "train_model.py", "sweep_targets.py", "profile_train_step.py", "bench.py"} <= scripts
 
 
 def test_the_resume_and_cli_modules_are_covered():
