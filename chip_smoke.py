@@ -57,7 +57,11 @@ four replicas, equal to the host loop bit for bit with 4x one model's
 launches counted by torch.profiler; the lr_sweep CLI on its default device
 loop with its winners through the stage-1 seams, and a K=2 sweep with each
 loop giving the same numbers and winner bytes) and k-fold (16: kfold_eval embed-once,
-refit, and --fold-parallel, which runs the sequential refits, against it).
+the sequential refit, and --fold-parallel, the folds side by side in
+replica-plan fits, one CUDA graph per step kind and group, bit-equal to it
+with the same captures as groups; 16b, this slice's main path whose
+launches are the kernels line's: K=3 replica-plan fits of both full-width
+models on the loss and block kernels, equal to the host fit bit for bit).
 Then mid-run resume (17, the slice's main path, whose launches are the
 kernels line's: the joint pipeline at 2 epochs per stage stopped inside its
 supervised fit and resumed, against the uninterrupted run; a unimodal stage
@@ -147,7 +151,8 @@ import numpy as np
 # H100 SXM peaks (NVIDIA's data sheet) and the profiler's readings, the
 # port's (neither module imports torch on import)
 from hippie_tpu_torch.utils.flops import PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, PEAK_F32_FLOPS, step_flops
-from hippie_tpu_torch.utils.kernel_profile import device_events, device_profile, kernel_name, marker_launches
+from hippie_tpu_torch.utils.kernel_profile import (MARKER_KERNELS, device_events, device_profile, kernel_name,
+                                                   marker_launches)
 
 REPO = pathlib.Path(__file__).resolve().parent
 # every CLI run gets the script's build root as its kernel-library cache: its
@@ -2686,30 +2691,71 @@ def phase_ensemble(card: str, workdir: str, pool, cfg_m=None, device="cuda", k_r
     return out
 
 
-def phase_kfold(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, device="cuda"):
+@contextlib.contextmanager
+def recorded_fits(module, name: str, calls: list):
+    """Within it, each call of ``module.name`` (a stage fit, ``device_fit``,
+    or a replica-plan fit, ``device_fit_replica_plans``) appends (its
+    replicas, its result's ``graphs``, {each replica's seed: the epochs it
+    ran}) to ``calls``."""
+    orig = getattr(module, name)
+
+    def recording(first, **kw):
+        res = orig(first, **kw)
+        if isinstance(first, list):  # a replica's epochs end at its first NaN train loss
+            ran = np.isfinite(np.asarray(res.train_losses).reshape(-1, len(first))).sum(axis=0)
+            calls.append((len(first), res.graphs, dict(zip(kw["seeds"], ran.tolist()))))
+        else:
+            calls.append((1, res.graphs, {kw["seed"]: res.epochs_run}))
+        return res
+
+    setattr(module, name, recording)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+# phase 16's refit: 2 fine-tune epochs (a capture and a replay of each step
+# kind per fit), patience 1 (a fold whose second epoch does not improve
+# stops there: frozen and restored); and each mode's fold-parallel groups
+KFOLD_REFIT = ["--refit", "--refit-epochs", "2", "--refit-patience", "1"]
+KFOLD_GROUPS = {"dual": ("fold_parallel", [5]), "joint": ("fold_parallel_g2", [2, 2, 1])}
+
+
+def phase_kfold(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, pool, device="cuda") -> dict:
     """Phase 16: the kfold_eval CLI on phase 9's stage-3 checkpoints (the
-    dual pair) and phase 10's supervised joint one: embed-once at 5 folds;
-    then --refit --refit-epochs 1 --folds 5, sequential; then the same with
-    --fold-parallel, which runs the sequential refits: its per-fold refit
-    embeddings must equal the sequential run's bit for bit (phase 15's rule:
-    the kernel path repeats bit for bit on the card). Checks both CSVs' rows
-    and that every accuracy lies in [0, 1]."""
+    dual pair) and phase 10's supervised joint one at 5 folds: embed-once;
+    then the sequential refit (KFOLD_REFIT: one ``device_fit`` per fold and
+    modality); then the same with --fold-parallel (KFOLD_GROUPS): the dual
+    pair's 5 folds as one replica-plan fit per modality, the joint model's
+    with --fold-parallel-max-replicas 2 (groups of 2, 2 and 1). The
+    fold-parallel run's per-fold refit embeddings must equal the sequential
+    run's bit for bit (phase 15's rule: the kernel path repeats bit for bit
+    on the card), each fold must run the sequential fit's epochs, it must
+    print no fallback line, and its replica-plan fits must be one per group
+    and modality, each with its graphs captured. Checks both CSVs' rows and
+    that every accuracy lies in [0, 1]. Then 16b
+    (``phase_replica_plans``). Returns 16b's launches."""
     import contextlib
     import io
 
     from hippie_tpu_torch.scripts import kfold_eval
+    from hippie_tpu_torch.train import device_fit, ensemble
 
     t_phase = time.perf_counter()
     for mode, flags in (("dual", ["--wave-checkpoint", uni_ckpts["wave"], "--time-checkpoint", uni_ckpts["time"]]),
                         ("joint", ["--joint-checkpoint", joint_ckpt])):
         base = ["--dataset", TARGET, "--data-root", DATA_ROOT, "--folds", "5", "--device", device, *flags, *AOT_DIR]
-        runs, walls, said = {}, {}, {}
-        for name, extra in (("embed_once", []), ("sequential", ["--refit", "--refit-epochs", "1"]),
-                            ("fold_parallel", ["--refit", "--refit-epochs", "1", "--fold-parallel"])):
+        refit, (par_name, groups) = KFOLD_REFIT, KFOLD_GROUPS[mode]
+        g_flags = ["--fold-parallel-max-replicas", str(groups[0])] if len(groups) > 1 else []
+        runs, walls, said, fits = {}, {}, {}, {}
+        for name, extra in (("embed_once", []), ("sequential", refit),
+                            (par_name, [*refit, "--fold-parallel", *g_flags])):
             out_dir = f"{workdir}/kfold_{mode}_{name}"
-            out = io.StringIO()
+            out, fits[name] = io.StringIO(), []
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
+            with contextlib.redirect_stdout(out), recorded_fits(device_fit, "device_fit", fits[name]), \
+                    recorded_fits(ensemble, "device_fit_replica_plans", fits[name]):
                 runs[name] = kfold_eval.main(base + extra + ["--output-dir", out_dir])
             walls[name] = round(time.perf_counter() - t0, 3)
             said[name] = out.getvalue()
@@ -2722,13 +2768,109 @@ def phase_kfold(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, devic
                   f"kfold {mode} {name}: {header}, {len(rows)} rows")
             _, fold_rows = csv_table(f"{out_dir}/{TARGET}_kfold_knn_folds.csv")
             check(len(fold_rows) == 5 * len(rows), f"kfold {mode} {name}: {len(fold_rows)} fold rows")
-        seq, par = (runs[n]["refit"] for n in ("sequential", "fold_parallel"))
+        seq, par = runs["sequential"]["refit"], runs[par_name]["refit"]
+        check([n for n, _, _ in fits["sequential"]] == [1] * (10 if mode == "dual" else 5),
+              f"kfold {mode}: the sequential refit made fits of {[n for n, _, _ in fits['sequential']]} models")
         diff = max(float(np.abs(a - b).max()) for kind in seq for a, b in zip(seq[kind], par[kind]))
-        check(diff == 0.0, f"kfold {mode}: fold-parallel refit embeddings {diff} from the sequential ones")
-        lines = [x for x in said["fold_parallel"].splitlines() if "embed-once" in x]
-        print(f"[16 kfold] {mode}: wall s on {card}: {json.dumps(walls)}; fold-parallel refit embeddings "
-              f"{diff:.3g} from the sequential run's (bit for bit); {' | '.join(lines)}")
+        check(diff == 0.0, f"kfold {mode} {par_name}: refit embeddings {diff} from the sequential ones")
+        check("fold-parallel:" not in said[par_name], f"kfold {mode} {par_name} fell back: {said[par_name]}")
+        sizes = [n for n, _, _ in fits[par_name]]
+        want = groups * (2 if mode == "dual" else 1)  # the dual pair: each modality's groups
+        check(sizes == want and (device == "cpu" or all(g["captured"] for _, g, _ in fits[par_name])),
+              f"kfold {mode} {par_name}: replica-plan fits of {sizes} folds, graphs "
+              f"{[g for _, g, _ in fits[par_name]]}; expected {want}, each captured")
+        epochs = {name: {seed: e for _, _, ran in fits[name] for seed, e in ran.items()}
+                  for name in ("sequential", par_name)}
+        check(epochs[par_name] == epochs["sequential"],
+              f"kfold {mode}: epochs per fold {epochs[par_name]}, sequential {epochs['sequential']}")
+        lines = []
+        for name in ("sequential", par_name):
+            gs = [g for _, g, _ in fits[name]]
+            lines.append(f"{name}: {len(gs)} fits of {[n for n, _, _ in fits[name]]} folds, "
+                         f"{sum(g['captured'] for g in gs)} of them captured, "
+                         f"{sum(g['train_replays'] for g in gs)} train and {sum(g['eval_replays'] for g in gs)} "
+                         f"eval replays, {sum(g['capture_s'] for g in gs):.3f} s capturing")
+        accs = [x for x in said[par_name].splitlines() if "embed-once" in x]
+        print(f"[16 kfold] {mode} ({' '.join(refit)}): wall s on {card}: {json.dumps(walls)}; {par_name} "
+              f"refit embeddings {diff:.3g} from the sequential run's, epochs per fold the same "
+              f"{sorted(epochs[par_name].values())}; {'; '.join(lines)}; {' | '.join(accs)}")
+    launches = phase_replica_plans(card, pool, device)
     print(f"  phase 16 {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
+def replica_plan_fit(pool, joint: bool, fit_loop: str, device="cuda"):
+    """K=3 replicas of the full-width unimodal (or joint) cVAE on the loss
+    and block kernels, each on its own fixed plan over phase 4's pool rows
+    (2 train batches of B, the second padded, and 1 val batch) with its own
+    seed, patience 1, 2 epochs; the joint one with seeded class labels.
+    ``fit_loop`` "device": ensemble.device_fit_replica_plans; "host":
+    host_fit_replica_plans."""
+    import torch
+
+    from hippie_tpu_torch.data import device_data
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import ensemble, loop, optim, step
+
+    init, cfg_m = (cvae.multimodal_cvae_init, joint_config()) if joint else (cvae.unimodal_cvae_init, full_config())
+    states = []
+    for k in range(3):
+        model = init(cfg_m, loop.key_generator(16, k), device=device)
+        states.append(step.TrainState(model, optim.make_optimizer(model.parameters(), LR, WD, 1.0 if joint else None)))
+    t_idx, t_mask = (np.stack(p) for p in zip(*(device_data.batch_plan(np.arange(a, a + 900), B, shuffle=False)
+                                                 for a in (0, 700, 1400))))
+    v_idx, v_mask = (np.stack(p) for p in zip(*(device_data.batch_plan(np.arange(a, a + 300), B, shuffle=False)
+                                                 for a in (2400, 2500, 2600))))
+    labels = torch.from_numpy(np.random.default_rng(16).integers(0, 5, size=len(pool))).to(device)
+    kw = dict(arrays=(pool.wave, pool.isi) if joint else (pool.wave,), source=pool.source,
+              class_=labels if joint else None, train_idx=t_idx, train_mask=t_mask, val_idx=v_idx, val_mask=v_mask,
+              max_epochs=2, early_stopping_patience=1, seeds=[1002, 1012, 1022])
+    backends = dict(loss_backend="pallas", block_backend="pallas")
+    if fit_loop == "device":
+        batch_step, eval_step = (step.make_multimodal_steps if joint else step.make_unimodal_steps)(**backends)
+        return ensemble.device_fit_replica_plans(states, batch_step=batch_step, eval_step=eval_step,
+                                                 use_class_labels=joint, **kw)
+    fns = (ensemble.make_multimodal_ensemble_epoch_fns if joint else ensemble.make_unimodal_ensemble_epoch_fns)(
+        use_class_labels=joint, **backends)
+    return ensemble.host_fit_replica_plans(states, epoch_fns=fns, **kw)
+
+
+def phase_replica_plans(card: str, pool, device="cuda") -> dict:
+    """Phase 16b: the replica-plan fit (replica_plan_fit) of the unimodal
+    and of the joint model on the device loop against the host loop: bit for
+    bit (every replica's state, optimizer state, best snapshot, best epoch,
+    losses), one capture per step kind, a replay at every K-step after the
+    first, and each kernel's launches counted by torch.profiler's marker
+    kernels (the replays' too) equal to the host fit's counted by the
+    wrappers, every kernel of the path launched. Returns the launches of
+    both device fits, summed: this slice's main path's, which become the
+    kernels line's."""
+    launches = {}
+    for joint in (False, True):
+        tag = "joint" if joint else "unimodal"
+        t0 = time.perf_counter()
+        reset_all_launches()
+        host = replica_plan_fit(pool, joint, "host", device)
+        host_s, host_launches = time.perf_counter() - t0, all_launches()
+        t0 = time.perf_counter()
+        dev, markers, wrappers = profiled_launches(lambda: replica_plan_fit(pool, joint, "device", device))
+        dev_s = time.perf_counter() - t0
+        diff = ensemble_diff(dev, host)
+        check(not diff, f"16b {tag}: the replica-plan device fit differs from the host fit in {diff[:5]}")
+        g = dev.graphs
+        check(g.get("captured") and (g["train_replays"], g["eval_replays"]) == (2 * 2 - 1, 2 * 1 - 1),
+              f"16b {tag}: graphs {g}, expected 3 train and 1 eval replays")
+        path = [k for k in MARKER_KERNELS if joint or k != "masked_sse_fwd"]
+        check(markers == host_launches and all(markers[k] > 0 for k in path),
+              f"16b {tag}: device-fit launches {markers} (profiler), host fit {host_launches} (wrappers)")
+        for k, v in markers.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[16b replica plans] {tag}, K=3 at full width, 2 epochs of 2 train and 1 val steps, patience 1, "
+              f"loss and block kernels: device_fit_replica_plans equals host_fit_replica_plans bit for bit "
+              f"(best epochs {dev.best_epoch.tolist()}); {g['train_replays']} train and {g['eval_replays']} eval "
+              f"replays, capture {g['capture_s']:.3f} s; wall {dev_s:.2f} s under the profiler, host fit "
+              f"{host_s:.2f} s on {card}; launches {markers} (of them {wrappers} eager)")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4480,7 +4622,10 @@ def main() -> int:
             finally:
                 stop_servers(servers)
             phase_ensemble(card, workdir, pool)
-            phase_kfold(card, workdir, uni_ckpts, joint_ckpt)
+            # this slice's main path, the k-fold refit side by side: 16b's
+            # replica-plan fits, counted by the profiler, go on the kernels
+            # line after the later phases
+            kfold_launches = phase_kfold(card, workdir, uni_ckpts, joint_ckpt, pool)
             # this slice's main path, the resumed joint pipeline: every kernel again, counted from 0
             resume_launches = phase_resume(card, workdir, pool)
             for record in kernels:
@@ -4496,9 +4641,12 @@ def main() -> int:
             for record in kernels:
                 if record["name"] in device_launches:
                     record["launches"] = device_launches[record["name"]]
-            # this slice's main path, the benchmark: its launches on earlier
-            # lines (counted by the profiler), no record of its own
+            # the benchmark: its launches on earlier lines (counted by the
+            # profiler), no record of its own
             phase_bench(card)
+            for record in kernels:
+                if record["name"] in kfold_launches:
+                    record["launches"] = kfold_launches[record["name"]]
         torch.cuda.synchronize()
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback

@@ -17,14 +17,19 @@ sentinel rows to share a compiled program, which changes no prediction.
 ``--refit`` re-runs the fine-tune (and ``--refit-supervised-epochs``) stage
 per fold on the fold's train rows only, through the pipeline's
 ``fit_stage``, and embeds every row with that fold's model; the dual pair
-or the joint model, as in the JAX CLI. ``--fold-parallel`` and
-``--fold-parallel-max-replicas`` are accepted and run these sequential
-refits (ROADMAP Queue 3, decisions 1 and 2): the port's replica fit steps
-its K models in turn, so running the folds side by side would give the
-same embeddings at the same host dispatch. A step that batches the replicas
-is ROADMAP Queue 2 work. The JAX ``--fold-parallel`` differs from its own
-sequential refits (one key root, ungated bests, the global majority); the
-port keeps the sequential protocol.
+or the joint model, as in the JAX CLI. ``--fold-parallel`` refits the
+folds side by side: in groups of ``--fold-parallel-max-replicas`` G folds
+(default all), each stage of a group is ONE
+``ensemble.device_fit_replica_plans``, whose train and eval steps for the
+group's folds are one CUDA graph each on the card, captured once per stage
+and group instead of once per fold. Each fold keeps its sequential refit's
+plans, stage seeds, models and per-fold stop, so the embeddings and both
+CSVs equal the sequential run's bit for bit (ROADMAP Queue 3 decisions 1
+and 2: the JAX ``--fold-parallel`` differs from its own sequential refits,
+with one key root, bests not gated by a replica's stop and the global
+majority; the port keeps the sequential protocol). A modality whose folds'
+plans disagree on their batch count, or whose group runs out of device
+memory, runs the sequential refits, and says so, as the JAX CLI does.
 
 The dataset's source id is resolved as the JAX CLI resolves it
 (``registry.discover_datasets``: ``registry.json`` pins, then the data
@@ -76,11 +81,13 @@ def build_parser():
                         help="early-stopping patience within a fold refit (0 = none)")
     parser.add_argument("--refit-batch-size", type=int, default=512)
     parser.add_argument("--fold-parallel", action="store_true",
-                        help="the JAX CLI's fold refits side by side; the port runs the sequential "
-                             "refits, which give the same embeddings (ROADMAP Queue 3)")
+                        help="refit the folds side by side: one replica-plan fit per stage (one CUDA "
+                             "graph per step kind on the card) instead of one fit per fold; the same "
+                             "embeddings as the sequential refits, bit for bit")
     parser.add_argument("--fold-parallel-max-replicas", type=int, default=None, metavar="G",
-                        help="the JAX CLI's replica groups of --fold-parallel; accepted, the port's "
-                             "refits run one fold at a time")
+                        help="with --fold-parallel, refit at most G folds at once (ceil(folds/G) "
+                             "groups, run one after another; default all folds at once), for models "
+                             "whose replicas do not fit in device memory together")
     parser.add_argument("--aot-dir", type=str,
                         default=_build.CLI_DEFAULT_DIR,
                         help="kernel-library cache shared with the pipeline: the CUDA kernels load "
@@ -209,6 +216,107 @@ def _refit_fold_embeddings(args, arrays, source, labels, folds, model0, cfgm, mo
     return out
 
 
+def _stacked_fold_plans(streams, batch_size):
+    """Each fold's fixed ``[nb, B]`` plan (``batch_plan`` without shuffle,
+    as the sequential refit makes it) stacked to ``[K, nb, B]`` (idx, mask),
+    or None when the folds' plans disagree on their batch count (the JAX
+    CLI's ``_stacked_fold_plans``)."""
+    from hippie_tpu_torch.data.device_data import batch_plan
+
+    plans = [batch_plan(np.asarray(s), batch_size, shuffle=False) for s in streams]
+    if len({idx.shape[0] for idx, _ in plans}) != 1:
+        return None
+    return np.stack([p[0] for p in plans]), np.stack([p[1] for p in plans])
+
+
+def _refit_fold_embeddings_parallel(args, arrays, source, labels, folds, model0, cfgm, modality):
+    """The sequential refit (``_refit_fold_embeddings``) with the folds side
+    by side, the JAX CLI's ``_refit_fold_embeddings_parallel``: the folds
+    split into groups of ``--fold-parallel-max-replicas``; each group's
+    fine-tune is one ``ensemble.device_fit_replica_plans`` over the folds'
+    own plans and stage seeds, and with ``--refit-supervised-epochs`` its
+    supervised stage another, each fold on its own balanced stream from its
+    fine-tune's best. Each fold stops at its own patience, and each model
+    hands on what the sequential refit hands on (the dual pair's fine-tune
+    its last-epoch model, the joint one its best; the supervised stage its
+    best), so every embedding equals the sequential one bit for bit.
+    Returns one [N, z] embedding per fold, or None when the folds' plans
+    disagree on their batch count."""
+    import torch
+
+    from hippie_tpu_torch.data import sampling
+    from hippie_tpu_torch.train import ensemble, optim, pipeline, step
+
+    mi, clip_ft, joint = _modality(modality)
+    fit_cfg = _fit_cfg(args)
+    splits = _fold_splits(args, folds)
+    bs = args.refit_batch_size
+    plans = [_stacked_fold_plans([tr for tr, _ in splits], bs), _stacked_fold_plans([va for _, va in splits], bs)]
+    sup = args.refit_supervised_epochs > 0
+    if sup:  # each fold's own balanced stream (Queue 3 decision 2)
+        plans.append(_stacked_fold_plans([tr[sampling.balanced_indices(labels[tr], seed=args.seed)]
+                                          for tr, _ in splits], bs))
+    if any(p is None for p in plans):
+        return None
+    (t_idx, t_mask), (v_idx, v_mask) = plans[:2]
+    batch_step, eval_step = pipeline.stage_steps(fit_cfg, joint)
+    cfg_sup = cfgm._replace(num_classes=int(len(np.unique(labels))))
+    labels_dev = torch.as_tensor(labels, device=args.device).long()
+
+    def fit(models, group, stage, clip, max_epochs, train_plan, class_, use_class_labels):
+        states = [step.TrainState(m, optim.make_optimizer(m.parameters(), args.refit_lr, 0.01, clip))
+                  for m in models]
+        res = ensemble.device_fit_replica_plans(
+            states, batch_step=batch_step, eval_step=eval_step, arrays=arrays, source=source, class_=class_,
+            train_idx=train_plan[0][group], train_mask=train_plan[1][group], val_idx=v_idx[group],
+            val_mask=v_mask[group], max_epochs=max_epochs, early_stopping_patience=fit_cfg.early_stopping_patience,
+            seeds=[args.seed + stage_seed(stage, fi, mi) for fi in range(len(folds))[group]],
+            use_class_labels=use_class_labels)
+        return [res.best_state_dict[k] if res.best_epoch[k] >= 0 else None for k in range(len(models))]
+
+    group_size = args.fold_parallel_max_replicas or len(folds)
+    out = []
+    for lo in range(0, len(folds), group_size):
+        group = slice(lo, min(lo + group_size, len(folds)))
+        models = [copy.deepcopy(model0) for _ in range(len(folds))[group]]
+        bests = [b if b is not None else m.state_dict()
+                 for m, b in zip(models, fit(models, group, 1000, clip_ft, args.refit_epochs, (t_idx, t_mask),
+                                             source, False))]
+        if joint:  # the joint stage 2 hands on its BEST model
+            models = [_with_state(m, b) for m, b in zip(models, bests)]
+        if sup:
+            sups = [pipeline.seed_from_best(_sup_template(args, cfg_sup, fi, mi), b)
+                    for fi, b in zip(range(len(folds))[group], bests)]
+            sup_bests = fit(sups, group, 2000, 1.0, args.refit_supervised_epochs, plans[2], labels_dev, True)
+            models = [m if b is None else _with_state(m, b) for m, b in zip(sups, sup_bests)]
+        out += [_embed(m, arrays, source) for m in models]
+    return out
+
+
+def _refit_or_fall_back(args, arrays, source, labels, folds, model0, cfgm, modality):
+    """``--fold-parallel``'s refit of one modality, or the sequential one
+    (without the flag, or after the JAX CLI's two fallbacks, each printed:
+    the folds' plans disagree on their batch count; the group's replicas
+    run out of device memory)."""
+    import torch
+
+    if args.fold_parallel:
+        out_of_memory = False
+        try:
+            embs = _refit_fold_embeddings_parallel(args, arrays, source, labels, folds, model0, cfgm, modality)
+        except torch.OutOfMemoryError:
+            embs, out_of_memory = None, True
+        if embs is not None:
+            return embs
+        if out_of_memory:
+            torch.cuda.empty_cache()  # what the failed group held
+            print(f"fold-parallel: {modality} replicas exceed device memory (CUDA out of memory); retry with "
+                  "--fold-parallel-max-replicas, falling back to sequential refits")
+        else:
+            print(f"fold-parallel: {modality} fold plan shapes diverge; falling back to sequential refits")
+    return _refit_fold_embeddings(args, arrays, source, labels, folds, model0, cfgm, modality)
+
+
 def write_rows_csv(path: str, rows):
     """``pd.DataFrame(rows).to_csv(path, index=False)``'s bytes for rows of
     str, int and float values (data/registry.py:write_csv)."""
@@ -277,8 +385,7 @@ def main(argv=None):
 
         def refit(modality):
             model0, cfgm = models[modality]
-            return _refit_fold_embeddings(args, inputs[modality], source, labels, folds, model0, cfgm,
-                                          modality)
+            return _refit_or_fall_back(args, inputs[modality], source, labels, folds, model0, cfgm, modality)
 
         if args.joint_checkpoint is not None:
             modes["refit"] = {"joint": refit("joint")}

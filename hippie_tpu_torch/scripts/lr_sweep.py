@@ -10,10 +10,9 @@ Counterpart of the JAX package's scripts/lr_sweep.py, with its flags plus
 JAX) runs the K-replica fit as replayed CUDA graphs, one per step kind for
 all K replicas (train/ensemble.py:device_fit_ensemble, the JAX
 ``device_fit_ensemble``); ``--fit-loop host`` steps them eagerly
-(``host_fit_ensemble``); both give the same sweep bit for bit. The JAX
-``device_fit_replica_plans`` (the k-fold refit's per-replica plans) stays
-unported by design: ``host_fit_replica_plans`` fits such replicas one after
-another, since they share no plan to step side by side.
+(``host_fit_ensemble``); both give the same sweep bit for bit. (The
+replicas of the k-fold refit, each on its own plan, are
+``device_fit_replica_plans``: scripts/kfold_eval.py ``--fold-parallel``.)
 ``--aot-dir`` (default ``~/.cache/hippie_tpu_aot``, as JAX; ``''``: none)
 is where the CUDA kernel libraries load from or are built
 (ops/_build.py). ``--resume-dir DIR`` saves the K replicas' full

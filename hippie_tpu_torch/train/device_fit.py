@@ -17,7 +17,8 @@ device-resident arrays run inside the graph, and each step writes its
 same ``StepGraph`` runs the K replicas of a sweep or seed ensemble
 (train/ensemble.py:device_fit_ensemble): one graph per step kind steps the
 local replicas in turn over each row, with one noise slot and one metric
-row per replica. Per
+row per replica; with one plan per replica (``[R, nb, 2B]``) it runs the
+k-fold refit's replicas (train/ensemble.py:device_fit_replica_plans). Per
 epoch the host builds the plan with ``batch_plan`` exactly as the host loop
 does (train/pipeline.py:fit_stage) and copies it in with one H2D copy from
 pinned memory; the noise is drawn with the generator calls the host loop's
@@ -79,14 +80,17 @@ from hippie_tpu_torch.train.loop import FitResult
 
 class StepGraph:
     """One step kind (train or eval) of a stage over static device buffers,
-    for R models stepped in turn over each row of one shared plan, and on
-    the card its CUDA graph.
+    for R models stepped in turn over each row of one shared plan (or of
+    one plan per model), and on the card its CUDA graph.
 
     ``fns[r](idx, mask, eps) -> Metrics`` is model r's step on a batch's
     indices ``[B]``, mask ``[B]`` and noise (a single model: one step
     function; the K replicas of train/ensemble.py:device_fit_ensemble: one
     per local replica). ``load_plan(idx, mask)`` sets an epoch's ``[nb, B]``
-    plan and rewinds the row counter; each call draws every model's noise
+    plan (``[R, nb, B]`` with ``per_model_plans``: model r gathers its
+    batches from row r, the k-fold refit's replicas of
+    train/ensemble.py:device_fit_replica_plans) and rewinds the row
+    counter; each call draws every model's noise
     into its slot of ``eps`` ``[R, *noise_shape]`` from its generator and
     runs the next row, the models in order: eagerly on its first call (and
     always off the card), captured on its second, replayed after.
@@ -96,12 +100,15 @@ class StepGraph:
 
     def __init__(self, fns: Sequence[Callable], *, nb: int, batch: int, noise_shape: Sequence[int],
                  dtype: torch.dtype, device: torch.device, stream=None, pool=None,
-                 noise_view: Callable = lambda eps: eps, before_capture: Callable = lambda: None):
+                 noise_view: Callable = lambda eps: eps, before_capture: Callable = lambda: None,
+                 per_model_plans: bool = False):
         self.fns, self.nb, self.batch, self.dtype = list(fns), nb, batch, dtype
         self.device, self.stream, self.pool = device, stream, pool
         self.before_capture = before_capture
         n = len(self.fns)
-        self.plan = torch.zeros((nb, 2 * batch), dtype=torch.long, device=device)
+        self.per_model_plans = per_model_plans
+        plan_shape = (n, nb, 2 * batch) if per_model_plans else (nb, 2 * batch)
+        self.plan = torch.zeros(plan_shape, dtype=torch.long, device=device)
         self.row = torch.zeros((1,), dtype=torch.long, device=device)
         self.eps = torch.zeros((n, *noise_shape), dtype=dtype, device=device)
         self.eps_local = [noise_view(e) for e in self.eps]
@@ -109,13 +116,13 @@ class StepGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.calls = self.replays = 0
         self.capture_s = 0.0
-        self._pinned = (torch.empty((nb, 2 * batch), dtype=torch.long, pin_memory=True)
+        self._pinned = (torch.empty(plan_shape, dtype=torch.long, pin_memory=True)
                         if device.type == "cuda" else None)
 
     def load_plan(self, idx: np.ndarray, mask: np.ndarray):
         """The epoch's plan in one H2D copy (from pinned memory on the card:
         no sync; the epoch's fetch orders the next write after it)."""
-        host = np.concatenate([np.asarray(idx, np.int64), np.asarray(mask).astype(np.int64)], axis=1)
+        host = np.concatenate([np.asarray(idx, np.int64), np.asarray(mask).astype(np.int64)], axis=-1)
         if self._pinned is None:
             self.plan.copy_(torch.from_numpy(host))
         else:
@@ -124,9 +131,14 @@ class StepGraph:
         self.row.zero_()
 
     def _body(self):
-        r = self.plan.index_select(0, self.row)[0]
-        idx, mask = r[:self.batch], r[self.batch:].to(self.dtype)
-        ms = [fn(idx, mask, eps) for fn, eps in zip(self.fns, self.eps_local)]
+        if self.per_model_plans:  # [R, 2B]: model r's row
+            r = self.plan.index_select(1, self.row)[:, 0]
+            idx, mask = r[:, :self.batch], r[:, self.batch:].to(self.dtype)
+        else:  # [2B], every model's row
+            r = self.plan.index_select(0, self.row)[0]
+            idx, mask = r[:self.batch], r[self.batch:].to(self.dtype)
+            idx, mask = [idx] * len(self.fns), [mask] * len(self.fns)
+        ms = [fn(i, m, eps) for fn, i, m, eps in zip(self.fns, idx, mask, self.eps_local)]
         rows = torch.stack([m.loss for m in ms] + [m.mse for m in ms] + [m.kl for m in ms])
         self.metrics.index_copy_(2, self.row, rows.float().reshape(3, len(ms), 1))
         self.row.add_(1)

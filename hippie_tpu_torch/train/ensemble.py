@@ -36,10 +36,12 @@ each replica's first step eager on the capture stream, then one
 ``cudaGraphLaunch`` per step of the whole local ensemble) and
 ``host_fit_ensemble`` steps them eagerly; both hand their epochs to
 ``fit_ensemble``, so they give the same trajectory bit for bit. The JAX
-``device_fit_replica_plans`` has the host-loop counterpart
-``host_fit_replica_plans`` only: replicas that follow their own plans gain
-nothing from being stepped side by side, so it fits them one after another.
-``fit_ensemble`` takes the JAX ``device_fit_ensemble``'s ``resume_dir``
+``device_fit_replica_plans`` (the k-fold refit's replicas, each on its own
+fixed plan and seed, each stopping at its own patience) is
+``device_fit_replica_plans`` here, one CUDA graph per step kind for all
+replicas as well; ``host_fit_replica_plans`` fits the same replicas one
+after another, each its sequential stage fit, and the two agree bit for
+bit. ``fit_ensemble`` takes the JAX ``device_fit_ensemble``'s ``resume_dir``
 (all K replicas' states, their best snapshots and the ``[K]`` counters
 saved after every epoch in one payload, train/resume.py) and
 ``progress_every``. ``shard_replicas`` splits the replicas over the ranks
@@ -237,6 +239,7 @@ def fit_ensemble(
     resume_dir: Optional[str] = None,
     progress_every: Optional[int] = None,
     mesh: Optional[pmesh.Mesh] = None,
+    own_stops: bool = False,
 ) -> EnsembleFitResult:
     """Per-replica best tracking and joint early stopping over K replicas.
 
@@ -269,7 +272,18 @@ def fit_ensemble(
     arrays and ``best_state_dict`` hold all K replicas on every rank, and
     ``state`` this rank's. With ``resume_dir`` the payload is gathered to
     rank 0, which writes the unsharded layout; each rank restores its own
-    replicas from it."""
+    replicas from it.
+
+    ``own_stops`` (the replica-plan fit, without ``mesh`` or
+    ``resume_dir``): each replica stops at its own patience, as its
+    sequential fit would. Its model's state_dict is frozen (device clones)
+    at the epoch its patience fires and restored into the model at the
+    end; it goes on stepping until every replica has stopped, but its
+    losses after its stop are NaN, so it improves no more and its best is
+    gated by its own stop; only the replicas still training count in the
+    finite check. The optimizer states are the loop's last."""
+    if own_stops and (mesh is not None or resume_dir is not None):
+        raise ValueError("fit_ensemble(own_stops=True) takes neither mesh nor resume_dir")
     states = list(states)
     k = n_replicas(states) * (1 if mesh is None else mesh.size)
     mine = slice(0, k) if mesh is None else pmesh.local_slice(k, mesh, "replicas")
@@ -277,6 +291,7 @@ def fit_ensemble(
     best_epoch = np.full((k,), -1, np.int64)
     wait = np.zeros((k,), np.int64)
     best = None
+    frozen = {}  # own_stops: replica -> its model's state_dict at its stop
     train_losses, val_losses, epoch_s = [], [], []
     start_epoch = 0
     if resume_dir is not None:
@@ -305,7 +320,9 @@ def fit_ensemble(
         if mesh is not None:  # every rank's replicas, in replica order (on the rank's device: NCCL)
             tl, vl = (pmesh.gather_rows(torch.from_numpy(x).to(mesh.device), mesh).reshape(-1).cpu().numpy()
                       for x in (tl, vl))
-        if not np.all(np.isfinite(tl)):
+        done = np.isin(np.arange(k), list(frozen))  # replicas that had stopped before this epoch
+        tl[done] = vl[done] = np.nan
+        if not np.all(np.isfinite(tl[~done])):
             raise FloatingPointError(f"non-finite ensemble training loss at epoch {epoch}: {tl}")
         train_losses.append(tl)
         val_losses.append(vl)
@@ -319,6 +336,9 @@ def fit_ensemble(
         best_epoch = np.where(improved, epoch, best_epoch)
         best_val = np.where(improved, vl, best_val)
         wait = np.where(improved, 0, wait + 1)
+        if own_stops and early_stopping_patience is not None:
+            for r in np.flatnonzero((wait >= early_stopping_patience) & ~done):
+                frozen[r] = loop.clone_tree(states[r].model.state_dict())
         epochs_run = epoch + 1
         if verbose:
             print(f"ensemble epoch {epoch}: val={np.array2string(vl, precision=4)}")
@@ -335,6 +355,8 @@ def fit_ensemble(
             break
     if best is None:  # no epoch ran
         best = [loop.clone_tree(_eval_state_dict(ts)) for ts in states]
+    for r, sd in frozen.items():
+        states[r].model.load_state_dict(sd)
     if mesh is not None:
         best = _gather_replicas(best, mesh)
     return EnsembleFitResult(state=states, best_state_dict=best, best_val_loss=best_val,
@@ -459,27 +481,14 @@ def device_fit_ensemble(
     stream_idx = np.asarray(train_stream)
     nb = max(1, -(-len(stream_idx) // batch_size))
     val_idx, val_mask = np.asarray(val_idx), np.asarray(val_mask)
-
-    def gather(idx):
-        bc = class_[idx] if use_class_labels else None
-        return [a[idx] for a in arrays] + [source[idx], bc]
-
-    def train_fn(ts):
-        return lambda idx, mask, eps: batch_step(ts, *gather(idx), mask, eps=eps)[1]
-
-    def eval_fn(ts):
-        return lambda idx, mask, eps: eval_step(ts.model, *gather(idx), mask, eps=eps)
-
-    def zero_grads():
-        for ts in states:
-            ts.optimizer.zero_grad(set_to_none=True)
-
+    train_fns, eval_fns, zero_grads = _replica_step_fns(states, batch_step, eval_step, arrays, source, class_,
+                                                        use_class_labels)
     z = states[0].model.z_mean.out_features
     with dfit.graph_stream(device) as (stream, pool):
         common = dict(dtype=arrays[0].dtype, device=device, stream=stream, pool=pool)
-        train = dfit.StepGraph([train_fn(ts) for ts in states], nb=nb, batch=batch_size,
-                               noise_shape=(batch_size, z), before_capture=zero_grads, **common)
-        val = dfit.StepGraph([eval_fn(ts) for ts in states], nb=val_idx.shape[0], batch=val_idx.shape[1],
+        train = dfit.StepGraph(train_fns, nb=nb, batch=batch_size, noise_shape=(batch_size, z),
+                               before_capture=zero_grads, **common)
+        val = dfit.StepGraph(eval_fns, nb=val_idx.shape[0], batch=val_idx.shape[1],
                              noise_shape=(val_idx.shape[1], z), **common)
         val.load_plan(val_idx, val_mask)
 
@@ -508,10 +517,38 @@ def device_fit_ensemble(
     return result
 
 
+def _replica_step_fns(states, batch_step, eval_step, arrays, source, class_, use_class_labels: bool):
+    """The StepGraph step functions of each replica, ``fn(idx, mask, eps)``,
+    for training and for validation, and the train graph's ``before_capture``
+    (every replica's gradients dropped)."""
+
+    def gather(idx):
+        bc = class_[idx] if use_class_labels else None
+        return [a[idx] for a in arrays] + [source[idx], bc]
+
+    def train_fn(ts):
+        return lambda idx, mask, eps: batch_step(ts, *gather(idx), mask, eps=eps)[1]
+
+    def eval_fn(ts):
+        return lambda idx, mask, eps: eval_step(ts.model, *gather(idx), mask, eps=eps)
+
+    def zero_grads():
+        for ts in states:
+            ts.optimizer.zero_grad(set_to_none=True)
+
+    return [train_fn(ts) for ts in states], [eval_fn(ts) for ts in states], zero_grads
+
+
 def _replica_rows(m: torch.Tensor) -> Metrics:
     """A StepGraph's ``[3, K, nb]`` metrics as ``fit_ensemble`` reads an
     epoch's: Metrics of ``[nb, K]``."""
     return Metrics(*(x.T for x in m))
+
+
+def _check_replica_plans(k: int, train_idx, val_idx, seeds):
+    if not (len(train_idx) == len(val_idx) == len(seeds) == k):
+        raise ValueError(f"plans of {len(train_idx)}/{len(val_idx)} replicas and {len(seeds)} seeds "
+                         f"for {k} replicas")
 
 
 def host_fit_replica_plans(
@@ -540,9 +577,7 @@ def host_fit_replica_plans(
     last epoch and its best is its own fit's: replica k is its sequential
     fit, step for step. ``epochs_run`` is the longest replica's."""
     k = n_replicas(states)
-    if not (len(train_idx) == len(val_idx) == len(seeds) == k):
-        raise ValueError(f"plans of {len(train_idx)}/{len(val_idx)} replicas and {len(seeds)} seeds "
-                         f"for {k} replicas")
+    _check_replica_plans(k, train_idx, val_idx, seeds)
     train_epoch, eval_epoch = epoch_fns
     device = arrays[0].device
     fits = []
@@ -570,6 +605,102 @@ def host_fit_replica_plans(
         best_epoch=np.asarray([f.best_epoch[0] for f in fits], np.int64), epochs_run=n,
         train_losses=list(np.asarray([column(f, f.train_losses) for f in fits]).T),
         val_losses=list(np.asarray([column(f, f.val_losses) for f in fits]).T))
+
+
+def device_fit_replica_plans(
+    states: Sequence[TrainState],
+    *,
+    batch_step: Callable,
+    eval_step: Callable,
+    arrays,
+    source: torch.Tensor,
+    class_: Optional[torch.Tensor],
+    train_idx: np.ndarray,
+    train_mask: np.ndarray,
+    val_idx: np.ndarray,
+    val_mask: np.ndarray,
+    max_epochs: int,
+    early_stopping_patience: Optional[int] = None,
+    seeds: Sequence[int],
+    use_class_labels: bool = False,
+    aot_dir: Optional[str] = None,
+    aot_desc: str = "",
+) -> EnsembleFitResult:
+    """The JAX ``device_fit_replica_plans`` (hippie_tpu/train/ensemble.py):
+    K replicas, each on its own FIXED plan (``train_idx``/``train_mask``
+    ``[K, nb, B]``, ``val_*`` likewise; every replica's plan has the same
+    ``nb`` and ``B``), their train steps as ONE CUDA graph replayed per row
+    of the plans and their eval steps as another (train/device_fit.py:
+    StepGraph with ``per_model_plans``); off the card the same steps run
+    eagerly over the same buffers.
+
+    ``batch_step``/``eval_step``/``use_class_labels`` are
+    ``device_fit_ensemble``'s; the plans, ``seeds`` and the patience are
+    ``host_fit_replica_plans``'s, whose draws replica k makes: epoch keys
+    ``epoch_key(seeds[k], 2 * epoch, 1 | 2)``, train noise
+    ``key_generator(key, 1)``, val noise ``key_generator(key)`` at its x
+    iterate. Each replica stops at its own patience (``fit_ensemble``'s
+    ``own_stops``): its model's state is frozen on the card at its stop
+    epoch and restored at the end, it steps on inside the graph until every
+    replica has stopped, its best is gated by its own stop (ROADMAP Queue 3
+    decision 1, which the JAX program lacks) and its losses after the stop
+    are NaN. So the result's weights, BatchNorm buffers, bests, best epochs,
+    losses and ``epochs_run`` are ``host_fit_replica_plans``'s bit for bit;
+    ``state[k].optimizer`` holds the loop's final optimizer state, not the
+    one at replica k's stop (as in JAX; no caller reads it). Each replica's
+    first train and eval steps run eagerly on the capture stream, the second
+    call captures, every later step is one ``cudaGraphLaunch`` for all K.
+    A non-finite train loss of a replica still training raises
+    FloatingPointError naming its epoch. ``aot_dir`` sets where the kernel
+    libraries load from or are built (ops/_build.py); ``aot_desc`` is
+    ignored, as in ``device_fit``."""
+    from hippie_tpu_torch.ops import _build
+    from hippie_tpu_torch.train import device_fit as dfit
+
+    if aot_dir is not None:
+        _build.set_default_dir(aot_dir)
+    states = list(states)
+    _check_replica_plans(n_replicas(states), train_idx, val_idx, seeds)
+    device = arrays[0].device
+    dfit.check_card(pmesh.active(), device)
+    train_idx, val_idx = np.asarray(train_idx), np.asarray(val_idx)
+    train_fns, eval_fns, zero_grads = _replica_step_fns(states, batch_step, eval_step, arrays, source, class_,
+                                                        use_class_labels)
+    z = states[0].model.z_mean.out_features
+
+    def keys(epoch, phase):
+        return [loop.epoch_key(s, 2 * epoch, phase) for s in seeds]
+
+    with dfit.graph_stream(device) as (stream, pool):
+        common = dict(dtype=arrays[0].dtype, device=device, stream=stream, pool=pool, per_model_plans=True)
+        train = dfit.StepGraph(train_fns, nb=train_idx.shape[1], batch=train_idx.shape[2],
+                               noise_shape=(train_idx.shape[2], z), before_capture=zero_grads, **common)
+        val = dfit.StepGraph(eval_fns, nb=val_idx.shape[1], batch=val_idx.shape[2],
+                             noise_shape=(val_idx.shape[2], z), **common)
+        train.load_plan(train_idx, train_mask)  # the plans are fixed: one copy each
+        val.load_plan(val_idx, val_mask)
+
+        def run(graph, gens):
+            graph.row.zero_()
+            for _ in range(graph.nb):
+                graph(gens)
+            return _replica_rows(graph.metrics)
+
+        def run_train(sts, _key, epoch):
+            return sts, run(train, [loop.key_generator(key, 1, device=device) for key in keys(epoch, 1)])
+
+        def run_val(sts, _key, epoch):
+            with _at_x(sts):
+                return run(val, [loop.key_generator(key, device=device) for key in keys(epoch, 2)])
+
+        try:
+            result = fit_ensemble(states, run_train_epoch=run_train, run_val_epoch=run_val,
+                                  max_epochs=max_epochs, early_stopping_patience=early_stopping_patience,
+                                  own_stops=True)
+        finally:
+            graphs = dfit.release(train, val, zero_grads)
+    result.graphs = graphs
+    return result
 
 
 def shard_replicas(tree, mesh: pmesh.Mesh, axis_name: str = "data"):

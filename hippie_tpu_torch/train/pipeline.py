@@ -538,28 +538,44 @@ def _stage_fork(cfg: PipelineConfig, model: torch.nn.Module, lr: float, clip, pr
     return step.TrainState(model, _optimizer(cfg, model, lr, clip))
 
 
+def _unimodal_loss(cfg: PipelineConfig, beta: float) -> dict:
+    return dict(beta=beta, loss_backend=cfg.loss_backend, block_backend=cfg.block_backend)
+
+
+def _multimodal_loss(cfg: PipelineConfig) -> dict:
+    return dict(beta=cfg.beta, mod1_weight=cfg.mod1_weight, mod2_weight=cfg.mod2_weight,
+                loss_backend=cfg.loss_backend, block_backend=cfg.block_backend)
+
+
+def stage_steps(cfg: PipelineConfig, joint: bool, beta: float = 1.0):
+    """The per-batch (batch_step, eval_step) a stage fit of either model
+    family runs on the device loop (``fit_unimodal_stage`` with ``beta``,
+    ``fit_multimodal_stage`` with ``cfg.beta``)."""
+    if joint:
+        return step.make_multimodal_steps(**_multimodal_loss(cfg))
+    return step.make_unimodal_steps(**_unimodal_loss(cfg, beta))
+
+
 def fit_unimodal_stage(*, cfg: PipelineConfig, data: torch.Tensor, beta: float,
                        use_class_labels: bool, **kw) -> loop.FitResult:
     """One Trainer.fit of a unimodal model on ``data`` [N, L] (fit_stage's
     other keywords: ``ts``, ``source``, ``class_``, the indices, ...)."""
-    backends = dict(loss_backend=cfg.loss_backend, block_backend=cfg.block_backend)
     return fit_stage(
         cfg=cfg, arrays=(data,), use_class_labels=use_class_labels,
-        make_steps=lambda: step.make_unimodal_steps(beta=beta, **backends),
+        make_steps=lambda: stage_steps(cfg, False, beta),
         make_epoch_fns=lambda: step.make_unimodal_epoch_fns(
-            beta=beta, use_class_labels=use_class_labels, **backends), **kw)
+            use_class_labels=use_class_labels, **_unimodal_loss(cfg, beta)), **kw)
 
 
 def fit_multimodal_stage(*, cfg: PipelineConfig, wave: torch.Tensor, isi: torch.Tensor,
                          use_class_labels: bool, **kw) -> loop.FitResult:
     """One Trainer.fit of the joint model on (wave [N, 50], isi [N, 100]),
     with ``cfg.beta`` and the modality weights."""
-    loss = dict(beta=cfg.beta, mod1_weight=cfg.mod1_weight, mod2_weight=cfg.mod2_weight,
-                loss_backend=cfg.loss_backend, block_backend=cfg.block_backend)
     return fit_stage(
         cfg=cfg, arrays=(wave, isi), use_class_labels=use_class_labels,
-        make_steps=lambda: step.make_multimodal_steps(**loss),
-        make_epoch_fns=lambda: step.make_multimodal_epoch_fns(use_class_labels=use_class_labels, **loss),
+        make_steps=lambda: stage_steps(cfg, True),
+        make_epoch_fns=lambda: step.make_multimodal_epoch_fns(use_class_labels=use_class_labels,
+                                                              **_multimodal_loss(cfg)),
         **kw)
 
 

@@ -15,7 +15,9 @@ most 5 (enc_block_fwd, dec_block_fwd) or 8 (enc_block_bwd, dec_block_bwd)
 CUDA launches per call; the loss kernels' forwards are one CUDA launch each
 and repeat bit for bit across two streams. A stage fit cut and resumed on
 the card equals the uninterrupted one, and one step of each of the "fused"
-and "bf16" block backends runs on the card without a block kernel. Tolerances of the VAE-loss and
+and "bf16" block backends runs on the card without a block kernel, and the
+replica-plan device fit of the full-width cVAE equals the host fit.
+Tolerances of the VAE-loss and
 masked-SSE kernels: values rtol 4e-6 (two
 summation orders of up to 51,200 nonnegative float32 terms, each within about
 1e-6 of the exact sum); gradients rtol 1e-5 / atol 1e-7 (elementwise, as
@@ -1349,6 +1351,56 @@ def test_device_ensemble_on_the_card_equals_the_host_ensemble(cuda_device):
         assert all(torch.equal(v, b.model.state_dict()[k]) for k, v in a.model.state_dict().items())
         for i, e in a.optimizer.state_dict()["state"].items():
             assert all(torch.equal(v, b.optimizer.state_dict()["state"][i][m]) for m, v in e.items()), i
+    for a, b in zip(dev.best_state_dict, host.best_state_dict):
+        assert all(torch.equal(v, b[k]) for k, v in a.items())
+
+
+@pytest.mark.cuda
+def test_replica_plans_on_the_card_equal_the_host_fit(cuda_device):
+    """K=3 replicas of the full-width cVAE (z=10) on the loss and block
+    kernels, each on its own fixed plan over the pool rows of datasets/ (2
+    train batches of B=512, the second padded, and 1 val batch) with its own
+    seed, 2 epochs: device_fit_replica_plans captured one graph per step
+    kind for the three, replayed it at every K-step after the first, and
+    equals host_fit_replica_plans bit for bit."""
+    import pathlib
+
+    from hippie_tpu_torch.data import registry
+    from hippie_tpu_torch.data.device_data import batch_plan
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import ensemble, loop, optim, pipeline, step
+
+    root = str(pathlib.Path(__file__).resolve().parents[1] / "datasets")
+    pool = pipeline.load_pretrain_pool(pipeline.PipelineConfig(dataset="cellexplorer-celltype", data_root=root,
+                                                               device="cuda", verbose=False))
+    cfg_m = cvae.CVAEConfig(z_dim=10, output_size=50, class_hidden_dim=5, num_sources=registry.NUM_SOURCES,
+                            num_classes=5)
+    t_idx, t_mask = (np.stack(p) for p in zip(*(batch_plan(np.arange(a, a + 900), 512, shuffle=False)
+                                                 for a in (0, 700, 1400))))
+    v_idx, v_mask = (np.stack(p) for p in zip(*(batch_plan(np.arange(a, a + 300), 512, shuffle=False)
+                                                 for a in (2400, 2500, 2600))))
+    kw = dict(arrays=(pool.wave,), source=pool.source, class_=None, train_idx=t_idx, train_mask=t_mask,
+              val_idx=v_idx, val_mask=v_mask, max_epochs=2, early_stopping_patience=1, seeds=[1000, 1010, 1020])
+    backends = dict(loss_backend="pallas", block_backend="pallas")
+    res = {}
+    for fit_loop in ("host", "device"):
+        models = [cvae.unimodal_cvae_init(cfg_m, loop.key_generator(19, k), device="cuda") for k in range(3)]
+        states = [step.TrainState(m, optim.make_optimizer(m.parameters(), 1e-3, 0.01)) for m in models]
+        if fit_loop == "device":
+            batch_step, eval_step = step.make_unimodal_steps(**backends)
+            res[fit_loop] = ensemble.device_fit_replica_plans(states, batch_step=batch_step, eval_step=eval_step,
+                                                              **kw)
+        else:
+            res[fit_loop] = ensemble.host_fit_replica_plans(
+                states, epoch_fns=ensemble.make_unimodal_ensemble_epoch_fns(**backends), **kw)
+    dev, host = res["device"], res["host"]
+    assert dev.graphs["captured"] and (dev.graphs["train_replays"], dev.graphs["eval_replays"]) == (2 * 2 - 1, 1)
+    assert np.array_equal(dev.best_val_loss, host.best_val_loss) and np.array_equal(dev.best_epoch, host.best_epoch)
+    assert dev.epochs_run == host.epochs_run == 2
+    for name in ("train_losses", "val_losses"):
+        assert np.array_equal(np.asarray(getattr(dev, name)), np.asarray(getattr(host, name)), equal_nan=True)
+    for a, b in zip(dev.state, host.state):
+        assert all(torch.equal(v, b.model.state_dict()[k]) for k, v in a.model.state_dict().items())
     for a, b in zip(dev.best_state_dict, host.best_state_dict):
         assert all(torch.equal(v, b[k]) for k, v in a.items())
 

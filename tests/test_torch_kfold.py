@@ -4,8 +4,10 @@ scripts/kfold_eval.py) on the CPU at num_blocks=(1, 1, 1, 1), z=4.
 The folds equal the JAX package's; the CSV writer gives pandas' bytes for
 the same rows; the port's embed-once CLI prints the JAX CLI's results and
 writes its files byte for byte when both embed alike; the refit CLI with
---fold-parallel gives the sequential refits' embeddings bit for bit, fold
-by fold, and ROADMAP Queue 3's decisions 1 and 2 hold: a replica of the
+--fold-parallel, through the replica-plan fit in groups, gives the
+sequential refits' embeddings bit for bit, fold by fold, and falls back to
+them when the folds' plans disagree; ROADMAP Queue 3's decisions 1 and 2
+hold: a replica of the
 replica-plan fit stops at its own patience with its own best, and each
 fold's supervised stream oversamples to its own majority class.
 """
@@ -176,10 +178,24 @@ def test_embed_once_cli_writes_the_jax_files(rig, monkeypatch, capsys):
     assert len(pd.read_csv(tmp / "port" / "kf-rig_kfold_knn.csv")) == 3 * len(tkf.KS)
 
 
+def _spy_replica_fits(monkeypatch):
+    """The folds of each call of ensemble.device_fit_replica_plans."""
+    calls = []
+    real = tens.device_fit_replica_plans
+
+    def spy(states, **kw):
+        calls.append(len(states))
+        return real(states, **kw)
+
+    monkeypatch.setattr(tens, "device_fit_replica_plans", spy)
+    return calls
+
+
 @pytest.mark.parametrize("mode", ["dual", "joint"])
-def test_fold_parallel_equals_sequential(rig, mode):
+def test_fold_parallel_equals_sequential(rig, mode, monkeypatch):
     """--refit with --fold-parallel (groups of 2) against the sequential
-    refits, fold by fold, bit for bit, with a supervised stage."""
+    refits, fold by fold, bit for bit, with a supervised stage: each stage
+    of each modality is two replica-plan fits, of 2 folds and of 1."""
     tmp, root, ckpts = rig
     flags = (["--wave-checkpoint", ckpts["wave"], "--time-checkpoint", ckpts["time"]] if mode == "dual"
              else ["--joint-checkpoint", ckpts["joint"]])
@@ -187,8 +203,10 @@ def test_fold_parallel_equals_sequential(rig, mode):
             "--refit-supervised-epochs", "1", "--refit-batch-size", "40", "--refit-patience", "1",
             "--refit-lr", "3e-3", "--device", "cpu", *flags]
     seq = tkf.main(base + ["--output-dir", str(tmp / f"seq_{mode}")])
+    calls = _spy_replica_fits(monkeypatch)
     par = tkf.main(base + ["--output-dir", str(tmp / f"par_{mode}"), "--fold-parallel",
                            "--fold-parallel-max-replicas", "2"])
+    assert calls == [2, 2, 1, 1] * (2 if mode == "dual" else 1)  # per group: fine-tune, supervised
     assert sorted(seq["refit"]) == sorted(par["refit"])
     for kind in seq["refit"]:
         assert len(seq["refit"][kind]) == 3
@@ -196,6 +214,24 @@ def test_fold_parallel_equals_sequential(rig, mode):
             np.testing.assert_array_equal(a, b)
     for name in ("kf-rig_kfold_knn.csv", "kf-rig_kfold_knn_folds.csv"):
         assert (tmp / f"seq_{mode}" / name).read_bytes() == (tmp / f"par_{mode}" / name).read_bytes()
+
+
+def test_fold_parallel_falls_back_when_the_fold_plans_disagree(rig, monkeypatch, capsys):
+    """At batch 10 the folds' balanced supervised streams (36, 27 and 30
+    rows) make 4, 3 and 3 batches: the modality runs the sequential refits,
+    says so, and gives their embeddings."""
+    tmp, root, ckpts = rig
+    base = ["--dataset", "kf-rig", "--data-root", root, "--folds", "3", "--refit", "--refit-epochs", "1",
+            "--refit-supervised-epochs", "1", "--refit-batch-size", "10", "--device", "cpu",
+            "--joint-checkpoint", ckpts["joint"]]
+    seq = tkf.main(base + ["--output-dir", str(tmp / "seq")])
+    capsys.readouterr()
+    calls = _spy_replica_fits(monkeypatch)
+    par = tkf.main(base + ["--output-dir", str(tmp / "par"), "--fold-parallel"])
+    said = capsys.readouterr().out
+    assert calls == [] and "fold-parallel: joint fold plan shapes diverge; falling back to sequential refits" in said
+    for a, b in zip(seq["refit"]["joint"], par["refit"]["joint"]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_queue3_decision1_best_gated_by_own_stop():
