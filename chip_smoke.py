@@ -41,14 +41,19 @@ checkpoints in a background thread (BestTracker.flush_async), and print each
 write's split and their peak device memory. Then the
 inference CLI embeds the target with the unimodal pipeline's stage-3
 checkpoints and the joint one's, each file held to the models called
-directly, and k-means and the GMM run on the card against the host. Then
+directly, and k-means and the GMM run on the card against the host and,
+their Lloyd and EM iterations replayed from CUDA graphs, against the same
+iterations looped eagerly on the card, bit for bit. Then
 the unimodal pipeline with schedule-free AdamW and the joint one with bf16
 Adam moments (12), with one step of each optimizer on the full-width model
 against the host and the optimizer's device memory with float32 and bf16
 moments, the embedding server on both pipelines'
-checkpoints with its load test (13), the deployable artifact (14: the
+checkpoints with its load test (13: one CUDA graph per ladder bucket and
+none while serving; in this process the same service's replays bit-equal
+to its eager program), the deployable artifact (14: the
 three stage-3 checkpoints exported, loaded in a fresh process, held to the
-models called directly, timed with bench_artifact, served; its exports run
+models called directly and to the call's eager twin, one graph per row
+bucket, timed with bench_artifact, served; its exports run
 before 13, so that the four servers of 13-14 start at once), K-replica
 training (15: a K=4 ensemble epoch through the kernels, exactly 4x the
 launches, each replica its single-model epoch; the K=4 fit on the device
@@ -88,8 +93,8 @@ the "xla" loss), both training CLIs writing the same bytes with either loop
 (the joint one's device-loop launches at 1 epoch per stage, counted by
 torch.profiler with the graphs' replays, are the kernels line's for the
 seven kernels; the wrappers count only the launches they make), a joint
-pipeline stopped with the device loop, resumed and stopped again with the
-host loop and finished with the device loop, the clip's
+pipeline stopped with the device loop and resumed with the host loop, the
+clip's
 launches before and after its repair, and in one NCCL rank (run in 19a's
 rank) the device fit (20e), an FSDP stage fit with AdamW and with
 schedule-free on the device loop equal to the host loop with each loop's
@@ -121,7 +126,10 @@ runs, N times in turns (CHECKOUT then this tree, then this tree then
 CHECKOUT, ...), a fresh process per run that builds that tree's kernels and
 runs its phase 9 twice (cold: the process's first pipeline, as a CLI run;
 then warm) and its phase 10, and prints each run's wall times and
-``ckpt_save`` and the medians. ``python3 chip_smoke.py --artifact-replies
+``ckpt_save`` and the medians. With ``--whole [--log-dir DIR]`` it runs
+each tree's whole script instead (N defaults to 1: CHECKOUT, then this
+tree), and prints each run's exit code, total and per-phase seconds side
+by side (each run's output into DIR). ``python3 chip_smoke.py --artifact-replies
 DIR [DEVICE]`` is phase 14's fresh process. ``python3 chip_smoke.py
 --dp-walls`` (2 or more GPUs of one host) times the joint training CLI on
 1, 2 and all the GPUs over NCCL, and with --fsdp; ``python3 chip_smoke.py
@@ -1805,6 +1813,61 @@ def clustering_vs_host(x, method: str, k: int = 4, seed: int = 42, reps: int = 5
     return float(np.median(times[1:]))
 
 
+def eager_clustering(x, method: str, k: int = 4, seed: int = 42, iters=None):
+    """``method`` of ops/clustering.py with its Lloyd and EM iterations
+    looped eagerly (the module's own _seed, _lloyd and _em): the reference
+    its replayed iterations are held to on the card."""
+    import torch
+
+    from hippie_tpu_torch.evaluate.knn_eval import pairwise_sq_dists
+    from hippie_tpu_torch.ops import clustering
+
+    iters = iters if iters is not None else (50 if method == "kmeans" else 100)
+    centers = clustering._seed(x, k, torch.Generator().manual_seed(seed))
+    for _ in range(iters if method == "kmeans" else 10):
+        clustering._lloyd(x, centers, k)
+    dists = pairwise_sq_dists(x, centers)
+    if method == "kmeans":
+        return torch.argmin(dists, dim=1), centers, dists.min(dim=1).values.sum()
+    counts = torch.clamp(clustering._onehot(torch.argmin(dists, dim=1), k, x.dtype).sum(dim=0), min=1.0)
+    means, var, weights = centers, torch.ones_like(centers), counts / x.shape[0]
+    for _ in range(iters):
+        clustering._em(x, means, var, weights)
+    lp = clustering._log_prob(x, means, var, weights)
+    return torch.argmax(lp, dim=1), means, var, weights, torch.logsumexp(lp, dim=1).sum()
+
+
+def clustering_replay_vs_eager(x, method: str, k: int = 4, seed: int = 42, reps: int = 5, device="cuda") -> dict:
+    """``method`` on the card (its iterations replayed from the graphs of
+    x's shape) against eager_clustering on the same points: every output
+    equal bit for bit. Returns the largest |difference| (0 when equal) and
+    both ms per call (CUDA-synchronised wall time, median of ``reps`` after
+    one call)."""
+    import torch
+
+    from hippie_tpu_torch.ops import clustering
+
+    fn = getattr(clustering, method)
+    xd = torch.as_tensor(x, dtype=torch.float32).to(device)
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    got, want = fn(xd, k, seed=seed), eager_clustering(xd, method, k, seed)
+    diff = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{method}: the replayed iterations differ from the eager loop by {diff:.3g}")
+    out = {"max_diff": diff}
+    for name, run in (("replayed_ms", lambda: fn(xd, k, seed=seed)),
+                      ("eager_ms", lambda: eager_clustering(xd, method, k, seed))):
+        times = []
+        for _ in range(reps + 1):
+            sync()
+            t0 = time.perf_counter()
+            run()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = round(float(np.median(times[1:])), 3)
+    return out
+
+
 def phase_inference(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, device="cuda"):
     """The port's inference CLI, in process, on the card: on phase 9's
     stage-3 wave and time checkpoints with ``--cluster 4 --cluster-method
@@ -1816,7 +1879,9 @@ def phase_inference(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, d
     ids below 4. Then k-means and the GMM (k=4) on the card against the
     host (clustering_vs_host) on the joint model's embeddings and on 16,564
     x 20 rows drawn with numpy (four blobs; the largest reference dataset at
-    2z for z=10), with the card's ms per call."""
+    2z for z=10), with the card's ms per call; and on the same points the
+    replayed iterations against the same iterations looped eagerly on the
+    card (clustering_replay_vs_eager), bit for bit, with both ms per call."""
     import io
 
     import torch
@@ -1875,12 +1940,15 @@ def phase_inference(card: str, workdir: str, uni_ckpts: dict, joint_ckpt: str, d
     r = np.random.default_rng(0)
     centres = 6.0 * r.normal(size=(4, 2 * Z))
     synthetic = (centres[r.integers(0, 4, size=16_564)] + r.normal(size=(16_564, 2 * Z))).astype(np.float32)
-    ms = {}
+    ms, replay = {}, {}
     for label, x in (("joint embeddings 392x10", joint_emb), ("synthetic 16564x20", synthetic)):
         for method in ("kmeans", "gmm"):
             ms[f"{method} {label}"] = round(clustering_vs_host(x, method, device=device), 3)
-    print(f"  clustering k=4 on the card, equal to the host's (ms per call): {json.dumps(ms)} on {card}; "
-          f"phase {time.perf_counter() - t_phase:.1f} s")
+            replay[f"{method} {label}"] = clustering_replay_vs_eager(x, method, device=device)
+    print(f"  clustering k=4 on the card, equal to the host's (ms per call): {json.dumps(ms)} on {card}")
+    print(f"  clustering k=4 on the card, its Lloyd and EM iterations replayed from CUDA graphs, equal to the "
+          f"same iterations looped eagerly on the card bit for bit; ms per call, replayed and eager: "
+          f"{json.dumps(replay)} on {card}; phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def optimizer_steps_vs_cpu(card: str, device="cuda"):
@@ -2036,7 +2104,8 @@ def _spawn_server(argv: list) -> dict:
 
 def _await_server(srv: dict, timeout: float = 300.0):
     """Wait until a spawned server says where it serves: (process, url, its
-    lines, seconds from its start to that line)."""
+    lines, seconds from its start to that line, the queue of its later
+    lines)."""
     import queue
 
     proc, said, deadline = srv["proc"], [], time.perf_counter() + timeout
@@ -2051,7 +2120,7 @@ def _await_server(srv: dict, timeout: float = 300.0):
         said.append(line.rstrip())
         m = re.search(r"on (http://127\.0\.0\.1:\d+)", line)
         if m:
-            return proc, m.group(1), said, at - srv["t0"]
+            return proc, m.group(1), said, at - srv["t0"], srv["lines"]
     _stop(proc)
     raise PhaseError(f"the server did not start: {said[-10:]}")
 
@@ -2116,8 +2185,12 @@ def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, servers: dict, de
     embed_multimodal) on preprocess_pair of the same rows. Then the port's
     load-test client at its defaults (16 clients x 20 requests x 64 rows,
     raw widths 41/91) prints requests/s, p50/p99 and the server's device
-    dispatches and coalesced requests. The server is stopped after. Returns
-    the replies, {mode: {kind: [rows, width]}}, for phase 14."""
+    dispatches and coalesced requests. The server is stopped after. The
+    server captures one CUDA graph per bucket of its ladder and none while
+    it serves (serve_and_load, from its printed lines). The same service in
+    this process (service_replays) replays each request bit-equal to
+    _run_group's eager program. Returns the replies, {mode: {kind: [rows,
+    width]}}, for phase 14."""
     import torch
 
     from hippie_tpu_torch import export
@@ -2146,11 +2219,57 @@ def phase_serving(card: str, uni_ckpts: dict, joint_ckpt: str, servers: dict, de
         check(worst <= 1e-5, f"serving {mode}: a reply {worst} from the model called directly")
         replies[mode] = got
         print(f"[13 serving] {mode}: the server started and warmed (512, 1024) in {start_s:.1f} s, beside the others "
-              f"({'; '.join(x for x in said if x.startswith('warmup'))}); {n_requests(wf)} requests of the "
-              f"target's {len(wf)} raw rows, max |reply - direct| {worst:.3g} (limit 1e-5)")
+              f"({'; '.join(x for x in said if x.startswith('warmup'))}); it captured one CUDA graph per bucket "
+              f"of the ladder and none after; {n_requests(wf)} requests of the target's {len(wf)} raw rows, max "
+              f"|reply - direct| {worst:.3g} (limit 1e-5)")
         print(load_test_line(res, stats, card))
+        kw = ({"wave_ckpt": uni_ckpts["wave"], "time_ckpt": uni_ckpts["time"]} if mode == "dual"
+              else {"joint_ckpt": joint_ckpt})
+        here = service_replays(kw, wf, isi, f"13 {mode}", card, device)
+        print(f"  13 {mode}: max |server's reply - this process's replayed reply| "
+              f"{max(float(np.abs(got[k] - here[k]).max()) for k in got):.3g}")
     print(f"  phase 13 {time.perf_counter() - t_phase:.1f} s")
     return replies
+
+
+def service_replays(kw: dict, wf, isi, label: str, card: str, device="cuda") -> dict:
+    """In this process, an EmbeddingService on the card built from ``kw``
+    (the checkpoints of one of phase 13's servers): its
+    ladder (512, 1024) captures two graphs; each request of up to 64 of the
+    raw rows replays the 512-row one, and its reply equals _run_group's
+    eager program (the same preprocessing and model calls without the
+    graph) on the same rows bit for bit; no request captures. Returns the
+    replies {kind: [rows, width]}."""
+    import torch
+
+    from hippie_tpu_torch.scripts import serve_embeddings as se
+
+    t0 = time.perf_counter()
+    service = se.EmbeddingService(z_dim=Z, device=device, **kw)
+    service.warmup([512, 1024])
+    ladder_s = time.perf_counter() - t0
+    check(service.graph_captures == 2, f"{label}: the ladder of 2 buckets captured {service.graph_captures} graphs")
+    parts = {}
+    for lo in range(0, len(wf), 64):
+        rows = slice(lo, lo + 64)
+        w, i, j, _ = service.embed(wf[rows], isi[rows], 0, False)
+        item = se._Item(wf[rows], isi[rows], 0, False)
+        service._run_group([item], eager=True)
+        check(np.array_equal(j, item.out[2]),
+              f"{label}: a replayed reply differs from the eager program by {np.abs(j - item.out[2]).max():.3g}")
+        for kind, v in (("waveform", w), ("isi", i), ("joint", j)):
+            if v is not None:
+                parts.setdefault(kind, []).append(v)
+    n = n_requests(wf)
+    check((service.graph_captures, service.graph_replays) == (2, 2 + n),
+          f"{label}: {service.graph_captures} captures and {service.graph_replays} replays, expected 2 and {2 + n}")
+    print(f"  {label} in this process: the ladder (512, 1024) captured 2 graphs in {ladder_s:.2f} s (the "
+          f"models' loading included); {n} requests replayed the 512-row graph, each reply equal to _run_group's "
+          f"eager program on the same rows bit for bit, no capture, on {card}")
+    del service
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return {k: np.concatenate(v) for k, v in parts.items()}
 
 
 def target_raw_rows():
@@ -2165,18 +2284,24 @@ def n_requests(wf) -> int:
     return -(-len(wf) // 64)
 
 
+CAPTURED = "captured the program of bucket"  # the server's line per capture
+
+
 def serve_and_load(server: tuple, wf, isi):
     """With a running server of start_servers: send the raw rows in
     requests of up to 64 rows (source 0), run the load-test client at its
-    defaults, stop the server. Returns (replies {kind: [rows, width]}, the
-    load test's result, the server's /stats, its start-up seconds, its
-    lines)."""
+    defaults, stop the server. The server captured one graph per bucket of
+    its ladder (512, 1024) before it served, and captures none while these
+    requests and the load test run: every dispatch is a replay. Returns
+    (replies {kind: [rows, width]}, the load test's result, the server's
+    /stats, its start-up seconds, its lines)."""
     import contextlib
     import io
+    import queue
 
     from hippie_tpu_torch.scripts import serving_load_test
 
-    proc, url, said, start_s = server
+    proc, url, said, start_s, lines = server
     try:
         parts = {}
         for lo in range(0, len(wf), 64):
@@ -2191,10 +2316,23 @@ def serve_and_load(server: tuple, wf, isi):
         stats = json.loads(urllib_get(url + "/stats"))
     finally:
         _stop(proc)
+    later = []
+    while True:
+        try:
+            item = lines.get(timeout=5)
+        except queue.Empty:
+            break
+        if item is None:
+            break
+        later.append(item[1].rstrip())
     check(res["requests"] == 16 * 20, f"load test: {res['requests']} requests")
     replies = {k: np.concatenate(v) for k, v in parts.items()}
     check(all(v.shape[0] == len(wf) for v in replies.values()),
           f"replies of {[v.shape for v in replies.values()]} rows for {len(wf)}")
+    at_start = [x for x in said if CAPTURED in x]
+    check(len(at_start) == 2, f"the server captured {len(at_start)} graphs for its ladder of 2 buckets: {said[-6:]}")
+    check(not any(CAPTURED in x for x in later),
+          f"the server captured while serving: {[x for x in later if CAPTURED in x]}")
     return replies, res, stats, start_s, said
 
 
@@ -2242,7 +2380,7 @@ def artifact_replies(workdir: str, device: str = "cuda"):
     from hippie_tpu_torch.scripts import bench_artifact
 
     inputs = artifact_inputs()
-    out, meta = {}, {"load_s": {}, "bench": {}}
+    out, meta = {}, {"load_s": {}, "bench": {}, "replay_diff": {}, "graphs": {}}
     for name in ARTIFACTS:
         for tag in ("", "_tf32"):
             t0 = time.perf_counter()
@@ -2250,8 +2388,14 @@ def artifact_replies(workdir: str, device: str = "cuda"):
             if device != "cpu":
                 torch.cuda.synchronize()
             meta["load_s"][name + tag] = time.perf_counter() - t0
+            diff = 0.0
             for n in ARTIFACT_ROWS:
-                out[f"{name}{tag}_{n}"] = call(*(a[:n] for a in inputs[name])).cpu().numpy()
+                rows = tuple(a[:n] for a in inputs[name])
+                got = call(*rows)
+                diff = max(diff, float((got - call.eager(*rows)).abs().max()))
+                out[f"{name}{tag}_{n}"] = got.cpu().numpy()
+            meta["replay_diff"][name + tag] = diff
+            meta["graphs"][name + tag] = [call.space.captures, call.space.replays]
         with contextlib.redirect_stdout(io.StringIO()):
             meta["bench"][name] = bench_artifact.main(["--artifact", f"{workdir}/{name}.hippie",
                                                        "--rows", BENCH_ROWS, "--device", device])
@@ -2260,7 +2404,7 @@ def artifact_replies(workdir: str, device: str = "cuda"):
         json.dump(meta, f)
 
 
-def checkpoint_path_ms(model, arrays, embed, rows: int, iters: int = 20) -> float:
+def checkpoint_path_ms(model, arrays, embed, rows: int, iters: int = 10) -> float:
     """The checkpoint path's warm ms per call at ``rows`` rows, measured as
     bench_artifact measures an artifact: numpy rows up, the reply down."""
     import torch
@@ -2333,10 +2477,18 @@ def phase_artifacts(card: str, uni_ckpts: dict, joint_ckpt: str, ckpt_replies: d
     load seconds. Then the servers on the artifacts (``servers["art_dual"]``
     with --wave-artifact --time-artifact, ``servers["art_joint"]`` with
     --joint-artifact, started with phase 13's) take phase 13's requests and
-    load test: every reply within 1e-5 of the checkpoint server's."""
+    load test: every reply within 1e-5 of the checkpoint server's, one graph
+    captured per bucket of the ladder and none while serving (the artifact's
+    program inside a graph is held to its eager run in the fresh process,
+    below; phase 13 holds the server's replays to its eager program). In
+    the fresh process, each artifact's call captures
+    one graph per row bucket of ARTIFACT_ROWS and its replies equal the
+    call's eager twin bit for bit; bench_artifact's cold call includes the
+    bucket's capture, its warm calls are replays."""
     import torch
 
     from hippie_tpu_torch import export
+    from hippie_tpu_torch.evaluate import eval_graph
     from hippie_tpu_torch.evaluate.embeddings import embed_multimodal, embed_unimodal
 
     t_phase = time.perf_counter()
@@ -2351,6 +2503,14 @@ def phase_artifacts(card: str, uni_ckpts: dict, joint_ckpt: str, ckpt_replies: d
     with open(f"{art_dir}/replies.json") as f:
         meta = json.load(f)
 
+    buckets = sorted({eval_graph.bucket_rows(n) for n in ARTIFACT_ROWS})
+    for name, diff in meta["replay_diff"].items():
+        check(diff == 0.0, f"{name} artifact: a replayed reply differs from its eager twin by {diff:.3g}")
+        check(meta["graphs"][name] == [len(buckets), len(ARTIFACT_ROWS)],
+              f"{name} artifact: {meta['graphs'][name]} captures and replays for rows {ARTIFACT_ROWS}")
+    print(f"[14 artifacts] in the fresh process, load_artifact's call at rows {list(ARTIFACT_ROWS)}: "
+          f"{len(buckets)} CUDA graphs (buckets {buckets}) captured and {len(ARTIFACT_ROWS)} replays per "
+          f"artifact, each reply equal to the call's eager twin bit for bit (all 6 artifacts) on {card}")
     inputs = artifact_inputs()
     for name, ckpt in ckpts.items():
         t0 = time.perf_counter()
@@ -2378,7 +2538,8 @@ def phase_artifacts(card: str, uni_ckpts: dict, joint_ckpt: str, ckpt_replies: d
               f"{load_ckpt_s:.2f} s); max |artifact - checkpoint model| {err:.3g} at rows "
               f"{list(ARTIFACT_ROWS)} (limit 1e-5); TF32 ('default') drift: max |d| {drift:.3g}, least "
               f"row cosine {cos:.7f}")
-        print(f"  bench_artifact on {card} (ms per call, host copies included): "
+        print(f"  bench_artifact on {card} (ms per call, host copies included; cold: the bucket's capture "
+              f"included, warm: replays): "
               + "; ".join(f"{rows} rows cold {r['cold_ms']} warm {r['warm_ms']} ({r['rows_per_sec']:.0f} rows/s), "
                           f"checkpoint path warm {ckpt_ms[rows]}" for rows, r in bench.items()))
     print(f"  the fresh process (6 loads, replies, 3 benches) {fresh_s:.1f} s on {card}")
@@ -2391,7 +2552,7 @@ def phase_artifacts(card: str, uni_ckpts: dict, joint_ckpt: str, ckpt_replies: d
         worst = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
         check(worst <= 1e-5, f"artifact server {mode}: a reply {worst} from the checkpoint server's")
         print(f"[14 artifact server] {mode} on {card}: started and warmed (512, 1024) in {start_s:.1f} s (with "
-              f"phase 13's); "
+              f"phase 13's); one CUDA graph captured per bucket of the ladder and none after; "
               f"{n_requests(wf)} requests, max |reply - checkpoint server's| {worst:.3g} (limit 1e-5)")
         print(load_test_line(res, stats, card))
     print(f"  phase 14 {time.perf_counter() - t_phase:.1f} s on {card}, and its exports "
@@ -4214,7 +4375,7 @@ def phase_device_loop(card: str, workdir: str, pool) -> dict:
     patience 1) with --fit-loop device equals the host loop's FitResult bit
     for bit; per epoch each loop's ms/step, and per step the device time,
     kernels and runtime calls of an eager and a replayed step, vae_sums_bwd's
-    device µs inside the graph; then 3 epochs of the same fit with
+    device µs inside the graph; then 2 epochs of the same fit with
     schedule-free, bf16 moments and the "xla" loss backend, each loop equal
     to the other. (c) Both training CLIs with each loop: the unimodal one at
     2 epochs per stage (2 train and 1 val batch per epoch, with
@@ -4222,10 +4383,9 @@ def phase_device_loop(card: str, workdir: str, pool) -> dict:
     stage: the same .ckpt and CSV bytes, log records and prints; the joint
     CLI's device run under torch.profiler, which counts every wrapper's
     launches, the replays' too, equal to its host run's. (d) The joint
-    pipeline at (1, 1, 3) epochs per stage (2 train, 1 val batch) stopped
-    in its supervised fit with the device loop, resumed with the host loop
-    and stopped again, then resumed with the device loop, equals the
-    uninterrupted run. (e) The device fit of (b) in
+    pipeline at (1, 1, 2) epochs per stage (2 train, 1 val batch) stopped
+    in its supervised fit with the device loop and resumed with the host
+    loop equals the uninterrupted run. (e) The device fit of (b) in
     one NCCL rank equals the single process's bit for bit: run in phase
     19a's rank, which saves a rank's start (dp_rank_one). Returns the
     kernels' launches in (c)'s profiled joint device CLI run, which runs
@@ -4297,11 +4457,11 @@ def phase_device_loop(card: str, workdir: str, pool) -> dict:
     # the optimizers and the loss backend the pipelines also run, both loops
     t0 = time.perf_counter()
     for optimizer, state_dtype, loss_backend in VARIANTS_20B:
-        got = {fl: host_fit(uni_resume_fit(pool, optimizer, state_dtype, 3, fit_loop=fl, early_stopping_patience=1,
+        got = {fl: host_fit(uni_resume_fit(pool, optimizer, state_dtype, 2, fit_loop=fl, early_stopping_patience=1,
                                            loss_backend=loss_backend)) for fl in ("host", "device")}
         diff = same_fit(got["device"], got["host"])
         check(not diff, f"20b {optimizer} {state_dtype} {loss_backend}: the loops differ in {diff[:5]}")
-    print(f"[20b variants] the same fit, 3 epochs, with each of {VARIANTS_20B} (optimizer, moment dtype, "
+    print(f"[20b variants] the same fit, 2 epochs, with each of {VARIANTS_20B} (optimizer, moment dtype, "
           f"loss backend): the device loop equals the host loop bit for bit; {time.perf_counter() - t0:.1f} s")
 
     # (c) both training CLIs
@@ -4315,21 +4475,20 @@ def phase_device_loop(card: str, workdir: str, pool) -> dict:
                                          f"{r['host_s']:.2f} s" for (j, e), r in cli.items())
           + f"; {time.perf_counter() - t0:.1f} s")
 
-    # (d) resume across the loops, both ways in one run: stopped with the
-    # device loop after the supervised fit's first epoch, resumed with the
-    # host loop and stopped after its second, resumed with the device loop
+    # (d) resume across the loops: stopped with the device loop after the
+    # supervised fit's first epoch, resumed with the host loop (the CPU
+    # tests resume both ways)
     t0 = time.perf_counter()
-    kw = dict(limits=True, epochs=(1, 1, 3))
+    kw = dict(limits=True, epochs=(1, 1, 2))
     ref = joint_resume_run(workdir, "x20_ref", resume=False, fit_loop="device", **kw)
-    for fit_loop, crash in (("device", 1), ("host", 2), ("device", 0)):
+    for fit_loop, crash in (("device", 1), ("host", 0)):
         resumed = joint_resume_run(workdir, "x20_chain", resume=True, fit_loop=fit_loop, crash=crash, **kw)
     d = joint_run_diff(ref, resumed)
     check(d == {"ckpt": 0.0, "csv": 0.0, "acc": 0.0},
-          f"20d: stopped with the device loop, resumed with the host loop, stopped, resumed with the device "
-          f"loop: differs from the uninterrupted run {d}")
-    print(f"[20d resume] the joint pipeline stopped in its supervised fit with the device loop, resumed with the "
-          f"host loop and stopped again, then resumed with the device loop, equals the uninterrupted run "
-          f"(checkpoints, CSVs, accuracies), {time.perf_counter() - t0:.1f} s")
+          f"20d: stopped with the device loop, resumed with the host loop: differs from the uninterrupted run {d}")
+    print(f"[20d resume] the joint pipeline stopped in its supervised fit with the device loop and resumed with "
+          f"the host loop equals the uninterrupted run (checkpoints, CSVs, accuracies), "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # (e) one NCCL rank: run in phase 19a's rank (dp_rank_one), checked there
     print(f"  phase 20 {time.perf_counter() - t_phase:.1f} s")
@@ -4527,6 +4686,63 @@ def compare(other: str, pairs: int) -> int:
     return 0
 
 
+def whole_run(tree: str, log_path=None, timeout: float = 1300.0) -> dict:
+    """``python3 chip_smoke.py`` of ``tree`` in a fresh process: its exit
+    code, its total seconds and each phase's seconds, read from the arrival
+    times of its printed lines (a line starting ``[N`` opens phase N; each
+    line's time since the line before it is its phase's). Its output goes
+    to ``log_path``."""
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-u", "chip_smoke.py"], cwd=tree, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    phases, last, phase, said = {}, t0, "start", []
+    try:
+        for line in proc.stdout:
+            now = time.perf_counter()
+            said.append(line)
+            m = re.match(r"\[(\d+)", line)
+            if m:
+                phase = m.group(1)
+            phases[phase] = phases.get(phase, 0.0) + now - last
+            last = now
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+    if log_path:
+        pathlib.Path(log_path).write_text("".join(said))
+    total = [float(x) for x in re.findall(r"^\[chip_smoke\] all phases ([0-9.]+) s", "".join(said), re.M)]
+    return {"rc": rc, "wall": round(time.perf_counter() - t0, 1), "total": total[0] if total else None,
+            "phases": {k: round(v, 1) for k, v in phases.items()}, "tail": "".join(said[-30:])}
+
+
+def compare_whole(other: str, pairs: int, log_dir=None) -> int:
+    """The whole script of ``other`` and of this tree, each in a fresh
+    process, ``pairs`` times in turns (other first): each run's exit code,
+    total and per-phase seconds (whole_run), side by side."""
+    trees = {"other": str(pathlib.Path(other).resolve()), "this": str(REPO)}
+    runs = {k: [] for k in trees}
+    for i in range(pairs):
+        for name in (("other", "this") if i % 2 == 0 else ("this", "other")):
+            log = f"{log_dir}/compare_{name}_{i}.log" if log_dir else None
+            r = whole_run(trees[name], log)
+            runs[name].append(r)
+            print(f"[compare {i}] {name} ({trees[name]}): rc {r['rc']}, all phases {r['total']} s, wall "
+                  f"{r['wall']} s; per phase (s) {json.dumps(r['phases'])}", flush=True)
+            if r["rc"] != 0:
+                print(r["tail"])
+    names = sorted({p for rs in runs.values() for r in rs for p in r["phases"]},
+                   key=lambda p: (not p.isdigit(), int(p) if p.isdigit() else 0))
+    for p in names:
+        print(f"[compare] phase {p}: " + "; ".join(
+            f"{name} {[r['phases'].get(p) for r in rs]}" for name, rs in runs.items()))
+    print("[compare] all phases (s): " + "; ".join(f"{name} {[r['total'] for r in rs]}" for name, rs in runs.items()))
+    return 0 if all(r["rc"] == 0 for rs in runs.values() for r in rs) else 1
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--aot-load"]:
         return aot_load(sys.argv[2])
@@ -4541,8 +4757,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--fsdp-nccl"]:
         return fsdp_nccl()
     if sys.argv[1:2] == ["--compare"]:
-        pairs = int(sys.argv[4]) if sys.argv[3:4] == ["--pairs"] else 5
-        return compare(sys.argv[2], pairs)
+        args = sys.argv[3:]
+        pairs = int(args[args.index("--pairs") + 1]) if "--pairs" in args else None
+        if "--whole" in args:
+            log_dir = args[args.index("--log-dir") + 1] if "--log-dir" in args else None
+            return compare_whole(sys.argv[2], pairs or 1, log_dir)
+        return compare(sys.argv[2], pairs or 5)
     try:
         import torch
     except ImportError as e:

@@ -28,9 +28,13 @@ ExportedProgram saved with ``torch.export.save``:
     manifest's ``platforms`` (``cpu`` and/or ``cuda``, the port's
     counterpart of the JAX default ``cpu,tpu``);
   - matmul precision is process state in torch, not part of the graph, so
-    ``load_artifact`` applies the manifest's ``precision`` around each call:
-    ``"highest"`` runs in full float32 (``nn.functional.full_fp32``, the
-    parity contract), ``"default"`` lets cuDNN and cuBLAS use TF32.
+    ``load_artifact`` applies the manifest's ``precision`` around the
+    program: ``"highest"`` runs in full float32 (``nn.functional.full_fp32``,
+    the parity contract), ``"default"`` lets cuDNN and cuBLAS use TF32;
+  - ``load_artifact``'s call pads the rows to the JAX row buckets and runs
+    each bucket as one CUDA graph on the card (``ArtifactCall``,
+    evaluate/eval_graph.py), captured under that precision on the bucket's
+    first call and replayed after.
 
 A JAX artifact (``model.shlo``, which needs JAX to run) and another
 ``format_version`` raise a ``ValueError`` that says why.
@@ -44,10 +48,11 @@ import io
 import json
 import warnings
 import zipfile
-from typing import Callable, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
+from hippie_tpu_torch.evaluate import eval_graph
 from hippie_tpu_torch.evaluate.embeddings import zscore_rows
 from hippie_tpu_torch.models import cvae
 from hippie_tpu_torch.nn.functional import full_fp32
@@ -222,11 +227,12 @@ def save_artifact(path: str, blob: bytes, manifest: dict) -> None:
         zf.writestr("model.pt2", blob)
 
 
-def load_artifact(path: str, device="cuda") -> Tuple[Callable, dict]:
-    """-> (callable, manifest). The callable maps (data, source), or (wave,
-    isi, source) for a joint artifact, numpy arrays or tensors, to the
-    z-scored [N, z] embeddings as a tensor on ``device``, running the
-    exported program there under the manifest's precision."""
+def load_artifact(path: str, device="cuda") -> Tuple["ArtifactCall", dict]:
+    """-> (callable, manifest). The callable (``ArtifactCall``) maps (data,
+    source), or (wave, isi, source) for a joint artifact, numpy arrays or
+    tensors, to the z-scored [N, z] embeddings as a tensor on ``device``,
+    running the exported program there under the manifest's precision, as
+    one CUDA graph per row bucket on the card."""
     with zipfile.ZipFile(path) as zf:
         manifest = json.loads(zf.read("manifest.json").decode())
         fv = manifest.get("format_version")
@@ -257,15 +263,29 @@ def load_artifact(path: str, device="cuda") -> Tuple[Callable, dict]:
         from torch.export.passes import move_to_device_pass
 
         ep = move_to_device_pass(ep, device)
-    module = ep.module()
-    precision = manifest.get("precision", "highest")
+    n_data = 2 if manifest.get("modality") == "multimodal" else 1
+    return ArtifactCall(ep.module(), manifest.get("precision", "highest"), device, n_data), manifest
 
-    def call(*arrays):
-        *data, source = (torch.as_tensor(a).to(device) for a in arrays)
-        with torch.no_grad(), matmul_precision(precision):
-            return module(*(d.float() for d in data), source.long())
 
-    return call, manifest
+class ArtifactCall(eval_graph.BucketedCall):
+    """load_artifact's callable: (data, source), or (wave, isi, source),
+    numpy arrays or tensors, -> the z-scored [N, z] embeddings as a tensor
+    on the device. The rows are padded to ``eval_graph.bucket_rows`` and
+    each bucket is one EvalGraph: on the card a CUDA graph of the exported
+    program, captured under the manifest's precision on the bucket's first
+    call and replayed after (``space`` counts both); off the card the same
+    program eagerly. ``embed`` is the program on device tensors of any row
+    count, eagerly, under the precision: the body of these graphs and of the
+    server's (scripts/serve_embeddings.py)."""
+
+    def __init__(self, module: torch.nn.Module, precision: str, device, n_data: int):
+        self.module, self.precision = module, precision
+        super().__init__(self.embed, (torch.float32,) * n_data + (torch.long,), eval_graph.GraphSpace(device))
+
+    def embed(self, *tensors) -> torch.Tensor:
+        *data, source = tensors
+        with torch.no_grad(), matmul_precision(self.precision):
+            return self.module(*(d.float() for d in data), source.long())
 
 
 def export_from_checkpoint(ckpt_path: str, out_path: str, *,

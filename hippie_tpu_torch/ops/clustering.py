@@ -12,14 +12,31 @@ for draw. Every uniform of the seeding is drawn before it starts and reaches
 the device in one copy; each centre is then picked on the device
 (``searchsorted`` on the cumulative k-means++ weights), so neither the
 seeding nor the iterations wait for the card.
+
+The iterations are the counterparts of the JAX ``fori_loop``s, fixed counts
+in one compiled program each. On the card one Lloyd iteration and one EM
+iteration are each captured as a CUDA graph over buffers that the
+iteration updates in place (the centres; the means, variances and
+weights), and replayed ``iters`` times: a call makes a few dozen launches
+where the loops made about 10 and 15 per iteration. The graphs and their
+buffers are kept per (n, d, k) and device, so repeated calls of one shape
+capture once (evaluate/eval_graph.py GraphSpace: one capture stream and
+memory pool per shape, the first iteration of a shape run eagerly on it
+before the capture); calls of one shape take turns. The k-means++ seeding
+(k - 1 small steps) runs eagerly. Off the card the same iteration functions
+run eagerly, the loops of the JAX programs.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
+import threading
 
 import torch
 
+from hippie_tpu_torch.evaluate.eval_graph import GraphSpace
 from hippie_tpu_torch.evaluate.knn_eval import pairwise_sq_dists
 from hippie_tpu_torch.nn.functional import full_fp32
 
@@ -37,16 +54,17 @@ def _onehot(assign: torch.Tensor, k: int, dtype) -> torch.Tensor:
     return (assign[:, None] == torch.arange(k, device=assign.device)).to(dtype)
 
 
-def _kmeans(x: torch.Tensor, k: int, iters: int, generator: torch.Generator):
+def _seed(x: torch.Tensor, k: int, generator: torch.Generator) -> torch.Tensor:
+    """k-means++: [k, d] centres, each next one drawn with probability
+    proportional to its squared distance from the nearest centre so far.
+    Slots not yet filled are masked out of the minimum (an inf in the
+    product would give NaN)."""
     n, d = x.shape
     first = int(torch.randint(n, (1,), generator=generator))
     u = torch.rand(max(k - 1, 0), generator=generator, dtype=torch.float64).to(x.device)
     centers = torch.zeros(k, d, dtype=x.dtype, device=x.device)
     centers[0] = x[first]
     slots = torch.arange(k, device=x.device)
-    # k-means++: each next centre drawn with probability proportional to its
-    # squared distance from the nearest centre so far. Slots not yet filled
-    # are masked out of the minimum (an inf in the product would give NaN).
     for i in range(1, k):
         dists = pairwise_sq_dists(x, centers)
         mind = torch.where(slots[None, :] < i, dists, math.inf).min(dim=1).values
@@ -55,14 +73,99 @@ def _kmeans(x: torch.Tensor, k: int, iters: int, generator: torch.Generator):
         r = (cum[-1] * (1.0 - u[i - 1])).to(cum.dtype).reshape(1)
         idx = torch.clamp(torch.searchsorted(cum, r), max=n - 1)
         centers[i] = x.index_select(0, idx)[0]
-    for _ in range(iters):  # Lloyd; an empty cluster keeps its centre
-        assign = torch.argmin(pairwise_sq_dists(x, centers), dim=1)
-        onehot = _onehot(assign, k, x.dtype)
-        counts = onehot.sum(dim=0)
-        with full_fp32():
-            sums = onehot.T @ x
-        centers = torch.where(counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1.0),
-                              centers)
+    return centers
+
+
+def _lloyd(x: torch.Tensor, centers: torch.Tensor, k: int):
+    """One Lloyd iteration, ``centers`` updated in place; an empty cluster
+    keeps its centre."""
+    assign = torch.argmin(pairwise_sq_dists(x, centers), dim=1)
+    onehot = _onehot(assign, k, x.dtype)
+    counts = onehot.sum(dim=0)
+    with full_fp32():
+        sums = onehot.T @ x
+    centers.copy_(torch.where(counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1.0), centers))
+
+
+def _em(x: torch.Tensor, means: torch.Tensor, var: torch.Tensor, weights: torch.Tensor):
+    """One EM iteration of the diagonal GMM, ``means``, ``var`` and
+    ``weights`` updated in place (the variances from the new means)."""
+    resp = torch.softmax(_log_prob(x, means, var, weights), dim=1)
+    nk = torch.clamp(resp.sum(dim=0), min=1e-8)
+    with full_fp32():
+        means.copy_((resp.T @ x) / nk[:, None])
+        diff2 = torch.square(x[:, None, :] - means[None, :, :])
+        var.copy_(torch.einsum("nk,nkd->kd", resp, diff2) / nk[:, None] + 1e-6)
+    weights.copy_(nk / x.shape[0])
+
+
+class _Iterations:
+    """The iterations' buffers for ``x`` [n, d] and k clusters: ``x``,
+    ``centers`` [k, d], ``means``, ``var`` [k, d] and ``weights`` [k], and
+    on the card the captured Lloyd and EM iterations over them (module
+    note)."""
+
+    def __init__(self, x: torch.Tensor, k: int):
+        n, d = x.shape
+        dev = x.device
+        self.space = GraphSpace(dev)
+        self.x = torch.empty_like(x) if self.space.on_card else x
+        self.centers, self.means, self.var = (torch.zeros(k, d, dtype=x.dtype, device=dev) for _ in range(3))
+        self.weights = torch.zeros(k, dtype=x.dtype, device=dev)
+        self.graphs: dict = {}
+        self.lock = threading.Lock()
+
+    def repeat(self, name: str, step, iters: int):
+        """``step()`` ``iters`` times. On the card, while ``name`` has no
+        graph, the first runs eagerly on the capture stream (the warm-up,
+        and a real iteration), the second is captured, and every later one
+        a replay of it."""
+        if not self.space.on_card:
+            for _ in range(iters):
+                step()
+            return
+        with self.space.on_stream():
+            for i in range(iters):
+                if name not in self.graphs:
+                    if i == 0:
+                        step()
+                        continue
+                    self.graphs[name], _ = self.space.capture(step)
+                self.graphs[name].replay()
+                self.space.replays += 1
+
+
+_ITERATIONS: "collections.OrderedDict[tuple, _Iterations]" = collections.OrderedDict()
+_ITERATIONS_KEPT = 8
+_ITERATIONS_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _iterations(x: torch.Tensor, k: int):
+    """The ``_Iterations`` of ``x``'s shape and ``k``, its lock held: on
+    the card the cached one of (n, d, k, device), ``x`` copied into its
+    buffer (the last ``_ITERATIONS_KEPT`` shapes are kept, so repeated
+    calls of a shape capture once); off the card a new one over ``x``."""
+    if x.device.type != "cuda":
+        yield _Iterations(x, k)
+        return
+    key = (*x.shape, k, str(x.device))
+    with _ITERATIONS_LOCK:
+        it = _ITERATIONS.pop(key, None) or _Iterations(x, k)
+        _ITERATIONS[key] = it
+        while len(_ITERATIONS) > _ITERATIONS_KEPT:
+            _ITERATIONS.popitem(last=False)
+    with it.lock:
+        it.x.copy_(x)
+        yield it
+
+
+def _kmeans(x: torch.Tensor, k: int, iters: int, generator: torch.Generator):
+    centers = _seed(x, k, generator)
+    with _iterations(x, k) as it:
+        it.centers.copy_(centers)
+        it.repeat("lloyd", lambda: _lloyd(it.x, it.centers, k), iters)
+        centers = it.centers.clone()
     dists = pairwise_sq_dists(x, centers)
     return torch.argmin(dists, dim=1), centers, dists.min(dim=1).values.sum()
 
@@ -85,19 +188,15 @@ def gmm(x, k: int, *, iters: int = 100, seed: int = 0, device=None):
     """Diagonal-covariance GMM by EM, started from 10 k-means iterations of
     the same seed. Returns (assign, means, var, weights, log_likelihood)."""
     x = _points(x, device)
-    n, d = x.shape
+    n = x.shape[0]
     k = int(k)
     assign, means, _ = _kmeans(x, k, 10, torch.Generator().manual_seed(seed))
     counts = torch.clamp(_onehot(assign, k, x.dtype).sum(dim=0), min=1.0)
-    var = torch.ones(k, d, dtype=x.dtype, device=x.device)
-    weights = counts / n
-    for _ in range(int(iters)):
-        resp = torch.softmax(_log_prob(x, means, var, weights), dim=1)
-        nk = torch.clamp(resp.sum(dim=0), min=1e-8)
-        with full_fp32():
-            means = (resp.T @ x) / nk[:, None]
-            diff2 = torch.square(x[:, None, :] - means[None, :, :])
-            var = torch.einsum("nk,nkd->kd", resp, diff2) / nk[:, None] + 1e-6
-        weights = nk / n
+    with _iterations(x, k) as it:
+        it.means.copy_(means)
+        it.var.fill_(1.0)
+        it.weights.copy_(counts / n)
+        it.repeat("em", lambda: _em(it.x, it.means, it.var, it.weights), int(iters))
+        means, var, weights = it.means.clone(), it.var.clone(), it.weights.clone()
     lp = _log_prob(x, means, var, weights)
     return torch.argmax(lp, dim=1), means, var, weights, torch.logsumexp(lp, dim=1).sum()

@@ -9,7 +9,10 @@ hippie/dataloading.py:27-56, 74-101), one vectorized call per dataset:
 Normalize before resample, and the unbiased std (torch ``.std()``), as the
 reference does. The shipped pipelines use ``normalize=False``; both paths are
 kept. ``preprocess_pair_padded`` is the serving counterpart for rows
-zero-padded to fixed width caps.
+zero-padded to fixed width caps, and ``preprocess_pair_exact`` the serving
+path's preprocess_pair for wider rows; both take their coefficients as
+device tensors, so that they run inside the server's CUDA graphs
+(evaluate/eval_graph.py).
 """
 
 from __future__ import annotations
@@ -34,24 +37,33 @@ def _as_f32(x, device) -> torch.Tensor:
 def preprocess_waveforms(wf, *, normalize: bool = False, out_len: int = WAVE_LEN,
                          device="cuda") -> torch.Tensor:
     """[N, W_raw] -> [N, out_len] float32 on ``device`` (dataloading.py:75,81-93)."""
-    wf = _as_f32(wf, device)
-    if normalize:
-        mn = wf.amin(dim=1, keepdim=True)
-        mx = wf.amax(dim=1, keepdim=True)
-        wf = (wf - mn) / (mx - mn)
-        wf = wf * 2.0 - 1.0
-    return resample_linear(wf, out_len)
+    return resample_linear(_waveforms(_as_f32(wf, device), normalize), out_len)
 
 
 def preprocess_isi(isi, *, normalize: bool = False, out_len: int = ISI_LEN,
                    device="cuda") -> torch.Tensor:
     """[N, W_raw] -> [N, out_len] float32 on ``device`` (dataloading.py:77-78,90,95-96)."""
-    isi = torch.log(_as_f32(isi, device) + 1.0)
+    return resample_linear(_isi(_as_f32(isi, device), normalize), out_len)
+
+
+def _waveforms(wf: torch.Tensor, normalize: bool) -> torch.Tensor:
+    """preprocess_waveforms before the resample."""
+    if normalize:
+        mn = wf.amin(dim=1, keepdim=True)
+        mx = wf.amax(dim=1, keepdim=True)
+        wf = (wf - mn) / (mx - mn)
+        wf = wf * 2.0 - 1.0
+    return wf
+
+
+def _isi(isi: torch.Tensor, normalize: bool) -> torch.Tensor:
+    """preprocess_isi before the resample."""
+    isi = torch.log(isi + 1.0)
     if normalize:
         mean = isi.mean(dim=1, keepdim=True)
         var = (isi - mean).square().sum(dim=1, keepdim=True) / (isi.shape[1] - 1)
         isi = (isi - mean) / torch.sqrt(var)
-    return resample_linear(isi, out_len)
+    return isi
 
 
 def preprocess_pair(wf, isi, *, normalize: bool = False, device="cuda"):
@@ -62,6 +74,15 @@ def preprocess_pair(wf, isi, *, normalize: bool = False, device="cuda"):
     )
 
 
+def preprocess_pair_exact(wf: torch.Tensor, isi: torch.Tensor, R_wf: torch.Tensor, R_isi: torch.Tensor, *,
+                          normalize: bool = False):
+    """preprocess_pair of float32 rows on their device with the resample
+    coefficients given (``interp_matrix`` of the rows' widths as tensors
+    there), so that no coefficient is uploaded: the server's exact-width
+    path inside a CUDA graph. Bit for bit preprocess_pair."""
+    return _waveforms(wf, normalize) @ R_wf, _isi(isi, normalize) @ R_isi
+
+
 @functools.lru_cache(maxsize=64)
 def device_interp_matrix(in_len: int, out_len: int, cap: int, device: str) -> torch.Tensor:
     """``padded_interp_matrix`` as a float32 tensor on ``device``, kept there
@@ -69,14 +90,27 @@ def device_interp_matrix(in_len: int, out_len: int, cap: int, device: str) -> to
     return torch.from_numpy(padded_interp_matrix(in_len, out_len, cap).copy()).to(device)
 
 
+def _div(x: torch.Tensor, n) -> torch.Tensor:
+    """``x / n`` rounded as a division by the Python float ``float(n)`` is:
+    torch divides by a Python number on the CPU, and multiplies by its
+    float32 reciprocal on CUDA, so a 0-d tensor ``n`` on CUDA takes the
+    reciprocal too."""
+    if isinstance(n, torch.Tensor) and x.is_cuda:
+        return x * torch.reciprocal(n)
+    return x / n
+
+
 def preprocess_pair_padded(wf: torch.Tensor, isi: torch.Tensor, R_wf: torch.Tensor,
-                           R_isi: torch.Tensor, wf_width: int, isi_width: int, *,
+                           R_isi: torch.Tensor, wf_width, isi_width, *,
                            normalize: bool = False):
     """The width-agnostic preprocess_pair of the server: ``wf`` [N, W_cap]
     and ``isi`` [N, I_cap] are the raw rows zero-padded on the width axis,
     ``R_wf`` / ``R_isi`` the padded coefficient matrices
     (``device_interp_matrix``, zero rows past the true widths) and
-    ``wf_width`` / ``isi_width`` the true widths. The normalisation's
+    ``wf_width`` / ``isi_width`` the true widths: Python ints, or 0-d
+    integer tensors on the rows' device, so that one CUDA graph per row
+    bucket serves every width up to the caps (the JAX program's traced
+    int32 scalars). Both give the same bits. The normalisation's
     min/max and mean/variance (unbiased) are masked to the true widths; the
     zero coefficient rows remove the padded columns from every output, which
     must be finite. Agrees with preprocess_pair on the unpadded rows to
@@ -92,8 +126,9 @@ def preprocess_pair_padded(wf: torch.Tensor, isi: torch.Tensor, R_wf: torch.Tens
     li = torch.log(isi + 1.0)
     if normalize:
         imask = torch.arange(li.shape[1], device=li.device)[None, :] < isi_width
-        n = float(isi_width)
-        mean = torch.where(imask, li, 0.0).sum(dim=1, keepdim=True) / n
-        var = torch.where(imask, (li - mean).square(), 0.0).sum(dim=1, keepdim=True) / (n - 1.0)
+        # widths are small integers, exact in float32
+        n = isi_width.to(torch.float32) if isinstance(isi_width, torch.Tensor) else float(isi_width)
+        mean = _div(torch.where(imask, li, 0.0).sum(dim=1, keepdim=True), n)
+        var = _div(torch.where(imask, (li - mean).square(), 0.0).sum(dim=1, keepdim=True), n - 1.0)
         li = (li - mean) / torch.sqrt(var)
     return wave, li @ R_isi

@@ -6,9 +6,10 @@
 Counterpart of the JAX package's scripts/bench_artifact.py. Loads the
 artifact once (``hippie_tpu_torch.export.load_artifact``), then at each row
 count calls it on numpy rows drawn with a seed, the host copies both ways
-included: the first call (``cold_ms``, the first call of that shape) and the
-mean of ``--iters`` calls after it (``warm_ms``), each ended by the reply's
-copy to the host. Prints the card's name and power limit (``nvidia-smi``) on
+included: the first call (``cold_ms``, the first call of that row bucket,
+which on the card captures the bucket's CUDA graph, as the JAX call
+compiles it) and the mean of ``--iters`` calls after it (``warm_ms``,
+replays of the graph), each ended by the reply's copy to the host. Prints the card's name and power limit (``nvidia-smi``) on
 the device ``cuda``, then one JSON line per row count:
 
   {"device": ..., "rows": N, "cold_ms": ..., "warm_ms": ..., "rows_per_sec": ...,

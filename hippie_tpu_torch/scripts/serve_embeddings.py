@@ -31,14 +31,29 @@ widths and ``normalize`` are coalesced into one device call and the results
 split per request. Rows are padded to the JAX server's row buckets (powers
 of two from 512; ``_bucket_rows``), so a warmed bucket is the bucket a live
 request pads to and a burst is cut into groups no larger than the largest
-warm bucket. Eager torch compiles nothing, but the rule bounds the shapes
-the card sees and keeps ``/stats`` meaning what it means there. Raw widths
-up to ``--max-wave-width`` / ``--max-isi-width`` go through one
-width-agnostic preprocessing (rows zero-padded to the caps, the resample
-coefficients a device tensor per width; ops/preprocess.py).
+warm bucket. Raw widths up to ``--max-wave-width`` / ``--max-isi-width`` go
+through one width-agnostic preprocessing (rows zero-padded to the caps, the
+resample coefficients and the true widths device buffers;
+ops/preprocess.py).
 
-An artifact is called on the same padded row buckets as a checkpoint
-(``_bucketed_artifact_call``). A JAX StableHLO artifact (``model.shlo``)
+Each group runs as one CUDA graph, the counterpart of the JAX server's one
+compiled program per row bucket (evaluate/eval_graph.py EmbeddingGraph):
+the preprocessing, the model forward(s) in eval mode in full float32, the
+z-scoring and, in dual mode, both models and the concatenation, captured
+once per key (row bucket, ``normalize``, padded to the caps or, for wider
+rows, the raw widths) and replayed for every later group of that key. A
+group's rows go into pinned staging buffers, one copy per input into the
+key's buffers, one replay, one copy of the embeddings back. The
+``--warmup-buckets`` ladder captures its buckets at start, as the JAX
+ladder compiles them; a request whose key has no graph yet captures one on
+the dispatch worker, as the JAX server compiles a new bucket. Captures
+happen on that thread only and are printed; ``graph_captures`` and
+``graph_replays`` count them (``/stats`` keeps the JAX server's keys). Off
+the card the same programs run eagerly (the CPU tests).
+
+An artifact's program (``ArtifactCall.embed``) runs on the same padded row
+buckets as a checkpoint's models, inside the same graphs, under its
+manifest's precision. A JAX StableHLO artifact (``model.shlo``)
 raises: it needs JAX. ``--aot-dir`` takes the JAX flag's default and
 meaning (``''``: none) and only sets where the port's CUDA kernel libraries
 would be found (ops/_build.py): the server's eval path launches no
@@ -104,14 +119,14 @@ def build_parser():
     return parser
 
 
-def _bucket_rows(n: int, minimum: int = 512) -> int:
-    """THE row-bucket rule (the JAX evaluate/embeddings._bucket): the next
-    power of two >= n, at least 512. Shared by the live path (_run_group),
-    the coalescer's cap (_chunk_to_warm_buckets) and warmup()."""
-    b = minimum
-    while b < n:
-        b *= 2
-    return b
+def _bucket_rows(n: int) -> int:
+    """THE row-bucket rule (eval_graph.bucket_rows, the JAX
+    evaluate/embeddings._bucket): the next power of two >= n, at least 512.
+    Shared by the live path (_run_group), the coalescer's cap
+    (_chunk_to_warm_buckets) and warmup()."""
+    from hippie_tpu_torch.evaluate import eval_graph
+
+    return eval_graph.bucket_rows(n)
 
 
 class _Item:
@@ -141,9 +156,10 @@ class EmbeddingService:
     def __init__(self, wave_ckpt=None, time_ckpt=None, *, z_dim: int, num_sources: int = 5,
                  num_classes: int = 5, wave_artifact=None, time_artifact=None, joint_ckpt=None,
                  joint_artifact=None, max_wave_width: int = 256, max_isi_width: int = 512,
-                 device: str = "cuda"):
+                 device: str = "cuda", log=None):
         from hippie_tpu_torch import export
         from hippie_tpu_torch.evaluate import embeddings as emb
+        from hippie_tpu_torch.evaluate import eval_graph
         from hippie_tpu_torch.models import cvae
 
         self._lock = threading.Lock()
@@ -157,6 +173,11 @@ class EmbeddingService:
         self.coalesced_requests = 0  # served as part of a multi-request batch
         self.device_dispatches = 0
         self._latencies = collections.deque(maxlen=8192)
+        # one EmbeddingGraph per key, all in one space (module docstring);
+        # ``log`` reports each capture
+        self._graphs: dict = {}
+        self._space = eval_graph.GraphSpace(device)
+        self._log = log
 
         if (joint_ckpt or joint_artifact) and (wave_ckpt or time_ckpt or wave_artifact or time_artifact):
             raise ValueError("--joint-* is exclusive with the wave/time model flags")
@@ -171,7 +192,7 @@ class EmbeddingService:
                                  f"(modality={manifest.get('modality')!r})")
             self.z_dim = int(manifest.get("z_dim", self.z_dim))
             self.num_sources = int(manifest.get("num_sources", num_sources))
-            self._embed_fns["joint"] = self._bucketed_artifact_call(call)
+            self._embed_fns["joint"] = call.embed
         elif self.mode == "joint":
             model, cfg = export.load_model_from_ckpt(joint_ckpt, multimodal=True, device=device)
             self.z_dim, self.num_sources = cfg.z_dim, cfg.num_sources
@@ -195,7 +216,7 @@ class EmbeddingService:
                             f"{name} slot feeds resampled length {want_len}: wrong modality's artifact?")
                     self.z_dim = int(manifest.get("z_dim", self.z_dim))
                     self.num_sources = int(manifest.get("num_sources", num_sources))
-                    self._embed_fns[name] = self._bucketed_artifact_call(call)
+                    self._embed_fns[name] = call.embed
                     continue
                 if ckpt is None:
                     raise ValueError(f"provide --{name}-checkpoint or --{name}-artifact")
@@ -217,22 +238,15 @@ class EmbeddingService:
 
     _bucket_rows = staticmethod(_bucket_rows)
 
-    @classmethod
-    def _bucketed_artifact_call(cls, call):
-        """An artifact's call on ``_bucket_rows`` rows: the inputs padded
-        with zero rows, the reply cut back. Eval mode, so a padded row cannot
-        move a real one. ``_run_group`` already hands it bucketed rows; a
-        direct caller's rows go through the same rule."""
-        import torch
+    @property
+    def graph_captures(self) -> int:
+        """The keys' programs captured (off the card: first run)."""
+        return self._space.captures
 
-        def run(*arrays):
-            n = arrays[0].shape[0]
-            b = cls._bucket_rows(n)
-            padded = [torch.cat([a, a.new_zeros((b - n,) + tuple(a.shape[1:]))]) if b > n else a
-                      for a in arrays]
-            return call(*padded)[:n]
-
-        return run
+    @property
+    def graph_replays(self) -> int:
+        """The groups run through a key's program (one per dispatch)."""
+        return self._space.replays
 
     # ------------------------------------------------------------------
     # Dispatch worker
@@ -280,55 +294,71 @@ class EmbeddingService:
             chunks.append(cur)
         return chunks
 
-    def _run_group(self, items):
-        """ONE device call for a group of row-concatenable requests: one
-        upload of the padded rows, the preprocessing and the model(s), one
-        download of the embeddings."""
+    def _embed(self, wave, isi, src):
+        """The model part of every key's program: [rows, z] joint, or the
+        two unimodal embeddings side by side [rows, 2z]."""
         import torch
 
-        from hippie_tpu_torch.ops import preprocess
+        if self.mode == "joint":
+            return self._embed_fns["joint"](wave, isi, src)
+        return torch.cat([self._embed_fns["wave"](wave, src), self._embed_fns["time"](isi, src)], dim=1)
 
+    def _graph(self, key):
+        from hippie_tpu_torch.evaluate import eval_graph
+
+        b, normalize, widths = key
+        padded = widths is None
+        w_cols, i_cols = (self.max_wave_width, self.max_isi_width) if padded else widths
+        return eval_graph.EmbeddingGraph(self._embed, b, w_cols, i_cols, normalize=normalize,
+                                         padded=padded, space=self._space)
+
+    def _run_group(self, items, eager: bool = False):
+        """ONE device call for a group of row-concatenable requests: the
+        padded rows staged and copied in, one run of the key's program (a
+        replay on the card; the first of a key captures it), one copy of the
+        embeddings back. ``eager``: the same program without its graph, for
+        the checks that hold a replay to it (no count moves)."""
         counts = [len(it.wf) for it in items]
         b = self._bucket_rows(sum(counts))
         w_raw, i_raw = items[0].wf.shape[1], items[0].isi.shape[1]
         padded = 0 < w_raw <= self.max_wave_width and 0 < i_raw <= self.max_isi_width
-        w_cols = self.max_wave_width if padded else w_raw
-        i_cols = self.max_isi_width if padded else i_raw
-        wf_p = np.zeros((b, w_cols), np.float32)
-        isi_p = np.zeros((b, i_cols), np.float32)
-        src_p = np.zeros((b,), np.int64)
+        key = (b, bool(items[0].normalize), None if padded else (w_raw, i_raw))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._graph(key)
+        wf_p, isi_p, src_p = g.host(0), g.host(1), g.host(2)
+        wf_p[...] = 0.0
+        isi_p[...] = 0.0
+        src_p[...] = 0
         off = 0
         for it, c in zip(items, counts):
             wf_p[off:off + c, :w_raw] = it.wf
             isi_p[off:off + c, :i_raw] = it.isi
             src_p[off:off + c] = int(it.source)
             off += c
-        normalize = items[0].normalize
-        dev = self.device
-        wf_t, isi_t, src = (torch.from_numpy(a).to(dev) for a in (wf_p, isi_p, src_p))
-        if padded:
-            wave, isi = preprocess.preprocess_pair_padded(
-                wf_t, isi_t, preprocess.device_interp_matrix(w_raw, preprocess.WAVE_LEN, w_cols, dev),
-                preprocess.device_interp_matrix(i_raw, preprocess.ISI_LEN, i_cols, dev),
-                w_raw, i_raw, normalize=normalize)
-        else:
-            wave, isi = preprocess.preprocess_pair(wf_t, isi_t, normalize=normalize, device=dev)
+        g.set_widths(w_raw, i_raw)
+        g.upload()
+        first, t0 = g.runs == 0, time.perf_counter()
+        out = g.eager() if eager else g()
+        if first and not eager and self._log is not None:
+            shape = "padded to the width caps" if padded else f"raw widths {w_raw}/{i_raw}"
+            self._log(f"captured the program of bucket {b} rows ({shape}, normalize={key[1]}) in "
+                      f"{time.perf_counter() - t0:.2f} s; {self.graph_captures} captured")
+        both = g.fetch(out, off)
         if self.mode == "joint":
-            j = self._embed_fns["joint"](wave, isi, src).cpu().numpy()
             w_all = i_all = None
+            j = both
         else:
-            # both models dispatched before one download of both results
-            both = torch.cat([self._embed_fns["wave"](wave, src),
-                              self._embed_fns["time"](isi, src)], dim=1).cpu().numpy()
             z = both.shape[1] // 2
             w_all, i_all, j = both[:, :z], both[:, z:], both
         off = 0
         now = time.perf_counter()
         with self._lock:
-            self.device_dispatches += 1
-            self._max_bucket = max(self._max_bucket, b)
-            if len(items) > 1:
-                self.coalesced_requests += len(items)
+            if not eager:
+                self.device_dispatches += 1
+                self._max_bucket = max(self._max_bucket, b)
+                if len(items) > 1:
+                    self.coalesced_requests += len(items)
         for it, c in zip(items, counts):
             sl = slice(off, off + c)
             it.out = (None if w_all is None else w_all[sl], None if i_all is None else i_all[sl],
@@ -464,7 +494,7 @@ def main(argv=None):
         num_classes=args.num_classes, wave_artifact=args.wave_artifact,
         time_artifact=args.time_artifact, joint_ckpt=args.joint_checkpoint,
         joint_artifact=args.joint_artifact, max_wave_width=args.max_wave_width,
-        max_isi_width=args.max_isi_width, device=args.device)
+        max_isi_width=args.max_isi_width, device=args.device, log=lambda msg: print(msg, flush=True))
     ladder = ([int(x) for x in args.warmup_buckets.split(",") if x.strip()]
               if args.warmup_buckets else [])
     if args.warmup_rows is not None:  # legacy flag: 0 disables everything, >0 adds its bucket

@@ -212,13 +212,18 @@ def test_server_refuses_the_wrong_artifact(models, kw, match):
 
 
 def test_bucketed_artifact_call_pads_and_cuts():
+    """An artifact's call (export.ArtifactCall, an eval_graph.BucketedCall)
+    runs its program on the rows padded to the bucket and cuts the reply
+    back."""
+    from hippie_tpu_torch.evaluate import eval_graph
+
     seen = []
 
     def call(*arrays):
         seen.append(tuple(a.shape for a in arrays))
         return arrays[0][:, :2] * 2
 
-    run = tse.EmbeddingService._bucketed_artifact_call(call)
+    run = eval_graph.BucketedCall(call, (torch.float32, torch.long), eval_graph.GraphSpace("cpu"))
     x = torch.arange(10.0).reshape(5, 2)
     out = run(x, torch.zeros(5, dtype=torch.long))
     assert seen == [((512, 2), (512,))]

@@ -99,7 +99,11 @@ def test_run_returns_the_json_line_on_the_cpu(capsys):
     numbers = [v for k, v in line.items() if k not in ("metric", "unit", "block_backend", "loss_backend", "device")]
     assert all(isinstance(v, (int, float)) and math.isfinite(v) for v in numbers), line
     assert line["value"] > 0 and line["ms_per_batch"] > 0 and line["device_busy_ms_per_batch"] > 0
-    assert line["vs_baseline"] == round(line["value"] / bench.BASELINE_WAVEFORMS_PER_SEC, 2)
+    # vs_baseline is rounded from the unrounded rate (scripts/bench.py, as the
+    # JAX bench.py), value to 0.1: the two roundings allow half a step of
+    # 0.01 plus 0.05 / BASELINE_WAVEFORMS_PER_SEC between them
+    slack = 0.005 + 0.05 / bench.BASELINE_WAVEFORMS_PER_SEC
+    assert abs(line["vs_baseline"] - line["value"] / bench.BASELINE_WAVEFORMS_PER_SEC) <= slack + 1e-9
     assert "timed epochs of 5 batches" in capsys.readouterr().err
 
 

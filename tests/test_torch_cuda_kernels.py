@@ -16,7 +16,10 @@ CUDA launches per call; the loss kernels' forwards are one CUDA launch each
 and repeat bit for bit across two streams. A stage fit cut and resumed on
 the card equals the uninterrupted one, and one step of each of the "fused"
 and "bf16" block backends runs on the card without a block kernel, and the
-replica-plan device fit of the full-width cVAE equals the host fit.
+replica-plan device fit of the full-width cVAE equals the host fit. The
+server's, the artifact's and the clustering iterations' CUDA graphs replay
+equal to the same programs run eagerly on the card, bit for bit, and a
+capture that fails raises.
 Tolerances of the VAE-loss and
 masked-SSE kernels: values rtol 4e-6 (two
 summation orders of up to 51,200 nonnegative float32 terms, each within about
@@ -1453,3 +1456,165 @@ def test_device_fit_refuses_gloo_on_cuda(cuda_device, tmp_path):
             _small_fit("device", max_epochs=1)
     finally:
         dist.destroy_process_group()
+
+
+def _small_ckpts(tmp_path) -> dict:
+    """Unimodal wave and time and joint checkpoints of the small models."""
+    from hippie_tpu_torch.models import cvae
+    from hippie_tpu_torch.train import checkpoint as ckpt_mod
+
+    out = {}
+    for name, make, cfg in (("wave", cvae.unimodal_cvae_init, cvae.CVAEConfig(z_dim=4, num_blocks=(1, 1, 1, 1))),
+                            ("time", cvae.unimodal_cvae_init,
+                             cvae.CVAEConfig(z_dim=4, output_size=100, num_blocks=(1, 1, 1, 1))),
+                            ("joint", cvae.multimodal_cvae_init,
+                             cvae.MultiModalConfig(z_dim=4, num_blocks=(1, 1, 1, 1)))):
+        out[name] = str(tmp_path / f"{name}.ckpt")
+        ckpt_mod.save_lightning_ckpt(out[name], make(cfg, torch.Generator().manual_seed(len(out)),
+                                                     device="cpu").state_dict())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [False, True])
+def test_tensor_widths_equal_int_widths_on_the_card(cuda_device, normalize):
+    """preprocess_pair_padded with the widths as 0-d device tensors (what a
+    server graph reads) gives the Python-int call's bits on the card too
+    (the division by the ISI width rounds as a division by a Python float,
+    a multiplication by its float32 reciprocal there)."""
+    from hippie_tpu_torch.ops import preprocess
+
+    r = np.random.default_rng(3)
+    for w, i in ((41, 91), (120, 333), (256, 512)):
+        wf = torch.zeros(64, 256, device=cuda_device)
+        isi = torch.zeros(64, 512, device=cuda_device)
+        wf[:, :w] = torch.from_numpy(r.normal(size=(64, w)).astype(np.float32)).to(cuda_device)
+        isi[:, :i] = torch.from_numpy(np.abs(r.normal(size=(64, i))).astype(np.float32)).to(cuda_device)
+        mats = (preprocess.device_interp_matrix(w, 50, 256, "cuda"), preprocess.device_interp_matrix(i, 100, 512, "cuda"))
+        widths = torch.tensor([w, i], device=cuda_device)
+        got = preprocess.preprocess_pair_padded(wf, isi, *mats, widths[0], widths[1], normalize=normalize)
+        want = preprocess.preprocess_pair_padded(wf, isi, *mats, w, i, normalize=normalize)
+        for g, e in zip(got, want):
+            assert torch.equal(g, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dual", "joint"])
+def test_server_replays_equal_the_eager_program(cuda_device, tmp_path, mode):
+    """The server on the card: the ladder (512) captures one graph; requests
+    of two widths under the caps and a coalesced group replay it; a request
+    wider than the caps and one with normalize capture a key each; every
+    reply equals _run_group's eager program on the same rows bit for bit,
+    and the model called directly within 1e-5; a coalesced group's replies
+    the lone requests' within 1e-6."""
+    from hippie_tpu_torch import export
+    from hippie_tpu_torch.evaluate import embeddings as emb
+    from hippie_tpu_torch.ops import preprocess
+    from hippie_tpu_torch.scripts import serve_embeddings as se
+
+    ckpts = _small_ckpts(tmp_path)
+    kw = ({"joint_ckpt": ckpts["joint"]} if mode == "joint" else
+          {"wave_ckpt": ckpts["wave"], "time_ckpt": ckpts["time"]})
+    service = se.EmbeddingService(z_dim=4, device="cuda", **kw)
+    service.warmup([512])
+    assert (service.graph_captures, service.graph_replays) == (1, 1)
+    r = np.random.default_rng(4)
+    requests = [(r.normal(size=(n, w)).astype(np.float32), np.abs(r.normal(size=(n, i))).astype(np.float32), s, norm)
+                for n, w, i, s, norm in ((64, 41, 91, 0, False), (300, 46, 100, 2, False), (5, 300, 91, 1, False),
+                                         (7, 41, 91, 3, True))]
+    for wf, isi, s, norm in requests:
+        _, _, j, _ = service.embed(wf, isi, s, norm)
+        item = se._Item(wf, isi, s, norm)
+        service._run_group([item], eager=True)
+        np.testing.assert_array_equal(j, item.out[2])
+        wave, isi_p = preprocess.preprocess_pair(wf, isi, normalize=norm, device="cuda")
+        src = torch.full((len(wf),), s, dtype=torch.long, device="cuda")
+        if mode == "joint":
+            m, _ = export.load_model_from_ckpt(ckpts["joint"], device="cuda")
+            want = emb.embed_multimodal(m, wave, isi_p, src)
+        else:
+            mw, _ = export.load_model_from_ckpt(ckpts["wave"], device="cuda")
+            mt, _ = export.load_model_from_ckpt(ckpts["time"], device="cuda")
+            want = torch.cat([emb.embed_unimodal(mw, wave, src), emb.embed_unimodal(mt, isi_p, src)], dim=1)
+        np.testing.assert_allclose(j, want.cpu().numpy(), rtol=0, atol=1e-5)
+    items = [se._Item(wf[:5], isi[:5], s, False) for wf, isi, s, _ in (requests[0], requests[0])]
+    service._run_group(items)
+    for it in items:
+        _, _, j, _ = service.embed(it.wf, it.isi, it.source, False)
+        np.testing.assert_allclose(it.out[2], j, rtol=0, atol=1e-6)
+    assert (service.graph_captures, service.graph_replays) == (3, 8)
+
+
+@pytest.mark.cuda
+def test_artifact_buckets_replay_equal_the_eager_program(cuda_device, tmp_path):
+    """load_artifact's call on the card: 1 and 415 rows share the 512-row
+    graph, 600 rows capture the 1,024-row one; every reply equals the
+    call's eager twin bit for bit."""
+    from hippie_tpu_torch import export
+
+    art = str(tmp_path / "joint.hippie")
+    export.export_from_checkpoint(_small_ckpts(tmp_path)["joint"], art, device="cuda")
+    call, _ = export.load_artifact(art, device="cuda")
+    r = np.random.default_rng(5)
+    for n in (1, 415, 600, 415):
+        arrays = (r.normal(size=(n, 50)).astype(np.float32), r.normal(size=(n, 100)).astype(np.float32),
+                  r.integers(0, 5, size=n))
+        got = call(*arrays)
+        assert got.device.type == "cuda" and got.shape == (n, 4)
+        assert torch.equal(got, call.eager(*arrays))
+    assert (call.space.captures, call.space.replays) == (2, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["kmeans", "gmm"])
+def test_clustering_replays_equal_the_eager_loop(cuda_device, method):
+    """k-means and the GMM on the card, their iterations replayed, equal
+    the same iteration functions looped eagerly on the card bit for bit; a
+    second call of the shape captures nothing and repeats the bits."""
+    import math
+
+    from hippie_tpu_torch.evaluate.knn_eval import pairwise_sq_dists
+    from hippie_tpu_torch.ops import clustering
+
+    x = torch.from_numpy(_blobs(4, 20, 2000, 7)).to(cuda_device)
+    k, seed = 4, 5
+    clustering._ITERATIONS.pop((2000, 20, k, str(x.device)), None)  # captures counted from none
+    got = getattr(clustering, method)(x, k, seed=seed)
+    centers = clustering._seed(x, k, torch.Generator().manual_seed(seed))
+    for _ in range(50 if method == "kmeans" else 10):
+        clustering._lloyd(x, centers, k)
+    if method == "kmeans":
+        dists = pairwise_sq_dists(x, centers)
+        want = (torch.argmin(dists, dim=1), centers, dists.min(dim=1).values.sum())
+    else:
+        assign = torch.argmin(pairwise_sq_dists(x, centers), dim=1)
+        counts = torch.clamp(clustering._onehot(assign, k, x.dtype).sum(dim=0), min=1.0)
+        means, var, weights = centers, torch.ones_like(centers), counts / x.shape[0]
+        for _ in range(100):
+            clustering._em(x, means, var, weights)
+        lp = clustering._log_prob(x, means, var, weights)
+        want = (torch.argmax(lp, dim=1), means, var, weights, torch.logsumexp(lp, dim=1).sum())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    it = clustering._ITERATIONS[(2000, 20, k, str(x.device))]
+    captures = it.space.captures
+    assert captures == (1 if method == "kmeans" else 2)
+    again = getattr(clustering, method)(x, k, seed=seed)
+    assert it.space.captures == captures and all(torch.equal(a, b) for a, b in zip(again, got))
+    assert not math.isnan(float(got[-1]))
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda_device):
+    """An EvalGraph whose function cannot be captured (it waits for the
+    card) raises on every call: no eager fall back."""
+    from hippie_tpu_torch.evaluate import eval_graph
+
+    space = eval_graph.GraphSpace(cuda_device)
+    x = torch.ones(8, device=cuda_device)
+    g = eval_graph.EvalGraph(lambda t: t * float(t.sum()), [x], space)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            g()
+        assert g.graph is None and g.runs == 0 and space.replays == 0
+    torch.cuda.synchronize()

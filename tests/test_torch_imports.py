@@ -24,11 +24,11 @@ def test_the_scripts_are_covered():
 
 
 def test_the_resume_and_cli_modules_are_covered():
-    """The console entry point, the resume format and the wandb shim are
-    among FILES, by name."""
+    """The console entry point, the resume format, the wandb shim and the
+    eval graphs are among FILES, by name."""
     names = {str(p.relative_to(PKG)) for p in FILES if PKG in p.parents}
     assert {"cli.py", "train/resume.py", "utils/wandb_shim.py", "scripts/sweep_targets.py",
-            "scripts/profile_train_step.py"} <= names
+            "scripts/profile_train_step.py", "evaluate/eval_graph.py"} <= names
 
 
 def _module_names():
