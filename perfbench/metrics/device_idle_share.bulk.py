@@ -1,0 +1,4 @@
+"""device_idle_share.bulk: % of the traced sub-window (host clock)
+in which no kernel or copy ran on the card."""
+
+from perfbench.harness.readers import idle_share as read  # noqa: F401
