@@ -18,7 +18,9 @@ takes its checkpoint or its artifact, and the dual slots may mix them.
 stdlib HTTP:
 
   GET  /healthz  -> {"status": "ok", "z_dim", "mode", "num_sources"}
-  GET  /stats    -> request counters and latency aggregates (p50/p99)
+  GET  /stats    -> request counters, latency and queue-wait aggregates
+                    (p50/p99), the rows dispatched and the row buckets they
+                    padded to (``pad_share``: 1 - rows / bucket rows)
   POST /embed    -> body {"waveforms": [[...]], "isi_dists": [[...]],
                           "source": int (optional, default 0),
                           "normalize": bool (optional, default false)}
@@ -51,6 +53,19 @@ happen on that thread only and are printed; ``graph_captures`` and
 ``graph_replays`` count them (``/stats`` keeps the JAX server's keys). Off
 the card the same programs run eagerly (the CPU tests).
 
+With a ``utils.profiling.Spans`` recorder in the ``spans`` attribute (set
+while no request is in flight; ``None``, the default, records nothing) the
+dispatch worker records the engine's phases on ``time.perf_counter_ns()``.
+Its time is tiled by ``engine.idle`` (blocked on the empty queue) and the
+phases of each dispatch: ``engine.gather`` (taking what is queued and
+grouping it, in a take's first dispatch; chunking the group), ``engine.stage``
+(zero-filling the pinned staging buffers, copying the rows in, the widths),
+``engine.upload``, ``engine.run`` (a replay) or ``engine.capture`` (the
+key's first run), ``engine.fetch`` (the copy back, waited for) and
+``engine.reply`` (the split and the waiters woken), each the child of its
+``engine.dispatch`` span. Each request's ``engine.queue`` (enqueued to taken
+by the worker) is the child of the dispatch whose gather took it.
+
 An artifact's program (``ArtifactCall.embed``) runs on the same padded row
 buckets as a checkpoint's models, inside the same graphs, under its
 manifest's precision. A JAX StableHLO artifact (``model.shlo``)
@@ -74,6 +89,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from hippie_tpu_torch.ops import _build
+from hippie_tpu_torch.utils.profiling import Phases
 
 
 def build_parser():
@@ -130,7 +146,7 @@ def _bucket_rows(n: int) -> int:
 
 
 class _Item:
-    __slots__ = ("wf", "isi", "source", "normalize", "event", "out", "err", "t0")
+    __slots__ = ("wf", "isi", "source", "normalize", "event", "out", "err", "t0", "taken")
 
     def __init__(self, wf, isi, source, normalize):
         self.wf = wf
@@ -140,7 +156,8 @@ class _Item:
         self.event = threading.Event()
         self.out = None
         self.err = None
-        self.t0 = time.perf_counter()
+        self.t0 = time.perf_counter_ns()  # enqueued
+        self.taken = None  # perf_counter_ns() when the dispatch worker took it off the queue
 
     def key(self):
         # requests are row-concatenable iff widths and the (group-applied)
@@ -172,7 +189,12 @@ class EmbeddingService:
         self.total_latency = 0.0
         self.coalesced_requests = 0  # served as part of a multi-request batch
         self.device_dispatches = 0
+        self.dispatched_rows = 0  # real rows of the device calls
+        self.bucket_rows = 0  # the row buckets they padded to
         self._latencies = collections.deque(maxlen=8192)
+        self._queue_waits = collections.deque(maxlen=8192)
+        # a utils.profiling.Spans recorder, or None (module docstring)
+        self.spans = None
         # one EmbeddingGraph per key, all in one space (module docstring);
         # ``log`` reports each capture
         self._graphs: dict = {}
@@ -253,27 +275,50 @@ class EmbeddingService:
     # ------------------------------------------------------------------
 
     def _drain(self):
+        t_end = None  # where the last traced dispatch ended
         while True:
+            spans = self.spans
+            t_wait = (t_end or time.perf_counter_ns()) if spans is not None else 0
             first = self._queue.get()
+            first.taken = t = time.perf_counter_ns()
+            if spans is not None:
+                spans.add("engine.idle", t_wait, t)
+            spans = self.spans  # a recorder set while the queue was empty traces from here
             batch = [first]
             while True:  # coalesce whatever arrived while we were busy
                 try:
-                    batch.append(self._queue.get_nowait())
+                    item = self._queue.get_nowait()
                 except queue.Empty:
                     break
+                item.taken = time.perf_counter_ns()
+                batch.append(item)
             groups: dict = {}
             for item in batch:
                 groups.setdefault(item.key(), []).append(item)
+            phases = None
+            if spans is not None:
+                phases = Phases(spans, t, spans.new_id())
+                for item in batch:
+                    spans.add("engine.queue", item.t0, item.taken, parent=phases.parent)
             for items in groups.values():
+                # chunked after the groups before it ran: a run may raise the cap
                 for chunk in self._chunk_to_warm_buckets(items):
+                    if phases is not None:
+                        phases.lap("engine.gather")
                     try:
-                        self._run_group(chunk)
+                        self._run_group(chunk, phases=phases)
                     except BaseException as e:  # reported to every waiter not yet served
                         for it in chunk:
                             # only this thread sets events: a set one was served
                             if not it.event.is_set():
                                 it.err = e
                                 it.event.set()
+                        if phases is not None:
+                            phases.lap("engine.reply")
+                    if phases is not None:  # the dispatch: from the end of the last (or the take) to its reply
+                        spans.add("engine.dispatch", t, phases.t, id=phases.parent)
+                        t, phases.parent = phases.t, spans.new_id()
+            t_end = None if phases is None else phases.t
 
     def _chunk_to_warm_buckets(self, items):
         """Split a coalesced group so each chunk pads to a bucket no larger
@@ -312,12 +357,14 @@ class EmbeddingService:
         return eval_graph.EmbeddingGraph(self._embed, b, w_cols, i_cols, normalize=normalize,
                                          padded=padded, space=self._space)
 
-    def _run_group(self, items, eager: bool = False):
+    def _run_group(self, items, eager: bool = False, phases=None):
         """ONE device call for a group of row-concatenable requests: the
         padded rows staged and copied in, one run of the key's program (a
         replay on the card; the first of a key captures it), one copy of the
         embeddings back. ``eager``: the same program without its graph, for
-        the checks that hold a replay to it (no count moves)."""
+        the checks that hold a replay to it (no count moves). ``phases``:
+        the dispatch worker's ``Phases`` when it is traced (module
+        docstring)."""
         counts = [len(it.wf) for it in items]
         b = self._bucket_rows(sum(counts))
         w_raw, i_raw = items[0].wf.shape[1], items[0].isi.shape[1]
@@ -337,34 +384,46 @@ class EmbeddingService:
             src_p[off:off + c] = int(it.source)
             off += c
         g.set_widths(w_raw, i_raw)
+        if phases is not None:
+            phases.lap("engine.stage")
         g.upload()
-        first, t0 = g.runs == 0, time.perf_counter()
+        capture = g.runs == 0 and not eager
+        t0 = phases.lap("engine.upload") if phases is not None else time.perf_counter_ns()
         out = g.eager() if eager else g()
-        if first and not eager and self._log is not None:
+        t1 = (phases.lap("engine.capture" if capture else "engine.run") if phases is not None
+              else time.perf_counter_ns())
+        if capture and self._log is not None:
             shape = "padded to the width caps" if padded else f"raw widths {w_raw}/{i_raw}"
             self._log(f"captured the program of bucket {b} rows ({shape}, normalize={key[1]}) in "
-                      f"{time.perf_counter() - t0:.2f} s; {self.graph_captures} captured")
+                      f"{(t1 - t0) / 1e9:.2f} s; {self.graph_captures} captured")
         both = g.fetch(out, off)
+        if phases is not None:
+            phases.lap("engine.fetch")
         if self.mode == "joint":
             w_all = i_all = None
             j = both
         else:
             z = both.shape[1] // 2
             w_all, i_all, j = both[:, :z], both[:, z:], both
-        off = 0
-        now = time.perf_counter()
+        now = time.perf_counter_ns()
         with self._lock:
             if not eager:
                 self.device_dispatches += 1
+                self.dispatched_rows += off
+                self.bucket_rows += b
                 self._max_bucket = max(self._max_bucket, b)
                 if len(items) > 1:
                     self.coalesced_requests += len(items)
+                self._queue_waits.extend((it.taken - it.t0) / 1e9 for it in items if it.taken is not None)
+        off = 0
         for it, c in zip(items, counts):
             sl = slice(off, off + c)
             it.out = (None if w_all is None else w_all[sl], None if i_all is None else i_all[sl],
-                      j[sl], now - it.t0)
+                      j[sl], (now - it.t0) / 1e9)
             off += c
             it.event.set()
+        if phases is not None:
+            phases.lap("engine.reply")
 
     # ------------------------------------------------------------------
     # Public API
@@ -409,6 +468,7 @@ class EmbeddingService:
     def stats(self) -> dict:
         with self._lock:
             lat = np.asarray(self._latencies, np.float64)
+            waits = np.asarray(self._queue_waits, np.float64)
             return {
                 "mode": self.mode,
                 "requests": self.requests,
@@ -418,6 +478,11 @@ class EmbeddingService:
                 "mean_latency_ms": round(1000 * self.total_latency / max(self.requests, 1), 3),
                 "p50_latency_ms": round(float(np.percentile(lat, 50)) * 1000, 3) if lat.size else 0.0,
                 "p99_latency_ms": round(float(np.percentile(lat, 99)) * 1000, 3) if lat.size else 0.0,
+                "bucket_rows": self.bucket_rows,
+                "dispatched_rows": self.dispatched_rows,
+                "pad_share": round(1.0 - self.dispatched_rows / self.bucket_rows, 4) if self.bucket_rows else 0.0,
+                "p50_queue_ms": round(float(np.percentile(waits, 50)) * 1000, 3) if waits.size else 0.0,
+                "p99_queue_ms": round(float(np.percentile(waits, 99)) * 1000, 3) if waits.size else 0.0,
             }
 
 
